@@ -9,25 +9,36 @@ Phases (any failure exits non-zero; nothing is caught):
              nvcc (one process per source, in parallel) and print the card's
              name and power limit (nvidia-smi).
   2. kernels hold each hand-written kernel against its plain PyTorch version
-             at TinyLlama-1.1B widths in bf16 (flash prefill also at head
-             dim 128), and time it, its plain version and one PyTorch
-             library call on the same work (CUDA events, L2 flushed between
-             launches), beside the least time the card could take.
-  3. parity  one `prefill_paged` and a few `decode_paged` steps of the
-             full-width model, with the kernels and with the plain attention
-             functions (`ops.attention.PLAIN`); logits and greedy tokens are
-             compared.
-  4. serve   a PagedInferenceEngine at full TinyLlama-1.1B width (22 layers,
-             random bf16 weights from a seeded generator on the card) behind
-             the port's Batcher, twice: decode chunks of 8 with the
+             and time it, its plain version and one PyTorch library call on
+             the same work (CUDA events, L2 flushed between launches),
+             beside the least time the card could take: flash prefill and
+             paged decode at TinyLlama-1.1B widths in bf16 (flash prefill
+             also at head dim 128, G=4 and G=1); the int8 paged decode (K2)
+             and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
+             products at 16 and 2048 rows, and one act-order weight) at
+             Llama-2-7B widths.
+  3. parity  one `prefill_paged` and a few decode steps with the kernels and
+             with their plain versions (`ops.attention.PLAIN`); logits and
+             greedy tokens are compared: the full-width bf16 TinyLlama
+             (`decode_paged` steps), then a 4-layer GPTQ-INT4 model at 7B
+             widths over an int8 pool (ring-decode steps and a flush).
+  4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
+             full TinyLlama-1.1B width (22 layers, random bf16 weights from
+             a seeded generator on the card), decode chunks of 8 with the
              dense-gather branch on (paged_gather_ctx_max=1024), then the
              default config (per-step decode, every streaming chunk through
-             the paged kernel's stats mode). Launch counts are zeroed just
-             before each run and read just after; every kernel must have run.
-             When grpc imports, one Generate and one GenerateStream also go
-             through the port's gRPC server on a local port.
-  5. profile 16 per-step decodes of 8 live requests under torch.profiler:
-             wall and device-busy time per step, and the top kernels.
+             the paged kernel's stats mode). Run 3: Llama-2-7B widths (32
+             layers, random GPTQ-INT4 weights made on the card), int8 KV,
+             decode chunks of 8, every chunk through K2
+             (paged_gather_ctx_max=0). Launch counts are zeroed just before
+             each run and read just after; every kernel of the run's path
+             must have run. When grpc imports, one Generate and one
+             GenerateStream also go through the port's gRPC server on a
+             local port (runs 2 and 3).
+  5. profile decode steps under torch.profiler, after run 2 (16 per-step
+             decodes of 8 live requests) and after run 3 (4 chunks of 8
+             steps, 16 live requests): wall and device-busy time per step,
+             and the top kernels.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -59,6 +70,13 @@ TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
                  num_heads=32, num_kv_heads=4, head_dim=64,
                  intermediate_size=5632, rope_theta=10000.0, norm_eps=1e-5,
                  max_position_embeddings=2048)
+# Llama-2-7B (config.json of meta-llama/Llama-2-7b-hf), served as GPTQ-INT4
+# with group size 128 (scripts/make_shaped_checkpoint.py preset llama7b)
+LLAMA7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
+               num_heads=32, num_kv_heads=32, head_dim=128,
+               intermediate_size=11008, rope_theta=10000.0, norm_eps=1e-5,
+               max_position_embeddings=4096)
+GPTQ_GROUP = 128
 
 
 def log(msg: str) -> None:
@@ -75,7 +93,13 @@ def sync(torch) -> None:
 
 class Timer:
     """Mean device time of a call with CUDA events, the L2 cache flushed
-    (a 64 MiB write) before every launch and outside the timed span."""
+    (a 64 MiB write) before every launch and outside the timed span. A
+    ~1 ms device sleep queued before the start event keeps the card busy
+    while the host enqueues the call, so the span holds the call's device
+    time, not the host time of its Python wrapper (which exceeds the device
+    time of a small kernel)."""
+
+    SLEEP_CYCLES = 2_000_000        # ~1 ms at the H100's ~2 GHz SM clock
 
     def __init__(self, torch):
         self.torch = torch
@@ -89,6 +113,7 @@ class Timer:
         events = []
         for _ in range(iters):
             self.flush_buf.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -159,13 +184,17 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int):
                 bound_by=b_by, library_ms=library_ms)
 
 
-def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16):
-    """Decode inputs at TinyLlama widths: 16 slots with contexts mixed up to
-    2048, pages scattered over a pool four times the live size."""
+def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
+                 first_ctx=1):
+    """Decode inputs (TinyLlama widths by default): 16 slots with contexts
+    mixed up to max_pages * page, pages scattered over a pool four times
+    the live size."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rng = np.random.default_rng(SEED)
-    ctx = np.concatenate([[1, 127, 128, 129, 2048],
-                          rng.integers(1, 2049, size=s - 5)]).astype(np.int32)
+    ctx_max = max_pages * page
+    ctx = np.concatenate([[first_ctx, 127, 128, 129, ctx_max],
+                          rng.integers(1, ctx_max + 1, size=s - 5)]
+                         ).astype(np.int32)
     num_pages = 4 * s * max_pages
     perm = rng.permutation(num_pages)
     bt = np.full((s, max_pages), num_pages, np.int32)
@@ -213,14 +242,7 @@ def check_paged(torch, timer, stats: bool):
             q, kp, vp, bt, ctx, page)
         got, want = fn(), ref()
         torch.cuda.synchronize()
-        err = 0.0
-        for a, b in zip(got, want):
-            finite = torch.isfinite(b)
-            if not torch.equal(finite, torch.isfinite(a)):
-                raise AssertionError("paged stats: -inf pattern differs")
-            err = max(err, (a[finite] - b[finite]).abs().max().item())
-        scale = max(w.abs()[torch.isfinite(w)].max().item() for w in want)
-        tol = 1e-3 * max(1.0, scale)
+        err, tol = stats_error(torch, got, want, "paged stats")
         out_bytes = nbytes(*got)
     else:
         fn = lambda: pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
@@ -250,20 +272,202 @@ def check_paged(torch, timer, stats: bool):
                 bound_by=b_by, library_ms=library_ms)
 
 
+def stats_error(torch, got, want, what):
+    """Max abs error of (acc, m, l) over the finite entries; the -inf
+    pattern of m must match."""
+    err = 0.0
+    for a, b in zip(got, want):
+        finite = torch.isfinite(b)
+        if not torch.equal(finite, torch.isfinite(a)):
+            raise AssertionError(f"{what}: -inf pattern differs")
+        err = max(err, (a[finite] - b[finite]).abs().max().item())
+    scale = max(w.abs()[torch.isfinite(w)].max().item() for w in want)
+    return err, 1e-3 * max(1.0, scale)
+
+
+def check_paged_int8(torch, timer):
+    """K2, the stats mode over int8 pools, at Llama-2-7B decode widths: 16
+    slots, 32 kv heads, G = 1, D = 128, page 128, contexts up to 1024 and
+    one ctx == 0 slot."""
+    from text_generation_inference_tpu_torch.models.core import quantize_kv
+    from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
+
+    q, kp, vp, bt, ctx, page = paged_inputs(torch, s=16, kh=32, g=1, d=128,
+                                            max_pages=8, first_ctx=0)
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    # the library call's input: the dequantized pools, made outside timing
+    kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
+    vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
+    del kp, vp
+    s, kh, g, d = q.shape
+    fn = lambda: pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
+                                                      ctx, page)
+    ref = lambda: pa.paged_decode_attention_partial_reference(
+        q, kq, vq, bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    err, tol = stats_error(torch, got, want, "paged int8 stats")
+    if not err <= tol:
+        raise AssertionError(f"paged decode int8: max abs err {err} > {tol}")
+    if not (torch.isneginf(got[1][0]).all() and (got[2][0] == 0).all()):
+        raise AssertionError("paged decode int8: ctx == 0 slot not empty")
+    ms = timer(fn, iters=20)
+    plain_ms = timer(ref, iters=3, warmup=1)
+    library_ms = timer(paged_library_call(torch, q, kd, vd, bt, ctx, page))
+    live = int(ctx.sum())
+    # int8 k and v rows plus one f32 scale each per (row, kv head)
+    kv_bytes = 2 * live * kh * (d * kq.element_size() + ks.element_size())
+    flops = 4.0 * live * kh * g * d
+    b_ms, b_by = bound(nbytes(q, bt, ctx, *got) + kv_bytes, flops)
+    log(f"kernel paged_decode_attention_partial_i8 S={s} KV={kh} G={g} D={d} "
+        f"page={page} ctx_max={int(ctx.max())} live_tokens={live}: "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}) ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA on the gathered, "
+        f"dequantized pages) bound_ms {b_ms:.4f} ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+# --- K1: the GPTQ-INT4 dequant-GEMM ------------------------------------------
+
+# the four products of a Llama-2-7B layer, [in, out], fused as the engine
+# serves them (w_qkv = wq|wk|wv, w_gu = w_gate|w_up)
+K1_SHAPES = {"w_qkv": (4096, 12288), "wo": (4096, 4096),
+             "w_gu": (4096, 22016), "w_down": (11008, 4096)}
+
+
+def random_gptq(torch, gen, layers, in_f, out_f):
+    """A layer-stacked GPTQ-INT4 weight drawn on the card: random nibbles,
+    scales around 0.6 / (4.6 * sqrt(in)) as scripts/make_shaped_checkpoint.py
+    draws them (x @ W keeps unit-scale activations), and zero points 7 or 8
+    (stored 6 or 7, GPTQ's -1 bias) at random, so that q - zero has mean 0:
+    that script's fixed zero 8 gives every weight a mean of -scale / 2,
+    which a random model amplifies layer after layer."""
+    from text_generation_inference_tpu_torch.ops.quant import int4
+
+    groups = in_f // GPTQ_GROUP
+    qweight = torch.randint(-2 ** 31, 2 ** 31 - 1, (layers, in_f // 8, out_f),
+                            generator=gen, device=DEVICE, dtype=torch.int32)
+    zeros = torch.randint(6, 8, (layers * groups, out_f), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    qzeros = int4.pack_cols(zeros).reshape(layers, groups, out_f // 8)
+    scales = ((torch.rand(layers, groups, out_f, generator=gen, device=DEVICE)
+               + 0.5) * (0.6 / (4.6 * math.sqrt(in_f))))
+    g_idx = (torch.arange(in_f, dtype=torch.int32, device=DEVICE)
+             // GPTQ_GROUP).repeat(layers, 1)
+    return int4.compute_zbias(int4.Int4Weight(
+        qweight=qweight, qzeros=qzeros, scales=scales, g_idx=g_idx))
+
+
+def int4_library_call(torch, x, w):
+    """The yardstick for K1: torch._weight_int4pack_mm (tinygemm) on the
+    weight repacked by torch._convert_weight_to_int4pack; tinygemm computes
+    w = (q - 8) * scale + zero, so zero = 8 * scale - zbias. Where this
+    PyTorch lacks the pair or refuses the layout, torch.matmul on the
+    dequantized bf16 weight. Returns (fn, which)."""
+    from text_generation_inference_tpu_torch.ops.quant import int4
+
+    try:
+        q = int4.unpack_rows(w.qweight).t().contiguous()          # [N, K]
+        q8 = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
+        packed = torch._convert_weight_to_int4pack(q8, 8)
+        sz = torch.stack([w.scales, 8 * w.scales - w.zbias],
+                         dim=-1).to(torch.bfloat16).contiguous()  # [G, N, 2]
+        gs = w.groupsize
+        fn = lambda: torch._weight_int4pack_mm(x, packed, gs, sz)
+        fn()
+        return fn, "torch._weight_int4pack_mm"
+    except (AttributeError, RuntimeError, TypeError) as e:
+        wd = int4.dequantize(w, torch.bfloat16)
+        return (lambda: torch.matmul(x, wd),
+                f"torch.matmul on the dequantized bf16 weight "
+                f"({type(e).__name__}: {str(e)[:80]})")
+
+
+def check_int4(torch, timer, entry: str, key: str, m: int,
+               act_order: bool = False):
+    """K1 through one of its three entry names on one 7B product at m rows:
+    the stacked name reads layer 1 of a 2-layer stack, the packed and the
+    s4 names a layer's view. With act_order, g_idx is shuffled, normalized
+    into a perm, and the product goes through `linear.matmul` (the perm
+    gather, then the s4 name, as a 2-D weight takes)."""
+    from text_generation_inference_tpu_torch.ops import linear
+    from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
+    from text_generation_inference_tpu_torch.ops.quant import int4
+
+    in_f, out_f = K1_SHAPES[key]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + m + in_f + out_f)
+    stack = random_gptq(torch, gen, 2, in_f, out_f)
+    w = stack.layer(1)
+    x = torch.randn(m, in_f, generator=gen, device="cuda").to(torch.bfloat16)
+    xk = x
+    if act_order:
+        g_idx = w.g_idx[torch.randperm(in_f, generator=gen, device="cuda")]
+        w = int4.normalize_act_order(w.qweight, w.qzeros, w.scales, g_idx)
+        xk = x[:, w.perm.long()].contiguous()
+        fn = lambda: linear.matmul(x, w)
+    elif entry == "int4_matmul_s4_stacked":
+        fn = lambda: im.int4_matmul_s4_stacked(x, stack, 1)
+    else:
+        fn = lambda: getattr(im, entry)(x, w)
+    ref = lambda: im.int4_matmul_reference(xk, w)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    # the kernel rounds each dequantized weight to bf16 for the tensor
+    # cores (the plain version keeps it in f32); both round y to bf16 once
+    atol, rtol = 2e-2, 1e-2
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"{entry} {key} M={m}: max abs err {err} outside "
+                             f"atol {atol} + rtol {rtol}")
+    kernel = (lambda: im.int4_matmul_s4(xk, w)) if act_order else fn
+    ms = timer(kernel)
+    plain_ms = timer(ref, iters=3, warmup=1)
+    lib_fn, lib_name = int4_library_call(torch, xk, w)
+    lib_err = (lib_fn().float() - want.float()).abs().max().item()
+    library_ms = timer(lib_fn)
+    b_ms, b_by = bound(nbytes(w.qweight, w.scales, w.zbias, x, got),
+                       2.0 * m * in_f * out_f)
+    log(f"kernel {entry} {key} [{in_f}, {out_f}] M={m}"
+        f"{' act-order' if act_order else ''}: max_abs_err {err:.3e} (tol "
+        f"atol {atol} + rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"library_ms {library_ms:.4f} ({lib_name}, max abs diff from plain "
+        f"{lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, library=lib_name)
+
+
+def sum_results(results):
+    """One record for a set of products run back to back (a layer's four
+    products): times and bounds add, the error is the largest, and the
+    bound is named by what bounds most of the summed bound."""
+    out = dict(err=max(r["err"] for r in results))
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        out[k] = sum(r[k] for r in results)
+    by_ops = sum(r["bound_ms"] for r in results if r["bound_by"] == "operations")
+    out["bound_by"] = "operations" if 2 * by_ops > out["bound_ms"] else "bytes"
+    return out
+
+
 # --- the model --------------------------------------------------------------
 
 
-def tinyllama_spec():
+def llama_spec(widths=None, **overrides):
     from text_generation_inference_tpu_torch.models.core import DecoderSpec
 
     return DecoderSpec(pos="rope", norm="rmsnorm", activation="silu_glu",
-                       **TINYLLAMA)
+                       **{**(widths or TINYLLAMA), **overrides})
 
 
-def random_params(torch, spec):
-    """Layer-stacked bf16 params drawn on the card from a seeded generator
-    (scale 1/sqrt(fan_in), embeddings 0.02), the JAX package's init rule."""
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+def random_params(torch, spec, gptq: bool = False):
+    """Layer-stacked params drawn on the card from a seeded generator:
+    bf16 (scale 1/sqrt(fan_in), embeddings 0.02, the JAX package's init
+    rule), or with every layer linear a random GPTQ-INT4 weight
+    (`random_gptq`; embeddings, norms and lm_head stay bf16, as in a GPTQ
+    checkpoint)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + (21 if gptq else 0))
     L, D, F = spec.num_layers, spec.hidden_size, spec.intermediate_size
     Q, KV = spec.q_size, spec.kv_size
 
@@ -272,18 +476,43 @@ def random_params(torch, spec):
         return (torch.randn(*shape, generator=gen, device=DEVICE) * scale
                 ).to(DTYPE)
 
+    linear = ((lambda l, i, o: random_gptq(torch, gen, l, i, o)) if gptq
+              else dense)
     ones = lambda *shape: torch.ones(*shape, dtype=DTYPE, device=DEVICE)
     return {
         "embed_tokens": dense(spec.vocab_size, D, scale=0.02),
         "layers": {
             "ln1": {"scale": ones(L, D)}, "ln2": {"scale": ones(L, D)},
-            "wq": dense(L, D, Q), "wk": dense(L, D, KV), "wv": dense(L, D, KV),
-            "wo": dense(L, Q, D), "w_gate": dense(L, D, F),
-            "w_up": dense(L, D, F), "w_down": dense(L, F, D),
+            "wq": linear(L, D, Q), "wk": linear(L, D, KV),
+            "wv": linear(L, D, KV), "wo": linear(L, Q, D),
+            "w_gate": linear(L, D, F), "w_up": linear(L, D, F),
+            "w_down": linear(L, F, D),
         },
         "final_norm": {"scale": ones(D)},
         "lm_head": dense(D, spec.vocab_size),
     }
+
+
+def compare_logits(torch, pairs, vocab, tol, what):
+    """Kernel vs plain logits: finite, shaped, within tol, and the same
+    greedy token wherever the plain top-2 margin exceeds twice the error.
+    Returns (max abs err, greedy tokens equal, tokens compared)."""
+    max_err = max((a - b).abs().max().item() for a, b in pairs)
+    agree = decided = 0
+    for a, b in pairs:
+        if not (torch.isfinite(a).all() and a.shape == (b.shape[0], vocab)):
+            raise AssertionError(f"{what}: kernel logits not finite / bad shape")
+        top2 = b.topk(2, dim=-1).values
+        clear = top2[:, 0] - top2[:, 1] > 2 * max_err  # outside the noise
+        same = a.argmax(-1) == b.argmax(-1)
+        if not bool(same[clear].all()):
+            raise AssertionError(f"{what}: greedy token differs where the "
+                                 "plain top-2 margin exceeds the noise")
+        agree += int(same.sum())
+        decided += same.numel()
+    if not max_err <= tol:
+        raise AssertionError(f"{what}: logits max abs err {max_err} > {tol}")
+    return max_err, agree, decided
 
 
 def model_parity(torch, spec, params):
@@ -309,7 +538,7 @@ def model_parity(torch, spec, params):
         c.block_table.copy_(torch.arange(2 * max_pages, dtype=torch.int32,
                                          device=DEVICE).reshape(n, max_pages))
         caches[name] = c
-    logits, errs, agree, decided = {}, [], 0, 0
+    logits = {}
     for name, attn in (("kernels", KERNELS), ("plain", PLAIN)):
         lg, _ = paged_core.prefill_paged(spec, params, ids, lengths, slots,
                                          caches[name], page, attn=attn)
@@ -325,26 +554,83 @@ def model_parity(torch, spec, params):
         next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
         pos = pos + 1
     sync(torch)
-    max_err = max((a - b).abs().max().item()
-                  for a, b in zip(logits["kernels"], logits["plain"]))
-    for a, b in zip(logits["kernels"], logits["plain"]):
-        if not (torch.isfinite(a).all() and a.shape == (n, spec.vocab_size)):
-            raise AssertionError("parity: kernel logits not finite / bad shape")
-        top2 = b.topk(2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        clear = margin > 2 * max_err     # decisions outside the noise
-        same = a.argmax(-1) == b.argmax(-1)
-        if not bool(same[clear].all()):
-            raise AssertionError("parity: greedy token differs where the "
-                                 "plain top-2 margin exceeds the noise")
-        agree += int(same.sum())
-        decided += same.numel()
     tol = 0.25
-    if not max_err <= tol:
-        raise AssertionError(f"parity: logits max abs err {max_err} > {tol}")
+    max_err, agree, decided = compare_logits(
+        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
+        tol, "parity")
     log(f"parity: prefill (N={n}, bucket {t}, lengths 700/300) + 4 decode "
         f"steps, {spec.num_layers} layers: logits max abs err {max_err:.4f} (tol {tol}), "
         f"greedy tokens equal {agree}/{decided}")
+
+
+def quant_parity(torch, spec, params, steps: int = 4):
+    """The quantized path with the kernels (K1, K2, flash prefill) and with
+    their plain versions (`ops.attention.PLAIN`): a GPTQ-INT4 model over an
+    int8 pool, one `prefill_paged`, then `steps` ring-decode steps
+    (`decode_paged_ring_step` over the pool's pre-chunk context plus the
+    in-chunk ring, weights routed as a decode dispatch routes them), both
+    fed the same (plain) greedy tokens; one `paged_ring_flush` closes the
+    chunk and the pools' int8 rows are compared."""
+    from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
+    from text_generation_inference_tpu_torch.models import paged_core
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.ops import linear
+    from text_generation_inference_tpu_torch.ops.attention import KERNELS, PLAIN
+
+    params = fuse_params(spec, params)
+    page, t, n = 128, 1024, 2
+    lengths = torch.tensor([700, 300], dtype=torch.int32, device=DEVICE)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    max_pages = t // page + 1
+    runs = {"kernels": KERNELS, "plain": PLAIN}
+    caches, logits, rings = {}, {}, {}
+    for name, attn in runs.items():
+        c = PagedKVCache.create(spec, 2 * max_pages, page, n, max_pages,
+                                torch.int8, DEVICE)
+        c.block_table.copy_(torch.arange(2 * max_pages, dtype=torch.int32,
+                                         device=DEVICE).reshape(n, max_pages))
+        lg, caches[name] = paged_core.prefill_paged(
+            spec, params, ids, lengths, slots, c, page, attn=attn)
+        logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
+        kbuf = torch.zeros((spec.num_layers, n, spec.num_kv_heads, steps,
+                            spec.head_dim), dtype=DTYPE, device=DEVICE)
+        rings[name] = (kbuf, torch.zeros_like(kbuf))
+    decode_params = linear.prepare_params(params, rows=n)
+    chunk_start = lengths.clone()
+    next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
+    for i in range(steps):
+        for name, attn in runs.items():
+            kbuf, vbuf = rings[name]
+            lg, k_all, v_all = paged_core.decode_paged_ring_step(
+                spec, decode_params, next_ids, chunk_start + i, caches[name],
+                kbuf, vbuf, i, chunk_start, page_size=page, attn=attn)
+            kbuf[:, :, :, i] = k_all.to(DTYPE)
+            vbuf[:, :, :, i] = v_all.to(DTYPE)
+            logits[name].append(lg)
+        next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
+    active = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    for name in runs:
+        paged_core.paged_ring_flush(caches[name], *rings[name], chunk_start,
+                                    active, t + steps, page)
+    sync(torch)
+    tol = 0.25
+    max_err, agree, decided = compare_logits(
+        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
+        tol, "quant parity")
+    # the pools: int8 entries more than one step apart (a last-ulp
+    # difference of k may move a value to the next step, no more)
+    k8 = {name: caches[name].k.to(torch.int16) for name in runs}
+    written = caches["plain"].k_scale[..., None].expand_as(k8["plain"]) > 0
+    far = ((k8["kernels"] - k8["plain"]).abs() > 1)[written]
+    log(f"quant parity: GPTQ-INT4 + int8 KV, prefill (N={n}, bucket {t}, "
+        f"lengths 700/300) + {steps} ring-decode steps + flush, "
+        f"{spec.num_layers} layers at {spec.hidden_size} wide: logits max abs "
+        f"err {max_err:.4f} (tol {tol}), greedy tokens equal {agree}/"
+        f"{decided}; k pools: {int(far.sum())} of {far.numel()} written int8 "
+        f"entries more than 1 apart")
 
 
 # --- phase 4: serving -------------------------------------------------------
@@ -369,11 +655,14 @@ class ByteTokenizer:
         return self.decode([token_id])
 
 
-PROMPT_LENS_A = [100, 180, 260, 400, 560, 720]      # wave A: unary
-PROMPT_LENS_B = [1100, 1300, 1500, 1240]            # wave B: 2 streaming
+# (prompt lengths, streaming every n-th request or 0) per wave, new tokens
+TRAFFIC_TINYLLAMA = (([100, 180, 260, 400, 560, 720], 0),       # unary
+                     ([1100, 1300, 1500, 1240], 2)), 48         # 2 streaming
+TRAFFIC_7B = (([100, 250, 420, 600, 900], 0),
+              ([150, 500, 820], 2)), 32
 
 
-def make_requests(lens, streaming_every, seed_base):
+def make_requests(lens, streaming_every, seed_base, new):
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
     from text_generation_inference_tpu_torch.scheduler.request import (
         GenRequest, ResponseOptions, StoppingCriteria)
@@ -382,7 +671,6 @@ def make_requests(lens, streaming_every, seed_base):
     reqs = []
     for i, n in enumerate(lens):
         sampled = i % 2 == 1
-        new = 48
         rp = RequestParams(max_new_tokens=new,
                            temperature=0.8 if sampled else 0.0,
                            top_k=50 if sampled else 0,
@@ -481,84 +769,109 @@ async def grpc_roundtrip(batcher, config, tokenizer):
         servicer.async_tokenizer.shutdown()
 
 
-def profile_decode(torch, spec, params, steps: int = 16):
-    """Where a decode step's time goes: 8 live requests (512-token prompts)
-    on the default engine, `steps` per-step decodes under torch.profiler.
-    Prints the step's wall time, the card's busy time and share, and the
-    kernels that take the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+def make_engine(torch, spec, params, max_seq, overrides):
+    """A PagedInferenceEngine with 16 slots and 128-token pages; the pool
+    is sized from the card's memory, so the engines of earlier phases are
+    collected first."""
+    import gc
 
     from text_generation_inference_tpu_torch.config import ServingConfig
-    from text_generation_inference_tpu_torch.engine.engine import RequestParams
     from text_generation_inference_tpu_torch.engine.paged_engine import (
         PagedInferenceEngine)
 
-    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
-                           max_batch_slots=16, kv_page_size=128)
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    config = ServingConfig(max_sequence_length=max_seq, max_new_tokens=256,
+                           max_batch_slots=16, kv_page_size=128, **overrides)
     config.validate()
-    engine = PagedInferenceEngine(spec, params, config, eos_token_id=2,
+    engine = PagedInferenceEngine(spec, params, config,
+                                  eos_token_id=ByteTokenizer.eos_token_id,
                                   device=DEVICE)
+    return engine, config
+
+
+def profile_decode(torch, spec, params, label, overrides=None,
+                   max_seq=2048, live=8, calls=16):
+    """Where a decode step's time goes: `live` requests (512-token prompts),
+    `calls` decode dispatches (of decode_chunk steps each) under
+    torch.profiler. Prints the step's wall time, the card's busy time and
+    share, and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+
+    engine, _ = make_engine(torch, spec, params, max_seq, overrides or {})
+    steps = calls * engine.decode_chunk
     rng = np.random.default_rng(SEED + 11)
-    slots = [engine.acquire_slot() for _ in range(8)]
-    engine.prefill(slots, [[int(x) for x in rng.integers(3, 259, 512)]
-                           for _ in slots],
-                   [RequestParams(max_new_tokens=steps + 8)] * len(slots))
-    for _ in range(3):
+    slots = [engine.acquire_slot() for _ in range(live)]
+    rp = RequestParams(max_new_tokens=steps + 4 * engine.decode_chunk)
+    for i in range(0, live, 8):
+        engine.prefill(slots[i:i + 8],
+                       [[int(x) for x in rng.integers(3, 259, 512)]
+                        for _ in slots[i:i + 8]], [rp] * len(slots[i:i + 8]))
+    for _ in range(2):
         engine.decode_steps(want_details=False)
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
+        for _ in range(calls):
             engine.decode_steps(want_details=False)
         sync(torch)
         wall_ms = (time.monotonic() - t0) * 1e3
+    # device-side events only: an operator's own "self device time" is the
+    # time of the kernels it launched, which appear as events of their own
+    from torch.autograd import DeviceType
+
     kernels = []
     for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us > 0:
             kernels.append((dev_us / 1e3, evt.count, evt.key))
+    if not kernels:
+        log(f"profile[{label}]: the profiler recorded no device events")
+        return None
     busy_ms = sum(k[0] for k in kernels)
+    launches = sum(k[1] for k in kernels)
     kernels.sort(reverse=True)
-    log(f"profile: {steps} decode steps (8 live slots, ctx ~520, chunk 1): "
+    log(f"profile[{label}]: {steps} decode steps ({live} live slots, ctx "
+        f"~{512 + 2 * engine.decode_chunk}, chunk {engine.decode_chunk}): "
         f"wall {wall_ms / steps:.3f} ms/step, device busy "
         f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% "
-        f"busy, {100 - 100 * busy_ms / wall_ms:.1f}% idle)")
-    for ms, count, key in kernels[:8]:
-        log(f"profile:   {ms / steps:8.4f} ms/step  {count // steps:4d} "
-            f"launches/step  {key[:90]}")
+        f"busy, {100 - 100 * busy_ms / wall_ms:.1f}% idle), "
+        f"{launches / steps:.1f} kernel launches/step")
+    for ms, count, key in kernels[:10]:
+        log(f"profile[{label}]:   {ms / steps:8.4f} ms/step  "
+            f"{count / steps:7.2f} launches/step  {key[:90]}")
+    return dict(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps)
 
 
-def serve_run(torch, spec, params, name, overrides, counters, with_grpc):
-    from text_generation_inference_tpu_torch.config import ServingConfig
-    from text_generation_inference_tpu_torch.engine.paged_engine import (
-        PagedInferenceEngine)
+def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
+              traffic=TRAFFIC_TINYLLAMA, max_seq=2048):
     from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
 
-    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
-                           max_batch_slots=16, kv_page_size=128,
-                           **overrides)
-    config.validate()
-    engine = PagedInferenceEngine(spec, params, config,
-                                  eos_token_id=ByteTokenizer.eos_token_id,
-                                  device=DEVICE)
+    engine, config = make_engine(torch, spec, params, max_seq, overrides)
     engine.warmup(batch_sizes=(1,))
     tokenizer = ByteTokenizer()
+    waves, new = traffic
 
     async def drive():
         batcher = Batcher(engine, tokenizer, config)
         batcher.start()
         try:
             t0 = time.monotonic()
-            wave_a = make_requests(PROMPT_LENS_A, 0, 100)
-            wave_b = make_requests(PROMPT_LENS_B, 2, 200)
-            ttft = await run_wave(batcher, wave_a)
-            ttft += await run_wave(batcher, wave_b)
+            reqs, ttft = [], []
+            for i, (lens, streaming_every) in enumerate(waves):
+                wave = make_requests(lens, streaming_every, 100 * (i + 1), new)
+                ttft += await run_wave(batcher, wave)
+                reqs += wave
             sync(torch)
             wall = time.monotonic() - t0
-            reqs = wave_a + wave_b
             if with_grpc:
                 await grpc_roundtrip(batcher, config, tokenizer)
             return reqs, wall, ttft
@@ -602,6 +915,7 @@ def main() -> int:
         from text_generation_inference_tpu_torch.models import paged_core
         from text_generation_inference_tpu_torch.ops.cuda import build
         from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
+        from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
         from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
@@ -630,10 +944,20 @@ def main() -> int:
     timer = Timer(torch)
     fp64 = check_flash_prefill(torch, timer, d=64, kh=4, g=8)
     fp128 = check_flash_prefill(torch, timer, d=128, kh=8, g=4)
+    fp128_g1 = check_flash_prefill(torch, timer, d=128, kh=32, g=1)
     pn = check_paged(torch, timer, stats=False)
     ps = check_paged(torch, timer, stats=True)
+    pi8 = check_paged_int8(torch, timer)
+    # K1 on a 7B layer's four products: decode rows through the stacked
+    # name, prefill rows through the packed name; act-order through s4
+    k1 = {entry: sum_results([check_int4(torch, timer, entry, key, m)
+                              for key in K1_SHAPES])
+          for m, entry in ((16, "int4_matmul_s4_stacked"),
+                           (2048, "int4_matmul"))}
+    k1["int4_matmul_s4"] = check_int4(torch, timer, "int4_matmul_s4", "wo",
+                                      16, act_order=True)
 
-    spec = tinyllama_spec()
+    spec = llama_spec()
     params = random_params(torch, spec)
     model_parity(torch, spec, params)
 
@@ -651,6 +975,11 @@ def main() -> int:
                 "paged_decode_attention": Counter(pa.paged_decode_attention),
                 "paged_decode_attention_stats":
                     Counter(pa.paged_decode_attention_partial),
+                "paged_decode_attention_partial_i8":
+                    Counter(pa.paged_decode_attention_partial_i8),
+                "int4_matmul_s4_stacked": Counter(im.int4_matmul_s4_stacked),
+                "int4_matmul_s4": Counter(im.int4_matmul_s4),
+                "int4_matmul": Counter(im.int4_matmul),
                 "dense_gather_chunks": Counter(counted_gather, "calls")}
     try:
         import grpc  # noqa: F401
@@ -674,13 +1003,38 @@ def main() -> int:
         if run[key] <= 0:
             raise AssertionError(f"{key} never ran in a serving run: {run}")
 
-    profile_decode(torch, spec, params)
+    profile_decode(torch, spec, params, "tinyllama bf16")
+    del params
+
+    # the quantized path at Llama-2-7B widths: GPTQ-INT4 weights, int8 KV
+    spec4 = llama_spec(LLAMA7B, num_layers=4)
+    quant_parity(torch, spec4, random_params(torch, spec4, gptq=True))
+    spec7b = llama_spec(LLAMA7B)
+    params7b = random_params(torch, spec7b, gptq=True)
+    quantized = dict(kv_cache_dtype="int8", decode_chunk=8,
+                     paged_gather_ctx_max=0)
+    run3 = serve_run(torch, spec7b, params7b, "7b-gptq-int8kv", quantized,
+                     counters, with_grpc=with_grpc, traffic=TRAFFIC_7B,
+                     max_seq=1024)
+    # K1 in prefill (the packed name) and in decode (the stacked name), K2
+    # on every ring chunk; int4_matmul_s4 takes only a 2-D weight, which a
+    # layer-stacked model never hands it
+    for key in ("flash_prefill", "int4_matmul", "int4_matmul_s4_stacked",
+                "paged_decode_attention_partial_i8"):
+        if run3[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 3: {run3}")
+    if run3["paged_decode_attention"] or run3["dense_gather_chunks"]:
+        raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
+    profile_decode(torch, spec7b, params7b, "7b gptq int8kv", quantized,
+                   max_seq=1024, live=16, calls=4)
+
+    runs = (run1, run2, run3)
 
     def record(name, source, replaces, res):
         return {"name": name, "route": "cuda",
                 "source": f"{PORT_DIR}/csrc/{source}",
                 "replaces": f"{JAX_PACKAGE_DIR}/ops/pallas/{replaces}",
-                "launches": run1[name] + run2[name],
+                "launches": sum(run[name] for run in runs),
                 "max_abs_err": res["err"], "ms": res["ms"],
                 "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
                 "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
@@ -692,8 +1046,20 @@ def main() -> int:
                "paged_attention.py:261", pn),
         record("paged_decode_attention_stats", "paged_attention.cu",
                "paged_attention.py:407", ps),
+        record("paged_decode_attention_partial_i8", "paged_attention.cu",
+               "paged_attention.py:153", pi8),
+        record("int4_matmul_s4_stacked", "int4_matmul.cu",
+               "int4_matmul.py:453", k1["int4_matmul_s4_stacked"]),
+        record("int4_matmul_s4", "int4_matmul.cu", "int4_matmul.py:572",
+               k1["int4_matmul_s4"]),
+        record("int4_matmul", "int4_matmul.cu", "int4_matmul.py:637",
+               k1["int4_matmul"]),
     ]
     log(f"flash_prefill at D=128 (H=32, KV=8): {json.dumps(fp128)}")
+    log(f"flash_prefill at D=128 (H=32, KV=32, G=1): {json.dumps(fp128_g1)}")
+    log("int4_matmul_s4_stacked and int4_matmul records: the sums over a 7B "
+        "layer's four products (w_qkv, wo, w_gu, w_down) at M=16 and M=2048; "
+        "int4_matmul_s4: wo at M=16 with act-order")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ import pytest
 import torch
 
 from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
+from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
 from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
+from text_generation_inference_tpu_torch.ops.quant import int4
 
 PAGE = 16
 
@@ -110,6 +112,99 @@ def test_stacked_pool_view_is_the_same_kernel(cuda_device):
         assert torch.equal(x, y)
 
 
+def int4_weight(rng, in_f, out_f, device, gs=128, act_order=False):
+    """A random GPTQ weight, scaled so that x @ W is O(1) for x ~ N(0, 1)."""
+    qweight = int4.pack_rows(torch.from_numpy(
+        rng.integers(0, 16, (in_f, out_f)).astype(np.int32)))
+    qzeros = int4.pack_cols(torch.from_numpy(
+        rng.integers(0, 16, (in_f // gs, out_f)).astype(np.int32)))
+    scales = torch.from_numpy(rng.uniform(0.5, 1.5, (in_f // gs, out_f)).astype(
+        np.float32) / (4.6 * math.sqrt(in_f)))
+    g_idx = (np.arange(in_f) // gs).astype(np.int32)
+    if act_order:
+        g_idx = rng.permutation(g_idx).astype(np.int32)
+    w = int4.normalize_act_order(qweight, qzeros, scales,
+                                 torch.from_numpy(g_idx))
+    return int4.Int4Weight(*(None if f is None else f.to(device) for f in w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 40, 300])
+@pytest.mark.parametrize("in_f,out_f", [(256, 512), (1408, 64), (512, 1536)])
+def test_int4_matmul_kernel(cuda_device, m, in_f, out_f):
+    """K1 on decode and prefill row counts, split-K and not, a K with 11
+    groups (not a power of two) and an N of one column tile; the three
+    entry names reach the same kernel."""
+    rng = np.random.default_rng(m + in_f + out_f)
+    w = int4_weight(rng, in_f, out_f, cuda_device)
+    x = bf16(rng, m, in_f, device=cuda_device)
+    want = im.int4_matmul_reference(x, w)
+    stack = int4.Int4Weight(*(None if f is None else torch.stack([f, f])
+                              for f in w))
+    before = (im.int4_matmul.launches, im.int4_matmul_s4.launches,
+              im.int4_matmul_s4_stacked.launches)
+    outs = [im.int4_matmul(x, w), im.int4_matmul_s4(x, w),
+            im.int4_matmul_s4_stacked(x, stack, 1)]
+    torch.cuda.synchronize()
+    assert (im.int4_matmul.launches, im.int4_matmul_s4.launches,
+            im.int4_matmul_s4_stacked.launches) == tuple(b + 1 for b in before)
+    for got in outs:
+        assert got.shape == (m, out_f) and got.dtype == torch.bfloat16
+        close(got, want, 2e-2)
+        assert torch.equal(got, outs[0])
+
+
+@pytest.mark.cuda
+def test_int4_act_order_through_linear(cuda_device):
+    from text_generation_inference_tpu_torch.models.core import layer_params
+    from text_generation_inference_tpu_torch.ops import linear
+
+    rng = np.random.default_rng(5)
+    w = int4_weight(rng, 512, 256, cuda_device, act_order=True)
+    assert w.perm is not None
+    x = bf16(rng, 3, 7, 512, device=cuda_device)
+    want = linear.matmul(x, w)     # the unstacked route
+    stack = int4.Int4Weight(*(None if f is None else torch.stack([f, f])
+                              for f in w))
+    ref = int4.matmul_dequant(x.float()[..., w.perm.long()], w)
+    close(want, ref, 2e-2)
+    layers = {"w": stack}
+    for lp in (layer_params(layers, 0),
+               layer_params(linear.prepare_params({"layers": layers}, rows=21)
+                            ["layers"], 0),
+               layer_params(layers, 0, int4_plain=True)):
+        close(linear.matmul(x, lp["w"]), ref, 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_int8_kernel(cuda_device, d):
+    from text_generation_inference_tpu_torch.models.core import quantize_kv
+
+    rng = np.random.default_rng(200 + d)
+    q, kp, vp, bt, ctx = paged_case(rng, cuda_device, d, g=1 if d == 128 else 8)
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    before = pa.paged_decode_attention_partial_i8.launches
+    acc, m, l = pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
+                                                     ctx, PAGE)
+    racc, rm, rl = pa.paged_decode_attention_partial_reference(
+        q, kq, vq, bt, ctx, PAGE, k_scale_pool=ks, v_scale_pool=vs)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention_partial_i8.launches == before + 1
+    assert torch.all(torch.isneginf(m[0])) and torch.all(l[0] == 0)
+    live = ~torch.isneginf(rm)
+    assert torch.equal(live, ~torch.isneginf(m))
+    close(m[live], rm[live], 2e-3)
+    close(l, rl, 2e-3 * max(1.0, float(rl.max())))
+    close(acc, racc, 2e-3 * max(1.0, float(racc.abs().max())))
+    stacked = pa.paged_decode_attention_partial_stacked(
+        q, kq[None], vq[None], bt, ctx, 0, PAGE, k_scale_pools=ks[None],
+        v_scale_pools=vs[None])
+    for a, b in zip(stacked, (acc, m, l)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(cuda_device):
     rng = np.random.default_rng(8)
@@ -123,4 +218,17 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         fp.flash_prefill(qq, kk, kk, torch.tensor([128], dtype=torch.int32,
                                                   device=cuda_device))
+    # the int8 entry wants int8 pools and float32 [K, R] scale pools
+    ks = torch.ones(kp.shape[:2], device=cuda_device)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention_partial_i8(q, kp, vp, ks, ks, bt, ctx, PAGE)
+    k8 = kp.to(torch.int8)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention_partial_i8(q, k8, k8, ks.half(), ks, bt, ctx,
+                                             PAGE)
+    w = int4_weight(rng, 256, 64, cuda_device)
+    with pytest.raises(ValueError):
+        im.int4_matmul(bf16(rng, 4, 128, device=cuda_device), w)
+    with pytest.raises(ValueError):
+        im.int4_matmul(bf16(rng, 4, 256, device=cuda_device).float(), w)
     assert math.isfinite(float(q.float().sum()))

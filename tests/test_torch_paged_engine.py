@@ -142,13 +142,14 @@ def test_staggered_greedy_matches_jax(llama, jax_staggered, case):
     assert eng.allocator.num_free == 16
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(decode_chunk=4)],
-                         ids=["chunk1", "chunk4"])
+@pytest.mark.parametrize("kw", [dict(), dict(decode_chunk=4),
+                                dict(decode_chunk=4, kv_cache_dtype="int8")],
+                         ids=["chunk1", "chunk4", "chunk4_int8"])
 def test_inactive_slots_do_not_corrupt_live_pages(llama, kw):
     """With a pool of exactly the request's 3 pages, every inactive slot's
     stale or sentinel table row points at or past the live allocation;
     dropped writes keep the live request's KV intact (same tokens as with
-    a roomy pool)."""
+    a roomy pool). Over an int8 pool the scale pools' writes drop too."""
     want = run_engine(engine(llama, **kw), PROMPTS[1], 14)
     assert run_engine(engine(llama, num_pages=3, **kw), PROMPTS[1], 14) == want
 
@@ -229,9 +230,13 @@ def test_allocator():
 
 def test_options_not_ported_raise(llama):
     with pytest.raises(NotImplementedError):
-        engine(llama, kv_cache_dtype="int8", decode_chunk=4)
-    with pytest.raises(NotImplementedError):
         engine(llama, decode_write_mode="post")
+    # int8 KV is ported, on the ring-chunk path only (as in the JAX engine)
+    with pytest.raises(ValueError, match="ring"):
+        engine(llama, kv_cache_dtype="int8", decode_write_mode="post",
+               decode_chunk=4)
+    assert engine(llama, kv_cache_dtype="int8",
+                  decode_chunk=4).cache.k.dtype == torch.int8
 
 
 def test_default_device_is_cuda(llama):

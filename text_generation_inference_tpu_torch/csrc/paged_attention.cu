@@ -4,6 +4,8 @@
 //   stats:      the unnormalized fp32 accumulator plus the softmax row max m
 //               and normalizer l, for a flash-decoding merge with keys held
 //               elsewhere (ctx == 0 gives m = -inf, l = 0, acc = 0)
+// and, in stats mode, two pool types: bf16, or int8 with f32 per-row-per-head
+// scale pools (k_scale / v_scale [KH, R], indexed by the same pool rows).
 //
 // Replaces: the JAX package's ops/pallas/paged_attention.py
 //   normalized: paged_decode_attention (`_kernel_all_heads` +
@@ -11,7 +13,15 @@
 //   stats:      paged_decode_attention_partial (`_kernel_all_heads_stats`,
 //               :319) and paged_decode_attention_partial_stacked
 //               (`_kernel_all_heads_stats_stacked`, :407): the caller passes
-//               the layer's pool view `pools[layer]`, which is free in torch.
+//               the layer's pool view `pools[layer]`, which is free in torch;
+//   int8 stats: the same call with scale pools
+//               (`_kernel_all_heads_stats_stacked_i8`, :153, pallas_call :407).
+//
+// int8 math, as `_flash_page_update` with ks / vs (paged_attention.py:34-76):
+// scores = (q . k_int8) * scale * k_scale[row]; l sums the unscaled p;
+// acc += (p * v_scale[row]) v_int8. The kernel folds each row's scale into
+// the row as it stages it in fp32 (k * k_scale, v * v_scale), which is the
+// same product in another order.
 //
 // Pools are [KH, P * page, D] (head-major, as in the JAX package); the block
 // table [S, max_pages] names each slot's pages in position order; entries
@@ -22,7 +32,8 @@
 //
 // What bounds it on an H100: a decode step reads every live K/V row once and
 // does 4 * G * D flops per row (G <= 8), well under one flop per byte, so it
-// is bound by bytes (3.35 TB/s). Design: one block per (slot, kv head); the
+// is bound by bytes (3.35 TB/s); int8 pools halve those bytes (plus 8 scale
+// bytes a row). Design: one block per (slot, kv head); the
 // G query heads of the kv head share each K/V row the block reads. Keys are
 // staged in shared memory 32 at a time with 16-byte loads; each thread
 // scores (g, key) pairs, one warp per query head runs the online-softmax
@@ -45,11 +56,13 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 32;      // keys staged per tile
 constexpr int kMaxGroup = 8;   // query heads per kv head handled by a block
 
-template <int D, bool kStats>
+template <int D, bool kStats, bool kInt8>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [S, KH, G, D]
-                    const __nv_bfloat16* __restrict__ k_pool,  // [KH, R, D]
-                    const __nv_bfloat16* __restrict__ v_pool,  // [KH, R, D]
+                    const void* __restrict__ k_pool,   // [KH, R, D] bf16 / int8
+                    const void* __restrict__ v_pool,   // [KH, R, D] bf16 / int8
+                    const float* __restrict__ k_scale,         // [KH, R] (int8)
+                    const float* __restrict__ v_scale,         // [KH, R] (int8)
                     const int32_t* __restrict__ block_table,   // [S, maxp]
                     const int32_t* __restrict__ ctx_len,       // [S]
                     void* __restrict__ out,   // bf16 [S,KH,G,D] or f32 acc
@@ -85,8 +98,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [S, KH, G, D]
 
   int n_pages = ctx > 0 ? (ctx + page - 1) / page : 0;
   n_pages = min(n_pages, max_pages);
-  const __nv_bfloat16* kbase = k_pool + (size_t)kh * R * D;
-  const __nv_bfloat16* vbase = v_pool + (size_t)kh * R * D;
+  const size_t pool_off = (size_t)kh * R * D;
 
   for (int b = 0; b < n_pages; ++b) {
     const int pid = block_table[(size_t)s * max_pages + b];
@@ -99,10 +111,28 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [S, KH, G, D]
         const int in_page = c0 + j;
         const bool live = in_page < page && b * page + in_page < ctx;
         float kf[8], vf[8];
-        if (live) {
-          const size_t off = ((size_t)pid * page + in_page) * D + c;
-          const uint4 kraw = *reinterpret_cast<const uint4*>(kbase + off);
-          const uint4 vraw = *reinterpret_cast<const uint4*>(vbase + off);
+        if (live && kInt8) {
+          const size_t row = (size_t)pid * page + in_page;
+          const size_t off = pool_off + row * D + c;
+          const uint2 kraw = *reinterpret_cast<const uint2*>(
+              static_cast<const int8_t*>(k_pool) + off);
+          const uint2 vraw = *reinterpret_cast<const uint2*>(
+              static_cast<const int8_t*>(v_pool) + off);
+          const float ksc = k_scale[(size_t)kh * R + row];
+          const float vsc = v_scale[(size_t)kh * R + row];
+          const int8_t* k8 = reinterpret_cast<const int8_t*>(&kraw);
+          const int8_t* v8 = reinterpret_cast<const int8_t*>(&vraw);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kf[e] = (float)k8[e] * ksc;
+            vf[e] = (float)v8[e] * vsc;
+          }
+        } else if (live) {
+          const size_t off = pool_off + ((size_t)pid * page + in_page) * D + c;
+          const uint4 kraw = *reinterpret_cast<const uint4*>(
+              static_cast<const __nv_bfloat16*>(k_pool) + off);
+          const uint4 vraw = *reinterpret_cast<const uint4*>(
+              static_cast<const __nv_bfloat16*>(v_pool) + off);
           const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kraw);
           const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vraw);
 #pragma unroll
@@ -205,40 +235,41 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [S, KH, G, D]
   }
 }
 
-template <int D, bool kStats>
+template <int D, bool kStats, bool kInt8>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
                    const int32_t* block_table, const int32_t* ctx, void* out,
                    float* m_out, float* l_out, int S, int KH, int G, int R,
                    int page, int max_pages, int num_pages, float scale,
                    cudaStream_t stream) {
   const dim3 grid(S, KH);
   const float scale_log2 = scale * 1.4426950408889634f;
-  paged_decode_kernel<D, kStats><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k_pool),
-      static_cast<const __nv_bfloat16*>(v_pool), block_table, ctx, out, m_out,
-      l_out, KH, G, R, page, max_pages, num_pages, scale_log2);
+  paged_decode_kernel<D, kStats, kInt8><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k_pool, v_pool, k_scale, v_scale,
+      block_table, ctx, out, m_out, l_out, KH, G, R, page, max_pages,
+      num_pages, scale_log2);
   return cudaGetLastError();
 }
 
-template <bool kStats>
+template <bool kStats, bool kInt8>
 int dispatch(const void* q, const void* k_pool, const void* v_pool,
+             const float* k_scale, const float* v_scale,
              const int32_t* block_table, const int32_t* ctx, void* out,
              float* m_out, float* l_out, int S, int KH, int G, int D, int R,
              int page, int max_pages, int num_pages, float scale,
              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || KH <= 0 || G <= 0 || G > kMaxGroup || page <= 0 ||
-      max_pages <= 0)
+      max_pages <= 0 || (kInt8 && (!k_scale || !v_scale)))
     return (int)cudaErrorInvalidValue;
   if (D == 64)
-    return (int)launch<64, kStats>(q, k_pool, v_pool, block_table, ctx, out,
-                                   m_out, l_out, S, KH, G, R, page, max_pages,
-                                   num_pages, scale, st);
+    return (int)launch<64, kStats, kInt8>(
+        q, k_pool, v_pool, k_scale, v_scale, block_table, ctx, out, m_out,
+        l_out, S, KH, G, R, page, max_pages, num_pages, scale, st);
   if (D == 128)
-    return (int)launch<128, kStats>(q, k_pool, v_pool, block_table, ctx, out,
-                                    m_out, l_out, S, KH, G, R, page, max_pages,
-                                    num_pages, scale, st);
+    return (int)launch<128, kStats, kInt8>(
+        q, k_pool, v_pool, k_scale, v_scale, block_table, ctx, out, m_out,
+        l_out, S, KH, G, R, page, max_pages, num_pages, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -249,9 +280,10 @@ extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
                                 const int32_t* ctx, void* out, int S, int KH,
                                 int G, int D, int R, int page, int max_pages,
                                 int num_pages, float scale, void* stream) {
-  return dispatch<false>(q, k_pool, v_pool, block_table, ctx, out, nullptr,
-                         nullptr, S, KH, G, D, R, page, max_pages, num_pages,
-                         scale, stream);
+  return dispatch<false, false>(q, k_pool, v_pool, nullptr, nullptr,
+                                block_table, ctx, out, nullptr, nullptr, S, KH,
+                                G, D, R, page, max_pages, num_pages, scale,
+                                stream);
 }
 
 extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
@@ -262,9 +294,26 @@ extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
                                       int KH, int G, int D, int R, int page,
                                       int max_pages, int num_pages,
                                       float scale, void* stream) {
-  return dispatch<true>(q, k_pool, v_pool, block_table, ctx, acc, m_out, l_out,
-                        S, KH, G, D, R, page, max_pages, num_pages, scale,
-                        stream);
+  return dispatch<true, false>(q, k_pool, v_pool, nullptr, nullptr,
+                               block_table, ctx, acc, m_out, l_out, S, KH, G,
+                               D, R, page, max_pages, num_pages, scale, stream);
+}
+
+// stats mode over int8 pools: k_scale / v_scale are the layer's [KH, R] f32
+// scale pools
+extern "C" int tgi_paged_decode_stats_i8(const void* q, const void* k_pool,
+                                         const void* v_pool,
+                                         const float* k_scale,
+                                         const float* v_scale,
+                                         const int32_t* block_table,
+                                         const int32_t* ctx, float* acc,
+                                         float* m_out, float* l_out, int S,
+                                         int KH, int G, int D, int R, int page,
+                                         int max_pages, int num_pages,
+                                         float scale, void* stream) {
+  return dispatch<true, true>(q, k_pool, v_pool, k_scale, v_scale,
+                              block_table, ctx, acc, m_out, l_out, S, KH, G, D,
+                              R, page, max_pages, num_pages, scale, stream);
 }
 
 extern "C" const char* tgi_paged_decode_error_string(int code) {

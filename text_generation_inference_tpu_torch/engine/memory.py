@@ -11,7 +11,9 @@ import torch
 
 
 def tree_bytes(tree) -> int:
-    """Bytes held by every tensor in a nested dict / list / tuple."""
+    """Bytes held by every tensor in a nested dict / list / tuple. NamedTuple
+    leaves such as `Int4Weight` are tuples, so their packed words, scales,
+    zero terms and permutations count (None fields count 0)."""
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     if isinstance(tree, dict):

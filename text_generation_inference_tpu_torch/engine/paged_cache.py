@@ -14,7 +14,7 @@ jitted step and got new ones back).
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,19 +25,26 @@ from ..models.core import DecoderSpec
 class PagedKVCache(NamedTuple):
     """k/v pools: [L, K, P * page_size, D], head-major as in the JAX package.
 
-    bf16 (or the model's float dtype) only; int8 pools with scale pools are
-    a later slice."""
+    The model's float dtype, or int8: then the pool is symmetric
+    per-row-per-head quantized and k_scale/v_scale are [L, K, P * page_size]
+    f32 absmax/127 factors. Quantization happens at the write sites (prefill
+    scatter, ring-chunk flush); the read paths fold the scale into the
+    score and value products."""
 
     k: torch.Tensor
     v: torch.Tensor
     block_table: torch.Tensor    # [S, max_pages] i32 page ids
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @classmethod
     def create(cls, spec: DecoderSpec, num_pages: int, page_size: int,
                num_slots: int, max_pages_per_slot: int, dtype,
                device) -> "PagedKVCache":
-        if dtype == torch.int8:
-            raise NotImplementedError("int8 KV pools are not ported yet")
         shape = (spec.num_layers, spec.num_kv_heads,
                  num_pages * page_size, spec.head_dim)
         # unmapped block-table entries carry the out-of-bounds sentinel
@@ -48,9 +55,20 @@ class PagedKVCache(NamedTuple):
         # skips sentinel pages on reads; the plain versions mask them.
         bt = torch.full((num_slots, max_pages_per_slot), num_pages,
                         dtype=torch.int32, device=device)
+        scales = {}
+        if dtype == torch.int8:
+            scales = {name: torch.zeros(shape[:-1], dtype=torch.float32,
+                                        device=device)
+                      for name in ("k_scale", "v_scale")}
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
-                   block_table=bt)
+                   block_table=bt, **scales)
+
+    def pool_bytes(self) -> int:
+        """Bytes of the k/v pools and their scale pools."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
 
 class PageAllocator:

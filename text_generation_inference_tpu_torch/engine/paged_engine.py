@@ -11,8 +11,8 @@ Differences from the JAX engine, all of them mechanical:
     (which also builds the CUDA kernels).
   * The pools and the engine state are updated in place on the device
     (the JAX engine donated them to each step).
-  * `decode_write_mode` "post" / "scan", int8 KV, meshes, and soft-prompt
-    prefixes are later slices and raise NotImplementedError.
+  * `decode_write_mode` "post" / "scan", meshes, and soft-prompt prefixes
+    are later slices and raise NotImplementedError.
   * The batcher calls the engine from its event-loop thread and from
     executor threads; every call selects the engine's CUDA device first and
     all of them run on that device's current (default) stream, so device
@@ -46,6 +46,16 @@ logger = logging.getLogger(__name__)
 # memory budget assumed for a pool on the CPU (tests): the figure the JAX
 # package assumes when its backend reports no device memory
 CPU_POOL_BUDGET_BYTES = 16 * 1024 ** 3
+
+
+def kv_row_bytes(spec: DecoderSpec, dtype) -> int:
+    """Pool bytes of one token position across layers, kv heads, k and v:
+    head_dim values, plus 4 scale bytes per (layer, kv head) for k and for
+    v when the pool is int8."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    scale_b = 4 if dtype == torch.int8 else 0
+    return (spec.num_layers * 2 * spec.num_kv_heads
+            * (spec.head_dim * itemsize + scale_b))
 
 
 def _advance(state: EngineState, next_ids: torch.Tensor) -> None:
@@ -104,8 +114,12 @@ def _paged_ring_multi(spec: DecoderSpec, eos_id: int, page_size: int,
     params = linops.prepare_params(params, rows=s)
     chunk_start = torch.clamp(state.history_len - 1, 0, t_max - 1)
     active0 = state.active.clone()   # constant within a chunk
+    # in-chunk ring buffers stay in the model's float dtype over an int8
+    # pool; the flush quantizes them once per chunk
+    buf_dtype = (params["embed_tokens"].dtype if cache.quantized
+                 else cache.k.dtype)
     kbuf = torch.zeros((spec.num_layers, s, spec.num_kv_heads, num_steps,
-                        spec.head_dim), dtype=cache.k.dtype,
+                        spec.head_dim), dtype=buf_dtype,
                        device=cache.k.device)
     vbuf = torch.zeros_like(kbuf)
     dense = (live_pages is not None
@@ -185,7 +199,17 @@ class PagedInferenceEngine:
         self.device = resolve_device(device)
         check_supported(spec)
         if config.kv_cache_dtype == "int8":
-            raise NotImplementedError("int8 KV is not ported yet")
+            # int8 KV rides the ring-chunk scheme (quantize once at the
+            # chunk flush); the per-step write path has no scale plumbing
+            if config.decode_write_mode != "ring" or config.decode_chunk < 2:
+                raise ValueError(
+                    "kv_cache_dtype=int8 requires the ring decode path "
+                    "(decode_write_mode=ring, decode_chunk > 1)")
+            if config.stream_decode_chunk == 1:
+                raise ValueError(
+                    "kv_cache_dtype=int8 requires stream_decode_chunk != 1 "
+                    "(the single-step decode program has no int8 write "
+                    "path); use 0 or >= 2")
         if config.decode_write_mode != "ring":
             raise NotImplementedError(
                 f"decode_write_mode={config.decode_write_mode!r} is not "
@@ -204,15 +228,17 @@ class PagedInferenceEngine:
         self.page_size = config.kv_page_size
 
         self._dtype = params["embed_tokens"].dtype
+        self._cache_dtype = (torch.int8 if config.kv_cache_dtype == "int8"
+                             else self._dtype)
         if num_pages is None:
-            num_pages = self._pool_size_from_hbm(self._dtype)
+            num_pages = self._pool_size_from_hbm(self._cache_dtype)
         max_pages_per_slot = -(-self.max_seq // self.page_size)
         self.allocator = PageAllocator(num_pages, self.page_size,
                                        max_pages_per_slot)
         self._use_device()
         self.cache = PagedKVCache.create(
             spec, num_pages, self.page_size, self.num_slots,
-            max_pages_per_slot, self._dtype, self.device)
+            max_pages_per_slot, self._cache_dtype, self.device)
         self.state = EngineState.create(self.num_slots, self.max_seq,
                                         self.device)
         self.free_slots: list[int] = list(range(self.num_slots))
@@ -229,9 +255,9 @@ class PagedInferenceEngine:
         self._slot_ctx = np.zeros(self.num_slots, np.int32)
         self._warmup_pages = None
 
-        logger.info("paged KV pool: %d pages x %d tokens (%.2f GiB) on %s",
-                    num_pages, self.page_size,
-                    2 * tree_bytes(self.cache.k) / 1024 ** 3, self.device)
+        logger.info("paged KV pool: %d pages x %d tokens (%s, %.2f GiB) on %s",
+                    num_pages, self.page_size, self._cache_dtype,
+                    self.cache.pool_bytes() / 1024 ** 3, self.device)
 
         self.decode_chunk = max(1, config.decode_chunk)
         self.last_forward_ns = 0
@@ -284,8 +310,8 @@ class PagedInferenceEngine:
         self._use_device()
         self.cache = PagedKVCache.create(
             self.spec, self.allocator.num_pages, self.page_size,
-            self.num_slots, self.allocator.max_pages_per_slot, self._dtype,
-            self.device)
+            self.num_slots, self.allocator.max_pages_per_slot,
+            self._cache_dtype, self.device)
         self.allocator = PageAllocator(self.allocator.num_pages,
                                        self.page_size,
                                        self.allocator.max_pages_per_slot)
@@ -356,10 +382,8 @@ class PagedInferenceEngine:
     def _pool_size_from_hbm(self, dtype) -> int:
         hbm = (device_hbm_bytes(self.device) if self.device.type == "cuda"
                else CPU_POOL_BUDGET_BYTES)
-        itemsize = torch.empty((), dtype=dtype).element_size()
-        bytes_per_page = (self.spec.num_layers * 2 * self.page_size
-                          * self.spec.num_kv_heads * self.spec.head_dim
-                          * itemsize)
+        row_b = kv_row_bytes(self.spec, dtype)
+        bytes_per_page = self.page_size * row_b
         params_b = tree_bytes(self.model_params)
         bucket = self.config.prefill_buckets[-1]
         act = bucket * (self.spec.hidden_size * 6
@@ -368,8 +392,7 @@ class PagedInferenceEngine:
         # dense-gather ring decode materializes a per-chunk KV view of up
         # to paged_gather_ctx_max tokens per slot (k + v) — reserve it
         gather_rows = min(self.config.paged_gather_ctx_max, self.max_seq)
-        gather_b = (self.spec.num_layers * 2 * self.num_slots * gather_rows
-                    * self.spec.num_kv_heads * self.spec.head_dim * itemsize)
+        gather_b = self.num_slots * gather_rows * row_b
         usable = int(hbm * (1 - self.config.batch_safety_margin)) \
             - params_b - act - gather_b
         pages = max(usable // bytes_per_page, self.num_slots * 2)

@@ -10,8 +10,9 @@ that later slices port (ALiBi, learned positions, sliding windows).
 
 Parameters are a plain dict of tensors with the JAX package's layout:
 layer weights stacked along a leading layer axis, linear weights [in, out]
-(`x @ W`). The JAX `lax.scan` over layers becomes a Python loop that takes
-per-layer views (`layer_params`), which cost no copy in torch.
+(`x @ W`) or layer-stacked GPTQ `Int4Weight`s. The JAX `lax.scan` over
+layers becomes a Python loop that takes per-layer views (`layer_params`),
+which cost no copy in torch.
 """
 
 from __future__ import annotations
@@ -93,12 +94,23 @@ def check_supported(spec: DecoderSpec) -> None:
 
 
 class KVCache(NamedTuple):
-    """Slot-indexed dense KV view: k/v are [L, S, K, T, D] (bf16 or the
-    model's float dtype; int8 KV is a later slice). The paged engine builds
-    one per ring-decode chunk with `paged_core.gather_dense_view`."""
+    """Slot-indexed dense KV view: k/v are [L, S, K, T, D] (the model's
+    float dtype, or int8). The paged engine builds one per ring-decode chunk
+    with `paged_core.gather_dense_view`.
+
+    With int8 k/v, k_scale/v_scale are [L, S, K, T] f32 absmax/127 factors
+    (symmetric per token per head, `quantize_kv`); the read path folds them
+    into the scores and the probabilities (the scale factors out of the
+    head_dim contraction)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @property
     def max_seq(self) -> int:
@@ -109,10 +121,23 @@ class KVCache(NamedTuple):
         return self.k.shape[1]
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer i's view of the layer-stacked parameter dict (no copy)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+def layer_params(layers: dict, i: int, int4_plain: bool = False) -> dict:
+    """Layer i's view of the layer-stacked parameter dict (no copy).
+    `int4_plain` makes the GPTQ-INT4 views run their plain product
+    (`ops.attention.PLAIN`)."""
+    return {k: (layer_params(v, i, int4_plain) if isinstance(v, dict)
+                else linops.layer_view(v, i, int4_plain))
             for k, v in layers.items()}
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] float → ([..., D] int8, [...] f32 scale): symmetric absmax
+    over the head dim (per token per head). `torch.round` rounds half to
+    even, as `jnp.round` does."""
+    xf = x.to(torch.float32)
+    sc = torch.clamp(torch.amax(torch.abs(xf), dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / sc[..., None]), -127, 127).to(torch.int8)
+    return q, sc
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +358,8 @@ def decode_ring_step(
         qf = qg.to(torch.float32)
         scores = torch.einsum("skgd,sktd->skgt", qf,
                               ck.to(torch.float32)) * scale
+        if cache.quantized:
+            scores = scores * cache.k_scale[li][:, :, None, :]
         scores = scores.masked_fill(~cache_mask[:, None, None, :], -math.inf)
         bscores = torch.einsum("skgd,skcd->skgc", qf,
                                kb.to(torch.float32)) * scale
@@ -341,8 +368,10 @@ def decode_ring_step(
                               dim=-1) * scale                 # [S, K, G]
         all_scores = torch.cat([scores, bscores, score_new[..., None]], -1)
         probs = torch.softmax(all_scores, dim=-1).to(v.dtype)
-        attn = (torch.einsum("skgt,sktd->skgd", probs[..., :t_max],
-                             cv.to(v.dtype))
+        pc = probs[..., :t_max]
+        if cache.quantized:
+            pc = pc * cache.v_scale[li][:, :, None, :].to(pc.dtype)
+        attn = (torch.einsum("skgt,sktd->skgd", pc, cv.to(v.dtype))
                 + torch.einsum("skgc,skcd->skgd",
                                probs[..., t_max:t_max + n_buf], vb.to(v.dtype))
                 + probs[..., t_max + n_buf:] * v[:, :, None, :])

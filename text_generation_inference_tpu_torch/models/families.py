@@ -4,8 +4,10 @@
 Layout conventions match the JAX package: linear weights are [in, out]
 (activations are row vectors, `x @ W`); HF torch Linear stores [out, in]
 and is transposed on load. Layer weights are stacked along a leading layer
-axis. This slice loads the `llama` family with dense weights; other
-families and quantized checkpoints raise NotImplementedError.
+axis. GPTQ checkpoints (AutoGPTQ `qweight/qzeros/scales/g_idx`, already
+in x @ W orientation) load as layer-stacked `Int4Weight`s. This slice loads
+the `llama` family; other families and the other `quantize` modes raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable
 import torch
 
 from ..device import resolve_device
+from ..ops.quant.int4 import Int4Weight, normalize_act_order
 from ..utils.weights import Weights
 from .core import DecoderSpec
 
@@ -51,9 +54,27 @@ def _stack(ts: list[torch.Tensor], dtype, device) -> torch.Tensor:
 
 
 def _stack_linear(w: Weights, fmt: str, n_layers: int, dtype, device):
-    """Stack one dense linear across layers, transposed to [in, out]."""
+    """Stack one linear across layers: dense `.weight` (transposed to
+    [in, out]) or GPTQ `qweight/qzeros/scales/g_idx` → a layer-stacked
+    Int4Weight (int32 words, f32 scales; act-order rows normalized into a
+    per-layer input permutation, identity for layers without one)."""
     if w.has(fmt.format(i=0) + ".qweight"):
-        raise NotImplementedError("GPTQ checkpoints are not ported yet")
+        per_layer = [
+            normalize_act_order(
+                w.get(fmt.format(i=i) + ".qweight").to(torch.int32),
+                w.get(fmt.format(i=i) + ".qzeros").to(torch.int32),
+                w.get(fmt.format(i=i) + ".scales").to(torch.float32),
+                w.get(fmt.format(i=i) + ".g_idx"))
+            for i in range(n_layers)]
+        perm = None
+        if any(p.perm is not None for p in per_layer):
+            perm = torch.stack([
+                p.perm if p.perm is not None
+                else torch.arange(p.in_features, dtype=torch.int32)
+                for p in per_layer]).to(device)
+        stacked = {f: torch.stack([getattr(p, f) for p in per_layer]).to(device)
+                   for f in ("qweight", "qzeros", "scales", "g_idx", "zbias")}
+        return Int4Weight(perm=perm, **stacked)
     return _stack([w.get(fmt.format(i=i) + ".weight").t()
                    for i in range(n_layers)], dtype, device)
 
@@ -111,11 +132,14 @@ def load_model(model_dir: str, dtype=torch.bfloat16,
                quantize: str | None = None,
                device=None) -> tuple[DecoderSpec, dict]:
     """Load (spec, params) for a Llama-family HF checkpoint onto `device`
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU). GPTQ tensors load as
+    Int4Weight whatever `quantize` says; quantize="gptq" is a requirement
+    that the checkpoint carries them (GPTQ needs offline calibration, so
+    it has no load-time path)."""
     device = resolve_device(device)
-    if quantize is not None:
+    if quantize not in (None, "gptq"):
         raise NotImplementedError(
-            f"quantize={quantize!r} is not ported yet (bf16 slice)")
+            f"quantize={quantize!r} is not ported yet (gptq only)")
     config = load_hf_config(model_dir)
     model_type = config.get("model_type")
     if model_type not in FAMILIES:
@@ -124,4 +148,12 @@ def load_model(model_dir: str, dtype=torch.bfloat16,
     spec_fn, load_fn = FAMILIES[model_type]
     spec = spec_fn(config)
     params = load_fn(Weights(model_dir), spec, dtype, device)
+    if quantize == "gptq" and not any(isinstance(v, Int4Weight)
+                                      for v in params["layers"].values()):
+        # closes the trap where QUANTIZE=gptq on an fp checkpoint would
+        # silently serve full-precision weights
+        raise ValueError(
+            "QUANTIZE=gptq but the checkpoint has no GPTQ tensors "
+            "(qweight/qzeros/scales); quantize it offline first "
+            "(`text-generation-inference-tpu quantize`) or unset QUANTIZE")
     return spec, params

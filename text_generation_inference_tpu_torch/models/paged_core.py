@@ -1,5 +1,5 @@
 """Decoder forward passes over the paged KV pool (port of the JAX package's
-`models/paged_core.py`, bf16 / float pools only).
+`models/paged_core.py`: float pools, and int8 pools with scale pools).
 
 Same layer math as `models/core.py`; only the cache side differs: K/V rows
 live in flat page pools [L, K, P*page, D] and every read and write goes
@@ -13,8 +13,14 @@ here: the valid rows are selected once per call, and only they are
 written. Reads through the block table clamp (`gather_dense_view`) or skip
 unmapped pages (the paged kernel).
 
-Each function takes `attn`, the attention implementation: `KERNELS` (the
-CUDA kernels; on CPU tensors their plain versions) or `PLAIN`.
+int8 pools: rows are quantized as they are written (prefill scatter, ring
+flush; `core.quantize_kv`), and the scale pools go through the same valid-row
+selection as the value pools. The per-step `decode_paged` has no int8 write
+path (the engine requires ring chunks for int8, as the JAX engine does).
+
+Each function takes `attn`, the kernel implementation: `KERNELS` (the CUDA
+kernels; on CPU tensors their plain versions) or `PLAIN`, for attention and
+for the GPTQ-INT4 products.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from .core import (
     _unembed,
     check_supported,
     layer_params,
+    quantize_kv,
 )
 
 
@@ -66,6 +73,9 @@ def decode_paged(
     new k/v row into its page in place, then attends over the pool.
     Returns ([S, V] f32 logits, cache)."""
     check_supported(spec)
+    if cache.quantized:
+        raise ValueError("decode_paged has no int8 write path; int8 pools are "
+                         "written by the ring chunks (paged_ring_flush)")
     s = ids.shape[0]
     bt = cache.block_table
     x = _embed(spec, params, ids, positions)
@@ -85,7 +95,7 @@ def decode_paged(
     group = spec.num_heads // spec.num_kv_heads
 
     for li in range(spec.num_layers):
-        lp = layer_params(params["layers"], li)
+        lp = layer_params(params["layers"], li, attn.int4_plain)
         kp, vp = cache.k[li], cache.v[li]               # [K, P*page, D] views
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)                     # q [S,H,Dh]; k/v [S,K,Dh]
@@ -113,7 +123,8 @@ def gather_dense_view(cache: PagedKVCache, live_pages: int,
     the view is absolute position r (pages are allocated in position
     order). Gathers clamp to the pool (as JAX's mode="clip"): stale or
     sentinel entries read some pool row, and those positions are masked by
-    context length or their outputs discarded.
+    context length or their outputs discarded. int8 pools bring their scale
+    rows ([L, S, K, R]), so the view is a quantized `KVCache`.
     """
     bt = cache.block_table[:, :live_pages].to(torch.int64)      # [S, P']
     s = bt.shape[0]
@@ -124,6 +135,10 @@ def gather_dense_view(cache: PagedKVCache, live_pages: int,
     # pool [L, K, POOL_R, D] --index axis 2--> [L, K, S, R, D] -> [L,S,K,R,D]
     k = cache.k[:, :, rows].transpose(1, 2).contiguous()
     v = cache.v[:, :, rows].transpose(1, 2).contiguous()
+    if cache.quantized:
+        return KVCache(k=k, v=v,
+                       k_scale=cache.k_scale[:, :, rows].transpose(1, 2),
+                       v_scale=cache.v_scale[:, :, rows].transpose(1, 2))
     return KVCache(k=k, v=v)
 
 
@@ -165,7 +180,7 @@ def decode_paged_ring_step(
 
     k_all, v_all = [], []
     for li in range(spec.num_layers):
-        lp = layer_params(params["layers"], li)
+        lp = layer_params(params["layers"], li, attn.int4_plain)
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
         q = _apply_rope(spec, q, cos, sin)
@@ -173,9 +188,14 @@ def decode_paged_ring_step(
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim).contiguous()
 
         # part 1: pool attention over pre-chunk context (partial stats); the
-        # layer's pool is a view of the stacked pool, no copy
-        acc1, m1, l1 = attn.paged_decode_partial(
-            qg, cache.k[li], cache.v[li], bt, ctx, page_size)
+        # layer's pools are views of the stacked pools, no copy
+        if cache.quantized:
+            acc1, m1, l1 = attn.paged_decode_partial_i8(
+                qg, cache.k[li], cache.v[li], cache.k_scale[li],
+                cache.v_scale[li], bt, ctx, page_size)
+        else:
+            acc1, m1, l1 = attn.paged_decode_partial(
+                qg, cache.k[li], cache.v[li], bt, ctx, page_size)
 
         # part 2: in-chunk ring + current token
         qf = qg.to(torch.float32)
@@ -216,7 +236,8 @@ def paged_ring_flush(cache: PagedKVCache, kbuf: torch.Tensor,
     position chunk_start[s] + c. Inactive slots, positions at or past
     max_seq and unmapped pages are dropped — their block-table rows are
     stale or the sentinel, and an in-bounds write would corrupt pages now
-    owned by live requests."""
+    owned by live requests. Over an int8 pool the full-precision ring is
+    quantized here, once per chunk."""
     n_buf = kbuf.shape[3]
     s = kbuf.shape[1]
     pool_rows = cache.k.shape[2]
@@ -231,10 +252,15 @@ def paged_ring_flush(cache: PagedKVCache, kbuf: torch.Tensor,
     src, dst = _valid_rows(rows, valid, pool_rows)
     # ring [L, S, K, C, D] -> [L, K, C, S, D] -> [L, K, C*S, D]
     L, kh, d = kbuf.shape[0], kbuf.shape[2], kbuf.shape[4]
-    kr = kbuf.permute(0, 2, 3, 1, 4).reshape(L, kh, n_buf * s, d)
-    vr = vbuf.permute(0, 2, 3, 1, 4).reshape(L, kh, n_buf * s, d)
-    cache.k[:, :, dst] = kr[:, :, src].to(cache.k.dtype)
-    cache.v[:, :, dst] = vr[:, :, src].to(cache.v.dtype)
+    kr = kbuf.permute(0, 2, 3, 1, 4).reshape(L, kh, n_buf * s, d)[:, :, src]
+    vr = vbuf.permute(0, 2, 3, 1, 4).reshape(L, kh, n_buf * s, d)[:, :, src]
+    if cache.quantized:
+        kr, ksc = quantize_kv(kr)
+        vr, vsc = quantize_kv(vr)
+        cache.k_scale[:, :, dst] = ksc
+        cache.v_scale[:, :, dst] = vsc
+    cache.k[:, :, dst] = kr.to(cache.k.dtype)
+    cache.v[:, :, dst] = vr.to(cache.v.dtype)
     return cache
 
 
@@ -276,7 +302,7 @@ def prefill_paged(
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
     for li in range(spec.num_layers):
-        lp = layer_params(params["layers"], li)
+        lp = layer_params(params["layers"], li, attn.int4_plain)
         kp, vp = cache.k[li], cache.v[li]
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
@@ -287,9 +313,15 @@ def prefill_paged(
         a = _attn_out(spec, lp, a.reshape(n, t, spec.num_heads, spec.head_dim))
         x = _residual(spec, lp, x, a)
 
-        k_rows = k.reshape(-1, spec.num_kv_heads, spec.head_dim)
-        v_rows = v.reshape(-1, spec.num_kv_heads, spec.head_dim)
-        kp[:, dst] = k_rows[src].transpose(0, 1).to(kp.dtype)
-        vp[:, dst] = v_rows[src].transpose(0, 1).to(vp.dtype)
+        k_rows = k.reshape(-1, spec.num_kv_heads, spec.head_dim)[src]
+        v_rows = v.reshape(-1, spec.num_kv_heads, spec.head_dim)[src]
+        if cache.quantized:
+            # quantize on the way in: [rows, K, D] int8 + [rows, K] scales
+            k_rows, ksc = quantize_kv(k_rows)
+            v_rows, vsc = quantize_kv(v_rows)
+            cache.k_scale[li][:, dst] = ksc.transpose(0, 1)
+            cache.v_scale[li][:, dst] = vsc.transpose(0, 1)
+        kp[:, dst] = k_rows.transpose(0, 1).to(kp.dtype)
+        vp[:, dst] = v_rows.transpose(0, 1).to(vp.dtype)
     x = _norm(spec, params["final_norm"], x)
     return _unembed(spec, params, x), cache

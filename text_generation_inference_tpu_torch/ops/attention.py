@@ -10,9 +10,11 @@ not a fallback for a failing kernel.
 
 The paged forward passes take an `AttentionOps` argument: `KERNELS` (the
 default, the wrappers of `ops/cuda/`) or `PLAIN` (the plain PyTorch
-versions). On CPU tensors the wrappers use their plain versions
-themselves; `PLAIN` lets a caller on the card run the same model without
-the kernels, to compare the two.
+versions). Its `int4_plain` flag is the same switch for the GPTQ-INT4
+product (`ops/linear.py`): the per-layer weight views of a forward pass
+carry it to `linear.matmul`. On CPU tensors the wrappers use their plain
+versions themselves; `PLAIN` lets a caller on the card run the same model
+without the kernels, to compare the two.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from .cuda.flash_prefill import HEAD_DIMS, flash_prefill
 from .cuda.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_partial,
+    paged_decode_attention_partial_i8,
     paged_decode_attention_partial_reference,
     paged_decode_attention_reference,
 )
@@ -55,16 +58,29 @@ def prefill_attention(q, k, v, lengths, bias, mask, scale: float):
     return prefill_attention_einsum(q, k, v, lengths, bias, mask, scale)
 
 
+def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+                          block_table, ctx, page_size):
+    return paged_decode_attention_partial_reference(
+        q, k_pool, v_pool, block_table, ctx, page_size,
+        k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+
+
 class AttentionOps(NamedTuple):
-    """The attention functions a paged forward pass calls."""
+    """The kernel functions a paged forward pass calls."""
 
     prefill: Callable          # (q, k, v, lengths, bias, mask, scale)
     paged_decode: Callable     # (q, k_pool, v_pool, block_table, ctx, page)
     paged_decode_partial: Callable  # same args -> (acc, m, l)
+    # int8 pools: (q, k_pool, v_pool, k_scale_pool, v_scale_pool,
+    # block_table, ctx, page) -> (acc, m, l)
+    paged_decode_partial_i8: Callable
+    int4_plain: bool           # GPTQ-INT4 products by their plain version
 
 
 KERNELS = AttentionOps(prefill_attention, paged_decode_attention,
-                       paged_decode_attention_partial)
+                       paged_decode_attention_partial,
+                       paged_decode_attention_partial_i8, False)
 PLAIN = AttentionOps(prefill_attention_einsum,
                      paged_decode_attention_reference,
-                     paged_decode_attention_partial_reference)
+                     paged_decode_attention_partial_reference,
+                     _partial_i8_reference, True)

@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-SOURCES = ("flash_prefill", "paged_attention")
+SOURCES = ("flash_prefill", "int4_matmul", "paged_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -41,9 +41,15 @@ _SIGNATURES = {
         "tgi_paged_decode": [_vp, _vp, _vp, _vp, _vp, _vp] + [_i32] * 8
                             + [_f32, _vp],
         "tgi_paged_decode_stats": [_vp] * 8 + [_i32] * 8 + [_f32, _vp],
+        "tgi_paged_decode_stats_i8": [_vp] * 10 + [_i32] * 8 + [_f32, _vp],
+    },
+    "int4_matmul": {
+        "tgi_int4_matmul": [_vp] * 6 + [_i32] * 5 + [_vp],
+        "tgi_int4_matmul_splits": [_i32] * 3,
     },
 }
 _ERROR_STRING = {"flash_prefill": "tgi_flash_prefill_error_string",
+                 "int4_matmul": "tgi_int4_matmul_error_string",
                  "paged_attention": "tgi_paged_decode_error_string"}
 
 

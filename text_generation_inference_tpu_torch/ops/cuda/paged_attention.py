@@ -1,6 +1,6 @@
 """Decode attention over a paged KV pool: wrappers of
-`csrc/paged_attention.cu` (normalized and stats modes) and their plain
-PyTorch versions.
+`csrc/paged_attention.cu` (normalized and stats modes, and the stats mode
+over int8 pools) and their plain PyTorch versions.
 
 Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
 (the JAX layouts):
@@ -11,6 +11,11 @@ Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
   ctx:         [S] i32 live tokens per slot
   out:         [S, K, G, D] (normalized), or acc [S, K, G, D] f32 plus
                m, l [S, K, G] f32 (stats)
+  int8 pools:  k/v pools int8 plus k_scale/v_scale pools [K, P * page_size]
+               f32, one dequant factor per (kv head, pool row): the k scale
+               multiplies the scores, the v scale folds into the
+               probabilities before the value product, and l sums the
+               unscaled probabilities (JAX `_flash_page_update` with ks/vs)
 
 The plain versions gather each slot's pages with explicit masking: a key
 position is live when it is below ctx and its page id lies in
@@ -19,8 +24,9 @@ The JAX reference clamps such gathers instead (`mode="clip"`), which gives
 the same result wherever the sentinel lies past ctx.
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
-tensor it launches the kernel or raises. `paged_decode_attention.launches`
-and `paged_decode_attention_partial.launches` count launches.
+tensor it launches the kernel or raises. `paged_decode_attention.launches`,
+`paged_decode_attention_partial.launches` and
+`paged_decode_attention_partial_i8.launches` count launches.
 """
 
 from __future__ import annotations
@@ -35,9 +41,11 @@ HEAD_DIMS = (64, 128)
 MAX_GROUP = 8     # query heads per kv head the kernel handles
 
 
-def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size):
-    """Scores [S, K, G, T'] f32 (dead keys at -inf) and values
-    [K, S, T', D] f32 (dead rows zeroed), T' = max_pages * page_size."""
+def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
+                  k_scale_pool=None):
+    """Scores [S, K, G, T'] f32 (dead keys at -inf; times the k scale for
+    int8 pools), values [K, S, T', D] f32 (dead rows zeroed) and the pool
+    rows [S, T'] each key came from, T' = max_pages * page_size."""
     s, kh, g, d = q.shape
     pool_rows = k_pool.shape[1]
     num_pages = pool_rows // page_size
@@ -54,20 +62,29 @@ def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size):
     v = v_pool[:, rows].to(torch.float32)
     scores = torch.einsum("skgd,kstd->skgt", q.to(torch.float32),
                           k) * (1.0 / math.sqrt(d))
+    if k_scale_pool is not None:
+        scores = scores * k_scale_pool[:, rows].transpose(0, 1)[:, :, None, :]
     scores = scores.masked_fill(~live[:, None, None, :], -math.inf)
     v = torch.where(live[None, :, :, None], v, 0.0)
-    return scores, v
+    return scores, v, rows
 
 
 def paged_decode_attention_partial_reference(q, k_pool, v_pool, block_table,
-                                             ctx, page_size):
-    """Plain version of the stats mode: (acc f32, m f32, l f32)."""
-    scores, v = _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size)
+                                             ctx, page_size,
+                                             k_scale_pool=None,
+                                             v_scale_pool=None):
+    """Plain version of the stats mode: (acc f32, m f32, l f32). With int8
+    pools, k_scale_pool/v_scale_pool [K, P * page_size] f32 carry each row's
+    dequant factor."""
+    scores, v, rows = _gather_pages(q, k_pool, v_pool, block_table, ctx,
+                                    page_size, k_scale_pool)
     m = torch.max(scores, dim=-1).values                       # [S, K, G]
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(scores - m_safe[..., None])
     p = torch.where(torch.isneginf(scores), 0.0, p)
     l = torch.sum(p, dim=-1)
+    if v_scale_pool is not None:
+        p = p * v_scale_pool[:, rows].transpose(0, 1)[:, :, None, :]
     acc = torch.einsum("skgt,kstd->skgd", p, v)
     return acc, m, l
 
@@ -81,7 +98,8 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_table, ctx,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
-def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size):
+def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
+           pool_dtype=torch.bfloat16):
     s, kh, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
@@ -93,10 +111,10 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size):
             raise ValueError(f"{fn}: {name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError(f"{fn}: q must be contiguous")
-    if (q.dtype != torch.bfloat16 or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype):
-        raise ValueError(f"{fn}: q and pools must be bfloat16, got {q.dtype}, "
-                         f"{k_pool.dtype}, {v_pool.dtype}")
+    if (q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype
+            or v_pool.dtype != pool_dtype):
+        raise ValueError(f"{fn}: q must be bfloat16 and the pools {pool_dtype}"
+                         f", got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
     if block_table.dtype != torch.int32 or ctx.dtype != torch.int32:
         raise ValueError(f"{fn}: block_table and ctx must be int32")
     if (k_pool.dim() != 3 or k_pool.shape[0] != kh or k_pool.shape[2] != d
@@ -113,7 +131,8 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size):
         raise ValueError(f"{fn}: pool rows not a multiple of page_size")
 
 
-def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs):
+def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
+            scale_pools=()):
     s, kh, g, d = q.shape
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -121,6 +140,7 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs):
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            *[p.data_ptr() for p in scale_pools],
             block_table.data_ptr(), ctx.data_ptr(),
             *[o.data_ptr() for o in outs], s, kh, g, d, pool_rows, page_size,
             block_table.shape[1], pool_rows // page_size, 1.0 / math.sqrt(d),
@@ -169,11 +189,52 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
     return acc, m, l
 
 
+def paged_decode_attention_partial_i8(q: torch.Tensor, k_pool: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      k_scale_pool: torch.Tensor,
+                                      v_scale_pool: torch.Tensor,
+                                      block_table: torch.Tensor,
+                                      ctx: torch.Tensor, page_size: int):
+    """Stats mode over int8 pools with their [K, P * page_size] f32 scale
+    pools: (acc, m, l) as `paged_decode_attention_partial`."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_partial_reference(
+            q, k_pool, v_pool, block_table, ctx, page_size,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+    fn = "paged_decode_attention_partial_i8"
+    _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
+           pool_dtype=torch.int8)
+    for name, p in (("k_scale_pool", k_scale_pool),
+                    ("v_scale_pool", v_scale_pool)):
+        if (p.device != q.device or p.dtype != torch.float32
+                or p.shape != k_pool.shape[:2] or not p.is_contiguous()):
+            raise ValueError(f"{fn}: {name} must be a contiguous float32 "
+                             f"{tuple(k_pool.shape[:2])} tensor on {q.device}")
+    s, kh, g, d = q.shape
+    acc = torch.empty((s, kh, g, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((s, kh, g), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    if q.numel() == 0 or block_table.shape[1] == 0:
+        return acc.zero_(), m.fill_(-math.inf), l.zero_()
+    _launch("tgi_paged_decode_stats_i8", q, k_pool, v_pool, block_table, ctx,
+            page_size, [acc, m, l], scale_pools=(k_scale_pool, v_scale_pool))
+    paged_decode_attention_partial_i8.launches += 1
+    return acc, m, l
+
+
 def paged_decode_attention_partial_stacked(q, k_pools, v_pools, block_table,
                                            ctx, layer_idx: int,
-                                           page_size: int):
-    """Stats mode over layer-stacked pools [L, K, R, D]: the layer's pool is
-    a view (`pools[layer_idx]`, no copy), so this is the same kernel."""
+                                           page_size: int, *,
+                                           k_scale_pools=None,
+                                           v_scale_pools=None):
+    """Stats mode over layer-stacked pools [L, K, R, D] (int8 pools with
+    their [L, K, R] scale pools): the layer's pools are views
+    (`pools[layer_idx]`, no copy), so this is the same kernel."""
+    if k_scale_pools is not None:
+        return paged_decode_attention_partial_i8(
+            q, k_pools[layer_idx], v_pools[layer_idx],
+            k_scale_pools[layer_idx], v_scale_pools[layer_idx], block_table,
+            ctx, page_size)
     return paged_decode_attention_partial(q, k_pools[layer_idx],
                                           v_pools[layer_idx], block_table,
                                           ctx, page_size)
@@ -181,3 +242,4 @@ def paged_decode_attention_partial_stacked(q, k_pools, v_pools, block_table,
 
 paged_decode_attention.launches = 0
 paged_decode_attention_partial.launches = 0
+paged_decode_attention_partial_i8.launches = 0

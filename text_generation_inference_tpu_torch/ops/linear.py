@@ -1,32 +1,110 @@
-"""Linear-layer dispatch (port of the dense branch of the JAX package's
-`ops/linear.py`).
+"""Linear-layer dispatch: dense tensors or GPTQ-INT4 weights (port of the
+dense and `Int4Weight` branches of the JAX package's `ops/linear.py`).
 
-This slice serves bf16 weights only: `matmul` is a plain `x @ w` on
-[in, out] weights, which PyTorch hands to cuBLAS as the JAX package left
-its dense products to XLA. Quantized weights (GPTQ-INT4, int8) are later
-slices and raise NotImplementedError here. `prepare_params` and
-`prepare_storage` are identities for dense weights.
+Dense weights: a plain `x @ w` on [in, out] weights, which PyTorch hands
+to cuBLAS as the JAX package left its dense products to XLA.
+
+GPTQ-INT4 weights (`quant.int4.Int4Weight`, layer-stacked by the loader)
+go to the dequant-GEMM kernel K1 (`ops/cuda/int4_matmul.py`). Under
+act-order the input is gathered by `perm` first. The entry name follows
+the JAX route:
+
+  * decode rows, after `prepare_params(params, rows)`: each layer-stacked
+    weight is marked for the stacked route, `core.layer_params` picks the
+    layer, and the product is `int4_matmul_s4_stacked` (the kernel reads
+    the layer's slice of the stack in place);
+  * prefill (no `prepare_params`): the layer's view goes to the
+    packed-layout name `int4_matmul`;
+  * a plain 2-D `Int4Weight` (not a layer of a stack) goes to
+    `int4_matmul_s4`.
+
+A view made for `ops.attention.PLAIN` (`int4_plain`) runs the plain
+version instead, so a caller on the card can compare the two.
+`prepare_params` only wraps (no tensor work: PyTorch has no jit boundary to
+amortize a relayout over, so one would be a cost on every dispatch), and
+`prepare_storage` is the identity: the kernel reads the GPTQ packing as
+stored.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
+
+from .cuda.int4_matmul import (int4_matmul, int4_matmul_reference,
+                               int4_matmul_s4, int4_matmul_s4_stacked)
+from .quant.int4 import Int4Weight
+
+
+class Int4Stacked(NamedTuple):
+    """Layer `layer` of a layer-stacked Int4Weight, and the route of its
+    product: "stacked" (decode rows, marked by `prepare_params`) or
+    "packed" (prefill). `layer_view` fills in the layer."""
+
+    weight: Int4Weight       # the whole stack [L, ...]
+    layer: int
+    route: str
+    plain: bool = False
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense w. x: [..., in] → [..., out]."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"quantized linear weights ({type(w).__name__}) are not ported yet")
+    """x @ w for a dense or GPTQ-INT4 w. x: [..., in] → [..., out]."""
+    if isinstance(w, Int4Stacked):
+        wl = w.weight.layer(w.layer)
+        x2 = _rows(x, wl)
+        if w.plain:
+            y2 = int4_matmul_reference(x2, wl)
+        elif w.route == "stacked":
+            y2 = int4_matmul_s4_stacked(x2, w.weight, w.layer)
+        else:
+            y2 = int4_matmul(x2, wl)
+        return y2.reshape(*x.shape[:-1], wl.out_features)
+    if isinstance(w, Int4Weight):
+        if w.qweight.dim() != 2:
+            raise ValueError("a layer-stacked Int4Weight is read one layer at "
+                             "a time (models.core.layer_params)")
+        y2 = int4_matmul_s4(_rows(x, w), w)
+        return y2.reshape(*x.shape[:-1], w.out_features)
     return torch.matmul(x, w)
 
 
-def prepare_params(params: dict, rows: int) -> dict:
-    """Identity for dense weights (the JAX package converts int4 storage
-    here)."""
-    return params
+def _rows(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
+    """x as the kernel's [M, in] operand: gathered by the act-order perm,
+    contiguous and 16-byte aligned."""
+    if w.perm is not None:
+        x = x[..., w.perm.long()]
+    x2 = x.reshape(-1, x.shape[-1])
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
+        x2 = x2.clone(memory_format=torch.contiguous_format)
+    return x2
+
+
+def layer_view(w, i: int, plain: bool = False):
+    """Layer i of a layer-stacked parameter (no copy): a tensor's slice, or
+    an `Int4Stacked` view of an int4 stack."""
+    if isinstance(w, Int4Stacked):
+        return w._replace(layer=i, plain=plain)
+    if isinstance(w, Int4Weight):
+        return Int4Stacked(w, i, "packed", plain)
+    return w[i]
+
+
+def prepare_params(params: dict, rows: Optional[int] = None) -> dict:
+    """Before a decode dispatch of `rows` rows: marks every layer-stacked
+    Int4Weight in params["layers"] for the stacked route. Identity for
+    dense weights, and when `rows` is None."""
+    layers = params.get("layers", {})
+    if rows is None or not any(isinstance(v, Int4Weight)
+                               for v in layers.values()):
+        return params
+    out = dict(params)
+    out["layers"] = {k: (Int4Stacked(v, -1, "stacked")
+                         if isinstance(v, Int4Weight) else v)
+                     for k, v in layers.items()}
+    return out
 
 
 def prepare_storage(params: dict) -> dict:
-    """Identity for dense weights."""
+    """Identity: the kernel reads the GPTQ packing as the loader stores it."""
     return params

@@ -47,6 +47,8 @@ def _not_ported(config: ServingConfig) -> None:
         (os.getenv("INTERNAL_API", "").lower() in ("1", "true"),
          "INTERNAL_API (generate.v1)"),
         (bool(config.prefix_store_path), "PREFIX_STORE_PATH"),
+        (os.getenv("INT4_FUSED_MLP", "0").lower() not in ("0", "false"),
+         "INT4_FUSED_MLP=1 (the fused GPTQ-INT4 MLP kernel)"),
     ]
     for hit, what in checks:
         if hit:
