@@ -16,12 +16,17 @@ Phases (any failure exits non-zero; nothing is caught):
              also at head dim 128, G=4 and G=1); the int8 paged decode (K2)
              and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
              products at 16 and 2048 rows, and one act-order weight) at
-             Llama-2-7B widths.
-  3. parity  one `prefill_paged` and a few decode steps with the kernels and
-             with their plain versions (`ops.attention.PLAIN`); logits and
+             Llama-2-7B widths; the slot-cache decode kernel (S1) at
+             TinyLlama and 7B decode widths over a 2048-row cache, and the
+             ring-decode kernel (S2) at the decode probe's shapes (48 slots,
+             1024 cache rows, a ring of 64) at ring steps 0, 32 and 63.
+  3. parity  one prefill and a few decode steps with the kernels and with
+             their plain versions (`ops.attention.PLAIN`); logits and
              greedy tokens are compared: the full-width bf16 TinyLlama
-             (`decode_paged` steps), then a 4-layer GPTQ-INT4 model at 7B
-             widths over an int8 pool (ring-decode steps and a flush).
+             (`decode_paged` steps), the same model on the slot cache
+             (`core.prefill`, then scan-mode `core.decode` steps at
+             max_seq 2048, through S1), then a 4-layer GPTQ-INT4 model at
+             7B widths over an int8 pool (ring-decode steps and a flush).
   4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
              full TinyLlama-1.1B width (22 layers, random bf16 weights from
              a seeded generator on the card), decode chunks of 8 with the
@@ -34,11 +39,21 @@ Phases (any failure exits non-zero; nothing is caught):
              each run and read just after; every kernel of the run's path
              must have run. When grpc imports, one Generate and one
              GenerateStream also go through the port's gRPC server on a
-             local port (runs 2 and 3).
-  5. profile decode steps under torch.profiler, after run 2 (16 per-step
-             decodes of 8 live requests) and after run 3 (4 chunks of 8
-             steps, 16 live requests): wall and device-busy time per step,
-             and the top kernels.
+             local port (runs 2, 3 and 4). Runs 4 and 5 serve the same
+             full-width TinyLlama on the slot engine (InferenceEngine, the
+             server's PAGED_ATTENTION=0), 16 slots, max_seq 2048: run 4 in
+             the "scan" write mode (every decode step attends through S1),
+             run 5 with an int8 KV cache and ring chunks of 8.
+  5. probe   the port's ring-decode probe (`tools/probe_decode.py`): one
+             chunk of 64 ring-decode steps over 48 slots at full TinyLlama
+             width, attention inline (the engine's formulation) or through
+             S2, at context buckets of 256 and 1024 rows; ms per step, and
+             whether the two formulations choose the same greedy ids.
+  6. profile decode steps under torch.profiler, after run 2 (16 per-step
+             decodes of 8 live requests), after run 3 (4 chunks of 8
+             steps, 16 live requests) and after run 4 (16 scan-mode steps
+             of 8 live requests): wall and device-busy time per step, and
+             the top kernels.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -329,6 +344,116 @@ def check_paged_int8(torch, timer):
                 bound_by=b_by, library_ms=library_ms)
 
 
+# --- S1 and S2: slot-cache decode and ring decode -------------------------
+
+
+def spread_ctx(s: int, t: int, seed: int):
+    """Contexts for s slots spread over 0..t: an empty slot, tile and split
+    edges, a full one, the rest uniform."""
+    rng = np.random.default_rng(SEED + seed)
+    head = [0, 1, 31, 32, 33, 255, 256, t]
+    return np.concatenate([head, rng.integers(1, t + 1, size=s - len(head))]
+                          ).astype(np.int32)
+
+
+def bf16_close(torch, got, want, what):
+    """Both versions compute in fp32 and round the output to bf16 once:
+    allow about two bf16 ulps, atol 2e-2 + rtol 2e-2."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    atol = rtol = 2e-2
+    if not (torch.isfinite(got).all()
+            and bool((diff <= atol + rtol * want.float().abs()).all())):
+        raise AssertionError(f"{what}: max abs err {err} outside atol {atol} "
+                             f"+ rtol {rtol}")
+    return err, f"atol {atol} + rtol {rtol}"
+
+
+def sdpa_call(torch, q, keys, values, live):
+    """The yardstick: one SDPA call over [S, H, N, D] keys / values (the
+    GQA heads repeated beforehand) with a boolean mask of the live ones."""
+    s, kh, g, d = q.shape
+    qh = q.reshape(s, kh * g, 1, d)
+    kx = keys.repeat_interleave(g, dim=1).contiguous()
+    vx = values.repeat_interleave(g, dim=1).contiguous()
+    mask = live[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return lambda: sdpa(qh, kx, vx, attn_mask=mask)
+
+
+def check_slot_decode(torch, timer, s, kh, g, d, t=2048):
+    """S1 over one layer's slot cache [S, KV, T, D], ctx spread over
+    0..T."""
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + d)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+    q, k, v = rnd(s, kh, g, d), rnd(s, kh, t, d), rnd(s, kh, t, d)
+    ctx = torch.from_numpy(spread_ctx(s, t, d)).cuda()
+    fn = lambda: da.decode_attention(q, k, v, ctx)
+    ref = lambda: da.decode_attention_reference(q, k, v, ctx)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    err, tol = bf16_close(torch, got, want, f"decode_attention D={d}")
+    if not bool((got[ctx == 0] == 0).all()):
+        raise AssertionError("decode_attention: a ctx == 0 slot is not 0")
+    ms = timer(fn, iters=20)
+    plain_ms = timer(ref, iters=3, warmup=1)
+    live_rows = torch.arange(t, device="cuda")[None, :] < ctx[:, None]
+    library_ms = timer(sdpa_call(torch, q, k, v, live_rows))
+    live = int(ctx.sum())
+    flops = 4.0 * live * kh * g * d
+    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d * 2, flops)
+    log(f"kernel decode_attention S={s} KV={kh} G={g} D={d} T={t} "
+        f"live_tokens={live}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
+        f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, mask "
+        f"over the whole T) bound_ms {b_ms:.4f} ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
+def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
+                      c=64):
+    """S2 at the decode probe's shapes: cache rows < ctx (spread over
+    0..rows), ring columns < step, and the current token."""
+    from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41 + step)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen,
+                                     device="cuda").to(torch.bfloat16)
+    q = rnd(s, kh, g, d)
+    k, v = rnd(s, kh, rows, d), rnd(s, kh, rows, d)
+    kb, vb = rnd(s, kh, c, d), rnd(s, kh, c, d)
+    kn, vn = rnd(s, kh, d), rnd(s, kh, d)
+    ctx = torch.from_numpy(spread_ctx(s, rows, step)).cuda()
+    args = (q, k, v, kb, vb, kn, vn, ctx, step)
+    fn = lambda: rda.ring_decode_attention(*args)
+    ref = lambda: rda.ring_decode_attention_reference(*args)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    err, tol = bf16_close(torch, got, want, f"ring_decode_attention step {step}")
+    ms = timer(fn, iters=20)
+    plain_ms = timer(ref, iters=3, warmup=1)
+    keys = torch.cat([k, kb, kn[:, :, None]], dim=2)
+    values = torch.cat([v, vb, vn[:, :, None]], dim=2)
+    live_rows = torch.cat([
+        torch.arange(rows, device="cuda")[None, :] < ctx[:, None],
+        (torch.arange(c, device="cuda") < step)[None, :].expand(s, c),
+        torch.ones(s, 1, dtype=torch.bool, device="cuda")], dim=1)
+    library_ms = timer(sdpa_call(torch, q, keys, values, live_rows))
+    live = int(ctx.sum()) + s * (step + 1)
+    flops = 4.0 * live * kh * g * d
+    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d * 2, flops)
+    log(f"kernel ring_decode_attention S={s} KV={kh} G={g} D={d} rows={rows} "
+        f"ring={c} step={step} live_tokens={live}: max_abs_err {err:.3e} (tol "
+        f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{library_ms:.4f} (SDPA over the concatenated sources) bound_ms "
+        f"{b_ms:.4f} ({b_by})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
 # --- K1: the GPTQ-INT4 dequant-GEMM ------------------------------------------
 
 # the four products of a Llama-2-7B layer, [in, out], fused as the engine
@@ -563,6 +688,50 @@ def model_parity(torch, spec, params):
         f"greedy tokens equal {agree}/{decided}")
 
 
+def slot_parity(torch, spec, params, steps: int = 4):
+    """The slot cache at max_seq 2048: `core.prefill` + `steps` scan-mode
+    `core.decode` steps (every layer attends through S1) with the kernels
+    and with their plain versions, both fed the same (plain) greedy
+    tokens."""
+    from text_generation_inference_tpu_torch.models import core
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.ops.attention import KERNELS, PLAIN
+
+    params = fuse_params(spec, params)
+    t, n, max_seq = 1024, 2, 2048
+    lengths = torch.tensor([700, 300], dtype=torch.int32, device=DEVICE)
+    slots = torch.tensor([1, 0], dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    runs = {"kernels": KERNELS, "plain": PLAIN}
+    caches, logits = {}, {}
+    for name, attn in runs.items():
+        c = core.KVCache.create(spec, n, max_seq, DTYPE, DEVICE)
+        lg, caches[name] = core.prefill(spec, params, ids, lengths, slots, c,
+                                        attn=attn)
+        logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
+    # decode rows are slots: slot 1 holds the 700-token prompt
+    pos = lengths.flip(0).clone()
+    next_ids = logits["plain"][0].argmax(-1).to(torch.int32).flip(0)
+    for _ in range(steps):
+        for name, attn in runs.items():
+            lg, _ = core.decode(spec, params, next_ids, pos, caches[name],
+                                pos + 1, write_mode="scan", attn=attn)
+            logits[name].append(lg)
+        next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
+        pos = pos + 1
+    sync(torch)
+    tol = 0.25
+    max_err, agree, decided = compare_logits(
+        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
+        tol, "slot parity")
+    log(f"slot parity: core.prefill (N={n}, bucket {t}, lengths 700/300) + "
+        f"{steps} scan-mode decode steps at max_seq {max_seq} through "
+        f"decode_attention, {spec.num_layers} layers: logits max abs err "
+        f"{max_err:.4f} (tol {tol}), greedy tokens equal {agree}/{decided}")
+
+
 def quant_parity(torch, spec, params, steps: int = 4):
     """The quantized path with the kernels (K1, K2, flash prefill) and with
     their plain versions (`ops.attention.PLAIN`): a GPTQ-INT4 model over an
@@ -660,6 +829,8 @@ TRAFFIC_TINYLLAMA = (([100, 180, 260, 400, 560, 720], 0),       # unary
                      ([1100, 1300, 1500, 1240], 2)), 48         # 2 streaming
 TRAFFIC_7B = (([100, 250, 420, 600, 900], 0),
               ([150, 500, 820], 2)), 32
+TRAFFIC_SLOT = (([100, 300, 600, 900, 1300, 1800], 0),      # unary
+                ([1200, 1500, 1700, 1000], 2)), 48          # 2 streaming
 
 
 def make_requests(lens, streaming_every, seed_base, new):
@@ -769,13 +940,15 @@ async def grpc_roundtrip(batcher, config, tokenizer):
         servicer.async_tokenizer.shutdown()
 
 
-def make_engine(torch, spec, params, max_seq, overrides):
-    """A PagedInferenceEngine with 16 slots and 128-token pages; the pool
+def make_engine(torch, spec, params, max_seq, overrides, slot=False):
+    """A PagedInferenceEngine with 16 slots and 128-token pages (the pool
     is sized from the card's memory, so the engines of earlier phases are
-    collected first."""
+    collected first), or with `slot` the slot engine (InferenceEngine, the
+    server's PAGED_ATTENTION=0) with 16 slots."""
     import gc
 
     from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.engine import InferenceEngine
     from text_generation_inference_tpu_torch.engine.paged_engine import (
         PagedInferenceEngine)
 
@@ -785,14 +958,14 @@ def make_engine(torch, spec, params, max_seq, overrides):
     config = ServingConfig(max_sequence_length=max_seq, max_new_tokens=256,
                            max_batch_slots=16, kv_page_size=128, **overrides)
     config.validate()
-    engine = PagedInferenceEngine(spec, params, config,
-                                  eos_token_id=ByteTokenizer.eos_token_id,
-                                  device=DEVICE)
+    cls = InferenceEngine if slot else PagedInferenceEngine
+    engine = cls(spec, params, config, eos_token_id=ByteTokenizer.eos_token_id,
+                 device=DEVICE)
     return engine, config
 
 
 def profile_decode(torch, spec, params, label, overrides=None,
-                   max_seq=2048, live=8, calls=16):
+                   max_seq=2048, live=8, calls=16, slot=False):
     """Where a decode step's time goes: `live` requests (512-token prompts),
     `calls` decode dispatches (of decode_chunk steps each) under
     torch.profiler. Prints the step's wall time, the card's busy time and
@@ -801,7 +974,8 @@ def profile_decode(torch, spec, params, label, overrides=None,
 
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
 
-    engine, _ = make_engine(torch, spec, params, max_seq, overrides or {})
+    engine, _ = make_engine(torch, spec, params, max_seq, overrides or {},
+                            slot=slot)
     steps = calls * engine.decode_chunk
     rng = np.random.default_rng(SEED + 11)
     slots = [engine.acquire_slot() for _ in range(live)]
@@ -852,10 +1026,11 @@ def profile_decode(torch, spec, params, label, overrides=None,
 
 
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
-              traffic=TRAFFIC_TINYLLAMA, max_seq=2048):
+              traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False):
     from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
 
-    engine, config = make_engine(torch, spec, params, max_seq, overrides)
+    engine, config = make_engine(torch, spec, params, max_seq, overrides,
+                                 slot=slot)
     engine.warmup(batch_sizes=(1,))
     tokenizer = ByteTokenizer()
     waves, new = traffic
@@ -883,7 +1058,9 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     reqs, wall, ttft = asyncio.run(drive())
     counts = {k: c.read() for k, c in counters.items()}
     tokens = sum(r.generated_count for r in reqs)
-    log(f"serve[{name}] {overrides}: {len(reqs)} requests, prompts "
+    log(f"serve[{name}] {type(engine).__name__} {overrides}, "
+        f"{spec.num_layers} layers at {spec.hidden_size} wide: {len(reqs)} "
+        f"requests, prompts "
         f"{min(r.input_length for r in reqs)}..{max(r.input_length for r in reqs)}"
         f" tokens, {tokens} tokens generated in {wall:.2f}s wall "
         f"({tokens / wall:.1f} tok/s), streaming TTFT mean "
@@ -914,9 +1091,12 @@ def main() -> int:
     try:
         from text_generation_inference_tpu_torch.models import paged_core
         from text_generation_inference_tpu_torch.ops.cuda import build
+        from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
         from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
         from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
         from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
+        from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+        from text_generation_inference_tpu_torch.tools import probe_decode
     except ImportError as e:
         print(f"chip_smoke: the port's package is not beside this script: {e}",
               file=sys.stderr)
@@ -956,10 +1136,14 @@ def main() -> int:
                            (2048, "int4_matmul"))}
     k1["int4_matmul_s4"] = check_int4(torch, timer, "int4_matmul_s4", "wo",
                                       16, act_order=True)
+    s1 = check_slot_decode(torch, timer, s=16, kh=4, g=8, d=64)
+    s1_7b = check_slot_decode(torch, timer, s=16, kh=32, g=1, d=128)
+    s2 = {step: check_ring_decode(torch, timer, step) for step in (0, 32, 63)}
 
     spec = llama_spec()
     params = random_params(torch, spec)
     model_parity(torch, spec, params)
+    slot_parity(torch, spec, params)
 
     # the dense-gather branch is not a kernel; count its calls to show run 1
     # reached it
@@ -980,7 +1164,11 @@ def main() -> int:
                 "int4_matmul_s4_stacked": Counter(im.int4_matmul_s4_stacked),
                 "int4_matmul_s4": Counter(im.int4_matmul_s4),
                 "int4_matmul": Counter(im.int4_matmul),
+                "decode_attention": Counter(da.decode_attention),
+                "ring_decode_attention": Counter(rda.ring_decode_attention),
                 "dense_gather_chunks": Counter(counted_gather, "calls")}
+    paged_kernels = ("paged_decode_attention", "paged_decode_attention_stats",
+                     "paged_decode_attention_partial_i8")
     try:
         import grpc  # noqa: F401
         import google.protobuf  # noqa: F401
@@ -1004,6 +1192,34 @@ def main() -> int:
             raise AssertionError(f"{key} never ran in a serving run: {run}")
 
     profile_decode(torch, spec, params, "tinyllama bf16")
+
+    # the slot engine (PAGED_ATTENTION=0): run 4 in scan mode, every decode
+    # step through S1; run 5 with int8 KV on ring chunks of 8
+    scan = dict(decode_write_mode="scan")
+    run4 = serve_run(torch, spec, params, "slot-scan", scan, counters,
+                     with_grpc=with_grpc, traffic=TRAFFIC_SLOT, slot=True)
+    if run4["flash_prefill"] <= 0 or run4["decode_attention"] <= 0:
+        raise AssertionError(f"run 4 missed a slot-path kernel: {run4}")
+    if any(run4[key] for key in paged_kernels):
+        raise AssertionError(f"a paged kernel ran on the slot engine: {run4}")
+    run5 = serve_run(torch, spec, params, "slot-int8-ring",
+                     dict(kv_cache_dtype="int8", decode_chunk=8), counters,
+                     with_grpc=False, slot=True)
+    if run5["flash_prefill"] <= 0 or any(run5[key] for key in paged_kernels):
+        raise AssertionError(f"run 5 left the slot ring path: {run5}")
+    profile_decode(torch, spec, params, "tinyllama slot scan", scan,
+                   slot=True)
+
+    # the ring-decode probe: S2's caller, as in the JAX package
+    for c in counters.values():
+        c.reset()
+    modes = ["ring_ctx256", "ring_ctx256_kernel", "ring_ctx1024",
+             "ring_ctx1024_kernel"]
+    probe = probe_decode.run_probe(modes, spec, params, DEVICE, log=log)
+    probe_counts = {k: c.read() for k, c in counters.items()}
+    if probe_counts["ring_decode_attention"] <= 0:
+        raise AssertionError(f"the probe never launched S2: {probe_counts}")
+    log(f"probe: {json.dumps(probe)}; launches {probe_counts}")
     del params
 
     # the quantized path at Llama-2-7B widths: GPTQ-INT4 weights, int8 KV
@@ -1028,7 +1244,7 @@ def main() -> int:
     profile_decode(torch, spec7b, params7b, "7b gptq int8kv", quantized,
                    max_seq=1024, live=16, calls=4)
 
-    runs = (run1, run2, run3)
+    runs = (run1, run2, run3, run4, run5, probe_counts)
 
     def record(name, source, replaces, res):
         return {"name": name, "route": "cuda",
@@ -1054,9 +1270,19 @@ def main() -> int:
                k1["int4_matmul_s4"]),
         record("int4_matmul", "int4_matmul.cu", "int4_matmul.py:637",
                k1["int4_matmul"]),
+        record("decode_attention", "slot_attention.cu",
+               "decode_attention.py:142", s1),
+        record("ring_decode_attention", "slot_attention.cu",
+               "ring_decode_attention.py:239", s2[32]),
     ]
     log(f"flash_prefill at D=128 (H=32, KV=8): {json.dumps(fp128)}")
     log(f"flash_prefill at D=128 (H=32, KV=32, G=1): {json.dumps(fp128_g1)}")
+    log(f"decode_attention at D=128 (KV=32, G=1): {json.dumps(s1_7b)}")
+    for step in (0, 63):
+        log(f"ring_decode_attention at step {step}: {json.dumps(s2[step])}")
+    log("decode_attention record: TinyLlama widths; ring_decode_attention "
+        "record: step 32; launches: decode_attention in the serving runs, "
+        "ring_decode_attention in the probe")
     log("int4_matmul_s4_stacked and int4_matmul records: the sums over a 7B "
         "layer's four products (w_qkv, wo, w_gu, w_down) at M=16 and M=2048; "
         "int4_matmul_s4: wo at M=16 with act-order")

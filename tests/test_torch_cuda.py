@@ -232,3 +232,109 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         im.int4_matmul(bf16(rng, 4, 256, device=cuda_device).float(), w)
     assert math.isfinite(float(q.float().sum()))
+
+
+def slot_case(rng, device, d, g, s=6, kh=2, t=2048, block=32):
+    """A slot cache with a ctx == 0 slot, contexts on tile and split edges,
+    and a full one; the cache rows past ctx hold NaN, which must never be
+    read."""
+    ctx = np.asarray([0, 1, block, block + 1, 256, t][:s], np.int32)
+    q = bf16(rng, s, kh, g, d, device=device)
+    k = bf16(rng, s, kh, t, d, device=device)
+    v = bf16(rng, s, kh, t, d, device=device)
+    for i, c in enumerate(ctx):
+        k[i, :, c:] = float("nan")
+        v[i, :, c:] = float("nan")
+    return q, k, v, torch.from_numpy(ctx).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g", [(64, 8), (128, 1), (128, 4)])
+def test_slot_decode_kernel(cuda_device, d, g):
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(300 + d + g)
+    q, k, v, ctx = slot_case(rng, cuda_device, d, g)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, ctx)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    want = da.decode_attention_reference(q, k, v, ctx)
+    assert torch.all(got[0] == 0)                       # ctx == 0
+    assert torch.isfinite(got).all()
+    close(got, want, 2e-2)
+    # a view of the first rows of a longer cache (a layer of [L, S, K, T, D]
+    # narrowed along T) is read through its strides, with no copy
+    big_k = torch.stack([k, k]).narrow(3, 0, 1024)[1]
+    big_v = torch.stack([v, v]).narrow(3, 0, 1024)[1]
+    ctx_n = torch.clamp(ctx, max=1024)
+    close(da.decode_attention(q, big_k, big_v, ctx_n),
+          da.decode_attention_reference(q, big_k, big_v, ctx_n), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 5, 16])
+def test_ring_decode_kernel(cuda_device, step):
+    from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+
+    rng = np.random.default_rng(400 + step)
+    q, k, v, ctx = slot_case(rng, cuda_device, 64, 8, t=512)
+    c = 16
+    kb = bf16(rng, 6, 2, c, 64, device=cuda_device)
+    vb = bf16(rng, 6, 2, c, 64, device=cuda_device)
+    kb[:, :, step:] = float("nan")          # dead ring columns are not read
+    vb[:, :, step:] = float("nan")
+    kn = bf16(rng, 6, 2, 64, device=cuda_device)
+    vn = bf16(rng, 6, 2, 64, device=cuda_device)
+    before = rda.ring_decode_attention.launches
+    got = rda.ring_decode_attention(q, k, v, kb, vb, kn, vn, ctx, step)
+    torch.cuda.synchronize()
+    assert rda.ring_decode_attention.launches == before + 1
+    want = rda.ring_decode_attention_reference(q, k, v, kb, vb, kn, vn, ctx,
+                                               step)
+    assert torch.isfinite(got).all()
+    close(got, want, 2e-2)
+
+
+@pytest.mark.cuda
+def test_slot_wrappers_reject_bad_inputs(cuda_device):
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+    from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+
+    rng = np.random.default_rng(9)
+    q, k, v, ctx = slot_case(rng, cuda_device, 64, 8, t=256)
+    with pytest.raises(ValueError):
+        da.decode_attention(q.float(), k, v, ctx)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, ctx.long())
+    with pytest.raises(ValueError):                      # head dim 96
+        da.decode_attention(q[..., :48].contiguous(), k[..., :48], v[..., :48],
+                            ctx)
+    with pytest.raises(ValueError):                      # G > 8
+        da.decode_attention(torch.cat([q, q], 2), k, v, ctx)
+    kb = bf16(rng, 6, 2, 4, 64, device=cuda_device)
+    kn = bf16(rng, 6, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError):                      # step past the ring
+        rda.ring_decode_attention(q, k, v, kb, kb, kn, kn, ctx, 5)
+    with pytest.raises(ValueError):
+        rda.ring_decode_attention(q, k, v, kb.float(), kb, kn, kn, ctx, 2)
+
+
+@pytest.mark.cuda
+def test_slot_decode_dispatch(cuda_device):
+    """ops.attention.decode_attention takes S1 at T >= 2048 and the einsum
+    below it."""
+    from text_generation_inference_tpu_torch.ops import attention
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(11)
+    for t, launched in ((1024, 0), (2048, 1)):
+        q, k, v, ctx = slot_case(rng, cuda_device, 64, 8, t=t)
+        k, v = torch.nan_to_num(k), torch.nan_to_num(v)
+        ctx = torch.clamp(ctx, min=1)
+        mask = torch.arange(t, device=cuda_device)[None, :] < ctx[:, None]
+        before = da.decode_attention.launches
+        got = attention.decode_attention(q, k, v, ctx, None, mask, 0.125)
+        torch.cuda.synchronize()
+        assert da.decode_attention.launches == before + launched
+        close(got, da.decode_attention_reference(q, k, v, ctx), 2e-2)

@@ -1,8 +1,9 @@
 """The PyTorch port's PagedInferenceEngine against the JAX package's, on
 the same checkpoint (tiny_llama, fp32, CPU): greedy tokens must be
 identical on staggered multi-slot runs with page reuse, per-step decode
-(chunk 1) and ring chunks of 8 through both the dense-gather and the
-paged-kernel branch. Mirrors tests/test_paged_engine.py.
+(chunk 1), ring chunks of 8 through both the dense-gather and the
+paged-kernel branch, and chunks of 4 in the "post" and "scan" write modes
+(a loop of single paged steps). Mirrors tests/test_paged_engine.py.
 """
 
 import numpy as np
@@ -110,12 +111,18 @@ CASES = {
     "chunk8_paged_kernel": (dict(decode_chunk=8, paged_gather_ctx_max=0),
                             None, "chunk8"),
     "stream_chunk8": (dict(paged_gather_ctx_max=0), 8, "chunk1"),
+    "post_chunk4": (dict(decode_chunk=4, decode_write_mode="post"), None,
+                    "post4"),
+    "scan_chunk4": (dict(decode_chunk=4, decode_write_mode="scan"), None,
+                    "scan4"),
 }
 # the JAX engine's runs: its per-step path, and ring chunks of 8 through its
 # paged-kernel branch (its own tests show the dense-gather branch and chunked
 # decode give the same greedy tokens)
 JAX_RUNS = {"chunk1": (dict(), None),
-            "chunk8": (dict(decode_chunk=8, paged_gather_ctx_max=0), None)}
+            "chunk8": (dict(decode_chunk=8, paged_gather_ctx_max=0), None),
+            "post4": (dict(decode_chunk=4, decode_write_mode="post"), None),
+            "scan4": (dict(decode_chunk=4, decode_write_mode="scan"), None)}
 
 
 @pytest.fixture(scope="module")
@@ -229,8 +236,12 @@ def test_allocator():
 
 
 def test_options_not_ported_raise(llama):
+    # every decode write mode is ported; prompt-prefix injection is not
+    eng = engine(llama, decode_write_mode="post", decode_chunk=4)
+    assert eng._page_bucket_grid() == [8]       # live pages: ring only
     with pytest.raises(NotImplementedError):
-        engine(llama, decode_write_mode="post")
+        eng.prefill([eng.acquire_slot()], [PROMPTS[0]], [RequestParams()],
+                    prefix_embeds=[np.zeros((2, 64), np.float32)])
     # int8 KV is ported, on the ring-chunk path only (as in the JAX engine)
     with pytest.raises(ValueError, match="ring"):
         engine(llama, kv_cache_dtype="int8", decode_write_mode="post",

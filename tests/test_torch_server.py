@@ -1,7 +1,8 @@
 """The llama golden cases (tests/golden/test_cases_llama.yaml, regenerated
 from the HF-torch oracle as tests/test_golden.py does) through the PyTorch
 port's gRPC server on the CPU: the port's tokenizer, validation, batcher
-and paged engine behind `fmaas.GenerationService`.
+and engine behind `fmaas.GenerationService`, once on the paged engine and
+once on the slot engine (PAGED_ATTENTION=0).
 
 Each case runs unary, streaming (the concatenated stream text must equal
 the expected text) and concurrently.
@@ -23,6 +24,7 @@ from google.protobuf import json_format
 from tests import fixtures
 from tests.test_golden import assert_approx
 from text_generation_inference_tpu_torch.config import ServingConfig
+from text_generation_inference_tpu_torch.engine.engine import InferenceEngine
 from text_generation_inference_tpu_torch.engine.paged_engine import (
     PagedInferenceEngine)
 from text_generation_inference_tpu_torch.models import families
@@ -60,9 +62,13 @@ def llama_cases() -> list:
 
 
 class PortServer:
-    """The port's serving stack on an event loop in a background thread."""
+    """The port's serving stack on an event loop in a background thread,
+    on the paged (`kind="paged"`) or the slot engine (`kind="slot"`)."""
 
-    def __init__(self):
+    ENGINES = {"paged": PagedInferenceEngine, "slot": InferenceEngine}
+
+    def __init__(self, kind: str):
+        self.kind = kind
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
@@ -80,9 +86,9 @@ class PortServer:
         self.config.validate()
         spec, params = families.load_model(model_dir, dtype=torch.float32,
                                            device="cpu")
-        engine = PagedInferenceEngine(spec, params, self.config,
-                                      eos_token_id=tokenizer.eos_token_id,
-                                      device="cpu")
+        engine = self.ENGINES[self.kind](spec, params, self.config,
+                                         eos_token_id=tokenizer.eos_token_id,
+                                         device="cpu")
         self.batcher = Batcher(engine, tokenizer, self.config)
         self.batcher.start()
         servicer = GenerationServicer(self.config, tokenizer, self.batcher,
@@ -103,9 +109,9 @@ class PortServer:
         self.thread.join(timeout=30)
 
 
-@pytest.fixture(scope="module")
-def golden():
-    server = PortServer()
+@pytest.fixture(scope="module", params=sorted(PortServer.ENGINES))
+def golden(request):
+    server = PortServer(request.param)
     channel = grpc.insecure_channel(f"127.0.0.1:{server.port}")
     generate = channel.unary_unary(
         "/fmaas.GenerationService/Generate",

@@ -1,13 +1,32 @@
-"""Device memory accounting (port of the parts of the JAX package's
-`engine/memory.py` that the paged engine uses).
+"""Device memory accounting (port of the JAX package's `engine/memory.py`).
 
-`device_hbm_bytes` reads the card's total memory from
-`torch.cuda.mem_get_info`; the paged engine sizes its KV pool from it.
+`budget_bytes` is the memory an engine plans against: the card's total
+memory from `torch.cuda.mem_get_info`, or `CPU_BUDGET_BYTES` for an engine
+on the CPU (tests). The paged engine sizes its KV pool from it;
+`plan_memory` sizes the slot engine's batch (closed-form accounting: every
+serving buffer has a static shape, so capacity is arithmetic, not
+measurement).
+
+ESTIMATE_MEMORY=off disables the slot engine's slot shrinking (reference
+env contract).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
+import os
+
 import torch
+
+from ..config import ServingConfig
+from ..models.core import DecoderSpec
+
+logger = logging.getLogger(__name__)
+
+# memory assumed for an engine on the CPU: the figure the JAX package
+# assumes when its backend reports no device memory
+CPU_BUDGET_BYTES = 16 * 1024 ** 3
 
 
 def tree_bytes(tree) -> int:
@@ -31,3 +50,76 @@ def device_hbm_bytes(device=None) -> int:
         raise ValueError(f"device_hbm_bytes: {device} is not a CUDA device")
     _free, total = torch.cuda.mem_get_info(device)
     return int(total)
+
+
+def budget_bytes(device: torch.device) -> int:
+    """The memory an engine on `device` plans against."""
+    if device.type == "cuda":
+        return device_hbm_bytes(device)
+    return CPU_BUDGET_BYTES
+
+
+def kv_row_bytes(spec: DecoderSpec, dtype) -> int:
+    """KV bytes of one token position across layers, kv heads, k and v:
+    head_dim values, plus 4 scale bytes per (layer, kv head) for k and for
+    v when the cache is int8."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    scale_b = 4 if dtype == torch.int8 else 0
+    return (spec.num_layers * 2 * spec.num_kv_heads
+            * (spec.head_dim * itemsize + scale_b))
+
+
+def activation_bytes(spec: DecoderSpec, config: ServingConfig) -> int:
+    """Transient prefill working set: activations for the largest bucket
+    (hidden + mlp intermediates + the all-position logits), batch 1,
+    fp32-dominated."""
+    bucket = config.prefill_buckets[-1]
+    act = bucket * (spec.hidden_size * 6 + spec.intermediate_size * 3) * 4
+    return act + bucket * spec.vocab_size * 4
+
+
+@dataclasses.dataclass
+class MemoryPlan:
+    param_bytes: int
+    kv_bytes_per_slot: int
+    state_bytes: int
+    activation_bytes: int       # transient prefill working set estimate
+    hbm_bytes: int
+    usable_bytes: int
+    max_slots: int
+
+    def describe(self) -> str:
+        gb = 1024 ** 3
+        return (f"params {self.param_bytes / gb:.2f}GiB + "
+                f"kv/slot {self.kv_bytes_per_slot / gb:.3f}GiB x "
+                f"{self.max_slots} + act {self.activation_bytes / gb:.2f}GiB "
+                f"of {self.hbm_bytes / gb:.1f}GiB")
+
+
+def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
+                cache_dtype: torch.dtype, hbm_bytes: int) -> MemoryPlan:
+    """The slot engine's memory plan: unless ESTIMATE_MEMORY=off, shrink
+    `config.max_batch_slots` in place to the slots whose full-length KV
+    cache fits beside the weights, the prefill working set and the slot
+    state, with the configured safety margin (reference default 20%,
+    cli.py:28). An int8 cache counts its scale bytes."""
+    param_bytes = tree_bytes(params)
+    kv_per_slot = config.max_sequence_length * kv_row_bytes(spec, cache_dtype)
+    act = activation_bytes(spec, config)
+    state = config.max_batch_slots * config.max_sequence_length * 4 * 4
+    usable = int(hbm_bytes * (1.0 - config.batch_safety_margin)) \
+        - param_bytes - act - state
+    max_slots = config.max_batch_slots
+    if os.getenv("ESTIMATE_MEMORY", "auto").lower() != "off":
+        fit = max(1, usable // max(kv_per_slot, 1))
+        if fit < max_slots:
+            logger.warning("shrinking batch slots %d -> %d to fit device "
+                           "memory", max_slots, fit)
+            max_slots = int(fit)
+            config.max_batch_slots = max_slots
+    plan = MemoryPlan(param_bytes=param_bytes, kv_bytes_per_slot=kv_per_slot,
+                      state_bytes=state, activation_bytes=act,
+                      hbm_bytes=hbm_bytes, usable_bytes=max(usable, 0),
+                      max_slots=max_slots)
+    logger.info("memory plan: %s", plan.describe())
+    return plan

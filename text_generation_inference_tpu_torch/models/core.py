@@ -1,12 +1,16 @@
 """Decoder layer math in PyTorch (port of the JAX package's `models/core.py`).
 
 The building blocks (`_norm`, `_rope_freqs`, `_apply_rope`, `_qkv`,
-`_attn_out`, `_mlp`, `_embed`, `_unembed`) are shared with the paged
-forward passes in `paged_core.py`. `DecoderSpec` is the same static
-architecture description as in the JAX package; this slice runs the Llama
-family (RoPE, RMSNorm, SiLU-GLU), and the forward passes raise
-NotImplementedError for the position encodings and attention windows
-that later slices port (ALiBi, learned positions, sliding windows).
+`_attn_out`, `_mlp`, `_embed`, `_unembed`, and the prefill layer loop
+`prefill_forward`) are shared with the paged forward passes in
+`paged_core.py`. The slot-cache passes (`prefill`, `decode` in its "post"
+and "scan" write modes, `decode_ring_step`, `ring_flush`) write the
+`KVCache` in place, where the JAX package donated it to each jitted step.
+`DecoderSpec` is the same static architecture description as in the JAX
+package; the port runs the Llama family (RoPE, RMSNorm, SiLU-GLU), and the
+forward passes raise NotImplementedError for the position encodings and
+attention windows that later slices port (ALiBi, learned positions,
+sliding windows).
 
 Parameters are a plain dict of tensors with the JAX package's layout:
 layer weights stacked along a leading layer axis, linear weights [in, out]
@@ -19,12 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..ops import linear as linops
+from ..ops.attention import KERNELS, AttentionOps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +99,10 @@ def check_supported(spec: DecoderSpec) -> None:
 
 
 class KVCache(NamedTuple):
-    """Slot-indexed dense KV view: k/v are [L, S, K, T, D] (the model's
-    float dtype, or int8). The paged engine builds one per ring-decode chunk
-    with `paged_core.gather_dense_view`.
+    """Slot-indexed KV cache: k/v are [L, S, K, T, D] (the model's float
+    dtype, or int8). The slot engine holds one for its whole batch; the
+    paged engine builds a view per ring-decode chunk with
+    `paged_core.gather_dense_view`.
 
     With int8 k/v, k_scale/v_scale are [L, S, K, T] f32 absmax/127 factors
     (symmetric per token per head, `quantize_kv`); the read path folds them
@@ -107,6 +113,21 @@ class KVCache(NamedTuple):
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, spec: DecoderSpec, num_slots: int, max_seq: int, dtype,
+               device) -> "KVCache":
+        shape = (spec.num_layers, num_slots, spec.num_kv_heads, max_seq,
+                 spec.head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        if dtype == torch.int8:
+            return cls(k=zeros(shape, dtype), v=zeros(shape, dtype),
+                       k_scale=zeros(shape[:-1], torch.float32),
+                       v_scale=zeros(shape[:-1], torch.float32))
+        return cls(k=zeros(shape, dtype), v=zeros(shape, dtype))
 
     @property
     def quantized(self) -> bool:
@@ -306,6 +327,79 @@ def _residual(spec: DecoderSpec, lp: dict, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
+                    lengths: torch.Tensor, attn: AttentionOps,
+                    write_kv: Callable[[int, torch.Tensor, torch.Tensor], None]
+                    ) -> torch.Tensor:
+    """The causal forward over a right-padded bucket ids [N, T]: attention
+    within the bucket only, masked by `lengths`. Hands each layer's k/v
+    ([N, T, K, D]) to `write_kv(layer, k, v)`, which stores them in the
+    caller's cache. Returns [N, T, V] f32 logits at every position."""
+    check_supported(spec)
+    n, t = ids.shape
+    dev = ids.device
+    positions = torch.arange(t, device=dev, dtype=torch.int32)[None, :].expand(n, t)
+    x = _embed(spec, params, ids, positions)
+    cos, sin = _rope_freqs(spec, positions)
+
+    lengths = lengths.to(torch.int32)
+    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    key_valid = positions < lengths[:, None]
+    mask = causal[None, :, :] & key_valid[:, None, :]
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    group = spec.num_heads // spec.num_kv_heads
+    for li in range(spec.num_layers):
+        lp = layer_params(params["layers"], li, attn.int4_plain)
+        h = _norm(spec, lp["ln1"], x)
+        q, k, v = _qkv(spec, lp, h)
+        q = _apply_rope(spec, q, cos, sin)
+        k = _apply_rope(spec, k, cos, sin)
+        qg = q.reshape(n, t, spec.num_kv_heads, group, spec.head_dim)
+        a = attn.prefill(qg, k, v, lengths, None, mask, scale)
+        a = _attn_out(spec, lp, a.reshape(n, t, spec.num_heads, spec.head_dim))
+        x = _residual(spec, lp, x, a)
+        write_kv(li, k, v)
+    x = _norm(spec, params["final_norm"], x)
+    return _unembed(spec, params, x)
+
+
+def prefill(
+    spec: DecoderSpec,
+    params: dict,
+    ids: torch.Tensor,        # [N, T] i32, right-padded to the bucket length
+    lengths: torch.Tensor,    # [N] i32 true lengths
+    slots: torch.Tensor,      # [N] i32 target cache slots
+    cache: KVCache,
+    attn: AttentionOps = KERNELS,
+) -> tuple[torch.Tensor, KVCache]:
+    """Full causal forward over a padded bucket; writes each layer's K/V
+    into rows 0..T-1 of the `slots` of the cache, in place (quantized on the
+    way in over an int8 cache). Rows past a prompt's length hold padding
+    garbage that decode masks by context length, as in the JAX package.
+    Returns ([N, T, V] f32 logits at every position, cache). Soft-prompt
+    prefix embeddings are a later slice."""
+    rows = min(ids.shape[1], cache.max_seq)
+    sl = slots.long()
+
+    def write_kv(li, k, v):
+        k_t = k[:, :rows].transpose(1, 2)               # [N, K, rows, D]
+        v_t = v[:, :rows].transpose(1, 2)
+        if cache.quantized:
+            k_t, ksc = quantize_kv(k_t)
+            v_t, vsc = quantize_kv(v_t)
+            cache.k_scale[li][sl, :, :rows] = ksc
+            cache.v_scale[li][sl, :, :rows] = vsc
+        cache.k[li][sl, :, :rows] = k_t.to(cache.k.dtype)
+        cache.v[li][sl, :, :rows] = v_t.to(cache.v.dtype)
+
+    return prefill_forward(spec, params, ids, lengths, attn, write_kv), cache
+
+
+# ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
 
@@ -320,16 +414,25 @@ def decode_ring_step(
     vbuf: torch.Tensor,         # [L, S, K, C, D]
     step_idx: int,              # step within the chunk
     chunk_start: torch.Tensor,  # [S] i32: positions[s] at chunk entry
+    ring_attention: Optional[Callable] = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step of the ring-buffer chunk scheme: attention reads the
     read-only dense cache for pre-chunk context, the per-chunk ring buffer
     for in-chunk tokens, and the current token's k/v directly, as one
-    softmax. The caller writes the ring into the pool once per chunk.
+    softmax. The caller writes the ring into the cache once per chunk.
+
+    The cache may be a view of the first rows of a longer cache (a context
+    bucket): any strides are read as they are.
 
     Buffer col c of slot s holds the token at position chunk_start[s] + c;
     cols >= step_idx are invalid. Returns (logits [S, V] f32,
     k_all [L, S, K, D], v_all [L, S, K, D]) — the current token's per-layer
     k/v for the caller to write into the ring.
+
+    Attention is computed inline (the engines' formulation, as in the JAX
+    package), or, when `ring_attention` is given (`AttentionOps.ring_decode`
+    over a float cache), by that one call per layer: the decode probe's
+    kernel mode.
     """
     check_supported(spec)
     s = ids.shape[0]
@@ -344,6 +447,10 @@ def decode_ring_step(
     buf_mask = torch.arange(n_buf, device=dev)[None, :] < step_idx  # [1, C]
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
+    if ring_attention is not None:
+        if cache.quantized:
+            raise ValueError("ring_attention reads a float cache")
+        ctx = chunk_start.to(torch.int32).contiguous()
 
     k_all, v_all = [], []
     for li in range(spec.num_layers):
@@ -355,26 +462,35 @@ def decode_ring_step(
         q = _apply_rope(spec, q, cos, sin)
         k = _apply_rope(spec, k, cos, sin)
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim)
-        qf = qg.to(torch.float32)
-        scores = torch.einsum("skgd,sktd->skgt", qf,
-                              ck.to(torch.float32)) * scale
-        if cache.quantized:
-            scores = scores * cache.k_scale[li][:, :, None, :]
-        scores = scores.masked_fill(~cache_mask[:, None, None, :], -math.inf)
-        bscores = torch.einsum("skgd,skcd->skgc", qf,
-                               kb.to(torch.float32)) * scale
-        bscores = bscores.masked_fill(~buf_mask[:, None, None, :], -math.inf)
-        score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
-                              dim=-1) * scale                 # [S, K, G]
-        all_scores = torch.cat([scores, bscores, score_new[..., None]], -1)
-        probs = torch.softmax(all_scores, dim=-1).to(v.dtype)
-        pc = probs[..., :t_max]
-        if cache.quantized:
-            pc = pc * cache.v_scale[li][:, :, None, :].to(pc.dtype)
-        attn = (torch.einsum("skgt,sktd->skgd", pc, cv.to(v.dtype))
-                + torch.einsum("skgc,skcd->skgd",
-                               probs[..., t_max:t_max + n_buf], vb.to(v.dtype))
-                + probs[..., t_max + n_buf:] * v[:, :, None, :])
+        if ring_attention is not None:
+            attn = ring_attention(qg.contiguous(), ck, cv, kb, vb,
+                                  k.contiguous(), v.contiguous(), ctx,
+                                  step_idx)
+        else:
+            qf = qg.to(torch.float32)
+            scores = torch.einsum("skgd,sktd->skgt", qf,
+                                  ck.to(torch.float32)) * scale
+            if cache.quantized:
+                scores = scores * cache.k_scale[li][:, :, None, :]
+            scores = scores.masked_fill(~cache_mask[:, None, None, :],
+                                        -math.inf)
+            bscores = torch.einsum("skgd,skcd->skgc", qf,
+                                   kb.to(torch.float32)) * scale
+            bscores = bscores.masked_fill(~buf_mask[:, None, None, :],
+                                          -math.inf)
+            score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
+                                  dim=-1) * scale                 # [S, K, G]
+            all_scores = torch.cat([scores, bscores, score_new[..., None]],
+                                   -1)
+            probs = torch.softmax(all_scores, dim=-1).to(v.dtype)
+            pc = probs[..., :t_max]
+            if cache.quantized:
+                pc = pc * cache.v_scale[li][:, :, None, :].to(pc.dtype)
+            attn = (torch.einsum("skgt,sktd->skgd", pc, cv.to(v.dtype))
+                    + torch.einsum("skgc,skcd->skgd",
+                                   probs[..., t_max:t_max + n_buf],
+                                   vb.to(v.dtype))
+                    + probs[..., t_max + n_buf:] * v[:, :, None, :])
         attn = _attn_out(spec, lp, attn.reshape(s, spec.num_heads,
                                                 spec.head_dim))
         x = _residual(spec, lp, x, attn)
@@ -383,3 +499,120 @@ def decode_ring_step(
     x = _norm(spec, params["final_norm"], x)
     logits = _unembed(spec, params, x)
     return logits, torch.stack(k_all), torch.stack(v_all)
+
+
+def ring_flush(cache: KVCache, kbuf: torch.Tensor, vbuf: torch.Tensor,
+               chunk_start: torch.Tensor) -> KVCache:
+    """Scatter a chunk's ring buffers into the cache, in place: buffer col
+    c of slot s lands at position chunk_start[s] + c. Positions at or past
+    max_seq are dropped, as JAX's mode="drop" drops them (requests never
+    legitimately reach them; slots past their end within a chunk do).
+    Over an int8 cache the full-precision ring is quantized here, once per
+    chunk.
+
+    Without a host sync: a dropped (c, s) is redirected to col 0 of slot s
+    (position chunk_start[s], always in range), which the kept write of col
+    0 also targets with the same values, so the one scatter stays
+    deterministic whichever duplicate lands last."""
+    n_buf, s = kbuf.shape[3], kbuf.shape[1]
+    t_max = cache.max_seq
+    dev = kbuf.device
+    start = chunk_start.to(torch.int64)[None, :]                   # [1, S]
+    cols = torch.arange(n_buf, device=dev)[:, None]                # [C, 1]
+    drop = start + cols >= t_max                                   # [C, S]
+    wpos = torch.where(drop, start, start + cols)
+    src_col = torch.where(drop, 0, cols)
+    rows = torch.arange(s, device=dev)[None, :].expand(n_buf, s)
+    pairs = [(cache.k, kbuf), (cache.v, vbuf)]
+    if cache.quantized:
+        kq, ksc = quantize_kv(kbuf)
+        vq, vsc = quantize_kv(vbuf)
+        pairs = [(cache.k, kq), (cache.v, vq), (cache.k_scale, ksc),
+                 (cache.v_scale, vsc)]
+    for dst, src in pairs:
+        # advanced indices (C, S) at axes 1 and 3 move to the front: the
+        # region is [C, S, L, K(, D)] on both sides
+        dst[:, rows, :, wpos] = src[:, rows, :, src_col].to(dst.dtype)
+    return cache
+
+
+def decode(
+    spec: DecoderSpec,
+    params: dict,
+    ids: torch.Tensor,          # [S] i32: last token per slot
+    positions: torch.Tensor,    # [S] i32: position at which ids[s] is written
+    cache: KVCache,
+    context_len: torch.Tensor,  # [S] i32: = positions + 1
+    write_mode: str = "post",
+    attn: AttentionOps = KERNELS,
+) -> tuple[torch.Tensor, KVCache]:
+    """One decode step over every slot; writes the new k/v at `positions`
+    in place. Returns ([S, V] f32 logits, cache). Inactive slots recompute
+    garbage into their own slot (positions are clipped by the caller), which
+    the next prefill overwrites, as in the JAX package.
+
+    `write_mode`:
+      * "post": attention is an explicit einsum over the read-only cache
+        plus the new column; ONE write per step after the layer loop.
+      * "scan": each layer writes its k/v first, then attends through
+        `attn.slot_decode` (`ops.attention.decode_attention`: the
+        slot-cache kernel S1 at T >= 2048, the einsum below).
+    The float cache only: an int8 cache is written by `ring_flush`.
+    """
+    check_supported(spec)
+    if cache.quantized:
+        raise ValueError("decode has no int8 write path; int8 caches are "
+                         "written by the ring chunks (ring_flush)")
+    if write_mode not in ("post", "scan"):
+        raise ValueError(f"unknown decode write_mode {write_mode!r}")
+    s = ids.shape[0]
+    t_max = cache.max_seq
+    dev = ids.device
+    x = _embed(spec, params, ids, positions)        # [S, D]
+    cos, sin = _rope_freqs(spec, positions)
+    key_pos = torch.arange(t_max, device=dev)
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    group = spec.num_heads // spec.num_kv_heads
+    rows = torch.arange(s, device=dev)
+    pos = positions.long()
+    old_mask = key_pos[None, :] < positions[:, None]        # current excluded
+    mask = key_pos[None, :] < context_len[:, None]
+    ctx = context_len.to(torch.int32).contiguous()
+
+    k_all, v_all = [], []
+    for li in range(spec.num_layers):
+        lp = layer_params(params["layers"], li, attn.int4_plain)
+        ck, cv = cache.k[li], cache.v[li]           # [S, K, Tmax, D] views
+        h = _norm(spec, lp["ln1"], x)
+        q, k, v = _qkv(spec, lp, h)
+        q = _apply_rope(spec, q, cos, sin)
+        k = _apply_rope(spec, k, cos, sin)
+        qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim)
+        if write_mode == "scan":
+            ck[rows, :, pos] = k.to(ck.dtype)
+            cv[rows, :, pos] = v.to(cv.dtype)
+            a = attn.slot_decode(qg, ck, cv, ctx, None, mask, scale)
+        else:
+            qf = qg.to(torch.float32)
+            scores = torch.einsum("skgd,sktd->skgt", qf,
+                                  ck.to(torch.float32)) * scale
+            scores = scores.masked_fill(~old_mask[:, None, None, :],
+                                        -math.inf)
+            score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
+                                  dim=-1) * scale             # [S, K, G]
+            probs = torch.softmax(
+                torch.cat([scores, score_new[..., None]], -1),
+                dim=-1).to(cv.dtype)
+            a = (torch.einsum("skgt,sktd->skgd", probs[..., :t_max], cv)
+                 + probs[..., t_max:] * v[:, :, None, :].to(cv.dtype))
+            k_all.append(k)
+            v_all.append(v)
+        a = _attn_out(spec, lp, a.reshape(s, spec.num_heads, spec.head_dim))
+        x = _residual(spec, lp, x, a)
+    if write_mode == "post":
+        # advanced indices separated by a slice move to the front: the
+        # region is [S, L, K, D]
+        cache.k[:, rows, :, pos] = torch.stack(k_all, 1).to(cache.k.dtype)
+        cache.v[:, rows, :, pos] = torch.stack(v_all, 1).to(cache.v.dtype)
+    x = _norm(spec, params["final_norm"], x)
+    return _unembed(spec, params, x), cache

@@ -45,6 +45,7 @@ from .core import (
     _unembed,
     check_supported,
     layer_params,
+    prefill_forward,
     quantize_kv,
 )
 
@@ -279,18 +280,10 @@ def prefill_paged(
     Attention within the bucket is self-contained (causal over the prompt).
     Returns (all-position logits [N, T, V] f32, cache). Soft-prompt prefix
     embeddings are a later slice."""
-    check_supported(spec)
     n, t = ids.shape
-    dev = ids.device
     bt = cache.block_table
-    positions = torch.arange(t, device=dev, dtype=torch.int32)[None, :].expand(n, t)
-    x = _embed(spec, params, ids, positions)
-    cos, sin = _rope_freqs(spec, positions)
-
-    lengths = lengths.to(torch.int32)
-    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
-    key_valid = positions < lengths[:, None]
-    mask = causal[None, :, :] & key_valid[:, None, :]
+    positions = torch.arange(t, device=ids.device)[None, :].expand(n, t)
+    key_valid = positions < lengths.to(ids.device)[:, None]
 
     # pool rows for every (row, position); padded positions are dropped
     pool_rows = cache.k.shape[2]
@@ -299,20 +292,7 @@ def prefill_paged(
     flat = pages * page_size + positions % page_size
     src, dst = _valid_rows(flat, key_valid, pool_rows)
 
-    scale = 1.0 / math.sqrt(spec.head_dim)
-    group = spec.num_heads // spec.num_kv_heads
-    for li in range(spec.num_layers):
-        lp = layer_params(params["layers"], li, attn.int4_plain)
-        kp, vp = cache.k[li], cache.v[li]
-        h = _norm(spec, lp["ln1"], x)
-        q, k, v = _qkv(spec, lp, h)
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
-        qg = q.reshape(n, t, spec.num_kv_heads, group, spec.head_dim)
-        a = attn.prefill(qg, k, v, lengths, None, mask, scale)
-        a = _attn_out(spec, lp, a.reshape(n, t, spec.num_heads, spec.head_dim))
-        x = _residual(spec, lp, x, a)
-
+    def write_kv(li, k, v):
         k_rows = k.reshape(-1, spec.num_kv_heads, spec.head_dim)[src]
         v_rows = v.reshape(-1, spec.num_kv_heads, spec.head_dim)[src]
         if cache.quantized:
@@ -321,7 +301,7 @@ def prefill_paged(
             v_rows, vsc = quantize_kv(v_rows)
             cache.k_scale[li][:, dst] = ksc.transpose(0, 1)
             cache.v_scale[li][:, dst] = vsc.transpose(0, 1)
-        kp[:, dst] = k_rows.transpose(0, 1).to(kp.dtype)
-        vp[:, dst] = v_rows.transpose(0, 1).to(vp.dtype)
-    x = _norm(spec, params["final_norm"], x)
-    return _unembed(spec, params, x), cache
+        cache.k[li][:, dst] = k_rows.transpose(0, 1).to(cache.k.dtype)
+        cache.v[li][:, dst] = v_rows.transpose(0, 1).to(cache.v.dtype)
+
+    return prefill_forward(spec, params, ids, lengths, attn, write_kv), cache

@@ -8,7 +8,13 @@ of 64 the JAX rule admits that this port compiles); otherwise the einsum
 path runs. The einsum path is the JAX package's own rule for those shapes,
 not a fallback for a failing kernel.
 
-The paged forward passes take an `AttentionOps` argument: `KERNELS` (the
+`decode_attention` keeps the JAX package's rule for the slot engine's
+"scan" write mode (`ops/attention.py:54-77`): the slot-cache kernel (S1)
+runs when there is no bias, the cache holds at least 2048 rows and the head
+dim is one the kernel is built for; otherwise the einsum path runs, which
+again is the JAX package's own rule for those shapes.
+
+The forward passes take an `AttentionOps` argument: `KERNELS` (the
 default, the wrappers of `ops/cuda/`) or `PLAIN` (the plain PyTorch
 versions). Its `int4_plain` flag is the same switch for the GPTQ-INT4
 product (`ops/linear.py`): the per-layer weight views of a forward pass
@@ -23,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .cuda import decode_attention as slot_decode
 from .cuda.flash_prefill import HEAD_DIMS, flash_prefill
 from .cuda.paged_attention import (
     paged_decode_attention,
@@ -31,6 +38,14 @@ from .cuda.paged_attention import (
     paged_decode_attention_partial_reference,
     paged_decode_attention_reference,
 )
+from .cuda.ring_decode_attention import (
+    ring_decode_attention,
+    ring_decode_attention_reference,
+)
+
+# the JAX package's threshold for the slot-cache kernel, kept as its rule;
+# whether the card wants another one is for a measured change to decide
+SLOT_KERNEL_MIN_ROWS = 2048
 
 
 def prefill_attention_einsum(q, k, v, lengths, bias, mask, scale: float):
@@ -58,6 +73,35 @@ def prefill_attention(q, k, v, lengths, bias, mask, scale: float):
     return prefill_attention_einsum(q, k, v, lengths, bias, mask, scale)
 
 
+def decode_attention_einsum(q, k_cache, v_cache, context_len, bias, mask,
+                            scale: float):
+    """q [S, K, G, D]; caches [S, K, T, D]; mask [S, T] bool; returns
+    [S, K, G, D]. Scores and softmax in fp32, probabilities cast to the
+    cache's dtype for the value product (as the JAX package's XLA path)."""
+    scores = torch.einsum("skgd,sktd->skgt", q.to(torch.float32),
+                          k_cache.to(torch.float32)) * scale
+    if bias is not None:
+        scores = scores + bias
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    return torch.einsum("skgt,sktd->skgd", probs, v_cache)
+
+
+def decode_attention(q, k_cache, v_cache, context_len, bias, mask,
+                     scale: float):
+    """q [S, K, G, D]; caches [S, K, T, D] (one layer of the slot cache);
+    returns [S, K, G, D]. `bias`/`mask` drive the einsum path; the kernel
+    reads rows below `context_len` itself and has no bias."""
+    d = q.shape[-1]
+    if (bias is None and k_cache.shape[2] >= SLOT_KERNEL_MIN_ROWS
+            and d in HEAD_DIMS):
+        return slot_decode.decode_attention(
+            q.contiguous(), k_cache, v_cache,
+            context_len.to(torch.int32).contiguous())
+    return decode_attention_einsum(q, k_cache, v_cache, context_len, bias,
+                                   mask, scale)
+
+
 def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
                           block_table, ctx, page_size):
     return paged_decode_attention_partial_reference(
@@ -66,9 +110,15 @@ def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
 
 
 class AttentionOps(NamedTuple):
-    """The kernel functions a paged forward pass calls."""
+    """The kernel functions a forward pass calls."""
 
     prefill: Callable          # (q, k, v, lengths, bias, mask, scale)
+    # slot cache, "scan" write mode: (q, k_cache, v_cache, ctx, bias, mask,
+    # scale)
+    slot_decode: Callable
+    # the ring scheme's three sources in one softmax: (q, k_cache, v_cache,
+    # kbuf, vbuf, k_new, v_new, ctx, step_idx)
+    ring_decode: Callable
     paged_decode: Callable     # (q, k_pool, v_pool, block_table, ctx, page)
     paged_decode_partial: Callable  # same args -> (acc, m, l)
     # int8 pools: (q, k_pool, v_pool, k_scale_pool, v_scale_pool,
@@ -77,10 +127,12 @@ class AttentionOps(NamedTuple):
     int4_plain: bool           # GPTQ-INT4 products by their plain version
 
 
-KERNELS = AttentionOps(prefill_attention, paged_decode_attention,
+KERNELS = AttentionOps(prefill_attention, decode_attention,
+                       ring_decode_attention, paged_decode_attention,
                        paged_decode_attention_partial,
                        paged_decode_attention_partial_i8, False)
-PLAIN = AttentionOps(prefill_attention_einsum,
+PLAIN = AttentionOps(prefill_attention_einsum, decode_attention_einsum,
+                     ring_decode_attention_reference,
                      paged_decode_attention_reference,
                      paged_decode_attention_partial_reference,
                      _partial_i8_reference, True)

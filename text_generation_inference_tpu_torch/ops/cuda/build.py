@@ -22,7 +22,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-SOURCES = ("flash_prefill", "int4_matmul", "paged_attention")
+SOURCES = ("flash_prefill", "int4_matmul", "paged_attention",
+           "slot_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
@@ -31,6 +32,7 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64 = ctypes.c_longlong
 # argument types of each library's C entry points
 _SIGNATURES = {
     "flash_prefill": {
@@ -47,10 +49,19 @@ _SIGNATURES = {
         "tgi_int4_matmul": [_vp] * 6 + [_i32] * 5 + [_vp],
         "tgi_int4_matmul_splits": [_i32] * 3,
     },
+    # cache strides over S, K, T are int64; then splits, rows per split
+    # (and the ring's columns and step)
+    "slot_attention": {
+        "tgi_slot_decode": [_vp] * 8 + [_i32] * 5 + [_i64] * 3 + [_i32] * 2
+                           + [_f32, _vp],
+        "tgi_ring_decode": [_vp] * 12 + [_i32] * 5 + [_i64] * 3 + [_i32] * 4
+                           + [_f32, _vp],
+    },
 }
 _ERROR_STRING = {"flash_prefill": "tgi_flash_prefill_error_string",
                  "int4_matmul": "tgi_int4_matmul_error_string",
-                 "paged_attention": "tgi_paged_decode_error_string"}
+                 "paged_attention": "tgi_paged_decode_error_string",
+                 "slot_attention": "tgi_slot_attention_error_string"}
 
 
 def nvcc() -> str:

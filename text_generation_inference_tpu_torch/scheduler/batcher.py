@@ -29,8 +29,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import ServingConfig
-from ..engine.engine import EngineDeviceError, StepResult
-from ..engine.paged_engine import PagedInferenceEngine
+from ..engine.engine import EngineDeviceError, SlotBatchEngine, StepResult
 from ..utils import metrics, tracing
 from .request import (GenRequest, ResponseOptions, StopReason,
                       StoppingCriteria, TokenRecord)
@@ -51,7 +50,7 @@ class QueueFullError(Exception):
 
 
 class Batcher:
-    def __init__(self, engine: PagedInferenceEngine, tokenizer, config: ServingConfig,
+    def __init__(self, engine: SlotBatchEngine, tokenizer, config: ServingConfig,
                  prompt_cache=None):
         self.engine = engine
         self.tokenizer = tokenizer

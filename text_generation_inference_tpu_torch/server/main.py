@@ -1,11 +1,12 @@
 """Serving entrypoint: load model → build engine → start batcher + servers
 (port of the JAX package's `server/main.py`: a Llama-family decoder on the
-paged engine, one device, no speculator).
+paged engine, or on the slot engine with PAGED_ATTENTION=0; one device, no
+speculator).
 
-The other engine choices of the JAX entrypoint (the slot engine,
-speculative decoding, tensor parallelism, multi-host, the internal
-`generate.v1` API, prompt-prefix stores, seq2seq models) are later slices
-and raise NotImplementedError here.
+The other engine choices of the JAX entrypoint (speculative decoding,
+tensor parallelism, multi-host, the internal `generate.v1` API,
+prompt-prefix stores, seq2seq models) are later slices and raise
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from ..config import ServingConfig
 from ..device import resolve_device
+from ..engine.engine import InferenceEngine
 from ..engine.paged_engine import PagedInferenceEngine
 from ..models import families
 from ..scheduler.batcher import Batcher
@@ -38,8 +40,6 @@ DTYPES = {
 def _not_ported(config: ServingConfig) -> None:
     """Raise for every serving option this slice does not run."""
     checks = [
-        (os.getenv("PAGED_ATTENTION", "1").lower() not in ("1", "true"),
-         "PAGED_ATTENTION=0 (the slot engine)"),
         (bool(os.getenv("SPECULATOR_PATH"))
          or os.getenv("SPECULATOR", "").lower() in ("1", "true"),
          "speculative decoding"),
@@ -73,8 +73,12 @@ def build_engine(config: ServingConfig, device=None):
     spec, params = families.load_model(
         config.model_name, dtype=dtype, quantize=config.quantize,
         device=device)
-    engine = PagedInferenceEngine(spec, params, config, eos_token_id=eos,
-                                  device=device)
+    if os.getenv("PAGED_ATTENTION", "1").lower() in ("1", "true"):
+        engine = PagedInferenceEngine(spec, params, config, eos_token_id=eos,
+                                      device=device)
+    else:
+        engine = InferenceEngine(spec, params, config, eos_token_id=eos,
+                                 device=device)
     return engine, tokenizer, "decoder"
 
 
