@@ -16,7 +16,9 @@ Phases (any failure exits non-zero; nothing is caught):
              also at head dim 128, G=4 and G=1); the int8 paged decode (K2)
              and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
              products at 16 and 2048 rows, and one act-order weight) at
-             Llama-2-7B widths; the slot-cache decode kernel (S1) at
+             Llama-2-7B widths; the fused GPTQ-INT4 MLP (M1) on a 7B layer's
+             MLP at 16 and 64 rows, silu and gelu_glu, also beside the two-K1
+             route on the same work; the slot-cache decode kernel (S1) at
              TinyLlama and 7B decode widths over a 2048-row cache, and the
              ring-decode kernel (S2) at the decode probe's shapes (48 slots,
              1024 cache rows, a ring of 64) at ring steps 0, 32 and 63.
@@ -26,7 +28,8 @@ Phases (any failure exits non-zero; nothing is caught):
              (`decode_paged` steps), the same model on the slot cache
              (`core.prefill`, then scan-mode `core.decode` steps at
              max_seq 2048, through S1), then a 4-layer GPTQ-INT4 model at
-             7B widths over an int8 pool (ring-decode steps and a flush).
+             7B widths over an int8 pool (ring-decode steps and a flush),
+             with K1 for every product and with the MLP through M1.
   4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
              full TinyLlama-1.1B width (22 layers, random bf16 weights from
              a seeded generator on the card), decode chunks of 8 with the
@@ -43,7 +46,12 @@ Phases (any failure exits non-zero; nothing is caught):
              full-width TinyLlama on the slot engine (InferenceEngine, the
              server's PAGED_ATTENTION=0), 16 slots, max_seq 2048: run 4 in
              the "scan" write mode (every decode step attends through S1),
-             run 5 with an int8 KV cache and ring chunks of 8.
+             run 5 with an int8 KV cache and ring chunks of 8. Run 6: run
+             3's config under INT4_FUSED_MLP=1 with a soft-prompt store
+             (16 and 128 vectors, a raw tensor and a PEFT file), four of
+             the eight requests behind a soft prompt (+ gRPC with a
+             prefix_id, and an unknown one refused); M1 must replace the two
+             K1 launches of every decode layer's MLP.
   5. probe   the port's ring-decode probe (`tools/probe_decode.py`): one
              chunk of 64 ring-decode steps over 48 slots at full TinyLlama
              width, attention inline (the engine's formulation) or through
@@ -51,9 +59,9 @@ Phases (any failure exits non-zero; nothing is caught):
              whether the two formulations choose the same greedy ids.
   6. profile decode steps under torch.profiler, after run 2 (16 per-step
              decodes of 8 live requests), after run 3 (4 chunks of 8
-             steps, 16 live requests) and after run 4 (16 scan-mode steps
-             of 8 live requests): wall and device-busy time per step, and
-             the top kernels.
+             steps, 16 live requests), after run 4 (16 scan-mode steps
+             of 8 live requests) and after run 6 (as run 3, INT4_FUSED_MLP=1):
+             wall and device-busy time per step, and the top kernels.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -65,8 +73,10 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -485,25 +495,37 @@ def random_gptq(torch, gen, layers, in_f, out_f):
         qweight=qweight, qzeros=qzeros, scales=scales, g_idx=g_idx))
 
 
+def int4pack(torch, w):
+    """w repacked for torch._weight_int4pack_mm (tinygemm) by
+    torch._convert_weight_to_int4pack: (packed, group size, scale-and-zero).
+    tinygemm computes w = (q - 8) * scale + zero, so zero = 8 * scale -
+    zbias."""
+    from text_generation_inference_tpu_torch.ops.quant import int4
+
+    q = int4.unpack_rows(w.qweight).t().contiguous()              # [N, K]
+    q8 = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
+    packed = torch._convert_weight_to_int4pack(q8, 8)
+    sz = torch.stack([w.scales, 8 * w.scales - w.zbias],
+                     dim=-1).to(torch.bfloat16).contiguous()      # [G, N, 2]
+    return packed, w.groupsize, sz
+
+
+LIBRARY_ERRORS = (AttributeError, RuntimeError, TypeError)
+
+
 def int4_library_call(torch, x, w):
-    """The yardstick for K1: torch._weight_int4pack_mm (tinygemm) on the
-    weight repacked by torch._convert_weight_to_int4pack; tinygemm computes
-    w = (q - 8) * scale + zero, so zero = 8 * scale - zbias. Where this
-    PyTorch lacks the pair or refuses the layout, torch.matmul on the
-    dequantized bf16 weight. Returns (fn, which)."""
+    """The yardstick for K1: torch._weight_int4pack_mm on the repacked
+    weight (`int4pack`). Where this PyTorch lacks the pair or refuses the
+    layout, torch.matmul on the dequantized bf16 weight. Returns (fn,
+    which)."""
     from text_generation_inference_tpu_torch.ops.quant import int4
 
     try:
-        q = int4.unpack_rows(w.qweight).t().contiguous()          # [N, K]
-        q8 = ((q[:, ::2] << 4) | q[:, 1::2]).to(torch.uint8)
-        packed = torch._convert_weight_to_int4pack(q8, 8)
-        sz = torch.stack([w.scales, 8 * w.scales - w.zbias],
-                         dim=-1).to(torch.bfloat16).contiguous()  # [G, N, 2]
-        gs = w.groupsize
-        fn = lambda: torch._weight_int4pack_mm(x, packed, gs, sz)
+        args = int4pack(torch, w)
+        fn = lambda: torch._weight_int4pack_mm(x, *args)
         fn()
         return fn, "torch._weight_int4pack_mm"
-    except (AttributeError, RuntimeError, TypeError) as e:
+    except LIBRARY_ERRORS as e:
         wd = int4.dequantize(w, torch.bfloat16)
         return (lambda: torch.matmul(x, wd),
                 f"torch.matmul on the dequantized bf16 weight "
@@ -562,6 +584,98 @@ def check_int4(torch, timer, entry: str, key: str, m: int,
         f"{lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, library=lib_name)
+
+
+# a Llama-2-7B layer's MLP: hidden, intermediate
+M1_SHAPE = (4096, 11008)
+
+
+def mlp_close(torch, got, want, what):
+    """M1 rounds every dequantized weight and the GLU output `a` to bf16
+    for the tensor cores (the plain version keeps the weights in f32): its
+    error grows with the terms summed, not with each output. Allowed: 3e-2
+    of the largest output plus 2e-2 relative."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    atol, rtol = 3e-2 * scale, 2e-2
+    if not (torch.isfinite(got).all()
+            and bool((diff <= atol + rtol * want.float().abs()).all())):
+        raise AssertionError(f"{what}: max abs err {err} outside atol {atol} "
+                             f"+ rtol {rtol}")
+    return err, f"atol {atol:.3g} (3e-2 of max |y|) + rtol {rtol}"
+
+
+def check_int4_mlp(torch, timer, m: int, activation: str):
+    """M1 on a 7B layer's MLP (layer 1 of 2-layer stacks: w_gu [4096,
+    22016], w_down [11008, 4096], group 128) at m rows, against its plain
+    version; beside it the two-K1 route on the same work (K1 on w_gu, the
+    activation, K1 on w_down) and the library yardstick
+    (torch._weight_int4pack_mm on each weight, the activation between)."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    h, inter = M1_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61 + m)
+    gu = random_gptq(torch, gen, 2, h, 2 * inter)
+    down = random_gptq(torch, gen, 2, inter, h)
+    x = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+    fn = lambda: mlp.int4_mlp_s4_stacked(x, gu, down, 1, activation)
+    ref = lambda: mlp.int4_mlp_reference(x, gu.layer(1), down.layer(1),
+                                         activation)
+    got, want = fn(), ref()
+    torch.cuda.synchronize()
+    err, tol = mlp_close(torch, got, want, f"int4_mlp {activation} M={m}")
+    if not torch.equal(got, fn()):
+        raise AssertionError("int4_mlp: two launches differ")
+
+    def two_k1():
+        g_u = im.int4_matmul_s4_stacked(x, gu, 1)
+        a = mlp.glu(g_u[:, :inter], g_u[:, inter:], activation)
+        return im.int4_matmul_s4_stacked(a, down, 1)
+
+    two_k1_err = (two_k1().float() - want.float()).abs().max().item()
+    ms = timer(fn)
+    plain_ms = timer(ref, iters=3, warmup=1)
+    two_k1_ms = timer(two_k1)
+    try:
+        pg, pd = int4pack(torch, gu.layer(1)), int4pack(torch, down.layer(1))
+
+        def library():
+            g_u = torch._weight_int4pack_mm(x, *pg)
+            a = mlp.glu(g_u[:, :inter], g_u[:, inter:], activation)
+            return torch._weight_int4pack_mm(a, *pd)
+
+        lib_name = "torch._weight_int4pack_mm twice, the activation between"
+        library()
+    except LIBRARY_ERRORS as e:
+        from text_generation_inference_tpu_torch.ops.quant import int4
+
+        dg = int4.dequantize(gu.layer(1), torch.bfloat16)
+        dd = int4.dequantize(down.layer(1), torch.bfloat16)
+
+        def library():
+            g_u = torch.matmul(x, dg)
+            return torch.matmul(mlp.glu(g_u[:, :inter], g_u[:, inter:],
+                                        activation), dd)
+
+        lib_name = (f"torch.matmul on the dequantized bf16 weights "
+                    f"({type(e).__name__}: {str(e)[:80]})")
+    lib_err = (library().float() - want.float()).abs().max().item()
+    library_ms = timer(library)
+    wl = (gu.layer(1), down.layer(1))
+    b_ms, b_by = bound(nbytes(x, got, *(t for w in wl for t in
+                                         (w.qweight, w.scales, w.zbias))),
+                       2.0 * m * h * 2 * inter + 2.0 * m * inter * h)
+    log(f"kernel int4_mlp_s4_stacked {activation} H={h} I={inter} M={m}: "
+        f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} ({lib_name}, max abs "
+        f"diff from plain {lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by})")
+    log(f"two-K1 route {activation} M={m} (K1 w_gu, the activation, K1 "
+        f"w_down): ms {two_k1_ms:.4f} against M1 {ms:.4f}; max abs diff from "
+        f"plain {two_k1_err:.3e}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms, two_k1_ms=two_k1_ms)
 
 
 def sum_results(results):
@@ -733,11 +847,13 @@ def slot_parity(torch, spec, params, steps: int = 4):
 
 
 def quant_parity(torch, spec, params, steps: int = 4):
-    """The quantized path with the kernels (K1, K2, flash prefill) and with
-    their plain versions (`ops.attention.PLAIN`): a GPTQ-INT4 model over an
-    int8 pool, one `prefill_paged`, then `steps` ring-decode steps
+    """The quantized path three ways: with the kernels (K1, K2, flash
+    prefill), with the kernels and the fused MLP (M1 in decode, as
+    INT4_FUSED_MLP=1 routes it), and with their plain versions
+    (`ops.attention.PLAIN`): a GPTQ-INT4 model over an int8 pool, one
+    `prefill_paged`, then `steps` ring-decode steps
     (`decode_paged_ring_step` over the pool's pre-chunk context plus the
-    in-chunk ring, weights routed as a decode dispatch routes them), both
+    in-chunk ring, weights routed as a decode dispatch routes them), all
     fed the same (plain) greedy tokens; one `paged_ring_flush` closes the
     chunk and the pools' int8 rows are compared."""
     from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
@@ -745,6 +861,7 @@ def quant_parity(torch, spec, params, steps: int = 4):
     from text_generation_inference_tpu_torch.models.fuse import fuse_params
     from text_generation_inference_tpu_torch.ops import linear
     from text_generation_inference_tpu_torch.ops.attention import KERNELS, PLAIN
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
 
     params = fuse_params(spec, params)
     page, t, n = 128, 1024, 2
@@ -754,9 +871,11 @@ def quant_parity(torch, spec, params, steps: int = 4):
     ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
                         device=DEVICE, dtype=torch.int32)
     max_pages = t // page + 1
-    runs = {"kernels": KERNELS, "plain": PLAIN}
+    # name: (attention and int4 ops, fused MLP in decode)
+    runs = {"kernels": (KERNELS, False), "fused": (KERNELS, True),
+            "plain": (PLAIN, False)}
     caches, logits, rings = {}, {}, {}
-    for name, attn in runs.items():
+    for name, (attn, _) in runs.items():
         c = PagedKVCache.create(spec, 2 * max_pages, page, n, max_pages,
                                 torch.int8, DEVICE)
         c.block_table.copy_(torch.arange(2 * max_pages, dtype=torch.int32,
@@ -767,15 +886,18 @@ def quant_parity(torch, spec, params, steps: int = 4):
         kbuf = torch.zeros((spec.num_layers, n, spec.num_kv_heads, steps,
                             spec.head_dim), dtype=DTYPE, device=DEVICE)
         rings[name] = (kbuf, torch.zeros_like(kbuf))
-    decode_params = linear.prepare_params(params, rows=n)
+    decode_params = {fuse: linear.prepare_params(params, rows=n, fuse_mlp=fuse)
+                     for fuse in (False, True)}
     chunk_start = lengths.clone()
     next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
+    m1_before = mlp.int4_mlp_s4_stacked.launches
     for i in range(steps):
-        for name, attn in runs.items():
+        for name, (attn, fuse) in runs.items():
             kbuf, vbuf = rings[name]
             lg, k_all, v_all = paged_core.decode_paged_ring_step(
-                spec, decode_params, next_ids, chunk_start + i, caches[name],
-                kbuf, vbuf, i, chunk_start, page_size=page, attn=attn)
+                spec, decode_params[fuse], next_ids, chunk_start + i,
+                caches[name], kbuf, vbuf, i, chunk_start, page_size=page,
+                attn=attn)
             kbuf[:, :, :, i] = k_all.to(DTYPE)
             vbuf[:, :, :, i] = v_all.to(DTYPE)
             logits[name].append(lg)
@@ -785,21 +907,28 @@ def quant_parity(torch, spec, params, steps: int = 4):
         paged_core.paged_ring_flush(caches[name], *rings[name], chunk_start,
                                     active, t + steps, page)
     sync(torch)
+    m1_launches = mlp.int4_mlp_s4_stacked.launches - m1_before
+    if DEVICE == "cuda" and m1_launches != steps * spec.num_layers:
+        raise AssertionError(f"quant parity: M1 launched {m1_launches} times, "
+                             f"not once a layer a step")
     tol = 0.25
-    max_err, agree, decided = compare_logits(
-        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
-        tol, "quant parity")
     # the pools: int8 entries more than one step apart (a last-ulp
     # difference of k may move a value to the next step, no more)
     k8 = {name: caches[name].k.to(torch.int16) for name in runs}
     written = caches["plain"].k_scale[..., None].expand_as(k8["plain"]) > 0
-    far = ((k8["kernels"] - k8["plain"]).abs() > 1)[written]
-    log(f"quant parity: GPTQ-INT4 + int8 KV, prefill (N={n}, bucket {t}, "
-        f"lengths 700/300) + {steps} ring-decode steps + flush, "
-        f"{spec.num_layers} layers at {spec.hidden_size} wide: logits max abs "
-        f"err {max_err:.4f} (tol {tol}), greedy tokens equal {agree}/"
-        f"{decided}; k pools: {int(far.sum())} of {far.numel()} written int8 "
-        f"entries more than 1 apart")
+    for name, what in (("kernels", "K1 for every product"),
+                       ("fused", "the MLP through M1")):
+        max_err, agree, decided = compare_logits(
+            torch, list(zip(logits[name], logits["plain"])), spec.vocab_size,
+            tol, f"quant parity ({name})")
+        far = ((k8[name] - k8["plain"]).abs() > 1)[written]
+        log(f"quant parity [{name}: {what}]: GPTQ-INT4 + int8 KV, prefill "
+            f"(N={n}, bucket {t}, lengths 700/300) + {steps} ring-decode "
+            f"steps + flush, {spec.num_layers} layers at {spec.hidden_size} "
+            f"wide, against the plain versions: logits max abs err "
+            f"{max_err:.4f} (tol {tol}), greedy tokens equal {agree}/"
+            f"{decided} ({agree / decided:.2f}); k pools: {int(far.sum())} of "
+            f"{far.numel()} written int8 entries more than 1 apart")
 
 
 # --- phase 4: serving -------------------------------------------------------
@@ -831,9 +960,33 @@ TRAFFIC_7B = (([100, 250, 420, 600, 900], 0),
               ([150, 500, 820], 2)), 32
 TRAFFIC_SLOT = (([100, 300, 600, 900, 1300, 1800], 0),      # unary
                 ([1200, 1500, 1700, 1000], 2)), 48          # 2 streaming
+# run 6: run 3's requests, four of them behind a soft prompt (one streams)
+PREFIXES_7B = (["pt-short", "pt-long", None, "pt-short", None],
+               ["pt-long", None, None])
+SOFT_PROMPTS = {"pt-short": 16, "pt-long": 128}      # vectors
 
 
-def make_requests(lens, streaming_every, seed_base, new):
+def write_prefix_store(root: str, hidden: int) -> None:
+    """Two seeded soft prompts at embedding scale: `pt-short` as a raw
+    `decoder.pt` tensor, `pt-long` as a PEFT `adapter_model.safetensors`
+    under `prompt_embeddings`."""
+    import torch
+    from safetensors.numpy import save_file
+
+    rng = np.random.default_rng(SEED + 71)
+    for name, n in SOFT_PROMPTS.items():
+        os.makedirs(os.path.join(root, name))
+        arr = (rng.normal(size=(n, hidden)) * 0.02).astype(np.float32)
+        if name == "pt-short":
+            torch.save(torch.from_numpy(arr), os.path.join(root, name,
+                                                           "decoder.pt"))
+        else:
+            save_file({"prompt_embeddings": arr},
+                      os.path.join(root, name, "adapter_model.safetensors"))
+
+
+def make_requests(lens, streaming_every, seed_base, new, prefixes=None,
+                  prompt_cache=None):
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
     from text_generation_inference_tpu_torch.scheduler.request import (
         GenRequest, ResponseOptions, StoppingCriteria)
@@ -841,6 +994,7 @@ def make_requests(lens, streaming_every, seed_base, new):
     rng = np.random.default_rng(SEED)
     reqs = []
     for i, n in enumerate(lens):
+        pid = prefixes[i] if prefixes else None
         sampled = i % 2 == 1
         rp = RequestParams(max_new_tokens=new,
                            temperature=0.8 if sampled else 0.0,
@@ -850,7 +1004,8 @@ def make_requests(lens, streaming_every, seed_base, new):
         reqs.append(GenRequest(
             input_text="", input_ids=ids, params=rp,
             stopping=StoppingCriteria(max_new_tokens=new),
-            options=ResponseOptions(),
+            options=ResponseOptions(), prefix_id=pid,
+            prefix_length=prompt_cache.prefix_length(pid) if pid else 0,
             streaming=bool(streaming_every) and i % streaming_every == 0))
     return reqs
 
@@ -899,7 +1054,10 @@ async def run_wave(batcher, reqs):
     return ttft
 
 
-async def grpc_roundtrip(batcher, config, tokenizer):
+async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
+    """Generate and GenerateStream through the port's gRPC server; with
+    `prefix_id`, also a Generate behind that soft prompt and one with an
+    unknown prefix id, which validation must refuse."""
     import grpc
 
     from text_generation_inference_tpu_torch.pb import generation_pb2 as pb
@@ -933,18 +1091,37 @@ async def grpc_roundtrip(batcher, config, tokenizer):
             if msgs[-1].generated_token_count != 16 or \
                     "".join(m.text for m in msgs[1:]) != r.text:
                 raise AssertionError("gRPC GenerateStream differs from Generate")
+            if prefix_id:
+                resp = await generate(pb.BatchedGenerationRequest(
+                    requests=[pb.GenerationRequest(text=text)], params=params,
+                    prefix_id=prefix_id))
+                if resp.responses[0].generated_token_count != 16:
+                    raise AssertionError(f"gRPC Generate with prefix_id: {resp}")
+                try:
+                    await generate(pb.BatchedGenerationRequest(
+                        requests=[pb.GenerationRequest(text=text)],
+                        params=params, prefix_id="no-such-prompt"))
+                except grpc.aio.AioRpcError as e:
+                    if e.code() != grpc.StatusCode.INVALID_ARGUMENT:
+                        raise
+                else:
+                    raise AssertionError("gRPC: an unknown prefix_id was served")
         log(f"grpc: Generate + GenerateStream on 127.0.0.1:{port}: 16 tokens "
-            "each, stream text == unary text")
+            "each, stream text == unary text"
+            + (f"; Generate with prefix_id {prefix_id!r} served, an unknown "
+               "prefix_id refused (INVALID_ARGUMENT)" if prefix_id else ""))
     finally:
         await server.stop(grace=1.0)
         servicer.async_tokenizer.shutdown()
 
 
-def make_engine(torch, spec, params, max_seq, overrides, slot=False):
+def make_engine(torch, spec, params, max_seq, overrides, slot=False,
+                fused=False):
     """A PagedInferenceEngine with 16 slots and 128-token pages (the pool
     is sized from the card's memory, so the engines of earlier phases are
     collected first), or with `slot` the slot engine (InferenceEngine, the
-    server's PAGED_ATTENTION=0) with 16 slots."""
+    server's PAGED_ATTENTION=0) with 16 slots. `fused` builds it under
+    INT4_FUSED_MLP=1, which the engine reads when it is built."""
     import gc
 
     from text_generation_inference_tpu_torch.config import ServingConfig
@@ -959,23 +1136,35 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False):
                            max_batch_slots=16, kv_page_size=128, **overrides)
     config.validate()
     cls = InferenceEngine if slot else PagedInferenceEngine
-    engine = cls(spec, params, config, eos_token_id=ByteTokenizer.eos_token_id,
-                 device=DEVICE)
+    before = os.environ.get("INT4_FUSED_MLP")
+    os.environ["INT4_FUSED_MLP"] = "1" if fused else "0"
+    try:
+        engine = cls(spec, params, config,
+                     eos_token_id=ByteTokenizer.eos_token_id, device=DEVICE)
+    finally:
+        if before is None:
+            del os.environ["INT4_FUSED_MLP"]
+        else:
+            os.environ["INT4_FUSED_MLP"] = before
+    if engine.fuse_mlp != fused:
+        raise AssertionError("the engine did not take INT4_FUSED_MLP")
     return engine, config
 
 
 def profile_decode(torch, spec, params, label, overrides=None,
-                   max_seq=2048, live=8, calls=16, slot=False):
+                   max_seq=2048, live=8, calls=16, slot=False, fused=False,
+                   focus=None):
     """Where a decode step's time goes: `live` requests (512-token prompts),
     `calls` decode dispatches (of decode_chunk steps each) under
     torch.profiler. Prints the step's wall time, the card's busy time and
-    share, and the kernels that take the most device time."""
+    share, the kernels that take the most device time, and the share of
+    the kernels whose name holds `focus`."""
     from torch.profiler import ProfilerActivity, profile
 
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
 
     engine, _ = make_engine(torch, spec, params, max_seq, overrides or {},
-                            slot=slot)
+                            slot=slot, fused=fused)
     steps = calls * engine.decode_chunk
     rng = np.random.default_rng(SEED + 11)
     slots = [engine.acquire_slot() for _ in range(live)]
@@ -1022,33 +1211,63 @@ def profile_decode(torch, spec, params, label, overrides=None,
     for ms, count, key in kernels[:10]:
         log(f"profile[{label}]:   {ms / steps:8.4f} ms/step  "
             f"{count / steps:7.2f} launches/step  {key[:90]}")
-    return dict(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps)
+    out = dict(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps,
+               launches=launches / steps)
+    if focus:
+        f_ms = sum(k[0] for k in kernels if focus in k[2])
+        f_n = sum(k[1] for k in kernels if focus in k[2])
+        log(f"profile[{label}]: {focus}: {f_ms / steps:.4f} ms/step "
+            f"({100 * f_ms / busy_ms:.1f}% of the busy time), "
+            f"{f_n / steps:.2f} launches/step")
+        out.update(focus_ms=f_ms / steps, focus_launches=f_n / steps)
+    return out
 
 
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
-              traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False):
+              traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False,
+              fused=False, prefixes=None):
+    """One serving run through the Batcher (+ gRPC). With `prefixes` (a
+    prefix id or None per request, wave by wave), the config's
+    prefix_store_path is served as the server serves it, and an unknown
+    prefix id must fail validation."""
     from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
+    from text_generation_inference_tpu_torch.server.main import (
+        build_prompt_cache)
+    from text_generation_inference_tpu_torch.server.validation import (
+        Validation, ValidationError)
 
     engine, config = make_engine(torch, spec, params, max_seq, overrides,
-                                 slot=slot)
+                                 slot=slot, fused=fused)
     engine.warmup(batch_sizes=(1,))
     tokenizer = ByteTokenizer()
     waves, new = traffic
+    prompt_cache = build_prompt_cache(config, spec.hidden_size)
+    if prefixes:
+        try:
+            Validation(tokenizer, config, prompt_cache).prefix_length(
+                "no-such-prompt")
+        except ValidationError:
+            pass
+        else:
+            raise AssertionError("an unknown prefix id passed validation")
 
     async def drive():
-        batcher = Batcher(engine, tokenizer, config)
+        batcher = Batcher(engine, tokenizer, config, prompt_cache=prompt_cache)
         batcher.start()
         try:
             t0 = time.monotonic()
             reqs, ttft = [], []
             for i, (lens, streaming_every) in enumerate(waves):
-                wave = make_requests(lens, streaming_every, 100 * (i + 1), new)
+                wave = make_requests(lens, streaming_every, 100 * (i + 1), new,
+                                     prefixes[i] if prefixes else None,
+                                     prompt_cache)
                 ttft += await run_wave(batcher, wave)
                 reqs += wave
             sync(torch)
             wall = time.monotonic() - t0
             if with_grpc:
-                await grpc_roundtrip(batcher, config, tokenizer)
+                await grpc_roundtrip(batcher, config, tokenizer,
+                                     "pt-short" if prefixes else None)
             return reqs, wall, ttft
         finally:
             await batcher.stop()
@@ -1058,9 +1277,11 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     reqs, wall, ttft = asyncio.run(drive())
     counts = {k: c.read() for k, c in counters.items()}
     tokens = sum(r.generated_count for r in reqs)
-    log(f"serve[{name}] {type(engine).__name__} {overrides}, "
+    n_pre = sum(1 for r in reqs if r.prefix_id)
+    log(f"serve[{name}] {type(engine).__name__} {overrides}"
+        f"{', INT4_FUSED_MLP=1' if fused else ''}, "
         f"{spec.num_layers} layers at {spec.hidden_size} wide: {len(reqs)} "
-        f"requests, prompts "
+        f"requests ({n_pre} behind a soft prompt), prompts "
         f"{min(r.input_length for r in reqs)}..{max(r.input_length for r in reqs)}"
         f" tokens, {tokens} tokens generated in {wall:.2f}s wall "
         f"({tokens / wall:.1f} tok/s), streaming TTFT mean "
@@ -1094,6 +1315,7 @@ def main() -> int:
         from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
         from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
         from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
+        from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
         from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
         from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
         from text_generation_inference_tpu_torch.tools import probe_decode
@@ -1139,6 +1361,10 @@ def main() -> int:
     s1 = check_slot_decode(torch, timer, s=16, kh=4, g=8, d=64)
     s1_7b = check_slot_decode(torch, timer, s=16, kh=32, g=1, d=128)
     s2 = {step: check_ring_decode(torch, timer, step) for step in (0, 32, 63)}
+    # M1 at a 7B layer's MLP: decode rows of run 6 (16 slots) and the
+    # kernel's largest row tile, both activations
+    m1 = {(m, act): check_int4_mlp(torch, timer, m, act)
+          for m in (16, 64) for act in ("silu_glu", "gelu_glu")}
 
     spec = llama_spec()
     params = random_params(torch, spec)
@@ -1155,6 +1381,17 @@ def main() -> int:
 
     counted_gather.calls = 0
     paged_core.gather_dense_view = counted_gather
+    # paged decode steps (per-step and ring), to read launches per decode
+    # layer-step of the GPTQ runs
+    def counting(fn):
+        def step(*args, **kw):
+            counting.calls += 1
+            return fn(*args, **kw)
+        return step
+
+    counting.calls = 0
+    for fn_name in ("decode_paged", "decode_paged_ring_step"):
+        setattr(paged_core, fn_name, counting(getattr(paged_core, fn_name)))
     counters = {"flash_prefill": Counter(fp.flash_prefill),
                 "paged_decode_attention": Counter(pa.paged_decode_attention),
                 "paged_decode_attention_stats":
@@ -1164,9 +1401,11 @@ def main() -> int:
                 "int4_matmul_s4_stacked": Counter(im.int4_matmul_s4_stacked),
                 "int4_matmul_s4": Counter(im.int4_matmul_s4),
                 "int4_matmul": Counter(im.int4_matmul),
+                "int4_mlp_s4_stacked": Counter(mlp.int4_mlp_s4_stacked),
                 "decode_attention": Counter(da.decode_attention),
                 "ring_decode_attention": Counter(rda.ring_decode_attention),
-                "dense_gather_chunks": Counter(counted_gather, "calls")}
+                "dense_gather_chunks": Counter(counted_gather, "calls"),
+                "paged_decode_steps": Counter(counting, "calls")}
     paged_kernels = ("paged_decode_attention", "paged_decode_attention_stats",
                      "paged_decode_attention_partial_i8")
     try:
@@ -1239,12 +1478,44 @@ def main() -> int:
                 "paged_decode_attention_partial_i8"):
         if run3[key] <= 0:
             raise AssertionError(f"{key} never ran in serving run 3: {run3}")
-    if run3["paged_decode_attention"] or run3["dense_gather_chunks"]:
+    if run3["paged_decode_attention"] or run3["dense_gather_chunks"] \
+            or run3["int4_mlp_s4_stacked"]:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
-    profile_decode(torch, spec7b, params7b, "7b gptq int8kv", quantized,
-                   max_seq=1024, live=16, calls=4)
+    prof3 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv",
+                           quantized, max_seq=1024, live=16, calls=4,
+                           focus="int4_matmul_kernel")
 
-    runs = (run1, run2, run3, run4, run5, probe_counts)
+    # run 6: run 3's config under INT4_FUSED_MLP=1 with a soft-prompt store;
+    # M1 takes the MLP of every decode layer, K1 keeps w_qkv and wo
+    with tempfile.TemporaryDirectory() as store:
+        write_prefix_store(store, spec7b.hidden_size)
+        run6 = serve_run(torch, spec7b, params7b, "7b-gptq-fused-prefix",
+                         dict(quantized, prefix_store_path=store), counters,
+                         with_grpc=with_grpc, traffic=TRAFFIC_7B,
+                         max_seq=1024, fused=True, prefixes=PREFIXES_7B)
+    for key in ("flash_prefill", "int4_matmul", "int4_mlp_s4_stacked",
+                "paged_decode_attention_partial_i8"):
+        if run6[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 6: {run6}")
+    layer_steps = {name: run["paged_decode_steps"] * spec7b.num_layers
+                   for name, run in (("run 3", run3), ("run 6", run6))}
+    k1_rate = {name: run["int4_matmul_s4_stacked"] / layer_steps[name]
+               for name, run in (("run 3", run3), ("run 6", run6))}
+    m1_rate = run6["int4_mlp_s4_stacked"] / layer_steps["run 6"]
+    if k1_rate != {"run 3": 4.0, "run 6": 2.0} or m1_rate != 1.0:
+        raise AssertionError(f"decode launches per layer-step: K1 {k1_rate}, "
+                             f"M1 {m1_rate} (want K1 4 -> 2, M1 1)")
+    log(f"decode launches per layer-step: K1 {k1_rate['run 3']:.0f} in run 3 "
+        f"-> {k1_rate['run 6']:.0f} in run 6 (w_qkv, wo), M1 {m1_rate:.0f} "
+        f"(w_gu + the GLU + w_down)")
+    prof6 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv fused",
+                           quantized, max_seq=1024, live=16, calls=4,
+                           fused=True, focus="int4_mlp_kernel")
+    if prof3 and prof6:
+        log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
+            f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
+
+    runs = (run1, run2, run3, run4, run5, run6, probe_counts)
 
     def record(name, source, replaces, res):
         return {"name": name, "route": "cuda",
@@ -1274,7 +1545,11 @@ def main() -> int:
                "decode_attention.py:142", s1),
         record("ring_decode_attention", "slot_attention.cu",
                "ring_decode_attention.py:239", s2[32]),
+        record("int4_mlp_s4_stacked", "int4_mlp.cu", "int4_matmul.py:366",
+               m1[(16, "silu_glu")]),
     ]
+    for (m, act), res in m1.items():
+        log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
     log(f"flash_prefill at D=128 (H=32, KV=8): {json.dumps(fp128)}")
     log(f"flash_prefill at D=128 (H=32, KV=32, G=1): {json.dumps(fp128_g1)}")
     log(f"decode_attention at D=128 (KV=32, G=1): {json.dumps(s1_7b)}")
@@ -1285,7 +1560,8 @@ def main() -> int:
         "ring_decode_attention in the probe")
     log("int4_matmul_s4_stacked and int4_matmul records: the sums over a 7B "
         "layer's four products (w_qkv, wo, w_gu, w_down) at M=16 and M=2048; "
-        "int4_matmul_s4: wo at M=16 with act-order")
+        "int4_matmul_s4: wo at M=16 with act-order; int4_mlp_s4_stacked: a "
+        "7B layer's MLP at M=16, silu, launches from run 6")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

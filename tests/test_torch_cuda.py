@@ -9,7 +9,9 @@ not installed:
 Tolerances: bf16 outputs within atol 2e-2 + rtol 2e-2 (a bf16 ulp is
 7.8e-3 at 1-2; both versions round the output once, and the flash kernel
 also rounds P to bf16 for its tensor-core value product); fp32 stats
-within 2e-3 relative (the same fp32 sums in another order).
+within 2e-3 relative (the same fp32 sums in another order); the fused
+MLP, two chained products over bf16-rounded weights, within 3e-2 of its
+largest output plus 2e-2 relative.
 """
 
 import math
@@ -338,3 +340,97 @@ def test_slot_decode_dispatch(cuda_device):
         torch.cuda.synchronize()
         assert da.decode_attention.launches == before + launched
         close(got, da.decode_attention_reference(q, k, v, ctx), 2e-2)
+
+
+def int4_stack(rng, layers, in_f, out_f, device, gs=128):
+    """A layer-stacked GPTQ weight [L, in, out] of independent layers."""
+    per = [int4_weight(rng, in_f, out_f, device, gs=gs) for _ in range(layers)]
+    return int4.Int4Weight(*(None if per[0][f] is None
+                             else torch.stack([p[f] for p in per])
+                             for f in range(len(int4.Int4Weight._fields))))
+
+
+def mlp_case(rng, device, gs_gu=128, gs_down=128, layers=3, h=256, inter=384):
+    """A fused w_gu [L, H, 2I] (gate columns, then up) and w_down [L, I, H]."""
+    return (int4_stack(rng, layers, h, 2 * inter, device, gs=gs_gu),
+            int4_stack(rng, layers, inter, h, device, gs=gs_down))
+
+
+def close_mlp(got, want):
+    """M1 rounds every dequantized weight and the GLU output `a` to bf16
+    for the tensor cores (the plain version keeps the weights in f32), so
+    its error grows with the terms summed, not with each output: within
+    3e-2 of the largest output plus 2e-2 relative."""
+    scale = max(1.0, float(want.float().abs().max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=2e-2,
+                               atol=3e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 5, 16, 64])
+@pytest.mark.parametrize("activation", ["silu_glu", "gelu_glu"])
+@pytest.mark.parametrize("gs_down", [128, 64], ids=["gs128", "gs_down64"])
+def test_int4_mlp_kernel(cuda_device, s, activation, gs_down):
+    """M1 on the first and the last layer of a 3-layer stack against its
+    plain version; two launches are bit-identical."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(500 + s + gs_down)
+    w_gu, w_down = mlp_case(rng, cuda_device, gs_down=gs_down)
+    x = bf16(rng, s, 256, device=cuda_device)
+    for layer in (0, 2):
+        before = mlp.int4_mlp_s4_stacked.launches
+        got = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, layer, activation)
+        again = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, layer, activation)
+        torch.cuda.synchronize()
+        assert mlp.int4_mlp_s4_stacked.launches == before + 2
+        want = mlp.int4_mlp_reference(x, w_gu.layer(layer),
+                                      w_down.layer(layer), activation)
+        assert got.shape == (s, 256) and got.dtype == torch.bfloat16
+        assert torch.isfinite(got).all()
+        close_mlp(got, want)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_int4_mlp_rows_are_independent(cuda_device):
+    """A row's output does not change when the other rows of the batch, or
+    their number, change (fixed summation order, no atomics)."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(510)
+    w_gu, w_down = mlp_case(rng, cuda_device)
+    x = bf16(rng, 40, 256, device=cuda_device)
+    y = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 1)
+    x2 = x.clone()
+    x2[3:] = bf16(rng, 37, 256, device=cuda_device)
+    y2 = mlp.int4_mlp_s4_stacked(x2, w_gu, w_down, 1)
+    y3 = mlp.int4_mlp_s4_stacked(x[:3].contiguous(), w_gu, w_down, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(y[:3], y2[:3])
+    assert torch.equal(y[:3], y3)
+
+
+@pytest.mark.cuda
+def test_int4_mlp_rejects_bad_inputs(cuda_device):
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(520)
+    w_gu, w_down = mlp_case(rng, cuda_device)
+    x = bf16(rng, 4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="rows"):
+        mlp.int4_mlp_s4_stacked(bf16(rng, 65, 256, device=cuda_device), w_gu,
+                                w_down, 0)
+    perm = torch.arange(384, dtype=torch.int32, device=cuda_device).repeat(3, 1)
+    with pytest.raises(ValueError, match="perm"):
+        mlp.int4_mlp_s4_stacked(x, w_gu, w_down._replace(perm=perm), 0)
+    with pytest.raises(ValueError, match="aligned"):
+        buf = torch.zeros(4 * 256 + 1, dtype=torch.bfloat16, device=cuda_device)
+        mlp.int4_mlp_s4_stacked(buf[1:].view(4, 256), w_gu, w_down, 0)
+    with pytest.raises(ValueError, match="layer"):
+        mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 3)
+    with pytest.raises(ValueError, match="fuse"):
+        mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 0, "gelu_tanh_glu")
+    with pytest.raises(ValueError):
+        mlp.int4_mlp_s4_stacked(x.float(), w_gu, w_down, 0)

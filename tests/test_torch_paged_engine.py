@@ -236,12 +236,17 @@ def test_allocator():
 
 
 def test_options_not_ported_raise(llama):
-    # every decode write mode is ported; prompt-prefix injection is not
+    # every decode write mode is ported, and so is prompt-prefix injection:
+    # a soft prompt is served, its pages reserved with the prompt's
     eng = engine(llama, decode_write_mode="post", decode_chunk=4)
     assert eng._page_bucket_grid() == [8]       # live pages: ring only
-    with pytest.raises(NotImplementedError):
-        eng.prefill([eng.acquire_slot()], [PROMPTS[0]], [RequestParams()],
-                    prefix_embeds=[np.zeros((2, 64), np.float32)])
+    slot = eng.acquire_slot()
+    res = eng.prefill([slot], [PROMPTS[0]], [RequestParams(max_new_tokens=8)],
+                      prefix_embeds=[np.zeros((2, 64), np.float32)])
+    assert res.first_token.next_ids.shape == (1,)
+    assert eng._slot_ctx[slot] == 2 + len(PROMPTS[0]) + 1
+    assert eng.allocator.num_free == 64 - 2     # ceil((2 + 5 + 8 + 1) / 8)
+    assert int(eng.state.hist_start[slot]) == 2
     # int8 KV is ported, on the ring-chunk path only (as in the JAX engine)
     with pytest.raises(ValueError, match="ring"):
         engine(llama, kv_cache_dtype="int8", decode_write_mode="post",

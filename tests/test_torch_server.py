@@ -63,12 +63,14 @@ def llama_cases() -> list:
 
 class PortServer:
     """The port's serving stack on an event loop in a background thread,
-    on the paged (`kind="paged"`) or the slot engine (`kind="slot"`)."""
+    on the paged (`kind="paged"`) or the slot engine (`kind="slot"`), with
+    an optional prompt-prefix store."""
 
     ENGINES = {"paged": PagedInferenceEngine, "slot": InferenceEngine}
 
-    def __init__(self, kind: str):
+    def __init__(self, kind: str, prompt_cache=None):
         self.kind = kind
+        self.prompt_cache = prompt_cache
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
                                        daemon=True)
@@ -89,7 +91,8 @@ class PortServer:
         engine = self.ENGINES[self.kind](spec, params, self.config,
                                          eos_token_id=tokenizer.eos_token_id,
                                          device="cpu")
-        self.batcher = Batcher(engine, tokenizer, self.config)
+        self.batcher = Batcher(engine, tokenizer, self.config,
+                               prompt_cache=self.prompt_cache)
         self.batcher.start()
         servicer = GenerationServicer(self.config, tokenizer, self.batcher,
                                       model_kind="decoder")

@@ -338,10 +338,15 @@ def test_guards(llama):
                       (dict(decode_write_mode="bogus"), "write_mode")):
         with pytest.raises(ValueError, match=match):
             engine(llama, **kw)
+    # a soft prompt is served: its positions precede the prompt's, and the
+    # repetition penalty starts after it
     eng = engine(llama)
-    with pytest.raises(NotImplementedError):
-        eng.prefill([eng.acquire_slot()], [PROMPTS[0]], [RequestParams()],
-                    prefix_embeds=[np.zeros((2, 64), np.float32)])
+    slot = eng.acquire_slot()
+    res = eng.prefill([slot], [PROMPTS[0]], [RequestParams()],
+                      prefix_embeds=[np.zeros((2, 64), np.float32)])
+    assert res.first_token.next_ids.shape == (1,)
+    assert int(eng.state.input_len[slot]) == 2 + len(PROMPTS[0])
+    assert int(eng.state.hist_start[slot]) == 2
     with pytest.raises(ValueError, match="int8"):
         core.decode(eng.spec, eng.model_params, torch.zeros(3, dtype=torch.int32),
                     torch.zeros(3, dtype=torch.int32),

@@ -19,16 +19,22 @@ Differences from the JAX engine, all of them mechanical: PyTorch runs
 eagerly, so there is no jit, no AOT `precompile_decode`, and `warmup` runs
 each prefill and decode shape once (which also builds the CUDA kernels);
 the cache and the state are updated in place on the device (the JAX engine
-donated them to each step); meshes and soft-prompt prefixes are later
-slices. Every call selects the engine's CUDA device first and runs on its
-current stream, so device work stays in call order whichever thread of the
-batcher calls.
+donated them to each step); meshes are a later slice. Every call selects
+the engine's CUDA device first and runs on its current stream, so device
+work stays in call order whichever thread of the batcher calls.
+
+Both engines take soft prompts (prompt tuning: `prefix_embeds` of
+`prefill`, a `utils.prompt_cache.PrefixEntry` or a [P, D] array per
+request), and both read `INT4_FUSED_MLP` once, when they are built: with
+it, the decode steps run a GPTQ-INT4 model's MLP as one kernel
+(`ops.linear.prepare_params`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 from typing import NamedTuple, Optional
@@ -116,6 +122,11 @@ class PrefillResult(NamedTuple):
     prompt_details: Optional[list[dict]]       # per seq, when requested
 
 
+def fused_mlp_option() -> bool:
+    """The JAX package's INT4_FUSED_MLP switch (default off)."""
+    return os.getenv("INT4_FUSED_MLP", "0").lower() not in ("0", "false")
+
+
 # ---------------------------------------------------------------------------
 # step functions (shared by both engines' steps)
 # ---------------------------------------------------------------------------
@@ -186,10 +197,12 @@ def _finish_prefill(eos_id: int, want_prompt_details: bool,
 
 def _decode_step(spec: DecoderSpec, eos_id: int, params: dict,
                  cache: KVCache, state: EngineState, write_mode: str = "post",
-                 want_details: bool = True) -> torch.Tensor:
+                 want_details: bool = True,
+                 fuse_mlp: bool = False) -> torch.Tensor:
     """One decode step for every slot (cache and state in place); returns
     the packed step outputs [S, W]."""
-    params = linops.prepare_params(params, rows=state.history.shape[0])
+    params = linops.prepare_params(params, rows=state.history.shape[0],
+                                   fuse_mlp=fuse_mlp)
     ids, pos = _last_ids(state)
     logits, _ = core.decode(spec, params, ids, pos, cache, pos + 1,
                             write_mode=write_mode)
@@ -198,12 +211,13 @@ def _decode_step(spec: DecoderSpec, eos_id: int, params: dict,
 
 def _decode_multi(spec: DecoderSpec, eos_id: int, num_steps: int,
                   params: dict, cache: KVCache, state: EngineState,
-                  write_mode: str = "post",
-                  want_details: bool = True) -> torch.Tensor:
+                  write_mode: str = "post", want_details: bool = True,
+                  fuse_mlp: bool = False) -> torch.Tensor:
     """`num_steps` decode steps back to back; packed outputs stacked
     [num_steps, S, W]. Slots whose request stops mid-chunk compute
     (discarded) extra tokens, as in the JAX package."""
-    params = linops.prepare_params(params, rows=state.history.shape[0])
+    params = linops.prepare_params(params, rows=state.history.shape[0],
+                                   fuse_mlp=fuse_mlp)
     return torch.stack([
         _decode_step(spec, eos_id, params, cache, state, write_mode,
                      want_details) for _ in range(num_steps)])
@@ -212,7 +226,8 @@ def _decode_multi(spec: DecoderSpec, eos_id: int, num_steps: int,
 def _decode_ring_multi(spec: DecoderSpec, eos_id: int, num_steps: int,
                        params: dict, cache: KVCache, state: EngineState,
                        want_details: bool = True,
-                       cache_rows: Optional[int] = None) -> torch.Tensor:
+                       cache_rows: Optional[int] = None,
+                       fuse_mlp: bool = False) -> torch.Tensor:
     """`num_steps` decode steps with a per-chunk KV ring buffer and ONE
     cache write at chunk end (`core.decode_ring_step`, `core.ring_flush`).
 
@@ -222,7 +237,7 @@ def _decode_ring_multi(spec: DecoderSpec, eos_id: int, num_steps: int,
     strides, no copy, where the JAX engine sliced a copy per chunk. The
     flush still targets the full cache. Returns [num_steps, S, W]."""
     s, t_max = state.history.shape
-    params = linops.prepare_params(params, rows=s)
+    params = linops.prepare_params(params, rows=s, fuse_mlp=fuse_mlp)
     chunk_start = torch.clamp(state.history_len - 1, 0, t_max - 1)
     read_cache = cache
     if cache_rows is not None and cache_rows < t_max:
@@ -250,10 +265,14 @@ def _decode_ring_multi(spec: DecoderSpec, eos_id: int, num_steps: int,
 def _prefill_step(spec: DecoderSpec, eos_id: int, want_prompt_details: bool,
                   params: dict, cache: KVCache, state: EngineState,
                   ids: torch.Tensor, lengths: torch.Tensor,
-                  slots: torch.Tensor, prefix_len: torch.Tensor):
-    """Prefill a bucket of prompts into their slots (cache and state in
-    place). Returns (packed first-token outputs, prompt details or None)."""
-    logits_all, _ = core.prefill(spec, params, ids, lengths, slots, cache)
+                  slots: torch.Tensor, prefix_len: torch.Tensor,
+                  prefix_embeds: Optional[torch.Tensor] = None):
+    """Prefill a bucket of prompts (after their soft prompts, if any) into
+    their slots (cache and state in place). Returns (packed first-token
+    outputs, prompt details or None)."""
+    logits_all, _ = core.prefill(spec, params, ids, lengths, slots, cache,
+                                 prefix_embeds=prefix_embeds,
+                                 prefix_len=prefix_len)
     return _finish_prefill(eos_id, want_prompt_details, state, logits_all,
                            ids, lengths, slots, prefix_len)
 
@@ -370,18 +389,38 @@ class SlotBatchEngine:
             chunks.add(sc)
         return tuple(sorted(chunks))
 
-    def _run_prefill(self, step, slots, token_ids,
-                     want_prompt_details: bool) -> PrefillResult:
-        """The host side of a prefill: pad the prompts to a bucket, run
-        `step(ids, lengths, slots, prefix_len)` on the device (→ packed
-        outputs, prompt details), fetch its outputs."""
+    @staticmethod
+    def _prefixes(prefix_embeds, n: int):
+        """Each request's soft prompt ([P, D] array or None; a `PrefixEntry`
+        gives its decoder tensor) and its length P (0 without one)."""
+        pe_list = [getattr(pe, "decoder", pe)
+                   for pe in (prefix_embeds or [None] * n)]
+        return pe_list, [0 if pe is None else int(pe.shape[0])
+                         for pe in pe_list]
+
+    def _run_prefill(self, step, slots, token_ids, want_prompt_details: bool,
+                     prefix_embeds=None) -> PrefillResult:
+        """The host side of a prefill (JAX `InferenceEngine.prefill`): place
+        each prompt after its soft prompt, pad to the bucket of the total
+        length, run `step(ids, lengths, slots, prefix_len, embeds)` on the
+        device (→ packed outputs, prompt details), fetch its outputs.
+        `embeds` is the [N, T, D] f32 soft-prompt input, or None when no
+        request has one; prompt details cover the prompt tokens only."""
         n = len(slots)
-        total_lens = [len(t) for t in token_ids]
+        pe_list, prefix_lens = self._prefixes(prefix_embeds, n)
+        total_lens = [p + len(t) for p, t in zip(prefix_lens, token_ids)]
         bucket = self.config.bucket_for(max(total_lens))
         ids = np.zeros((n, bucket), np.int32)
         lengths = np.asarray(total_lens, np.int32)
         for i, toks in enumerate(token_ids):
-            ids[i, : len(toks)] = toks
+            ids[i, prefix_lens[i]: prefix_lens[i] + len(toks)] = toks
+        embeds = None
+        if any(prefix_lens):
+            host = np.zeros((n, bucket, self.spec.hidden_size), np.float32)
+            for i, pe in enumerate(pe_list):
+                if pe is not None:
+                    host[i, : pe.shape[0]] = pe
+            embeds = torch.from_numpy(host).to(self.device)
 
         def dev(a):
             return torch.as_tensor(a, dtype=torch.int32, device=self.device)
@@ -389,7 +428,7 @@ class SlotBatchEngine:
         t0 = time.monotonic_ns()
         try:
             packed, pdet = step(dev(ids), dev(lengths), dev(slots),
-                                dev(np.zeros(n, np.int32)))
+                                dev(np.asarray(prefix_lens, np.int32)), embeds)
             packed = packed.cpu().numpy()
             if pdet is not None:
                 pdet = sampling.PromptDetails(*(t.cpu().numpy() for t in pdet))
@@ -403,19 +442,19 @@ class SlotBatchEngine:
         if want_prompt_details:
             prompt_details = []
             for i in range(n):
-                e0 = total_lens[i]
-                lp = pdet.logprob[i, :e0].copy()
-                rk = pdet.rank[i, :e0].copy()
-                # the first prompt token never reports a prediction
-                # (reference: tokens.py:441-449)
+                s0, e0 = prefix_lens[i], total_lens[i]
+                lp = pdet.logprob[i, s0:e0].copy()
+                rk = pdet.rank[i, s0:e0].copy()
+                # the first prompt token never reports a prediction, even
+                # behind a soft prompt (reference: tokens.py:441-449)
                 lp[0] = np.nan
                 rk[0] = 0
                 prompt_details.append({
                     "logprob": lp,
                     "rank": rk,
-                    "top_ids": pdet.top_ids[i, :e0],
-                    "top_logprobs": pdet.top_logprobs[i, :e0],
-                    "top_scores": pdet.top_scores[i, :e0],
+                    "top_ids": pdet.top_ids[i, s0:e0],
+                    "top_logprobs": pdet.top_logprobs[i, s0:e0],
+                    "top_scores": pdet.top_scores[i, s0:e0],
                 })
         return PrefillResult(first_token=first, prompt_details=prompt_details)
 
@@ -487,6 +526,7 @@ class InferenceEngine(SlotBatchEngine):
         self.memory_plan = plan_memory(spec, config, self.model_params,
                                        self._cache_dtype,
                                        budget_bytes(self.device))
+        self.fuse_mlp = fused_mlp_option()
         self.num_slots = config.max_batch_slots   # possibly shrunk by the plan
         self.max_seq = config.max_sequence_length
         self.decode_chunk = max(1, config.decode_chunk)
@@ -519,24 +559,23 @@ class InferenceEngine(SlotBatchEngine):
                 want_prompt_details: bool = False,
                 prefix_embeds=None) -> PrefillResult:
         """Prefill one or more prompts into their slots; returns the first
-        tokens (and per-prompt-token details when asked)."""
-        if prefix_embeds is not None and any(p is not None
-                                             for p in prefix_embeds):
-            raise NotImplementedError("prompt-prefix injection is not ported "
-                                      "yet")
+        tokens (and per-prompt-token details when asked). `prefix_embeds[i]`,
+        when given, is request i's soft prompt ([P_i, hidden] floats or a
+        `PrefixEntry`), placed before its tokens."""
         assert len(slots) == len(token_ids) == len(request_params)
         self._use_device()
         self._apply_pending_frees()
         for slot, rp in zip(slots, request_params):
             self.set_request_params(slot, rp)
 
-        def step(ids, lengths, slot_ids, prefix_len):
+        def step(ids, lengths, slot_ids, prefix_len, embeds):
             return _prefill_step(self.spec, self.eos_token_id,
                                  want_prompt_details, self.model_params,
                                  self.cache, self.state, ids, lengths,
-                                 slot_ids, prefix_len)
+                                 slot_ids, prefix_len, embeds)
 
-        return self._run_prefill(step, slots, token_ids, want_prompt_details)
+        return self._run_prefill(step, slots, token_ids, want_prompt_details,
+                                 prefix_embeds)
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
         """Run every prefill (batch, bucket) shape and every decode variant
@@ -605,12 +644,15 @@ class InferenceEngine(SlotBatchEngine):
             return _decode_step(self.spec, self.eos_token_id,
                                 self.model_params, self.cache, self.state,
                                 write_mode="post" if mode == "ring" else mode,
-                                want_details=want_details)
+                                want_details=want_details,
+                                fuse_mlp=self.fuse_mlp)
         if mode == "ring":
             return _decode_ring_multi(self.spec, self.eos_token_id, chunk,
                                       self.model_params, self.cache,
                                       self.state, want_details=want_details,
-                                      cache_rows=self._pick_cache_rows())
+                                      cache_rows=self._pick_cache_rows(),
+                                      fuse_mlp=self.fuse_mlp)
         return _decode_multi(self.spec, self.eos_token_id, chunk,
                              self.model_params, self.cache, self.state,
-                             write_mode=mode, want_details=want_details)
+                             write_mode=mode, want_details=want_details,
+                             fuse_mlp=self.fuse_mlp)

@@ -14,7 +14,8 @@ Differences from the JAX engine, all of them mechanical:
   * `decode_write_mode` "post" and "scan" both run chunks as a loop of
     single paged steps (each writes the pool), as the JAX engine's
     `_paged_decode_multi` does; "ring" chunks use the ring buffer.
-  * Meshes and soft-prompt prefixes are later slices.
+  * Meshes are a later slice. Soft prompts are placed before their
+    prompts, and pages are reserved for prefix + prompt + max_new + 1.
   * The host bookkeeping is `engine.SlotBatchEngine`'s, shared with the
     slot engine: every call selects the engine's CUDA device first and runs
     on that device's current stream, so device work stays in call order
@@ -38,7 +39,7 @@ from ..models.core import DecoderSpec, check_supported
 from ..ops import linear as linops
 from .engine import (EngineState, PrefillResult, RequestParams,
                      SlotBatchEngine, _finish_prefill, _last_ids,
-                     _sample_step, check_decode_config)
+                     _sample_step, check_decode_config, fused_mlp_option)
 from .memory import activation_bytes, budget_bytes, kv_row_bytes, tree_bytes
 from .paged_cache import PageAllocator, PagedKVCache
 
@@ -47,10 +48,11 @@ logger = logging.getLogger(__name__)
 
 def _paged_decode_step(spec: DecoderSpec, eos_id: int, page_size: int,
                        params: dict, cache: PagedKVCache, state: EngineState,
-                       want_details: bool = True):
+                       want_details: bool = True, fuse_mlp: bool = False):
     """One decode step for every slot (decode_chunk == 1): writes the pool
     and the state in place; returns the packed step outputs."""
-    params = linops.prepare_params(params, rows=state.history.shape[0])
+    params = linops.prepare_params(params, rows=state.history.shape[0],
+                                   fuse_mlp=fuse_mlp)
     ids, pos = _last_ids(state)
     logits, cache = paged_core.decode_paged(
         spec, params, ids, pos, cache, pos + 1, page_size,
@@ -60,11 +62,12 @@ def _paged_decode_step(spec: DecoderSpec, eos_id: int, page_size: int,
 
 def _paged_decode_multi(spec: DecoderSpec, eos_id: int, page_size: int,
                         num_steps: int, params: dict, cache: PagedKVCache,
-                        state: EngineState,
-                        want_details: bool = True) -> torch.Tensor:
+                        state: EngineState, want_details: bool = True,
+                        fuse_mlp: bool = False) -> torch.Tensor:
     """`num_steps` single paged steps back to back (write modes "post" and
     "scan"); returns [num_steps, S, W]."""
-    params = linops.prepare_params(params, rows=state.history.shape[0])
+    params = linops.prepare_params(params, rows=state.history.shape[0],
+                                   fuse_mlp=fuse_mlp)
     return torch.stack([
         _paged_decode_step(spec, eos_id, page_size, params, cache, state,
                            want_details) for _ in range(num_steps)])
@@ -75,7 +78,7 @@ def _paged_ring_multi(spec: DecoderSpec, eos_id: int, page_size: int,
                       cache: PagedKVCache, state: EngineState,
                       want_details: bool = True,
                       live_pages: Optional[int] = None,
-                      gather_ctx_max: int = 0):
+                      gather_ctx_max: int = 0, fuse_mlp: bool = False):
     """Ring-buffer chunk decode over the paged pool: the pool is read-only
     inside the chunk; ONE block-table scatter per chunk writes it.
 
@@ -86,7 +89,7 @@ def _paged_ring_multi(spec: DecoderSpec, eos_id: int, page_size: int,
     mode + flash-decoding merge (`paged_core.decode_paged_ring_step`).
     Returns the packed outputs of every step, [num_steps, S, W]."""
     s, t_max = state.history.shape
-    params = linops.prepare_params(params, rows=s)
+    params = linops.prepare_params(params, rows=s, fuse_mlp=fuse_mlp)
     chunk_start = torch.clamp(state.history_len - 1, 0, t_max - 1)
     active0 = state.active.clone()   # constant within a chunk
     # in-chunk ring buffers stay in the model's float dtype over an int8
@@ -124,12 +127,14 @@ def _paged_prefill_step(spec: DecoderSpec, eos_id: int, page_size: int,
                         want_prompt_details: bool,
                         params: dict, cache: PagedKVCache, state: EngineState,
                         ids: torch.Tensor, lengths: torch.Tensor,
-                        slots: torch.Tensor, prefix_len: torch.Tensor):
-    """Prefill a bucket of prompts into their slots' pages; installs the
-    slots' state in place. Returns (packed first-token outputs, prompt
-    details or None)."""
+                        slots: torch.Tensor, prefix_len: torch.Tensor,
+                        prefix_embeds: Optional[torch.Tensor] = None):
+    """Prefill a bucket of prompts (after their soft prompts, if any) into
+    their slots' pages; installs the slots' state in place. Returns (packed
+    first-token outputs, prompt details or None)."""
     logits_all, cache = paged_core.prefill_paged(
-        spec, params, ids, lengths, slots, cache, page_size)
+        spec, params, ids, lengths, slots, cache, page_size,
+        prefix_embeds=prefix_embeds, prefix_len=prefix_len)
     return _finish_prefill(eos_id, want_prompt_details, state, logits_all,
                            ids, lengths, slots, prefix_len)
 
@@ -156,6 +161,7 @@ class PagedInferenceEngine(SlotBatchEngine):
         self.max_seq = config.max_sequence_length
         self.page_size = config.kv_page_size
 
+        self.fuse_mlp = fused_mlp_option()
         self._dtype = params["embed_tokens"].dtype
         self._cache_dtype = (torch.int8 if config.kv_cache_dtype == "int8"
                              else self._dtype)
@@ -310,16 +316,14 @@ class PagedInferenceEngine(SlotBatchEngine):
     def prefill(self, slots, token_ids, request_params,
                 want_prompt_details: bool = False,
                 prefix_embeds=None) -> PrefillResult:
-        if prefix_embeds is not None and any(p is not None
-                                             for p in prefix_embeds):
-            raise NotImplementedError("prompt-prefix injection is not ported "
-                                      "yet")
         self._use_device()
         self._apply_pending_frees()
+        _, prefix_lens = self._prefixes(prefix_embeds, len(slots))
         # allocate pages for the whole potential sequence of each request
-        for slot, toks, rp in zip(slots, token_ids, request_params):
+        for slot, toks, rp, plen in zip(slots, token_ids, request_params,
+                                        prefix_lens):
             pages = self.allocator.allocate(
-                slot, len(toks) + rp.max_new_tokens + 1)
+                slot, plen + len(toks) + rp.max_new_tokens + 1)
             row = np.full((self.allocator.max_pages_per_slot,),
                           self.allocator.num_pages, np.int32)
             row[: len(pages)] = pages
@@ -327,27 +331,29 @@ class PagedInferenceEngine(SlotBatchEngine):
             self.set_request_params(slot, rp)
         self.cache.block_table.copy_(torch.from_numpy(self._bt_host))
 
-        def step(ids, lengths, slot_ids, prefix_len):
+        def step(ids, lengths, slot_ids, prefix_len, embeds):
             return _paged_prefill_step(
                 self.spec, self.eos_token_id, self.page_size,
                 want_prompt_details, self.model_params, self.cache,
-                self.state, ids, lengths, slot_ids, prefix_len)
+                self.state, ids, lengths, slot_ids, prefix_len, embeds)
 
-        return self._run_prefill(step, slots, token_ids, want_prompt_details)
+        return self._run_prefill(step, slots, token_ids, want_prompt_details,
+                                 prefix_embeds)
 
     def _decode_chunk(self, want_details: bool, chunk: int) -> torch.Tensor:
         if chunk == 1:
             return _paged_decode_step(
                 self.spec, self.eos_token_id, self.page_size,
                 self.model_params, self.cache, self.state,
-                want_details=want_details)
+                want_details=want_details, fuse_mlp=self.fuse_mlp)
         if self._write_mode != "ring":
             return _paged_decode_multi(
                 self.spec, self.eos_token_id, self.page_size, chunk,
                 self.model_params, self.cache, self.state,
-                want_details=want_details)
+                want_details=want_details, fuse_mlp=self.fuse_mlp)
         return _paged_ring_multi(
             self.spec, self.eos_token_id, self.page_size, chunk,
             self.model_params, self.cache, self.state,
             want_details=want_details, live_pages=self._pick_live_pages(),
-            gather_ctx_max=self.config.paged_gather_ctx_max)
+            gather_ctx_max=self.config.paged_gather_ctx_max,
+            fuse_mlp=self.fuse_mlp)

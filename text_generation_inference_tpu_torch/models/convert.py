@@ -32,8 +32,9 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _int4(w, device) -> Int4Weight:
+def int4_from_jax(w, device=None) -> Int4Weight:
     """A JAX Int4Weight (numpy leaves) → the port's, by field name."""
+    device = resolve_device(device)
     if getattr(w, "qweight", None) is None or getattr(w, "zbias", None) is None:
         raise NotImplementedError(
             "only the GPTQ packing (qweight/qzeros/scales/zbias) of an "
@@ -57,7 +58,7 @@ def params_from_jax(spec: DecoderSpec, params_np: dict,
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
         if isinstance(tree, tuple) and "qweight" in getattr(tree, "_fields", ()):
-            return _int4(tree, device)
+            return int4_from_jax(tree, device)
         return _tensor(tree, device)
 
     out = conv(params_np)

@@ -294,6 +294,13 @@ def _attn_out(spec: DecoderSpec, lp: dict, attn: torch.Tensor) -> torch.Tensor:
 
 def _mlp(spec: DecoderSpec, lp: dict, x: torch.Tensor) -> torch.Tensor:
     if "w_gu" in lp:
+        rows = x.numel() // x.shape[-1]
+        if "b_gu" not in lp and not spec.mlp_bias and linops.can_fuse_mlp(
+                lp["w_gu"], lp["w_down"], spec.activation, rows):
+            # decode GPTQ-INT4 path under INT4_FUSED_MLP=1: gu product,
+            # activation and down product as one launch (kernel M1)
+            return linops.mlp_fused(x, lp["w_gu"], lp["w_down"],
+                                    spec.activation)
         gu = linops.matmul(x, lp["w_gu"])
         if "b_gu" in lp:
             gu = gu + lp["b_gu"]
@@ -333,17 +340,27 @@ def _residual(spec: DecoderSpec, lp: dict, x: torch.Tensor,
 
 def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
                     lengths: torch.Tensor, attn: AttentionOps,
-                    write_kv: Callable[[int, torch.Tensor, torch.Tensor], None]
+                    write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
+                    prefix_embeds: Optional[torch.Tensor] = None,
+                    prefix_len: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """The causal forward over a right-padded bucket ids [N, T]: attention
     within the bucket only, masked by `lengths`. Hands each layer's k/v
     ([N, T, K, D]) to `write_kv(layer, k, v)`, which stores them in the
-    caller's cache. Returns [N, T, V] f32 logits at every position."""
+    caller's cache. Returns [N, T, V] f32 logits at every position.
+
+    Soft prompts (prompt tuning): with `prefix_embeds` [N, T, D], row n
+    takes its first `prefix_len[n]` input vectors from `prefix_embeds`
+    (cast to the activation dtype) instead of the token embeddings; the
+    token ids there are placeholders."""
     check_supported(spec)
     n, t = ids.shape
     dev = ids.device
     positions = torch.arange(t, device=dev, dtype=torch.int32)[None, :].expand(n, t)
     x = _embed(spec, params, ids, positions)
+    if prefix_embeds is not None:
+        use_prefix = positions < prefix_len.to(dev)[:, None]
+        x = torch.where(use_prefix[..., None], prefix_embeds.to(x.dtype), x)
     cos, sin = _rope_freqs(spec, positions)
 
     lengths = lengths.to(torch.int32)
@@ -375,13 +392,16 @@ def prefill(
     slots: torch.Tensor,      # [N] i32 target cache slots
     cache: KVCache,
     attn: AttentionOps = KERNELS,
+    prefix_embeds: Optional[torch.Tensor] = None,  # [N, T, D] soft prompts
+    prefix_len: Optional[torch.Tensor] = None,     # [N] i32 prefix positions
 ) -> tuple[torch.Tensor, KVCache]:
     """Full causal forward over a padded bucket; writes each layer's K/V
     into rows 0..T-1 of the `slots` of the cache, in place (quantized on the
     way in over an int8 cache). Rows past a prompt's length hold padding
     garbage that decode masks by context length, as in the JAX package.
-    Returns ([N, T, V] f32 logits at every position, cache). Soft-prompt
-    prefix embeddings are a later slice."""
+    Rows with a soft prompt take its vectors at positions < prefix_len
+    (`prefill_forward`). Returns ([N, T, V] f32 logits at every position,
+    cache)."""
     rows = min(ids.shape[1], cache.max_seq)
     sl = slots.long()
 
@@ -396,7 +416,8 @@ def prefill(
         cache.k[li][sl, :, :rows] = k_t.to(cache.k.dtype)
         cache.v[li][sl, :, :rows] = v_t.to(cache.v.dtype)
 
-    return prefill_forward(spec, params, ids, lengths, attn, write_kv), cache
+    return prefill_forward(spec, params, ids, lengths, attn, write_kv,
+                           prefix_embeds, prefix_len), cache
 
 
 # ---------------------------------------------------------------------------

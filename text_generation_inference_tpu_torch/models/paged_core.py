@@ -274,12 +274,14 @@ def prefill_paged(
     cache: PagedKVCache,
     page_size: int,
     attn: AttentionOps = KERNELS,
+    prefix_embeds: Optional[torch.Tensor] = None,  # [N, T, D] soft prompts
+    prefix_len: Optional[torch.Tensor] = None,     # [N] i32 prefix positions
 ):
     """Bucket prefill whose KV lands in the target slots' pages (in place).
 
-    Attention within the bucket is self-contained (causal over the prompt).
-    Returns (all-position logits [N, T, V] f32, cache). Soft-prompt prefix
-    embeddings are a later slice."""
+    Attention within the bucket is self-contained (causal over the prompt,
+    soft-prompt positions included: `core.prefill_forward`). Returns
+    (all-position logits [N, T, V] f32, cache)."""
     n, t = ids.shape
     bt = cache.block_table
     positions = torch.arange(t, device=ids.device)[None, :].expand(n, t)
@@ -304,4 +306,5 @@ def prefill_paged(
         cache.k[li][:, dst] = k_rows.transpose(0, 1).to(cache.k.dtype)
         cache.v[li][:, dst] = v_rows.transpose(0, 1).to(cache.v.dtype)
 
-    return prefill_forward(spec, params, ids, lengths, attn, write_kv), cache
+    return prefill_forward(spec, params, ids, lengths, attn, write_kv,
+                           prefix_embeds, prefix_len), cache

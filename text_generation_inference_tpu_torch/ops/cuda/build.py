@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
-SOURCES = ("flash_prefill", "int4_matmul", "paged_attention",
+SOURCES = ("flash_prefill", "int4_matmul", "int4_mlp", "paged_attention",
            "slot_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,6 +49,12 @@ _SIGNATURES = {
         "tgi_int4_matmul": [_vp] * 6 + [_i32] * 5 + [_vp],
         "tgi_int4_matmul_splits": [_i32] * 3,
     },
+    # x, the six weight tensors, a, partials, barrier counter, y; then M, H,
+    # I, the two group sizes, splits, activation
+    "int4_mlp": {
+        "tgi_int4_mlp": [_vp] * 11 + [_i32] * 7 + [_vp],
+        "tgi_int4_mlp_splits": [_i32] * 2,
+    },
     # cache strides over S, K, T are int64; then splits, rows per split
     # (and the ring's columns and step)
     "slot_attention": {
@@ -60,6 +66,7 @@ _SIGNATURES = {
 }
 _ERROR_STRING = {"flash_prefill": "tgi_flash_prefill_error_string",
                  "int4_matmul": "tgi_int4_matmul_error_string",
+                 "int4_mlp": "tgi_int4_mlp_error_string",
                  "paged_attention": "tgi_paged_decode_error_string",
                  "slot_attention": "tgi_slot_attention_error_string"}
 

@@ -1,12 +1,13 @@
 """Serving entrypoint: load model → build engine → start batcher + servers
 (port of the JAX package's `server/main.py`: a Llama-family decoder on the
 paged engine, or on the slot engine with PAGED_ATTENTION=0; one device, no
-speculator).
+speculator). A prompt-prefix store (PREFIX_STORE_PATH) serves soft prompts
+by `prefix_id`; INT4_FUSED_MLP=1 runs a GPTQ model's decode MLP as one
+kernel (the engines read it).
 
 The other engine choices of the JAX entrypoint (speculative decoding,
-tensor parallelism, multi-host, the internal `generate.v1` API,
-prompt-prefix stores, seq2seq models) are later slices and raise
-NotImplementedError here.
+tensor parallelism, multi-host, the internal `generate.v1` API, seq2seq
+models) are later slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import asyncio
 import logging
 import os
 import signal
+from typing import Optional
 
 import torch
 
@@ -24,6 +26,7 @@ from ..engine.engine import InferenceEngine
 from ..engine.paged_engine import PagedInferenceEngine
 from ..models import families
 from ..scheduler.batcher import Batcher
+from ..utils.prompt_cache import PrefixCache
 from ..utils.tokenization import ServingTokenizer
 from .grpc_server import GenerationServicer, serve_grpc
 from .http_server import serve_http
@@ -46,9 +49,6 @@ def _not_ported(config: ServingConfig) -> None:
         (int(os.getenv("TENSOR_PARALLEL", "1")) > 1, "TENSOR_PARALLEL > 1"),
         (os.getenv("INTERNAL_API", "").lower() in ("1", "true"),
          "INTERNAL_API (generate.v1)"),
-        (bool(config.prefix_store_path), "PREFIX_STORE_PATH"),
-        (os.getenv("INT4_FUSED_MLP", "0").lower() not in ("0", "false"),
-         "INT4_FUSED_MLP=1 (the fused GPTQ-INT4 MLP kernel)"),
     ]
     for hit, what in checks:
         if hit:
@@ -82,16 +82,27 @@ def build_engine(config: ServingConfig, device=None):
     return engine, tokenizer, "decoder"
 
 
+def build_prompt_cache(config: ServingConfig,
+                       hidden_size: int) -> Optional[PrefixCache]:
+    """The soft-prompt store of PREFIX_STORE_PATH, or None without one."""
+    if not config.prefix_store_path:
+        return None
+    return PrefixCache(config.prefix_store_path, embed_dim=hidden_size,
+                       max_size_mb=config.prompt_cache_size_mb,
+                       max_prefix_length=config.max_prompt_prefix_length)
+
+
 async def async_serve(config: ServingConfig, device=None) -> None:
     from ..utils import tracing
 
     tracing.configure(config.otlp_endpoint, config.otlp_service_name)
     engine, tokenizer, model_kind = build_engine(config, device)
+    prompt_cache = build_prompt_cache(config, engine.spec.hidden_size)
     if os.getenv("WARMUP", "1").lower() not in ("0", "false"):
         logger.info("warming up (set WARMUP=0 to skip)")
         engine.warmup()
 
-    batcher = Batcher(engine, tokenizer, config)
+    batcher = Batcher(engine, tokenizer, config, prompt_cache=prompt_cache)
     batcher.start()
 
     servicer = GenerationServicer(config, tokenizer, batcher, model_kind=model_kind)
