@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught):
              the same work (CUDA events, L2 flushed between launches),
              beside the least time the card could take: flash prefill and
              paged decode at TinyLlama-1.1B widths in bf16 (flash prefill
-             also at head dim 128, G=4 and G=1); the int8 paged decode (K2)
+             also at head dim 128, G=4 and G=1, each with its achieved
+             TFLOP/s; paged decode in both modes with its GB/s and share of
+             the bytes bound); the int8 paged decode (K2)
              and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
              products at 16 and 2048 rows, and one act-order weight) at
              Llama-2-7B widths; the fused GPTQ-INT4 MLP (M1) on a 7B layer's
@@ -61,7 +63,9 @@ Phases (any failure exits non-zero; nothing is caught):
              decodes of 8 live requests), after run 3 (4 chunks of 8
              steps, 16 live requests), after run 4 (16 scan-mode steps
              of 8 live requests) and after run 6 (as run 3, INT4_FUSED_MLP=1):
-             wall and device-busy time per step, and the top kernels.
+             wall and device-busy time per step, the top kernels, and
+             the ms a step of the kernel each profile is about (the bf16
+             paged kernel after run 2, K1 after run 3, M1 after run 6).
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -201,12 +205,14 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int):
     pairs = sum(int(torch.clamp(rows, max=int(ln)).sum()) for ln in lengths)
     flops = 4.0 * d * kh * g * pairs
     b_ms, b_by = bound(nbytes(q, k, v, got, lengths), flops)
+    tflops = flops / (ms * 1e-3) / 1e12
     log(f"kernel flash_prefill D={d} N={n} T={t} H={kh * g} KV={kh}: "
         f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
-        f"({b_by})")
+        f"({b_by}); {flops / 1e9:.1f} GFLOP at {tflops:.1f} TFLOP/s "
+        f"({100 * tflops / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 peak)")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, tflops=tflops)
 
 
 def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
@@ -287,14 +293,17 @@ def check_paged(torch, timer, stats: bool):
     live = int(ctx.sum())
     kv_bytes = 2 * live * kh * d * kp.element_size()
     flops = 4.0 * live * kh * g * d
-    b_ms, b_by = bound(nbytes(q, bt, ctx) + kv_bytes + out_bytes, flops)
+    moved = nbytes(q, bt, ctx) + kv_bytes + out_bytes
+    b_ms, b_by = bound(moved, flops)
+    gbps = moved / (ms * 1e-3) / 1e9
     name = "paged_decode_attention_stats" if stats else "paged_decode_attention"
     log(f"kernel {name} S={s} KV={kh} G={g} D={d} page={page} ctx_max="
         f"{int(ctx.max())} live_tokens={live}: max_abs_err {err:.3e} (tol "
         f"{tol:.3e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-        f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
+        f"MB at {gbps:.1f} GB/s, {100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, gbps=gbps)
 
 
 def stats_error(torch, got, want, what):
@@ -1430,7 +1439,8 @@ def main() -> int:
         if run[key] <= 0:
             raise AssertionError(f"{key} never ran in a serving run: {run}")
 
-    profile_decode(torch, spec, params, "tinyllama bf16")
+    profile_decode(torch, spec, params, "tinyllama bf16",
+                   focus="paged_split_kernel")
 
     # the slot engine (PAGED_ATTENTION=0): run 4 in scan mode, every decode
     # step through S1; run 5 with int8 KV on ring chunks of 8

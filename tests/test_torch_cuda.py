@@ -7,9 +7,10 @@ not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Tolerances: bf16 outputs within atol 2e-2 + rtol 2e-2 (a bf16 ulp is
-7.8e-3 at 1-2; both versions round the output once, and the flash kernel
-also rounds P to bf16 for its tensor-core value product); fp32 stats
-within 2e-3 relative (the same fp32 sums in another order); the fused
+7.8e-3 at 1-2; both versions round the output once, and the flash and
+bf16 paged kernels also round P to bf16 for their tensor-core value
+products); fp32 stats within 2e-3 relative (the same sums in another
+order, with P rounded to bf16 in the bf16 paged kernel); the fused
 MLP, two chained products over bf16-rounded weights, within 3e-2 of its
 largest output plus 2e-2 relative.
 """
@@ -112,6 +113,143 @@ def test_stacked_pool_view_is_the_same_kernel(cuda_device):
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 6, 8])
+@pytest.mark.parametrize("t", [128, 2048])
+def test_flash_prefill_tile_edges(cuda_device, d, g, t):
+    """The smallest bucket and the largest, lengths on the 128-key tile
+    edges, NaN in k and v past each length (P = 0 does not cancel NaN: the
+    kernel must mask those scores and zero those value rows); G = 6 leaves
+    rows of the 128-row tile unused (21 tokens a tile)."""
+    rng = np.random.default_rng(10 * d + g + t)
+    lengths = sorted({0, 1, 127, min(128, t), min(129, t), t})
+    n, kh = len(lengths), 1
+    q = bf16(rng, n, t, kh, g, d, device=cuda_device)
+    k = bf16(rng, n, t, kh, d, device=cuda_device)
+    v = bf16(rng, n, t, kh, d, device=cuda_device)
+    for i, ln in enumerate(lengths):
+        k[i, ln:] = float("nan")
+        v[i, ln:] = float("nan")
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert torch.all(got[0] == 0)                       # length 0
+    close(got, fp.flash_prefill_reference(q, k, v, lens), 2e-2)
+
+
+def split_case(rng, device, d, g, s=6, kh=2, page=128, max_pages=9,
+               num_pages=64):
+    """Contexts across the bf16 kernel's split boundaries (256 keys a
+    split), a sentinel page inside slot 4's context, and NaN in every pool
+    row that no slot reads."""
+    ctx = np.asarray([0, 1, 256, 257, 900, max_pages * page][:s], np.int32)
+    perm = rng.permutation(num_pages)
+    bt = np.full((s, max_pages), num_pages, np.int32)
+    used = 0
+    for i in range(s):
+        need = -(-int(ctx[i]) // page)
+        bt[i, :need] = perm[used:used + need]
+        used += need
+    bt[4, 3] = num_pages          # page 3: in split 1 at page 128, 0 at 16
+    q = bf16(rng, s, kh, g, d, device=device)
+    kp = bf16(rng, kh, num_pages * page, d, device=device)
+    vp = bf16(rng, kh, num_pages * page, d, device=device)
+    live = np.zeros(num_pages * page, bool)
+    for i in range(s):
+        for pos in range(int(ctx[i])):
+            pid = bt[i, pos // page]
+            if pid < num_pages:
+                live[pid * page + pos % page] = True
+    dead = torch.from_numpy(~live).to(device)
+    kp[:, dead] = float("nan")
+    vp[:, dead] = float("nan")
+    return (q, kp, vp, torch.from_numpy(bt).to(device),
+            torch.from_numpy(ctx).to(device), page)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,page", [(64, 8, 128), (128, 1, 128),
+                                      (128, 4, 128), (64, 8, 16)])
+def test_paged_decode_split_kernel(cuda_device, d, g, page):
+    """Page 128 (2 pages a split) and page 16 (16 pages a split: a 64-key
+    tile spans 4 pages)."""
+    rng = np.random.default_rng(500 + d + g + page)
+    wide = dict(max_pages=72, num_pages=200) if page == 16 else {}
+    q, kp, vp, bt, ctx, page = split_case(rng, cuda_device, d, g, page=page,
+                                          **wide)
+    assert pa.split_plan(bt.shape[1], page)[1] > 1
+    before = (pa.paged_decode_attention.launches,
+              pa.paged_decode_attention_partial.launches)
+    got = pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
+    acc, m, l = pa.paged_decode_attention_partial(q, kp, vp, bt, ctx, page)
+    torch.cuda.synchronize()
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention_partial.launches) == tuple(
+                b + 1 for b in before)
+    assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+    close(got, pa.paged_decode_attention_reference(q, kp, vp, bt, ctx, page),
+          2e-2)
+    racc, rm, rl = pa.paged_decode_attention_partial_reference(
+        q, kp, vp, bt, ctx, page)
+    assert torch.all(torch.isneginf(m[0])) and torch.all(l[0] == 0)
+    live = ~torch.isneginf(rm)
+    assert torch.equal(live, ~torch.isneginf(m))
+    close(m[live], rm[live], 2e-3)
+    close(l, rl, 2e-3 * max(1.0, float(rl.max())))
+    close(acc, racc, 2e-3 * max(1.0, float(racc.abs().max())))
+
+
+@pytest.mark.cuda
+def test_paged_decode_split_kernel_is_batch_invariant(cuda_device):
+    """A slot's output is bit-identical whatever the other slots hold (3
+    or 40 of them) and from one launch to the next: the split plan reads
+    the table's width and the page size only, and the splits merge in
+    split order."""
+    rng = np.random.default_rng(9)
+    q, kp, vp, bt, ctx, page = split_case(rng, cuda_device, 64, 8)
+    outs = []
+    for s in (3, 40):
+        idx = torch.from_numpy(rng.integers(0, 6, size=s)).to(cuda_device)
+        idx[1] = 5                                   # the full-table slot
+        args = (q[idx].contiguous(), kp, vp, bt[idx].contiguous(),
+                ctx[idx].contiguous(), page)
+        for _ in range(2):
+            outs.append((pa.paged_decode_attention(*args)[1],
+                         pa.paged_decode_attention_partial(*args)[0][1]))
+    torch.cuda.synchronize()
+    for out, acc in outs[1:]:
+        assert torch.equal(out, outs[0][0])
+        assert torch.equal(acc, outs[0][1])
+
+
+@pytest.mark.cuda
+def test_redesigned_wrappers_reject_bad_inputs(cuda_device):
+    rng = np.random.default_rng(11)
+    buf = bf16(rng, 1 + 128 * 64, device=cuda_device)
+    q = buf[1:].view(1, 128, 1, 1, 64)       # 2 bytes past a 16-byte boundary
+    k = bf16(rng, 1, 128, 1, 64, device=cuda_device)
+    lens = torch.tensor([128], dtype=torch.int32, device=cuda_device)
+    before = fp.flash_prefill.launches
+    with pytest.raises(ValueError):
+        fp.flash_prefill(q, k, k, lens)
+    with pytest.raises(ValueError):
+        fp.flash_prefill(q.clone(), k, k, lens.long())
+    assert fp.flash_prefill.launches == before
+    qd, kp, vp, bt, ctx, page = split_case(rng, cuda_device, 64, 8)
+    before = pa.paged_decode_attention.launches
+    with pytest.raises(ValueError):                 # pool rows % page != 0
+        pa.paged_decode_attention(qd, kp[:, :-1].contiguous(),
+                                  vp[:, :-1].contiguous(), bt, ctx, page)
+    with pytest.raises(ValueError):                 # G > 8
+        pa.paged_decode_attention(bf16(rng, 6, 2, 16, 64, device=cuda_device),
+                                  kp, vp, bt, ctx, page)
+    assert pa.paged_decode_attention.launches == before
 
 
 def int4_weight(rng, in_f, out_f, device, gs=128, act_order=False):

@@ -3,8 +3,9 @@
 Each source compiles with `nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared` into a shared library with a plain C interface under `build/` at
 the repository root, at first use, and is loaded with `ctypes`. The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale build is never loaded. `build_all` starts one `nvcc`
+library's file name carries a hash of its source and of the shared headers
+in `csrc/`, so an edited source or header is rebuilt and a stale build is
+never loaded. `build_all` starts one `nvcc`
 per source at once. Nothing is compiled when a module is imported: the
 wrappers call `library()` only when they launch a kernel.
 """
@@ -39,10 +40,12 @@ _SIGNATURES = {
         "tgi_flash_prefill": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
                               _i32, _i32, _f32, _vp],
     },
+    # the bf16 entries: q, pools, table, ctx, outputs, split scratch,
+    # arrival counters; then S, KH, G, D, R, page, max_pages, num_pages,
+    # pages per split, splits
     "paged_attention": {
-        "tgi_paged_decode": [_vp, _vp, _vp, _vp, _vp, _vp] + [_i32] * 8
-                            + [_f32, _vp],
-        "tgi_paged_decode_stats": [_vp] * 8 + [_i32] * 8 + [_f32, _vp],
+        "tgi_paged_decode": [_vp] * 8 + [_i32] * 10 + [_f32, _vp],
+        "tgi_paged_decode_stats": [_vp] * 10 + [_i32] * 10 + [_f32, _vp],
         "tgi_paged_decode_stats_i8": [_vp] * 10 + [_i32] * 8 + [_f32, _vp],
     },
     "int4_matmul": {
@@ -85,9 +88,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path; its name hashes the source, every shared header
+    in csrc/ (a source may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

@@ -6,6 +6,12 @@ Counterpart of the JAX package's `ops/pallas/flash_prefill.py`
 k/v [N, T, K, D], lengths [N] → out like q. Keys j are visible to query i
 when j <= i and j < lengths[n]; rows with lengths[n] == 0 give 0.
 
+`flash_prefill_tiled_reference` is the plain twin of the kernel's schedule:
+row tiles of BLOCK_M rows (row = token * G + g) in two halves of 64 (the
+kernel's consumer warpgroups), key tiles of BLOCK_N, each half walking key
+tiles up to its causal and length limit and masking only the tiles that
+cross its diagonal or the length.
+
 `flash_prefill` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `flash_prefill.launches`
 counts kernel launches.
@@ -20,6 +26,8 @@ import torch
 from . import build
 
 HEAD_DIMS = (64, 128)   # head dims the kernel is compiled for
+BLOCK_M = 128           # rows (token * G + g) a block of the kernel takes
+BLOCK_N = 128           # keys a tile of the kernel
 
 
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
@@ -40,6 +48,71 @@ def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
     vf = torch.where(key_valid[:, :, None, None], v.to(torch.float32), 0.0)
     out = torch.einsum("nkgqv,nvkd->nqkgd", probs, vf)
     return out.to(q.dtype)
+
+
+def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, lengths: torch.Tensor,
+                                  block_m: int = BLOCK_M,
+                                  block_n: int = BLOCK_N) -> torch.Tensor:
+    """Plain twin of the kernel's schedule (fp32 math, output in q's dtype):
+    online softmax in exp2 units over the key tiles a half row tile walks,
+    masks only on the tiles that cross the half's diagonal or the length,
+    dead value rows zeroed on the length-edge tile."""
+    n, t, kh, g, d = q.shape
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    rows_q = q.to(torch.float32).permute(0, 2, 1, 3, 4).reshape(n, kh, t * g, d)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)                # [N, K, T, D]
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)
+    pad = (-t) % block_n            # tiles past T read zeros
+    kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
+    out = torch.zeros_like(rows_q)
+    tpb = block_m // g              # tokens a row tile
+    half = block_m // 2
+    for b in range(n):
+        ln = max(0, min(int(lengths[b]), t))
+        for tok0 in range(0, t, tpb):
+            rows = tpb * g
+            tok_last = min(tok0 + tpb - 1, t - 1)
+            last_tile = min(tok_last // block_n, -(-ln // block_n) - 1)
+            for r_wg in range(0, block_m, half):
+                r = torch.arange(r_wg, min(r_wg + half, rows))
+                if r.numel() == 0:
+                    continue
+                first_tok = tok0 + r_wg // g
+                last_tok = tok0 + int(r[-1]) // g
+                tok = tok0 + r // g
+                keep = tok < t
+                r, tok = r[keep], tok[keep]
+                qs = rows_q[b, :, tok0 * g + r]                 # [K, R, D]
+                m = torch.full((kh, r.numel()), -math.inf)
+                l = torch.zeros((kh, r.numel()))
+                o = torch.zeros((kh, r.numel(), d))
+                for kt in range(last_tile + 1):
+                    key0 = kt * block_n
+                    if key0 > last_tok:      # wholly above the diagonal
+                        continue
+                    keys = torch.arange(key0, key0 + block_n)
+                    kt_k = kf[b, :, key0:key0 + block_n]
+                    kt_v = vf[b, :, key0:key0 + block_n]
+                    if key0 + block_n > ln:  # the length-edge tile
+                        kt_v = torch.where((keys < ln)[:, None], kt_v, 0.0)
+                    sc = torch.einsum("krd,kjd->krj", qs, kt_k) * scale_log2
+                    if key0 + block_n > min(first_tok + 1, ln):
+                        vis = (keys[None, :] <= tok[:, None]) & (keys < ln)
+                        sc = torch.where(vis, sc, -math.inf)
+                    m_new = torch.maximum(m, sc.max(dim=-1).values)
+                    m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+                    alpha = torch.where(torch.isneginf(m), 0.0,
+                                        torch.exp2(m - m_safe))
+                    p = torch.where(torch.isneginf(sc), 0.0,
+                                    torch.exp2(sc - m_safe[..., None]))
+                    l = l * alpha + p.sum(dim=-1)
+                    o = o * alpha[..., None] + torch.einsum("krj,kjd->krd",
+                                                            p, kt_v)
+                    m = m_new
+                out[b, :, tok0 * g + r] = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(n, kh, t, g, d).permute(0, 2, 1, 3, 4).to(q.dtype)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,6 +140,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
             and lengths.is_contiguous()):
         raise ValueError("flash_prefill: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_prefill: q, k, v must start on 16-byte "
+                         "boundaries (the kernel's TMA loads)")
+    if g > BLOCK_M:
+        raise ValueError(f"flash_prefill: group {g} > {BLOCK_M}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -23,6 +23,14 @@ position is live when it is below ctx and its page id lies in
 The JAX reference clamps such gathers instead (`mode="clip"`), which gives
 the same result wherever the sentinel lies past ctx.
 
+The bf16 kernel splits each slot's pages across blocks, a fixed number of
+pages a split (`split_plan`, from the page size alone), and merges the
+splits' (acc, m, l) in split order inside the same launch: the block that
+arrives last at a per-(slot, kv head) counter merges. The counters live in
+one zeroed int32 buffer per device (`_arrivals`), which the kernel leaves
+zeroed; launches that share it run one after another on one stream.
+`paged_decode_split_reference` is the plain twin of that schedule.
+
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `paged_decode_attention.launches`,
 `paged_decode_attention_partial.launches` and
@@ -39,6 +47,16 @@ from . import build
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8     # query heads per kv head the kernel handles
+SPLIT_KEYS = 256  # keys a split of the bf16 kernel covers (whole pages)
+
+
+def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
+    """(pages per split, splits) of the bf16 kernel's grid. A split covers
+    whole pages, SPLIT_KEYS keys or one page if a page is longer; the plan
+    depends on the block table's width and the page size only, never on the
+    number of slots, so a slot's result does not depend on the batch."""
+    pages_per_split = max(1, SPLIT_KEYS // page_size)
+    return pages_per_split, max(1, -(-max_pages // pages_per_split))
 
 
 def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
@@ -98,6 +116,61 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_table, ctx,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def paged_decode_split_reference(q, k_pool, v_pool, block_table, ctx,
+                                 page_size, pages_per_split=None,
+                                 stats=False):
+    """Plain twin of the bf16 kernel's schedule: (acc, m, l) of every split
+    of `pages_per_split` pages (default: `split_plan`'s), the splits past a
+    slot's pages left out, then merged in split order. Returns the stats
+    mode's (acc, m, l) or, with stats=False, the normalized output."""
+    s, kh, g, d = q.shape
+    max_pages = block_table.shape[1]
+    if pages_per_split is None:
+        pages_per_split = split_plan(max_pages, page_size)[0]
+    splits = -(-max_pages // pages_per_split)
+    ctx = ctx.to(torch.int64).clamp(min=0)
+    n_pages = torch.clamp(-(-ctx // page_size), max=max_pages)
+    n_splits = torch.clamp(-(-n_pages // pages_per_split), min=1)
+    parts = []
+    for sp in range(splits):
+        first = sp * pages_per_split
+        cols = slice(first, min(first + pages_per_split, max_pages))
+        # the split's positions start at `first` pages: shift ctx so that
+        # the plain version's position test covers this split's keys only
+        split_ctx = torch.clamp(ctx - first * page_size, min=0)
+        acc, m, l = paged_decode_attention_partial_reference(
+            q, k_pool, v_pool, block_table[:, cols].contiguous(),
+            split_ctx.to(torch.int32), page_size)
+        parts.append((acc, m, l, sp < n_splits))
+    m_all = torch.full((s, kh, g), -math.inf, device=q.device)
+    for _, m, _, used in parts:
+        m_all = torch.where(used[:, None, None], torch.maximum(m_all, m), m_all)
+    m_safe = torch.where(torch.isneginf(m_all), 0.0, m_all)
+    acc_all = torch.zeros((s, kh, g, d), device=q.device)
+    l_all = torch.zeros((s, kh, g), device=q.device)
+    for acc, m, l, used in parts:          # in split order
+        w = torch.where(torch.isneginf(m) | ~used[:, None, None], 0.0,
+                        torch.exp(m - m_safe))
+        acc_all = acc_all + w[..., None] * acc
+        l_all = l_all + w * l
+    if stats:
+        return acc_all, m_all, l_all
+    return (acc_all / torch.clamp(l_all, min=1e-30)[..., None]).to(q.dtype)
+
+
+_ARRIVALS: dict[torch.device, torch.Tensor] = {}
+
+
+def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+    """The device's arrival counters, at least n of them, all zero (each
+    launch leaves them zero)."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = buf
+    return buf
+
+
 def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
            pool_dtype=torch.bfloat16):
     s, kh, g, d = q.shape
@@ -132,19 +205,31 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
 
 
 def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
-            scale_pools=()):
+            scale_pools=(), split=False):
+    """Launch one entry. With split=True (the bf16 entries) the wrapper
+    adds the split plan, the fp32 scratch and the arrival counters."""
     s, kh, g, d = q.shape
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pool_rows = k_pool.shape[1]
+    max_pages = block_table.shape[1]
+    extra, plan = [], []
+    if split:
+        pages_per_split, splits = split_plan(max_pages, page_size)
+        part = torch.empty(s * kh * splits * g * (d + 2) if splits > 1 else 0,
+                           dtype=torch.float32, device=q.device)
+        arrivals = _arrivals(q.device, s * kh)
+        extra = [part.data_ptr() if splits > 1 else None,
+                 arrivals.data_ptr()]
+        plan = [pages_per_split, splits]
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             *[p.data_ptr() for p in scale_pools],
             block_table.data_ptr(), ctx.data_ptr(),
-            *[o.data_ptr() for o in outs], s, kh, g, d, pool_rows, page_size,
-            block_table.shape[1], pool_rows // page_size, 1.0 / math.sqrt(d),
-            stream)
+            *[o.data_ptr() for o in outs], *extra, s, kh, g, d, pool_rows,
+            page_size, max_pages, pool_rows // page_size, *plan,
+            1.0 / math.sqrt(d), stream)
     build.check("paged_attention", code)
 
 
@@ -161,7 +246,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return out.zero_()
     _launch("tgi_paged_decode", q, k_pool, v_pool,
-            block_table, ctx, page_size, [out])
+            block_table, ctx, page_size, [out], split=True)
     paged_decode_attention.launches += 1
     return out
 
@@ -184,7 +269,8 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return acc.zero_(), m.fill_(-math.inf), l.zero_()
     _launch("tgi_paged_decode_stats", q,
-            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l])
+            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l],
+            split=True)
     paged_decode_attention_partial.launches += 1
     return acc, m, l
 

@@ -1,0 +1,108 @@
+"""A/B timing of one kernel library against other versions of its source,
+in one process on one card:
+
+    python -m text_generation_inference_tpu_torch.tools.kernel_ab \\
+        flash_prefill other/flash_prefill_a.cu other/flash_prefill_b.cu
+
+Builds `csrc/<library>.cu` as the port builds it, and each other source
+with the same nvcc flags, then runs `chip_smoke.py`'s kernel checks of that
+library with each build in turn: the checkout's first, then the others, then
+again in reverse order (so drift on the card shows as a difference between
+a build's two passes). Each check holds the kernel against its plain
+version and times it as `chip_smoke.py` does (CUDA events, the L2 flushed
+before every launch). Prints the card's name and power limit, each
+source's ptxas lines that report registers or serialized wgmma
+instructions, and one JSON line per check. Needs the card and
+`chip_smoke.py` at the repository root.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+from ..ops.cuda import build
+
+REPO_ROOT = build.PACKAGE_DIR.parent
+
+
+def _checks(cs, torch, timer, library: str):
+    """(label, result) of chip_smoke's checks of one library."""
+    if library == "flash_prefill":
+        for d, kh, g in ((64, 4, 8), (128, 8, 4), (128, 32, 1)):
+            yield (f"D={d} KV={kh} G={g}",
+                   cs.check_flash_prefill(torch, timer, d=d, kh=kh, g=g))
+    elif library == "paged_attention":
+        for stats in (False, True):
+            yield f"bf16 stats={stats}", cs.check_paged(torch, timer, stats)
+        yield "int8 stats", cs.check_paged_int8(torch, timer)
+    else:
+        raise SystemExit(f"kernel_ab: no checks for library {library!r}")
+
+
+def _ptxas_lines(log: str) -> list[str]:
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "C75" in line]
+
+
+def _load(library: str, source: Path, out_dir: Path) -> ctypes.CDLL:
+    """Build another version of a library's source and load it with the
+    library's argument types."""
+    target = out_dir / f"lib{library}-ab-{source.stem}.so"
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
+                           str(source)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    for line in _ptxas_lines(proc.stdout + proc.stderr):
+        print(f"ptxas[{source}] {line}", flush=True)
+    lib = ctypes.CDLL(str(target))
+    for fn, argtypes in build._SIGNATURES[library].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    err = getattr(lib, build._ERROR_STRING[library])
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    if len(argv) < 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO_ROOT))
+    import chip_smoke as cs
+
+    library, others = argv[0], [Path(p).resolve() for p in argv[1:]]
+    cs.DTYPE = torch.bfloat16
+    log = build.build_all()[library]
+    for line in _ptxas_lines(log):
+        print(f"ptxas[csrc/{library}.cu] {line}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip(), flush=True)
+    builds = {"checkout": build.library(library)}
+    for src in others:
+        builds[str(src)] = _load(library, src, build.BUILD_DIR)
+    timer = cs.Timer(torch)
+    order = list(builds) + list(reversed(builds))
+    for name in order:
+        build._libs[library] = builds[name]
+        for label, res in _checks(cs, torch, timer, library):
+            print(json.dumps({"build": name, "check": label, **res}),
+                  flush=True)
+    build._libs[library] = builds["checkout"]
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
