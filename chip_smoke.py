@@ -15,15 +15,18 @@ Phases (any failure exits non-zero; nothing is caught):
              paged decode at TinyLlama-1.1B widths in bf16 (flash prefill
              also at head dim 128, G=4 and G=1, each with its achieved
              TFLOP/s; paged decode in both modes with its GB/s and share of
-             the bytes bound); the int8 paged decode (K2)
-             and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
+             the bytes bound); the int8 paged decode (K2, at 7B widths and
+             at TinyLlama's, a sentinel page inside a split and a ctx == 0
+             slot) and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
              products at 16 and 2048 rows, and one act-order weight) at
              Llama-2-7B widths; the fused GPTQ-INT4 MLP (M1) on a 7B layer's
              MLP at 16 and 64 rows, silu and gelu_glu, also beside the two-K1
              route on the same work; the slot-cache decode kernel (S1) at
              TinyLlama and 7B decode widths over a 2048-row cache, and the
              ring-decode kernel (S2) at the decode probe's shapes (48 slots,
-             1024 cache rows, a ring of 64) at ring steps 0, 32 and 63.
+             1024 cache rows, a ring of 64) at ring steps 0, 32 and 63. K2
+             and S1 also show each slot alone bit-identical to the same
+             slot in a batch of 40.
   3. parity  one prefill and a few decode steps with the kernels and with
              their plain versions (`ops.attention.PLAIN`); logits and
              greedy tokens are compared: the full-width bf16 TinyLlama
@@ -64,8 +67,9 @@ Phases (any failure exits non-zero; nothing is caught):
              steps, 16 live requests), after run 4 (16 scan-mode steps
              of 8 live requests) and after run 6 (as run 3, INT4_FUSED_MLP=1):
              wall and device-busy time per step, the top kernels, and
-             the ms a step of the kernel each profile is about (the bf16
-             paged kernel after run 2, K1 after run 3, M1 after run 6).
+             the ms and launches a step of the kernels each profile is
+             about (the bf16 paged kernel after run 2, S1 after run 4, K1
+             and K2 after run 3, M1 after run 6).
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -272,8 +276,10 @@ def check_paged(torch, timer, stats: bool):
         ref = lambda: pa.paged_decode_attention_partial_reference(
             q, kp, vp, bt, ctx, page)
         got, want = fn(), ref()
+        acc_abs = pa.paged_decode_attention_partial_reference(
+            q, kp, vp.abs(), bt, ctx, page)[0]
         torch.cuda.synchronize()
-        err, tol = stats_error(torch, got, want, "paged stats")
+        err, tol = stats_error(torch, got, want, acc_abs, "paged stats")
         out_bytes = nbytes(*got)
     else:
         fn = lambda: pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
@@ -281,12 +287,8 @@ def check_paged(torch, timer, stats: bool):
             q, kp, vp, bt, ctx, page)
         got, want = fn(), ref()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        tol = 2e-2
+        err, tol = bf16_close(torch, got, want, "paged decode")
         out_bytes = nbytes(got)
-    if not err <= tol:
-        raise AssertionError(f"paged decode (stats={stats}): max abs err "
-                             f"{err} > {tol}")
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
     library_ms = timer(paged_library_call(torch, q, kp, vp, bt, ctx, page))
@@ -299,68 +301,116 @@ def check_paged(torch, timer, stats: bool):
     name = "paged_decode_attention_stats" if stats else "paged_decode_attention"
     log(f"kernel {name} S={s} KV={kh} G={g} D={d} page={page} ctx_max="
         f"{int(ctx.max())} live_tokens={live}: max_abs_err {err:.3e} (tol "
-        f"{tol:.3e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+        f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
         f"MB at {gbps:.1f} GB/s, {100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, gbps=gbps)
 
 
-def stats_error(torch, got, want, what):
-    """Max abs error of (acc, m, l) over the finite entries; the -inf
-    pattern of m must match."""
+def stats_error(torch, got, want, acc_abs, what):
+    """Max abs error of (acc, m, l) over the finite entries, each stat held
+    to its own tolerance (raises if one is outside it; the -inf pattern of
+    m must match):
+      acc  elementwise 2^-8 * acc_abs + 1e-4, acc_abs the plain version's
+           accumulator over |v|: the kernel rounds p (times the v scale) to
+           bf16 for its value product, at most 2^-9 of each term;
+      m    1e-4 of max(1, |m|): both take the max of the same fp32 scores;
+      l    1e-3 of max(1, max l): the same fp32 sum in another order.
+    Returns (max abs error, a description of the tolerances)."""
+    names = ("acc", "m", "l")
     err = 0.0
-    for a, b in zip(got, want):
+    for name, a, b in zip(names, got, want):
         finite = torch.isfinite(b)
         if not torch.equal(finite, torch.isfinite(a)):
-            raise AssertionError(f"{what}: -inf pattern differs")
-        err = max(err, (a[finite] - b[finite]).abs().max().item())
-    scale = max(w.abs()[torch.isfinite(w)].max().item() for w in want)
-    return err, 1e-3 * max(1.0, scale)
+            raise AssertionError(f"{what}: {name}'s -inf pattern differs")
+        diff = (a[finite] - b[finite]).abs()
+        if name == "acc":
+            tol = 2.0 ** -8 * acc_abs[finite] + 1e-4
+        elif name == "m":
+            tol = 1e-4 * torch.clamp(b[finite].abs(), min=1.0)
+        else:
+            tol = 1e-3 * max(1.0, b[finite].max().item())
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{what}: {name} max abs err "
+                                 f"{diff.max().item()} outside its tolerance")
+        err = max(err, diff.max().item())
+    return err, ("acc 2^-8 of sum p|v| + 1e-4, m 1e-4 of max(1, |m|), l 1e-3 "
+                 "of max(1, max l)")
 
 
-def check_paged_int8(torch, timer):
-    """K2, the stats mode over int8 pools, at Llama-2-7B decode widths: 16
-    slots, 32 kv heads, G = 1, D = 128, page 128, contexts up to 1024 and
-    one ctx == 0 slot."""
+def check_paged_int8(torch, timer, kh=32, g=1, d=128):
+    """K2, the stats mode over int8 pools: at Llama-2-7B decode widths (16
+    slots, 32 kv heads, G = 1, D = 128) or TinyLlama's (4 kv heads, G = 8,
+    D = 64); page 128 (two pages a split), contexts up to 1024, a ctx == 0
+    slot and a sentinel page inside slot 4's first split."""
     from text_generation_inference_tpu_torch.models.core import quantize_kv
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
-    q, kp, vp, bt, ctx, page = paged_inputs(torch, s=16, kh=32, g=1, d=128,
+    q, kp, vp, bt, ctx, page = paged_inputs(torch, s=16, kh=kh, g=g, d=d,
                                             max_pages=8, first_ctx=0)
+    bt[4, 1] = kp.shape[1] // page              # the sentinel, in split 0
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
     # the library call's input: the dequantized pools, made outside timing
     kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
     del kp, vp
-    s, kh, g, d = q.shape
+    s = q.shape[0]
     fn = lambda: pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
                                                       ctx, page)
     ref = lambda: pa.paged_decode_attention_partial_reference(
         q, kq, vq, bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)
     got, want = fn(), ref()
+    acc_abs = pa.paged_decode_attention_partial_reference(
+        q, kq, vq.abs(), bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)[0]
     torch.cuda.synchronize()
-    err, tol = stats_error(torch, got, want, "paged int8 stats")
-    if not err <= tol:
-        raise AssertionError(f"paged decode int8: max abs err {err} > {tol}")
-    if not (torch.isneginf(got[1][0]).all() and (got[2][0] == 0).all()):
+    err, tol = stats_error(torch, got, want, acc_abs, "paged int8 stats")
+    if not (torch.isneginf(got[1][0]).all() and (got[2][0] == 0).all()
+            and (got[0][0] == 0).all()):
         raise AssertionError("paged decode int8: ctx == 0 slot not empty")
+    same_slot_in_a_batch(
+        torch, f"paged_decode_attention_partial_i8 D={d}",
+        lambda idx: pa.paged_decode_attention_partial_i8(
+            q[idx].contiguous(), kq, vq, ks, vs, bt[idx].contiguous(),
+            ctx[idx].contiguous(), page)[0], s)
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
     library_ms = timer(paged_library_call(torch, q, kd, vd, bt, ctx, page))
-    live = int(ctx.sum())
+    # live keys: below ctx and not on the sentinel page
+    live = int(ctx.sum()) - page
     # int8 k and v rows plus one f32 scale each per (row, kv head)
     kv_bytes = 2 * live * kh * (d * kq.element_size() + ks.element_size())
     flops = 4.0 * live * kh * g * d
-    b_ms, b_by = bound(nbytes(q, bt, ctx, *got) + kv_bytes, flops)
+    moved = nbytes(q, bt, ctx, *got) + kv_bytes
+    b_ms, b_by = bound(moved, flops)
+    gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel paged_decode_attention_partial_i8 S={s} KV={kh} G={g} D={d} "
         f"page={page} ctx_max={int(ctx.max())} live_tokens={live}: "
-        f"max_abs_err {err:.3e} (tol {tol:.3e}) ms {ms:.4f} plain_ms "
+        f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA on the gathered, "
-        f"dequantized pages) bound_ms {b_ms:.4f} ({b_by})")
+        f"dequantized pages) bound_ms {b_ms:.4f} ({b_by}); "
+        f"{moved / 1e6:.2f} MB at {gbps:.1f} GB/s, "
+        f"{100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, gbps=gbps)
+
+
+def same_slot_in_a_batch(torch, what, fn_at, s):
+    """A slot's result alone (a batch of 1) and in a batch of 40 (the other
+    rows drawn from the other slots) must be bit-identical: the kernels'
+    splits never depend on the batch. Checks every slot; fn_at(idx) runs
+    the kernel on the rows idx and returns a tensor whose first axis is
+    them."""
+    rng = np.random.default_rng(SEED + 5)
+    for slot in range(s):
+        alone = fn_at(torch.tensor([slot], device="cuda"))
+        idx = torch.from_numpy(rng.integers(0, s, size=40)).cuda()
+        idx[17] = slot
+        batch = fn_at(idx)
+        if not torch.equal(alone[0], batch[17]):
+            raise AssertionError(f"{what}: slot {slot} alone differs from the "
+                                 "same slot in a batch of 40")
 
 
 # --- S1 and S2: slot-cache decode and ring decode -------------------------
@@ -417,19 +467,26 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048):
     err, tol = bf16_close(torch, got, want, f"decode_attention D={d}")
     if not bool((got[ctx == 0] == 0).all()):
         raise AssertionError("decode_attention: a ctx == 0 slot is not 0")
+    same_slot_in_a_batch(
+        torch, f"decode_attention D={d}",
+        lambda idx: da.decode_attention(q[idx].contiguous(), k[idx], v[idx],
+                                        ctx[idx].contiguous()), s)
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
     live_rows = torch.arange(t, device="cuda")[None, :] < ctx[:, None]
     library_ms = timer(sdpa_call(torch, q, k, v, live_rows))
     live = int(ctx.sum())
     flops = 4.0 * live * kh * g * d
-    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d * 2, flops)
+    moved = nbytes(q, ctx, got) + 2 * live * kh * d * 2
+    b_ms, b_by = bound(moved, flops)
+    gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel decode_attention S={s} KV={kh} G={g} D={d} T={t} "
         f"live_tokens={live}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, mask "
-        f"over the whole T) bound_ms {b_ms:.4f} ({b_by})")
+        f"over the whole T) bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
+        f"MB at {gbps:.1f} GB/s, {100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, gbps=gbps)
 
 
 def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
@@ -1162,12 +1219,12 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
 
 def profile_decode(torch, spec, params, label, overrides=None,
                    max_seq=2048, live=8, calls=16, slot=False, fused=False,
-                   focus=None):
+                   focus=()):
     """Where a decode step's time goes: `live` requests (512-token prompts),
     `calls` decode dispatches (of decode_chunk steps each) under
     torch.profiler. Prints the step's wall time, the card's busy time and
     share, the kernels that take the most device time, and the share of
-    the kernels whose name holds `focus`."""
+    the kernels whose name holds each string of `focus`."""
     from torch.profiler import ProfilerActivity, profile
 
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
@@ -1222,13 +1279,14 @@ def profile_decode(torch, spec, params, label, overrides=None,
             f"{count / steps:7.2f} launches/step  {key[:90]}")
     out = dict(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps,
                launches=launches / steps)
-    if focus:
-        f_ms = sum(k[0] for k in kernels if focus in k[2])
-        f_n = sum(k[1] for k in kernels if focus in k[2])
-        log(f"profile[{label}]: {focus}: {f_ms / steps:.4f} ms/step "
+    for name in focus:
+        f_ms = sum(k[0] for k in kernels if name in k[2])
+        f_n = sum(k[1] for k in kernels if name in k[2])
+        log(f"profile[{label}]: {name}: {f_ms / steps:.4f} ms/step "
             f"({100 * f_ms / busy_ms:.1f}% of the busy time), "
             f"{f_n / steps:.2f} launches/step")
-        out.update(focus_ms=f_ms / steps, focus_launches=f_n / steps)
+        out.update({f"{name}_ms": f_ms / steps,
+                    f"{name}_launches": f_n / steps})
     return out
 
 
@@ -1359,6 +1417,7 @@ def main() -> int:
     pn = check_paged(torch, timer, stats=False)
     ps = check_paged(torch, timer, stats=True)
     pi8 = check_paged_int8(torch, timer)
+    pi8_64 = check_paged_int8(torch, timer, kh=4, g=8, d=64)
     # K1 on a 7B layer's four products: decode rows through the stacked
     # name, prefill rows through the packed name; act-order through s4
     k1 = {entry: sum_results([check_int4(torch, timer, entry, key, m)
@@ -1440,7 +1499,7 @@ def main() -> int:
             raise AssertionError(f"{key} never ran in a serving run: {run}")
 
     profile_decode(torch, spec, params, "tinyllama bf16",
-                   focus="paged_split_kernel")
+                   focus=("split_kernel",))
 
     # the slot engine (PAGED_ATTENTION=0): run 4 in scan mode, every decode
     # step through S1; run 5 with int8 KV on ring chunks of 8
@@ -1457,7 +1516,7 @@ def main() -> int:
     if run5["flash_prefill"] <= 0 or any(run5[key] for key in paged_kernels):
         raise AssertionError(f"run 5 left the slot ring path: {run5}")
     profile_decode(torch, spec, params, "tinyllama slot scan", scan,
-                   slot=True)
+                   slot=True, focus=("split_kernel",))
 
     # the ring-decode probe: S2's caller, as in the JAX package
     for c in counters.values():
@@ -1493,7 +1552,7 @@ def main() -> int:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
     prof3 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv",
                            quantized, max_seq=1024, live=16, calls=4,
-                           focus="int4_matmul_kernel")
+                           focus=("int4_matmul_kernel", "split_kernel"))
 
     # run 6: run 3's config under INT4_FUSED_MLP=1 with a soft-prompt store;
     # M1 takes the MLP of every decode layer, K1 keeps w_qkv and wo
@@ -1520,7 +1579,7 @@ def main() -> int:
         f"(w_gu + the GLU + w_down)")
     prof6 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv fused",
                            quantized, max_seq=1024, live=16, calls=4,
-                           fused=True, focus="int4_mlp_kernel")
+                           fused=True, focus=("int4_mlp_kernel",))
     if prof3 and prof6:
         log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
             f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
@@ -1563,9 +1622,12 @@ def main() -> int:
     log(f"flash_prefill at D=128 (H=32, KV=8): {json.dumps(fp128)}")
     log(f"flash_prefill at D=128 (H=32, KV=32, G=1): {json.dumps(fp128_g1)}")
     log(f"decode_attention at D=128 (KV=32, G=1): {json.dumps(s1_7b)}")
+    log(f"paged_decode_attention_partial_i8 at D=64 (KV=4, G=8): "
+        f"{json.dumps(pi8_64)}")
     for step in (0, 63):
         log(f"ring_decode_attention at step {step}: {json.dumps(s2[step])}")
-    log("decode_attention record: TinyLlama widths; ring_decode_attention "
+    log("paged_decode_attention_partial_i8 record: 7B widths; "
+        "decode_attention record: TinyLlama widths; ring_decode_attention "
         "record: step 32; launches: decode_attention in the serving runs, "
         "ring_decode_attention in the probe")
     log("int4_matmul_s4_stacked and int4_matmul records: the sums over a 7B "

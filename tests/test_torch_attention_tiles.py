@@ -4,7 +4,8 @@ the CPU, as tests/test_torch_kernels.py runs them).
 
 - Paged decode: `paged_decode_split_reference` computes (acc, m, l) for
   every split of a fixed number of pages and merges them in split order,
-  as `csrc/paged_attention.cu`'s bf16 kernel does in one launch.
+  as `csrc/paged_attention.cu`'s kernel does in one launch, over float
+  pools and over int8 pools with their scale pools (K2's schedule).
 - Flash prefill: `flash_prefill_tiled_reference` walks the kernel's row
   tiles (two halves of 64 rows) and 128-key tiles, masking only the tiles
   that cross a half's diagonal or the length, as `csrc/flash_prefill.cu`.
@@ -22,6 +23,7 @@ import torch
 
 import jax.numpy as jnp
 
+from text_generation_inference_tpu.models.core import quantize_kv
 from text_generation_inference_tpu.ops.pallas import flash_prefill as jfp
 from text_generation_inference_tpu.ops.pallas import paged_attention as jpa
 from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as tfp
@@ -87,41 +89,76 @@ def test_split_twin_normalized_matches_pallas(pages_per_split):
     close(got, want)
 
 
+def int8_pools(*pools):
+    """Quantize float pools as the int8 KV path does: (int8 pools, f32
+    scale pools), numpy."""
+    out = []
+    for x in pools:
+        qv, sc = quantize_kv(jnp.asarray(x))
+        out += [np.array(qv), np.array(sc)]
+    return out
+
+
+@pytest.mark.parametrize("pool", ["float", "int8"])
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3])
-def test_split_twin_stats_matches_stacked_pallas(pages_per_split):
+def test_split_twin_stats_matches_stacked_pallas(pages_per_split, pool):
     q, kp, vp, bt, ctx = paged_case(CTX, seed=1)
     rng = np.random.default_rng(2)
     kps = np.stack([rng.normal(size=kp.shape).astype(np.float32), kp])
     vps = np.stack([rng.normal(size=vp.shape).astype(np.float32), vp])
+    jscales, tscales = {}, {}
+    if pool == "int8":
+        kps, ksc, vps, vsc = int8_pools(kps, vps)
+        jscales = dict(k_scale_pools=jnp.asarray(ksc),
+                       v_scale_pools=jnp.asarray(vsc))
+        tscales = dict(zip(("k_scale_pool", "v_scale_pool"),
+                           t(ksc[1], vsc[1])))
     want = jpa.paged_decode_attention_partial_stacked(
-        *j(q, kps, vps, bt, ctx), jnp.int32(1), PAGE, interpret=True)
-    got = tpa.paged_decode_split_reference(*t(q, kp, vp, bt, ctx), PAGE,
+        *j(q, kps, vps, bt, ctx), jnp.int32(1), PAGE, interpret=True,
+        **jscales)
+    got = tpa.paged_decode_split_reference(*t(q, kps[1], vps[1], bt, ctx),
+                                           PAGE,
                                            pages_per_split=pages_per_split,
-                                           stats=True)
+                                           stats=True, **tscales)
     for a, b in zip(got, want):
         close(a, b)
     assert np.all(np.isneginf(got[1][0].numpy()))          # ctx == 0
     assert np.all(got[2][0].numpy() == 0) and np.all(got[0][0].numpy() == 0)
 
 
+@pytest.mark.parametrize("pool", ["float", "int8"])
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3])
 @pytest.mark.parametrize("where", [(5, 0), (5, 2), (8, 3), (9, 6)],
                          ids=["split_start", "split_end", "mid", "last_page"])
-def test_split_twin_skips_a_sentinel_inside_a_split(pages_per_split, where):
+def test_split_twin_skips_a_sentinel_inside_a_split(pages_per_split, where,
+                                                    pool):
     """A sentinel page inside the context contributes no keys: the result
     equals the Pallas kernel on the table with that page's keys dropped
-    (the slot's later pages moved up, its context shortened by a page)."""
+    (the slot's later pages moved up, its context shortened by a page);
+    over int8 pools, the stats of the stacked kernel with scale pools."""
     slot, col = where
     q, kp, vp, bt, ctx = paged_case(CTX, seed=3, sentinel=where)
-    got = tpa.paged_decode_split_reference(*t(q, kp, vp, bt, ctx), PAGE,
-                                           pages_per_split=pages_per_split)
     row = [p for i, p in enumerate(bt[slot]) if i != col] + [NUM_PAGES]
     bt2 = bt[slot:slot + 1].copy()
     bt2[0] = row
     ctx2 = np.asarray([ctx[slot] - PAGE], np.int32)
-    want = jpa.paged_decode_attention(*j(q[slot:slot + 1], kp, vp, bt2, ctx2),
-                                      PAGE, interpret=True)
-    close(got[slot:slot + 1], want)
+    if pool == "float":
+        got = tpa.paged_decode_split_reference(
+            *t(q, kp, vp, bt, ctx), PAGE, pages_per_split=pages_per_split)
+        want = jpa.paged_decode_attention(
+            *j(q[slot:slot + 1], kp, vp, bt2, ctx2), PAGE, interpret=True)
+        close(got[slot:slot + 1], want)
+        return
+    kq, ksc, vq, vsc = int8_pools(kp, vp)
+    got = tpa.paged_decode_split_reference(
+        *t(q, kq, vq, bt, ctx), PAGE, pages_per_split=pages_per_split,
+        stats=True, k_scale_pool=t(ksc)[0], v_scale_pool=t(vsc)[0])
+    want = jpa.paged_decode_attention_partial_stacked(
+        *j(q[slot:slot + 1], kq[None], vq[None], bt2, ctx2), jnp.int32(0),
+        PAGE, k_scale_pools=jnp.asarray(ksc[None]),
+        v_scale_pools=jnp.asarray(vsc[None]), interpret=True)
+    for a, b in zip(got, want):
+        close(a[slot:slot + 1], b)
 
 
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3])

@@ -246,9 +246,8 @@ def test_redesigned_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                 # pool rows % page != 0
         pa.paged_decode_attention(qd, kp[:, :-1].contiguous(),
                                   vp[:, :-1].contiguous(), bt, ctx, page)
-    with pytest.raises(ValueError):                 # G > 8
-        pa.paged_decode_attention(bf16(rng, 6, 2, 16, 64, device=cuda_device),
-                                  kp, vp, bt, ctx, page)
+    with pytest.raises(ValueError):                 # q and pools differ
+        pa.paged_decode_attention(qd.half(), kp, vp, bt, ctx, page)
     assert pa.paged_decode_attention.launches == before
 
 
@@ -366,6 +365,20 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         pa.paged_decode_attention_partial_i8(q, k8, k8, ks.half(), ks, bt, ctx,
                                              PAGE)
+    # K2, like the other entries, takes the head dims of HEAD_DIMS and q in
+    # bf16 or fp16; a head dim of 48 and a float32 q are refused
+    k8 = kp.to(torch.int8)
+    for qbad in (bf16(rng, 5, 2, 8, 64, device=cuda_device).float(),
+                 bf16(rng, 5, 2, 8, 48, device=cuda_device)):
+        pk = k8 if qbad.shape[-1] == 64 else torch.zeros(
+            2, kp.shape[1], 48, dtype=torch.int8, device=cuda_device)
+        with pytest.raises(ValueError):
+            pa.paged_decode_attention_partial_i8(qbad, pk, pk, ks, ks, bt, ctx,
+                                                 PAGE)
+    with pytest.raises(ValueError):                 # pool rows % page != 0
+        pa.paged_decode_attention_partial_i8(
+            q, k8[:, :-1].contiguous(), k8[:, :-1].contiguous(),
+            ks[:, :-1].contiguous(), ks[:, :-1].contiguous(), bt, ctx, PAGE)
     w = int4_weight(rng, 256, 64, cuda_device)
     with pytest.raises(ValueError):
         im.int4_matmul(bf16(rng, 4, 128, device=cuda_device), w)
@@ -443,6 +456,7 @@ def test_slot_wrappers_reject_bad_inputs(cuda_device):
 
     rng = np.random.default_rng(9)
     q, k, v, ctx = slot_case(rng, cuda_device, 64, 8, t=256)
+    before = da.decode_attention.launches
     with pytest.raises(ValueError):
         da.decode_attention(q.float(), k, v, ctx)
     with pytest.raises(ValueError):
@@ -450,8 +464,12 @@ def test_slot_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):                      # head dim 96
         da.decode_attention(q[..., :48].contiguous(), k[..., :48], v[..., :48],
                             ctx)
-    with pytest.raises(ValueError):                      # G > 8
-        da.decode_attention(torch.cat([q, q], 2), k, v, ctx)
+    with pytest.raises(ValueError):                      # mixed dtypes
+        da.decode_attention(q.half(), k, v, ctx)
+    with pytest.raises(ValueError):                      # rows 2 bytes apart
+        wide = bf16(rng, 6, 2, 256, 65, device=cuda_device)[..., :64]
+        da.decode_attention(q, wide, wide, ctx)
+    assert da.decode_attention.launches == before
     kb = bf16(rng, 6, 2, 4, 64, device=cuda_device)
     kn = bf16(rng, 6, 2, 64, device=cuda_device)
     with pytest.raises(ValueError):                      # step past the ring
@@ -572,3 +590,281 @@ def test_int4_mlp_rejects_bad_inputs(cuda_device):
         mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 0, "gelu_tanh_glu")
     with pytest.raises(ValueError):
         mlp.int4_mlp_s4_stacked(x.float(), w_gu, w_down, 0)
+
+
+# --- K2 and S1 on the split body; the attention routes (F1) ----------------
+
+
+def int8_split_case(rng, device, d, g, page, s=6, kh=2):
+    """split_case's table and contexts over int8 pools: dead pool rows hold
+    random int8 values and NaN scales (never read); the reference gets the
+    same pools with those scales zeroed."""
+    from text_generation_inference_tpu_torch.models.core import quantize_kv
+
+    wide = dict(max_pages=72, num_pages=200) if page == 16 else {}
+    q, kp, vp, bt, ctx, page = split_case(rng, device, d, g, s=s, kh=kh,
+                                          page=page, **wide)
+    dead = torch.isnan(kp[0, :, 0])
+    kq, ks = quantize_kv(torch.nan_to_num(kp))
+    vq, vs = quantize_kv(torch.nan_to_num(vp))
+    ks_ref, vs_ref = ks.clone(), vs.clone()
+    ks_ref[:, dead] = 0.0
+    vs_ref[:, dead] = 0.0
+    ks[:, dead] = float("nan")
+    vs[:, dead] = float("nan")
+    return q, kq, vq, ks, vs, ks_ref, vs_ref, bt, ctx, page
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_decode_int8_split_kernel(cuda_device, d, g, page):
+    """K2 on the split body: contexts on split edges (256 keys a split), a
+    sentinel page inside slot 4's context (in split 1 at page 128, split 0
+    at page 16), a ctx == 0 slot, NaN scales on every row no slot reads."""
+    rng = np.random.default_rng(600 + d + g + page)
+    q, kq, vq, ks, vs, ks_ref, vs_ref, bt, ctx, page = int8_split_case(
+        rng, cuda_device, d, g, page)
+    assert pa.split_plan(bt.shape[1], page)[1] > 1
+    before = pa.paged_decode_attention_partial_i8.launches
+    acc, m, l = pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
+                                                     ctx, page)
+    torch.cuda.synchronize()
+    assert pa.paged_decode_attention_partial_i8.launches == before + 1
+    racc, rm, rl = pa.paged_decode_attention_partial_reference(
+        q, kq, vq, bt, ctx, page, k_scale_pool=ks_ref, v_scale_pool=vs_ref)
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+    assert torch.all(torch.isneginf(m[0])) and torch.all(l[0] == 0)
+    assert torch.all(acc[0] == 0)
+    live = ~torch.isneginf(rm)
+    assert torch.equal(live, ~torch.isneginf(m))
+    close(m[live], rm[live], 2e-3)
+    close(l, rl, 2e-3 * max(1.0, float(rl.max())))
+    close(acc, racc, 2e-3 * max(1.0, float(racc.abs().max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 2048])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_slot_decode_split_kernel(cuda_device, g, t):
+    """S1 on the split body over a narrowed view of a longer cache (strides
+    over S, K and T that are not contiguous), contexts on the 64-key tile
+    and 256-row split edges, a ctx == 0 slot, NaN past every context."""
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(700 + g + t)
+    s, kh, d = 7, 2, 128 if g == 1 else 64
+    ctx = np.asarray([0, 1, 63, 64, 65, 256, 257, t][-s:], np.int32)
+    ctx = np.minimum(ctx, t)
+    ctx[0] = 0
+    big_k = bf16(rng, 2, s, kh, t + 64, d, device=cuda_device)
+    big_v = bf16(rng, 2, s, kh, t + 64, d, device=cuda_device)
+    for i, c in enumerate(ctx):
+        big_k[:, i, :, c:] = float("nan")
+        big_v[:, i, :, c:] = float("nan")
+    k = big_k[1].narrow(2, 0, t)
+    v = big_v[1].narrow(2, 0, t)
+    assert not k.is_contiguous()
+    q = bf16(rng, s, kh, g, d, device=cuda_device)
+    ctx_t = torch.from_numpy(ctx).to(cuda_device)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, ctx_t)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+    close(got, da.decode_attention_reference(q, k, v, ctx_t), 2e-2)
+
+
+@pytest.mark.cuda
+def test_int8_and_slot_kernels_are_batch_invariant(cuda_device):
+    """K2 and S1: a slot's result is bit-identical whatever the other slots
+    hold (3 or 40 of them) and from one launch to the next."""
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(13)
+    q, kq, vq, ks, vs, _, _, bt, ctx, page = int8_split_case(
+        rng, cuda_device, 128, 1, 128)
+    sq, sk, sv, sctx = slot_case(rng, cuda_device, 64, 8)
+    outs = []
+    for n in (3, 40):
+        idx = torch.from_numpy(rng.integers(0, 6, size=n)).to(cuda_device)
+        idx[1] = 5                                   # the full slot
+        for _ in range(2):
+            acc = pa.paged_decode_attention_partial_i8(
+                q[idx].contiguous(), kq, vq, ks, vs, bt[idx].contiguous(),
+                ctx[idx].contiguous(), page)[0][1]
+            out = da.decode_attention(sq[idx].contiguous(), sk[idx], sv[idx],
+                                      sctx[idx].contiguous())[1]
+            outs.append((acc, out))
+    torch.cuda.synchronize()
+    for acc, out in outs[1:]:
+        assert torch.equal(acc, outs[0][0])
+        assert torch.equal(out, outs[0][1])
+
+
+# (hidden, heads, kv heads, head dim, dtype): the fixtures' tiny_llama widths
+# (D = 16), a group of 16, and DTYPE_STR=float16
+F1_CASES = {"d16": (64, 4, 2, 16, torch.bfloat16),
+            "g16": (256, 16, 1, 64, torch.bfloat16),
+            "float16": (256, 4, 2, 64, torch.float16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(F1_CASES))
+def test_f1_shapes_are_served_by_the_kernels(cuda_device, case):
+    """F1: a model at the tiny_llama fixture's head dim, at a group of 16 or
+    in float16 is served on the card by the kernels (the paged engine, a
+    prefill bucket of 128, per-step and ring-chunk decode), and its forward
+    passes agree with PLAIN's."""
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+    from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
+    from text_generation_inference_tpu_torch.engine.paged_engine import (
+        PagedInferenceEngine)
+    from text_generation_inference_tpu_torch.models import paged_core
+    from text_generation_inference_tpu_torch.models.core import DecoderSpec
+    from text_generation_inference_tpu_torch.ops import attention
+    from text_generation_inference_tpu_torch.tools.probe_decode import random_params
+
+    hidden, heads, kv, d, dtype = F1_CASES[case]
+    spec = DecoderSpec(vocab_size=256, hidden_size=hidden, num_layers=2,
+                       num_heads=heads, num_kv_heads=kv, head_dim=d,
+                       intermediate_size=2 * hidden)
+    params = random_params(spec, cuda_device, dtype, seed=5)
+    page, t, n, max_pages = 16, 128, 2, 12
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=cuda_device)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        3, 256, (n, t)).astype(np.int32)).to(cuda_device)
+    before = (fp.flash_prefill.launches, pa.paged_decode_attention.launches)
+    logits = {}
+    for name, attn in (("kernels", attention.KERNELS),
+                       ("plain", attention.PLAIN)):
+        cache = PagedKVCache.create(spec, n * max_pages, page, n, max_pages,
+                                    dtype, cuda_device)
+        cache.block_table.copy_(torch.arange(
+            n * max_pages, dtype=torch.int32,
+            device=cuda_device).reshape(n, max_pages))
+        lg, _ = paged_core.prefill_paged(spec, params, ids, lengths, slots,
+                                         cache, page, attn=attn)
+        out = [lg[torch.arange(n), lengths.long() - 1]]
+        pos = lengths.clone()
+        nxt = out[0].argmax(-1).to(torch.int32)
+        for _ in range(3):
+            lg, _ = paged_core.decode_paged(spec, params, nxt, pos, cache,
+                                            pos + 1, page, attn=attn)
+            out.append(lg)
+            nxt, pos = lg.argmax(-1).to(torch.int32), pos + 1
+        logits[name] = out
+    torch.cuda.synchronize()
+    # prefill: the JAX rule takes the flash route at d % 64 == 0 (one launch
+    # a layer); every decode layer runs the paged kernel
+    assert fp.flash_prefill.launches - before[0] == (
+        spec.num_layers if d % 64 == 0 else 0)
+    assert (pa.paged_decode_attention.launches - before[1]
+            == 3 * spec.num_layers)
+    for a, b in zip(logits["kernels"], logits["plain"]):
+        assert torch.isfinite(a).all()
+        close(a, b, 5e-2)
+
+    config = ServingConfig(max_sequence_length=256, max_new_tokens=16,
+                           max_batch_slots=2, prefill_buckets=[128],
+                           kv_page_size=page, dtype_str={
+                               torch.bfloat16: "bfloat16",
+                               torch.float16: "float16"}[dtype])
+    config.validate()
+    for chunk in (1, 8):
+        config.decode_chunk = chunk
+        engine = PagedInferenceEngine(spec, params, config, eos_token_id=2,
+                                      device=cuda_device)
+        rp = RequestParams(max_new_tokens=12)
+        first = engine.prefill([0, 1], [list(range(3, 103)),
+                                        list(range(5, 42))], [rp, rp])
+        steps = [engine.decode_steps(want_details=False) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert len(first[0].next_ids) == 2 and all(steps)
+
+
+def _dtype_case(rng, shape, dtype, device):
+    return bf16(rng, *shape, device=device).to(dtype)
+
+
+# (head dim, group, dtype): the head dims the split body is built for
+# beyond 64 / 128, groups past one block of 16 query heads, and fp16
+SHAPE_CASES = [(16, 4, torch.bfloat16), (80, 1, torch.bfloat16),
+               (80, 16, torch.float16), (256, 8, torch.bfloat16),
+               (64, 20, torch.bfloat16), (128, 16, torch.float16),
+               (64, 8, torch.float16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,dtype", SHAPE_CASES)
+def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
+    """The paged kernel in both modes, K2, S1 and S2 at the head dims, groups
+    and dtypes past PR 5's set, against their plain versions: contexts on
+    split edges, a sentinel page, a ctx == 0 slot."""
+    from text_generation_inference_tpu_torch.models.core import quantize_kv
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+    from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+
+    rng = np.random.default_rng(900 + d + g)
+    q, kp, vp, bt, ctx, page = split_case(rng, cuda_device, d, g)
+    q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+    dead = torch.isnan(kp[0, :, 0])
+    kz, vz = torch.nan_to_num(kp), torch.nan_to_num(vp)
+    out = pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
+    assert out.dtype == dtype and torch.all(out[0] == 0)
+    close(out, pa.paged_decode_attention_reference(q, kz, vz, bt, ctx, page),
+          2e-2)
+    acc, m, l = pa.paged_decode_attention_partial(q, kp, vp, bt, ctx, page)
+    racc, rm, rl = pa.paged_decode_attention_partial_reference(
+        q, kz, vz, bt, ctx, page)
+    live = ~torch.isneginf(rm)
+    assert torch.equal(live, ~torch.isneginf(m))
+    close(m[live], rm[live], 2e-3)
+    close(l, rl, 2e-2 * max(1.0, float(rl.max())))
+    close(acc, racc, 2e-2 * max(1.0, float(racc.abs().max())))
+    kq, ks = quantize_kv(kz)
+    vq, vs = quantize_kv(vz)
+    ks[:, dead] = vs[:, dead] = 0.0
+    acc, m, l = pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
+                                                     ctx, page)
+    racc, rm, rl = pa.paged_decode_attention_partial_reference(
+        q, kq, vq, bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)
+    assert torch.all(torch.isneginf(m[0])) and torch.all(l[0] == 0)
+    close(m[live], rm[live], 2e-3)
+    close(l, rl, 2e-2 * max(1.0, float(rl.max())))
+    close(acc, racc, 2e-2 * max(1.0, float(racc.abs().max())))
+
+    # S1 and S2 over a narrowed slot cache
+    s, kh, t, c, step = 5, 2, 512, 8, 5
+    sctx = torch.tensor([0, 1, 64, 257, t], dtype=torch.int32,
+                        device=cuda_device)
+    big = _dtype_case(rng, (2, s, kh, t + 64, d), dtype, cuda_device)
+    k, v = big[0].narrow(2, 0, t), big[1].narrow(2, 0, t)
+    sq = _dtype_case(rng, (s, kh, g, d), dtype, cuda_device)
+    got = da.decode_attention(sq, k, v, sctx)
+    assert got.dtype == dtype and torch.all(got[0] == 0)
+    close(got, da.decode_attention_reference(sq, k, v, sctx), 2e-2)
+    kb, vb = (_dtype_case(rng, (s, kh, c, d), dtype, cuda_device)
+              for _ in range(2))
+    kn, vn = (_dtype_case(rng, (s, kh, d), dtype, cuda_device)
+              for _ in range(2))
+    close(rda.ring_decode_attention(sq, k, v, kb, vb, kn, vn, sctx, step),
+          rda.ring_decode_attention_reference(sq, k, v, kb, vb, kn, vn, sctx,
+                                              step), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g", [(64, 8), (128, 1), (128, 16)])
+def test_flash_prefill_kernel_float16(cuda_device, d, g):
+    rng = np.random.default_rng(950 + d + g)
+    n, t, kh = 2, 256, 2
+    q = bf16(rng, n, t, kh, g, d, device=cuda_device).half()
+    k = bf16(rng, n, t, kh, d, device=cuda_device).half()
+    v = bf16(rng, n, t, kh, d, device=cuda_device).half()
+    lengths = torch.tensor([200, 129], dtype=torch.int32, device=cuda_device)
+    got = fp.flash_prefill(q, k, v, lengths)
+    assert got.dtype == torch.float16
+    close(got, fp.flash_prefill_reference(q, k, v, lengths), 2e-2)

@@ -3,6 +3,10 @@
 // Replaces: the JAX package's ops/pallas/flash_prefill.py
 //           flash_prefill (the Pallas `_kernel`, pallas_call at :143).
 //
+// q, k, v and out are bf16, or fp16 when the entry's `half` is nonzero (the
+// kernel is templated on the element type T; only the wgmma type, the
+// tensor maps' type and the rounding of P and of the output differ).
+//
 // Computes, per (sequence n, kv head kh, query head g of the kv group):
 //   out[n, i, kh, g] = softmax_j(q[n, i, kh, g] . k[n, j, kh] * scale) v[n, j, kh]
 // over keys j <= i and j < lengths[n]. Padded query rows (i >= lengths[n])
@@ -35,7 +39,7 @@
 //   - Products. Both on wgmma with fp32 accumulators in registers:
 //     S = Q K^T (m64n128k16, A = Q and B = the K tile from shared memory,
 //     both K-major), then O += P V (m64nDk16, A = P from registers, rounded
-//     to bf16, B = the V tile straight from its row-major [keys, D] layout
+//     to T, B = the V tile straight from its row-major [keys, D] layout
 //     as an MN-major operand: no transpose).
 //   - Overlap within a warpgroup. Tile kt's S product is started together
 //     with tile kt-1's value product (P_{kt-1} stays in registers), and
@@ -53,7 +57,7 @@
 //     rows in shared memory before its value product.
 //   - Softmax. Online, in fp32: the row max on the raw scores, then one
 //     FFMA and one ex2.approx a score with the scale folded in; row max and
-//     sum reduced within the quad; the output is written once in bf16.
+//     sum reduced within the quad; the output is written once in T.
 // Still left: at D = 64 the softmax (one ex2 a score) weighs as much as the
 // products, and three consumer warpgroups of rows would hide more of it;
 // each block pays its own prologue (barrier set-up, the Q load) where a
@@ -62,6 +66,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -72,8 +77,8 @@ constexpr int kBlockM = 128;                 // rows (token * G + g) a block
 constexpr int kBlockN = 128;                 // keys a tile
 constexpr int kConsumers = 2;                // warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBoxBytes = 128 * 64 * 2;      // one [128 rows][64] bf16 box
-constexpr uint32_t kRowBytes = 128;          // one swizzled row of 64 bf16
+constexpr int kBoxBytes = 128 * 64 * 2;      // one [128 rows][64] box of T
+constexpr uint32_t kRowBytes = 128;          // one swizzled row of 64 T
 
 template <int D>
 struct Config {
@@ -187,106 +192,137 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
+// the wgmma element type of T, for the instruction strings below
+template <typename T>
+constexpr bool kIsHalf = false;
+template <>
+constexpr bool kIsHalf<__half> = true;
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A and B from shared memory, both
 // K-major (128B swizzle); accumulate == 0 overwrites D
+#define TGI_WGMMA_SS_N128(TY)                                                 \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "      \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "      \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "      \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "    \
+      "1, 0, 0;\n}\n"                                                         \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),         \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),         \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),         \
+      "+f"(d[62]), "+f"(d[63])                                                 \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
                                               uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
-      "1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-      "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsHalf<T>) TGI_WGMMA_SS_N128("f16");
+  else TGI_WGMMA_SS_N128("bf16");
 }
+#undef TGI_WGMMA_SS_N128
 
 // D[64 x 64] += A[64 x 16] B[16 x 64]; A from registers, B from shared
 // memory MN-major (128B swizzle)
+#define TGI_WGMMA_RS_N64(TY)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsHalf<T>) TGI_WGMMA_RS_N64("f16");
+  else TGI_WGMMA_RS_N64("bf16");
 }
+#undef TGI_WGMMA_RS_N64
 
 // D[64 x 128] += A[64 x 16] B[16 x 128]; A from registers, B from shared
 // memory MN-major (128B swizzle)
+#define TGI_WGMMA_RS_N128(TY)                                                 \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "   \
+      "%67}, %68, p, 1, 1, 1;\n}\n"                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
+      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
+      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),         \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),         \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),         \
+      "+f"(d[62]), "+f"(d[63])                                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                               const uint32_t (&a)[4],
                                               uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
-      "%67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
-      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
-      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-      "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kIsHalf<T>) TGI_WGMMA_RS_N128("f16");
+  else TGI_WGMMA_RS_N128("bf16");
 }
+#undef TGI_WGMMA_RS_N128
 
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 64) wgmma_rs_n64(o, a, desc_b);
-  else wgmma_rs_n128(o, a, desc_b);
+  if constexpr (D == 64) wgmma_rs_n64<T>(o, a, desc_b);
+  else wgmma_rs_n128<T>(o, a, desc_b);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two floats rounded to T, lower element in the lower half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const int32_t* __restrict__ lengths,   // [N]
-                     __nv_bfloat16* __restrict__ out,       // [N, T, KH, G, D]
-                     int T, int KH, int G, float scale_log2) {
+                     T* __restrict__ out,                   // [N, T, KH, G, D]
+                     int T_len, int KH, int G, float scale_log2) {
   using C = Config<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[C::kStages];
@@ -304,8 +340,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tpb = kBlockM / G;                            // tokens a block
   const int tok0 = (gridDim.x - 1 - blockIdx.x) * tpb;    // last tiles first
   const int rows = tpb * G;
-  const int len = max(0, min(lengths[n], T));
-  const int tok_last = min(tok0 + tpb - 1, T - 1);
+  const int len = max(0, min(lengths[n], T_len));
+  const int tok_last = min(tok0 + tpb - 1, T_len - 1);
   // -1 when len == 0: no key tile
   const int last_tile =
       min(tok_last / kBlockN, (len + kBlockN - 1) / kBlockN - 1);
@@ -406,7 +442,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int ks16 = 0; ks16 < D / 16; ++ks16) {
         const uint32_t off = (ks16 / 4) * kBoxBytes + (ks16 % 4) * 32;
-        wgmma_ss_n128(s, desc_k_major(q_addr + off),
+        wgmma_ss_n128<T>(s, desc_k_major(q_addr + off),
                       desc_k_major(k_addr + off), ks16 > 0);
       }
       wgmma_commit();
@@ -420,7 +456,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int k16 = 0; k16 < kBlockN / 16; ++k16)
-        wgmma_pv<D>(o, pa[k16], desc_mn_major(v_addr + k16 * 2048));
+        wgmma_pv<T, D>(o, pa[k16], desc_mn_major(v_addr + k16 * 2048));
       wgmma_commit();
       fence_regs(o);
     };
@@ -459,10 +495,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto pack_p = [&]() {
 #pragma unroll
       for (int k16 = 0; k16 < kBlockN / 16; ++k16) {
-        pa[k16][0] = pack_bf16(s[8 * k16 + 0], s[8 * k16 + 1]);
-        pa[k16][1] = pack_bf16(s[8 * k16 + 2], s[8 * k16 + 3]);
-        pa[k16][2] = pack_bf16(s[8 * k16 + 4], s[8 * k16 + 5]);
-        pa[k16][3] = pack_bf16(s[8 * k16 + 6], s[8 * k16 + 7]);
+        pa[k16][0] = pack2<T>(s[8 * k16 + 0], s[8 * k16 + 1]);
+        pa[k16][1] = pack2<T>(s[8 * k16 + 2], s[8 * k16 + 3]);
+        pa[k16][2] = pack2<T>(s[8 * k16 + 4], s[8 * k16 + 5]);
+        pa[k16][3] = pack2<T>(s[8 * k16 + 6], s[8 * k16 + 7]);
       }
     };
 
@@ -530,7 +566,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (lane == 0) mbar_arrive(&empty_bar[st]);
     }
 
-    // full row sums across the quad, normalize, store bf16 pairs
+    // full row sums across the quad, normalize, store pairs of T
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -539,13 +575,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (row[h] >= rows || tok[h] >= T) continue;
-      __nv_bfloat16* dst =
-          out + ((((size_t)n * T + tok[h]) * KH + kh) * G + row[h] % G) * D;
+      if (row[h] >= rows || tok[h] >= T_len) continue;
+      T* dst =
+          out + ((((size_t)n * T_len + tok[h]) * KH + kh) * G + row[h] % G) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + j * 8 + quad * 2) =
-            pack_bf16(o[4 * j + 2 * h] * l[h], o[4 * j + 2 * h + 1] * l[h]);
+            pack2<T>(o[4 * j + 2 * h] * l[h], o[4 * j + 2 * h + 1] * l[h]);
     }
   }
 }
@@ -571,9 +607,10 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor map over `rank` dims (innermost first), 128-byte swizzle
+// a tensor map of 16-bit elements (fp16 when `half`, else bf16) over `rank`
+// dims (innermost first), 128-byte swizzle
 bool make_map(CUtensorMap* map, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint32_t* box) {
+              const cuuint64_t* dims, const cuuint32_t* box, bool half) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   cuuint64_t strides[4];   // bytes, dims 1..rank-1
@@ -583,29 +620,32 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank,
     strides[i] = stride;
   }
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encode(map,
+                half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* lengths, void* out, int N, int T, int KH,
+                   const int32_t* lengths, void* out, int N, int T_len, int KH,
                    int G, float scale, cudaStream_t stream) {
   using C = Config<D>;
   const int tpb = kBlockM / G;
   CUtensorMap tm_q, tm_k, tm_v;
   const cuuint64_t q_dims[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)KH,
-                                (cuuint64_t)T, (cuuint64_t)N};
+                                (cuuint64_t)T_len, (cuuint64_t)N};
   const cuuint32_t q_box[5] = {64, (cuuint32_t)G, 1, (cuuint32_t)tpb, 1};
-  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)T,
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)T_len,
                                  (cuuint64_t)N};
   const cuuint32_t kv_box[4] = {64, 1, kBlockN, 1};
-  if (!make_map(&tm_q, q, 5, q_dims, q_box) ||
-      !make_map(&tm_k, k, 4, kv_dims, kv_box) ||
-      !make_map(&tm_v, v, 4, kv_dims, kv_box))
+  constexpr bool half = kIsHalf<T>;
+  if (!make_map(&tm_q, q, 5, q_dims, q_box, half) ||
+      !make_map(&tm_k, k, 4, kv_dims, kv_box, half) ||
+      !make_map(&tm_v, v, 4, kv_dims, kv_box, half))
     return cudaErrorInvalidValue;
   // above 48 KB of dynamic shared memory: opt in once per device
   static bool attr_set[64] = {};
@@ -614,15 +654,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(flash_prefill_kernel<D>,
+    err = cudaFuncSetAttribute(flash_prefill_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::kSmem);
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
-  const dim3 grid((T + tpb - 1) / tpb, KH, N);
-  flash_prefill_kernel<D><<<grid, kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, lengths, static_cast<__nv_bfloat16*>(out), T, KH, G,
+  const dim3 grid((T_len + tpb - 1) / tpb, KH, N);
+  flash_prefill_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, lengths, static_cast<T*>(out), T_len, KH, G,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -631,16 +671,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
                                  const int32_t* lengths, void* out, int N,
-                                 int T, int KH, int G, int D, float scale,
-                                 void* stream) {
+                                 int T, int KH, int G, int D, int half,
+                                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte aligned bases; a block holds at least one token
   if (N <= 0 || T <= 0 || KH <= 0 || G <= 0 || G > kBlockM || KH > 65535 ||
       N > 65535 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
-  if (D == 64) return (int)launch<64>(q, k, v, lengths, out, N, T, KH, G, scale, s);
-  if (D == 128) return (int)launch<128>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+  if (half) {
+    if (D == 64) return (int)launch<__half, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+    if (D == 128) return (int)launch<__half, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+  } else {
+    if (D == 64) return (int)launch<__nv_bfloat16, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+    if (D == 128) return (int)launch<__nv_bfloat16, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,26 +1,31 @@
-"""Attention dispatch: hand-written CUDA kernels vs the plain einsum path
-(port of the JAX package's `ops/attention.py`).
+"""Attention dispatch: hand-written CUDA kernels vs the plain path (port of
+the JAX package's `ops/attention.py`).
 
-`prefill_attention` keeps the JAX package's rule (`ops/attention.py:40`):
-the flash kernel runs when there is no bias, the bucket is at least 128
-and the head dim is one the kernel is built for (64 or 128, the multiples
-of 64 the JAX rule admits that this port compiles); otherwise the einsum
-path runs. The einsum path is the JAX package's own rule for those shapes,
-not a fallback for a failing kernel.
+Each route of `KERNELS` keeps the JAX package's rule, decided from shapes
+alone before any launch:
 
-`decode_attention` keeps the JAX package's rule for the slot engine's
-"scan" write mode (`ops/attention.py:54-77`): the slot-cache kernel (S1)
-runs when there is no bias, the cache holds at least 2048 rows and the head
-dim is one the kernel is built for; otherwise the einsum path runs, which
-again is the JAX package's own rule for those shapes.
+- `prefill_attention` (`ops/attention.py:40`): the flash kernel when there
+  is no bias, the bucket is at least 128 and the head dim is a multiple of
+  64; otherwise the einsum path, the JAX rule's own route for those shapes.
+- `decode_attention`, the slot engine's "scan" write mode
+  (`ops/attention.py:67`): the slot-cache kernel (S1) when there is no
+  bias, the cache holds at least 2048 rows and the head dim is a multiple
+  of 64; otherwise the einsum path.
+- the paged routes: the paged kernel at every shape, as the JAX paged
+  forward passes call it (`models/paged_core.py:152,174-183`).
+
+Where the rule takes a kernel, the port calls the kernel's wrapper: on a
+CUDA tensor it launches the kernel, which is built for bf16 and fp16, every
+head dim the port's models use and any group (`HEAD_DIMS` and `DTYPES` of
+each wrapper's module), and raises for anything else; it never gives way to
+its plain version on the card.
 
 The forward passes take an `AttentionOps` argument: `KERNELS` (the
-default, the wrappers of `ops/cuda/`) or `PLAIN` (the plain PyTorch
-versions). Its `int4_plain` flag is the same switch for the GPTQ-INT4
-product (`ops/linear.py`): the per-layer weight views of a forward pass
-carry it to `linear.matmul`. On CPU tensors the wrappers use their plain
-versions themselves; `PLAIN` lets a caller on the card run the same model
-without the kernels, to compare the two.
+default) or `PLAIN` (the plain PyTorch versions). Its `int4_plain` flag is
+the same switch for the GPTQ-INT4 product (`ops/linear.py`): the per-layer
+weight views of a forward pass carry it to `linear.matmul`. On CPU tensors
+the wrappers use their plain versions themselves; `PLAIN` lets a caller on
+the card run the same model without the kernels, to compare the two.
 """
 
 from __future__ import annotations
@@ -30,14 +35,8 @@ from typing import Callable, NamedTuple
 import torch
 
 from .cuda import decode_attention as slot_decode
-from .cuda.flash_prefill import HEAD_DIMS, flash_prefill
-from .cuda.paged_attention import (
-    paged_decode_attention,
-    paged_decode_attention_partial,
-    paged_decode_attention_partial_i8,
-    paged_decode_attention_partial_reference,
-    paged_decode_attention_reference,
-)
+from .cuda import flash_prefill as fp
+from .cuda import paged_attention as pa
 from .cuda.ring_decode_attention import (
     ring_decode_attention,
     ring_decode_attention_reference,
@@ -67,9 +66,10 @@ def prefill_attention(q, k, v, lengths, bias, mask, scale: float):
     `bias`/`mask` drive the einsum path; the kernel derives the causal and
     length mask itself and has no bias."""
     n, t, kh, g, d = q.shape
-    if bias is None and t >= 128 and d in HEAD_DIMS:
-        return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(),
-                             lengths.to(torch.int32).contiguous())
+    if bias is None and t >= 128 and d % 64 == 0:       # the JAX rule
+        return fp.flash_prefill(q.contiguous(), k.contiguous(),
+                                v.contiguous(),
+                                lengths.to(torch.int32).contiguous())
     return prefill_attention_einsum(q, k, v, lengths, bias, mask, scale)
 
 
@@ -94,7 +94,7 @@ def decode_attention(q, k_cache, v_cache, context_len, bias, mask,
     reads rows below `context_len` itself and has no bias."""
     d = q.shape[-1]
     if (bias is None and k_cache.shape[2] >= SLOT_KERNEL_MIN_ROWS
-            and d in HEAD_DIMS):
+            and d % 64 == 0):                             # the JAX rule
         return slot_decode.decode_attention(
             q.contiguous(), k_cache, v_cache,
             context_len.to(torch.int32).contiguous())
@@ -104,7 +104,7 @@ def decode_attention(q, k_cache, v_cache, context_len, bias, mask,
 
 def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
                           block_table, ctx, page_size):
-    return paged_decode_attention_partial_reference(
+    return pa.paged_decode_attention_partial_reference(
         q, k_pool, v_pool, block_table, ctx, page_size,
         k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
 
@@ -128,11 +128,11 @@ class AttentionOps(NamedTuple):
 
 
 KERNELS = AttentionOps(prefill_attention, decode_attention,
-                       ring_decode_attention, paged_decode_attention,
-                       paged_decode_attention_partial,
-                       paged_decode_attention_partial_i8, False)
+                       ring_decode_attention, pa.paged_decode_attention,
+                       pa.paged_decode_attention_partial,
+                       pa.paged_decode_attention_partial_i8, False)
 PLAIN = AttentionOps(prefill_attention_einsum, decode_attention_einsum,
                      ring_decode_attention_reference,
-                     paged_decode_attention_reference,
-                     paged_decode_attention_partial_reference,
+                     pa.paged_decode_attention_reference,
+                     pa.paged_decode_attention_partial_reference,
                      _partial_i8_reference, True)

@@ -37,16 +37,15 @@ _i64 = ctypes.c_longlong
 # argument types of each library's C entry points
 _SIGNATURES = {
     "flash_prefill": {
-        "tgi_flash_prefill": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32,
-                              _i32, _i32, _f32, _vp],
+        "tgi_flash_prefill": [_vp] * 5 + [_i32] * 6 + [_f32, _vp],
     },
-    # the bf16 entries: q, pools, table, ctx, outputs, split scratch,
-    # arrival counters; then S, KH, G, D, R, page, max_pages, num_pages,
-    # pages per split, splits
+    # q, pools (int8: and their scale pools), table, ctx, outputs, split
+    # scratch, arrival counters; then S, KH, G, D, R, page, max_pages,
+    # num_pages, pages per split, splits, half
     "paged_attention": {
-        "tgi_paged_decode": [_vp] * 8 + [_i32] * 10 + [_f32, _vp],
-        "tgi_paged_decode_stats": [_vp] * 10 + [_i32] * 10 + [_f32, _vp],
-        "tgi_paged_decode_stats_i8": [_vp] * 10 + [_i32] * 8 + [_f32, _vp],
+        "tgi_paged_decode": [_vp] * 8 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode_stats": [_vp] * 10 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode_stats_i8": [_vp] * 12 + [_i32] * 11 + [_f32, _vp],
     },
     "int4_matmul": {
         "tgi_int4_matmul": [_vp] * 6 + [_i32] * 5 + [_vp],
@@ -58,12 +57,14 @@ _SIGNATURES = {
         "tgi_int4_mlp": [_vp] * 11 + [_i32] * 7 + [_vp],
         "tgi_int4_mlp_splits": [_i32] * 2,
     },
-    # cache strides over S, K, T are int64; then splits, rows per split
-    # (and the ring's columns and step)
+    # cache strides over S, K, T are int64; S1: q, k, v, ctx, out, split
+    # scratch, arrival counters, then rows per split, splits and half; S2:
+    # q, k, v, ctx, the ring's four sources, split scratch, out, then rows
+    # per split, splits, the ring's columns and step, and half
     "slot_attention": {
-        "tgi_slot_decode": [_vp] * 8 + [_i32] * 5 + [_i64] * 3 + [_i32] * 2
+        "tgi_slot_decode": [_vp] * 7 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
                            + [_f32, _vp],
-        "tgi_ring_decode": [_vp] * 12 + [_i32] * 5 + [_i64] * 3 + [_i32] * 4
+        "tgi_ring_decode": [_vp] * 10 + [_i32] * 5 + [_i64] * 3 + [_i32] * 5
                            + [_f32, _vp],
     },
 }

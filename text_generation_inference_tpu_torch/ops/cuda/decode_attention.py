@@ -10,14 +10,25 @@ Counterpart of the JAX package's `ops/pallas/decode_attention.py`
   ctx:  [S] int32      live cache rows per slot, the current token included
   out:  [S, K, G, D]   in q's dtype
 
+q and the cache are bf16 or fp16 (`DTYPES`); the kernel takes every head
+dim in `HEAD_DIMS` and any group G.
+
 A slot with ctx == 0 gives 0, as the JAX kernel does (it clamps the softmax
 denominator at 1e-30); the JAX reference gives NaN there. Rows at or past
 ctx are never read: the plain version zeroes their values before the value
 product, the kernel does not load them.
 
+The kernel is the split body of `csrc/decode_split.cuh` over the slot
+cache: fixed splits of SPLIT_ROWS cache rows (`split_plan`, from T alone,
+so a slot's result does not depend on the batch), merged in split order in
+the same launch by the last block to arrive at a per-(slot, kv head)
+counter (the device's `paged_attention.arrivals`).
+`decode_attention_split_reference` is the plain twin of that schedule.
+
 `decode_attention` takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `decode_attention.launches` counts
-launches. `launch_slot` is shared with `ring_decode_attention.py`.
+launches. `check_cache` and `_masked_scores` are shared with
+`ring_decode_attention.py`.
 """
 
 from __future__ import annotations
@@ -27,12 +38,21 @@ import math
 import torch
 
 from . import build
+from .paged_attention import (
+    DTYPES,
+    HEAD_DIMS,
+    arrivals,
+    merge_splits,
+    scratch_blocks,
+)
 
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8       # query heads per kv head the kernel handles
-MAX_SPLITS = 32     # splits of T per (slot, kv head)
-TILE_ROWS = 32      # cache rows a block stages at a time
-_sm_count: dict = {}
+SPLIT_ROWS = 256    # cache rows a split of the kernel covers
+
+
+def split_plan(t: int) -> tuple[int, int]:
+    """(rows per split, splits) of S1's grid over a T-row cache: SPLIT_ROWS
+    rows a split, from T alone, never from the number of slots."""
+    return SPLIT_ROWS, max(1, -(-t // SPLIT_ROWS))
 
 
 def _masked_scores(q, k, v, ctx):
@@ -61,6 +81,31 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, ctx: torch.Tensor,
+                                     rows_per_split=None) -> torch.Tensor:
+    """Plain twin of the kernel's schedule: (acc, m, l) of every split of
+    `rows_per_split` cache rows (default: `split_plan`'s), the splits past
+    a slot's rows left out, merged in split order, then normalized."""
+    t = k.shape[2]
+    if rows_per_split is None:
+        rows_per_split = split_plan(t)[0]
+    ctx = ctx.to(torch.int64).clamp(0, t)
+    n_splits = torch.clamp(-(-ctx // rows_per_split), min=1)
+    parts = []
+    for sp, r0 in enumerate(range(0, t, rows_per_split)):
+        r1 = min(r0 + rows_per_split, t)
+        scores, vf = _masked_scores(q, k[:, :, r0:r1], v[:, :, r0:r1],
+                                    torch.clamp(ctx - r0, min=0))
+        m = torch.max(scores, dim=-1).values                     # [S, K, G]
+        m_safe = torch.where(torch.isneginf(m), 0.0, m)
+        p = torch.exp(scores - m_safe[..., None])               # exp(-inf) = 0
+        acc = torch.einsum("skgt,sktd->skgd", p, vf)
+        parts.append((acc, m, p.sum(dim=-1), sp < n_splits))
+    acc, _, l = merge_splits(parts, q.shape, q.device)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
 def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ctx: torch.Tensor) -> None:
     """Raise unless q, the cache views and ctx are what the kernel takes."""
@@ -70,9 +115,9 @@ def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("k", k), ("v", v), ("ctx", ctx)):
         if x.device != q.device:
             raise ValueError(f"{fn}: {name} on {x.device}, q on {q.device}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{fn}: q, k, v must be bfloat16, got {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{fn}: q, k, v must share one of {DTYPES}, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if ctx.dtype != torch.int32 or ctx.shape != (s,) or not ctx.is_contiguous():
         raise ValueError(f"{fn}: ctx must be a contiguous int32 [S] tensor")
     if not q.is_contiguous():
@@ -81,9 +126,8 @@ def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.shape != k.shape or k.shape[2] == 0):
         raise ValueError(f"{fn}: cache {tuple(k.shape)} / {tuple(v.shape)} "
                          f"does not match q {tuple(q.shape)}")
-    if d not in HEAD_DIMS or g > MAX_GROUP:
-        raise ValueError(f"{fn}: head_dim {d} (want {HEAD_DIMS}) or group {g} "
-                         f"(want <= {MAX_GROUP}) not supported")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")
     # 16-byte row loads: the head dim contiguous, rows 16-byte aligned
     if (k.stride() != v.stride() or k.stride(3) != 1
             or any(st % 8 for st in k.stride()[:3])
@@ -92,52 +136,32 @@ def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "head dim and 16-byte aligned rows")
 
 
-def _splits(device: torch.device, blocks: int, t: int) -> tuple[int, int]:
-    """(splits of T, rows per split): enough blocks for two per SM, no
-    split under 256 rows; rows per split a multiple of the tile."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    want = -(-2 * _sm_count[device] // blocks)
-    splits = max(1, min(want, -(-t // 256), MAX_SPLITS))
-    rows = -(-t // splits)
-    rows = -(-rows // TILE_ROWS) * TILE_ROWS
-    return -(-t // rows), rows
-
-
-def launch_slot(entry: str, q, k, v, ctx, ring_args=(), ring_dims=()):
-    """Launch one entry of `csrc/slot_attention.cu` on the current stream
-    (checked inputs); returns out [S, K, G, D] bf16. The split scratch is
-    allocated here."""
-    s, kh, g, d = q.shape
-    t = k.shape[2]
-    splits, rows = _splits(q.device, s * kh, t)
-    acc = torch.empty((s, kh, splits, g, d), dtype=torch.float32,
-                      device=q.device)
-    m = torch.empty((s, kh, splits, g), dtype=torch.float32, device=q.device)
-    l = torch.empty_like(m)
-    out = torch.empty_like(q)
-    lib = build.library("slot_attention")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        code = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-            *[x.data_ptr() for x in ring_args], acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), out.data_ptr(), s, kh, g, d, t, *k.stride()[:3],
-            splits, rows, *ring_dims, 1.0 / math.sqrt(d), stream)
-    build.check("slot_attention", code)
-    return out
-
-
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ctx: torch.Tensor) -> torch.Tensor:
     """See module docstring. Returns [S, K, G, D] in q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, ctx)
     check_cache("decode_attention", q, k, v, ctx)
+    out = torch.empty_like(q)
     if q.numel() == 0:
-        return torch.empty_like(q)
-    out = launch_slot("tgi_slot_decode", q, k, v, ctx)
+        return out
+    s, kh, g, d = q.shape
+    t = k.shape[2]
+    rows, splits = split_plan(t)
+    blocks, heads = scratch_blocks(s, kh, g)
+    part = (torch.empty(blocks * splits * heads * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    counters = arrivals(q.device, blocks)
+    lib = build.library("slot_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.tgi_slot_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            counters.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows,
+            splits, int(q.dtype == torch.float16), 1.0 / math.sqrt(d), stream)
+    build.check("slot_attention", code)
     decode_attention.launches += 1
     return out
 

@@ -26,6 +26,7 @@ import torch
 from . import build
 
 HEAD_DIMS = (64, 128)   # head dims the kernel is compiled for
+DTYPES = (torch.bfloat16, torch.float16)   # element types it is built for
 BLOCK_M = 128           # rows (token * G + g) a block of the kernel takes
 BLOCK_N = 128           # keys a tile of the kernel
 
@@ -127,9 +128,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.device != q.device:
             raise ValueError(f"flash_prefill: {name} on {x.device}, q on "
                              f"{q.device}")
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError("flash_prefill: q, k, v must be bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_prefill: q, k, v must share one of {DTYPES}, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if lengths.dtype != torch.int32 or lengths.shape != (n,):
         raise ValueError("flash_prefill: lengths must be int32 [N]")
     if k.shape != (n, t, kh, d) or v.shape != k.shape:
@@ -153,7 +154,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), n, t, kh, g, d, 1.0 / math.sqrt(d), stream)
+            out.data_ptr(), n, t, kh, g, d, int(q.dtype == torch.float16),
+            1.0 / math.sqrt(d), stream)
     build.check("flash_prefill", code)
     flash_prefill.launches += 1
     return out

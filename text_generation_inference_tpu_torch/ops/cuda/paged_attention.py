@@ -17,19 +17,25 @@ Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
                probabilities before the value product, and l sums the
                unscaled probabilities (JAX `_flash_page_update` with ks/vs)
 
+q, and pools that are not int8, are bf16 or fp16 (`DTYPES`); the kernel
+takes every head dim in `HEAD_DIMS` and any group G (a block takes the
+query heads of a kv head GROUP_BLOCK at a time).
+
 The plain versions gather each slot's pages with explicit masking: a key
 position is live when it is below ctx and its page id lies in
 [0, num_pages); sentinel pages contribute nothing (the kernel skips them).
 The JAX reference clamps such gathers instead (`mode="clip"`), which gives
 the same result wherever the sentinel lies past ctx.
 
-The bf16 kernel splits each slot's pages across blocks, a fixed number of
-pages a split (`split_plan`, from the page size alone), and merges the
-splits' (acc, m, l) in split order inside the same launch: the block that
-arrives last at a per-(slot, kv head) counter merges. The counters live in
-one zeroed int32 buffer per device (`_arrivals`), which the kernel leaves
-zeroed; launches that share it run one after another on one stream.
-`paged_decode_split_reference` is the plain twin of that schedule.
+All three entries run one kernel body (`csrc/decode_split.cuh`): it splits
+each slot's pages across blocks, a fixed number of pages a split
+(`split_plan`, from the page size alone), and merges the splits' (acc, m,
+l) in split order inside the same launch: the block that arrives last at a
+per-(slot, kv head) counter merges. The counters live in one zeroed int32
+buffer per device (`arrivals`, shared with the slot-cache kernel), which
+the kernel leaves zeroed; launches that share it run one after another on
+one stream. `paged_decode_split_reference` is the plain twin of that
+schedule, over bf16 or int8 pools.
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `paged_decode_attention.launches`,
@@ -45,13 +51,16 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (64, 128)
-MAX_GROUP = 8     # query heads per kv head the kernel handles
-SPLIT_KEYS = 256  # keys a split of the bf16 kernel covers (whole pages)
+# head dims the kernel is built for: the JAX package's families (64, 80,
+# 128, 256) and the test fixtures' 16
+HEAD_DIMS = (16, 64, 80, 128, 256)
+DTYPES = (torch.bfloat16, torch.float16)  # element types it is built for
+GROUP_BLOCK = 16  # query heads a block of the split kernel takes
+SPLIT_KEYS = 256  # keys a split of the paged kernel covers (whole pages)
 
 
 def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
-    """(pages per split, splits) of the bf16 kernel's grid. A split covers
+    """(pages per split, splits) of the paged kernel's grid. A split covers
     whole pages, SPLIT_KEYS keys or one page if a page is longer; the plan
     depends on the block table's width and the page size only, never on the
     number of slots, so a slot's result does not depend on the batch."""
@@ -116,14 +125,34 @@ def paged_decode_attention_reference(q, k_pool, v_pool, block_table, ctx,
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
+def merge_splits(parts, shape, device):
+    """Merge per-split (acc, m, l, used [S]) in split order, as the kernels'
+    last block does: (acc [S, K, G, D], m [S, K, G], l [S, K, G]) f32; the
+    splits a slot does not use (used False) are left out."""
+    s, kh, g, d = shape
+    m_all = torch.full((s, kh, g), -math.inf, device=device)
+    for _, m, _, used in parts:
+        m_all = torch.where(used[:, None, None], torch.maximum(m_all, m), m_all)
+    m_safe = torch.where(torch.isneginf(m_all), 0.0, m_all)
+    acc_all = torch.zeros((s, kh, g, d), device=device)
+    l_all = torch.zeros((s, kh, g), device=device)
+    for acc, m, l, used in parts:          # in split order
+        w = torch.where(torch.isneginf(m) | ~used[:, None, None], 0.0,
+                        torch.exp(m - m_safe))
+        acc_all = acc_all + w[..., None] * acc
+        l_all = l_all + w * l
+    return acc_all, m_all, l_all
+
+
 def paged_decode_split_reference(q, k_pool, v_pool, block_table, ctx,
                                  page_size, pages_per_split=None,
-                                 stats=False):
-    """Plain twin of the bf16 kernel's schedule: (acc, m, l) of every split
-    of `pages_per_split` pages (default: `split_plan`'s), the splits past a
+                                 stats=False, k_scale_pool=None,
+                                 v_scale_pool=None):
+    """Plain twin of the kernel's schedule: (acc, m, l) of every split of
+    `pages_per_split` pages (default: `split_plan`'s), the splits past a
     slot's pages left out, then merged in split order. Returns the stats
-    mode's (acc, m, l) or, with stats=False, the normalized output."""
-    s, kh, g, d = q.shape
+    mode's (acc, m, l) or, with stats=False, the normalized output. With
+    int8 pools, their scale pools as in the plain version (K2's twin)."""
     max_pages = block_table.shape[1]
     if pages_per_split is None:
         pages_per_split = split_plan(max_pages, page_size)[0]
@@ -140,28 +169,27 @@ def paged_decode_split_reference(q, k_pool, v_pool, block_table, ctx,
         split_ctx = torch.clamp(ctx - first * page_size, min=0)
         acc, m, l = paged_decode_attention_partial_reference(
             q, k_pool, v_pool, block_table[:, cols].contiguous(),
-            split_ctx.to(torch.int32), page_size)
+            split_ctx.to(torch.int32), page_size, k_scale_pool=k_scale_pool,
+            v_scale_pool=v_scale_pool)
         parts.append((acc, m, l, sp < n_splits))
-    m_all = torch.full((s, kh, g), -math.inf, device=q.device)
-    for _, m, _, used in parts:
-        m_all = torch.where(used[:, None, None], torch.maximum(m_all, m), m_all)
-    m_safe = torch.where(torch.isneginf(m_all), 0.0, m_all)
-    acc_all = torch.zeros((s, kh, g, d), device=q.device)
-    l_all = torch.zeros((s, kh, g), device=q.device)
-    for acc, m, l, used in parts:          # in split order
-        w = torch.where(torch.isneginf(m) | ~used[:, None, None], 0.0,
-                        torch.exp(m - m_safe))
-        acc_all = acc_all + w[..., None] * acc
-        l_all = l_all + w * l
+    acc, m, l = merge_splits(parts, q.shape, q.device)
     if stats:
-        return acc_all, m_all, l_all
-    return (acc_all / torch.clamp(l_all, min=1e-30)[..., None]).to(q.dtype)
+        return acc, m, l
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def scratch_blocks(s: int, kh: int, g: int) -> tuple[int, int]:
+    """(blocks, heads) of the split kernel's grid over one split: S * KH *
+    ceil(G / GROUP_BLOCK) blocks of at most GROUP_BLOCK query heads; the
+    fp32 scratch holds heads = min(G, GROUP_BLOCK) rows of D + 2 per block
+    and split, and the arrival counters one per block."""
+    return s * kh * -(-g // GROUP_BLOCK), min(g, GROUP_BLOCK)
 
 
 _ARRIVALS: dict[torch.device, torch.Tensor] = {}
 
 
-def _arrivals(device: torch.device, n: int) -> torch.Tensor:
+def arrivals(device: torch.device, n: int) -> torch.Tensor:
     """The device's arrival counters, at least n of them, all zero (each
     launch leaves them zero)."""
     buf = _ARRIVALS.get(device)
@@ -172,7 +200,7 @@ def _arrivals(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
-           pool_dtype=torch.bfloat16):
+           pool_dtype=None):
     s, kh, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
@@ -184,10 +212,12 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
             raise ValueError(f"{fn}: {name} must be contiguous")
     if not q.is_contiguous():
         raise ValueError(f"{fn}: q must be contiguous")
-    if (q.dtype != torch.bfloat16 or k_pool.dtype != pool_dtype
+    pool_dtype = pool_dtype or q.dtype
+    if (q.dtype not in DTYPES or k_pool.dtype != pool_dtype
             or v_pool.dtype != pool_dtype):
-        raise ValueError(f"{fn}: q must be bfloat16 and the pools {pool_dtype}"
-                         f", got {q.dtype}, {k_pool.dtype}, {v_pool.dtype}")
+        raise ValueError(f"{fn}: q must be one of {DTYPES} and the pools "
+                         f"{pool_dtype}, got {q.dtype}, {k_pool.dtype}, "
+                         f"{v_pool.dtype}")
     if block_table.dtype != torch.int32 or ctx.dtype != torch.int32:
         raise ValueError(f"{fn}: block_table and ctx must be int32")
     if (k_pool.dim() != 3 or k_pool.shape[0] != kh or k_pool.shape[2] != d
@@ -197,39 +227,37 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
     if block_table.dim() != 2 or block_table.shape[0] != s or ctx.shape != (s,):
         raise ValueError(f"{fn}: block_table [S, max_pages] and ctx [S] "
                          "expected")
-    if d not in HEAD_DIMS or g > MAX_GROUP:
-        raise ValueError(f"{fn}: head_dim {d} (want {HEAD_DIMS}) or group "
-                         f"{g} (want <= {MAX_GROUP}) not supported")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head_dim {d} not in {HEAD_DIMS}")
     if k_pool.shape[1] % page_size:
         raise ValueError(f"{fn}: pool rows not a multiple of page_size")
 
 
 def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
-            scale_pools=(), split=False):
-    """Launch one entry. With split=True (the bf16 entries) the wrapper
-    adds the split plan, the fp32 scratch and the arrival counters."""
+            scale_pools=()):
+    """Launch one entry with the split plan, the fp32 split scratch and the
+    arrival counters."""
     s, kh, g, d = q.shape
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     pool_rows = k_pool.shape[1]
     max_pages = block_table.shape[1]
-    extra, plan = [], []
-    if split:
-        pages_per_split, splits = split_plan(max_pages, page_size)
-        part = torch.empty(s * kh * splits * g * (d + 2) if splits > 1 else 0,
-                           dtype=torch.float32, device=q.device)
-        arrivals = _arrivals(q.device, s * kh)
-        extra = [part.data_ptr() if splits > 1 else None,
-                 arrivals.data_ptr()]
-        plan = [pages_per_split, splits]
+    pages_per_split, splits = split_plan(max_pages, page_size)
+    blocks, heads = scratch_blocks(s, kh, g)
+    part = (torch.empty(blocks * splits * heads * (d + 2),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    counters = arrivals(q.device, blocks)
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             *[p.data_ptr() for p in scale_pools],
             block_table.data_ptr(), ctx.data_ptr(),
-            *[o.data_ptr() for o in outs], *extra, s, kh, g, d, pool_rows,
-            page_size, max_pages, pool_rows // page_size, *plan,
-            1.0 / math.sqrt(d), stream)
+            *[o.data_ptr() for o in outs],
+            None if part is None else part.data_ptr(), counters.data_ptr(),
+            s, kh, g, d, pool_rows, page_size, max_pages,
+            pool_rows // page_size, pages_per_split, splits,
+            int(q.dtype == torch.float16), 1.0 / math.sqrt(d), stream)
     build.check("paged_attention", code)
 
 
@@ -246,7 +274,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return out.zero_()
     _launch("tgi_paged_decode", q, k_pool, v_pool,
-            block_table, ctx, page_size, [out], split=True)
+            block_table, ctx, page_size, [out])
     paged_decode_attention.launches += 1
     return out
 
@@ -269,8 +297,7 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return acc.zero_(), m.fill_(-math.inf), l.zero_()
     _launch("tgi_paged_decode_stats", q,
-            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l],
-            split=True)
+            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l])
     paged_decode_attention_partial.launches += 1
     return acc, m, l
 

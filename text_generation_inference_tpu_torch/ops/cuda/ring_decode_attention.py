@@ -16,7 +16,11 @@ computes inline. Shapes:
   out:        [S, K, G, D]   in q's dtype
 
 The JAX kernel pads S to a slot block of 8 and walks each group up to its
-largest context; both are TPU tiling. Here each slot stops at its own ctx.
+largest context; both are TPU tiling. Here each slot stops at its own ctx:
+the cache rows go through S1's split body in its partials mode (S1's split
+plan, `decode_attention.split_plan`), and a merge kernel folds the slot's
+live splits, the ring columns and the current token into one softmax. The
+dtypes and shapes are S1's (`decode_attention.check_cache`).
 
 `ring_decode_attention` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises.
@@ -29,9 +33,34 @@ import math
 
 import torch
 
-from .decode_attention import _masked_scores, check_cache, launch_slot
+from . import build
+from .decode_attention import _masked_scores, check_cache, split_plan
+from .paged_attention import scratch_blocks
 
-MAX_RING = 1024     # ring columns the kernel's shared memory holds
+MAX_RING = 1024     # ring columns the merge kernel's shared memory holds
+
+
+def _launch(q, k, v, ctx, ring_args, ring_dims):
+    """Launch S2 on the current stream (checked inputs); returns out
+    [S, K, G, D] in q's dtype. The split scratch is allocated here."""
+    s, kh, g, d = q.shape
+    t = k.shape[2]
+    rows, splits = split_plan(t)
+    blocks, heads = scratch_blocks(s, kh, g)
+    part = torch.empty(blocks * splits * heads * (d + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty_like(q)
+    lib = build.library("slot_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        code = lib.tgi_ring_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+            *[x.data_ptr() for x in ring_args], part.data_ptr(),
+            out.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows, splits,
+            *ring_dims, int(q.dtype == torch.float16), 1.0 / math.sqrt(d),
+            stream)
+    build.check("slot_attention", code)
+    return out
 
 
 def ring_decode_attention_reference(q, k_cache, v_cache, kbuf, vbuf, k_new,
@@ -77,16 +106,15 @@ def ring_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            ("v_new", v_new, (s, kh, d))):
         if (x.device != q.device or x.dtype != q.dtype or x.shape != shape
                 or not x.is_contiguous()):
-            raise ValueError(f"{fn}: {name} must be a contiguous bfloat16 "
+            raise ValueError(f"{fn}: {name} must be a contiguous {q.dtype} "
                              f"{shape} tensor on {q.device}")
     if not 1 <= c <= MAX_RING or not 0 <= step_idx <= c:
         raise ValueError(f"{fn}: ring of {c} columns (want 1..{MAX_RING}) "
                          f"with step_idx {step_idx} not supported")
     if q.numel() == 0:
         return torch.empty_like(q)
-    out = launch_slot("tgi_ring_decode", q, k_cache, v_cache, ctx,
-                      ring_args=(kbuf, vbuf, k_new, v_new),
-                      ring_dims=(c, int(step_idx)))
+    out = _launch(q, k_cache, v_cache, ctx, (kbuf, vbuf, k_new, v_new),
+                  (c, int(step_idx)))
     ring_decode_attention.launches += 1
     return out
 

@@ -4,16 +4,26 @@ in one process on one card:
     python -m text_generation_inference_tpu_torch.tools.kernel_ab \\
         flash_prefill other/flash_prefill_a.cu other/flash_prefill_b.cu
 
+`--only TEXT` (before the sources) runs only the checks whose label holds
+TEXT, e.g. `--only S2` for the ring-decode checks of slot_attention.
+
+Libraries with checks: flash_prefill, paged_attention (the bf16 kernel in
+both modes, K2 at 7B and TinyLlama widths) and slot_attention (S1 at both
+widths, S2 at three ring steps). A version is any source with the
+library's C entry points: a copy with other constants (beside its own
+copy of any header it includes), or a file that includes an older source
+under other entry names and defines the checkout's entries over them.
+
 Builds `csrc/<library>.cu` as the port builds it, and each other source
 with the same nvcc flags, then runs `chip_smoke.py`'s kernel checks of that
 library with each build in turn: the checkout's first, then the others, then
 again in reverse order (so drift on the card shows as a difference between
 a build's two passes). Each check holds the kernel against its plain
 version and times it as `chip_smoke.py` does (CUDA events, the L2 flushed
-before every launch). Prints the card's name and power limit, each
-source's ptxas lines that report registers or serialized wgmma
-instructions, and one JSON line per check. Needs the card and
-`chip_smoke.py` at the repository root.
+before every launch; a wrong result stops the run). Prints the card's
+name and power limit, each source's ptxas lines that report registers or
+serialized wgmma instructions, and one JSON line per check. Needs the
+card and `chip_smoke.py` at the repository root.
 """
 
 from __future__ import annotations
@@ -29,18 +39,37 @@ from ..ops.cuda import build
 REPO_ROOT = build.PACKAGE_DIR.parent
 
 
-def _checks(cs, torch, timer, library: str):
-    """(label, result) of chip_smoke's checks of one library."""
+def _checks(cs, torch, timer, library: str, only: str = ""):
+    """(label, result) of chip_smoke's checks of one library, those whose
+    label holds `only`; a check runs only when its label is taken."""
     if library == "flash_prefill":
-        for d, kh, g in ((64, 4, 8), (128, 8, 4), (128, 32, 1)):
-            yield (f"D={d} KV={kh} G={g}",
-                   cs.check_flash_prefill(torch, timer, d=d, kh=kh, g=g))
+        checks = [(f"D={d} KV={kh} G={g}",
+                   lambda d=d, kh=kh, g=g: cs.check_flash_prefill(
+                       torch, timer, d=d, kh=kh, g=g))
+                  for d, kh, g in ((64, 4, 8), (128, 8, 4), (128, 32, 1))]
     elif library == "paged_attention":
-        for stats in (False, True):
-            yield f"bf16 stats={stats}", cs.check_paged(torch, timer, stats)
-        yield "int8 stats", cs.check_paged_int8(torch, timer)
+        checks = [(f"bf16 stats={st}",
+                   lambda st=st: cs.check_paged(torch, timer, st))
+                  for st in (False, True)]
+        checks += [("int8 stats D=128 KV=32 G=1",
+                    lambda: cs.check_paged_int8(torch, timer)),
+                   ("int8 stats D=64 KV=4 G=8",
+                    lambda: cs.check_paged_int8(torch, timer, kh=4, g=8,
+                                                d=64))]
+    elif library == "slot_attention":
+        checks = [(f"S1 D={d} KV={kh} G={g}",
+                   lambda kh=kh, g=g, d=d: cs.check_slot_decode(
+                       torch, timer, s=16, kh=kh, g=g, d=d))
+                  for kh, g, d in ((4, 8, 64), (32, 1, 128))]
+        checks += [(f"S2 step {step}",
+                    lambda step=step: cs.check_ring_decode(torch, timer,
+                                                           step))
+                   for step in (0, 32, 63)]
     else:
         raise SystemExit(f"kernel_ab: no checks for library {library!r}")
+    for label, check in checks:
+        if only in label:
+            yield label, check()
 
 
 def _ptxas_lines(log: str) -> list[str]:
@@ -81,6 +110,9 @@ def main(argv: list[str]) -> int:
     sys.path.insert(0, str(REPO_ROOT))
     import chip_smoke as cs
 
+    only = ""
+    if len(argv) > 2 and argv[1] == "--only":
+        only, argv = argv[2], argv[:1] + argv[3:]
     library, others = argv[0], [Path(p).resolve() for p in argv[1:]]
     cs.DTYPE = torch.bfloat16
     log = build.build_all()[library]
@@ -97,7 +129,7 @@ def main(argv: list[str]) -> int:
     order = list(builds) + list(reversed(builds))
     for name in order:
         build._libs[library] = builds[name]
-        for label, res in _checks(cs, torch, timer, library):
+        for label, res in _checks(cs, torch, timer, library, only):
             print(json.dumps({"build": name, "check": label, **res}),
                   flush=True)
     build._libs[library] = builds["checkout"]
