@@ -13,15 +13,21 @@ Phases (any failure exits non-zero; nothing is caught):
              the same work (CUDA events, L2 flushed between launches),
              beside the least time the card could take: flash prefill and
              paged decode at TinyLlama-1.1B widths in bf16 (flash prefill
-             also at head dim 128, G=4 and G=1, each with its achieved
+             also at head dim 128, G=4 and G=1, at 256 with gemma-7b's and
+             gemma-2b's heads, at 192, and in fp32, each with its achieved
              TFLOP/s; paged decode in both modes with its GB/s and share of
-             the bytes bound); the int8 paged decode (K2, at 7B widths and
-             at TinyLlama's, a sentinel page inside a split and a ctx == 0
-             slot) and the GPTQ-INT4 dequant-GEMM (K1, on a Llama-2-7B layer's four
-             products at 16 and 2048 rows, and one act-order weight) at
-             Llama-2-7B widths; the fused GPTQ-INT4 MLP (M1) on a 7B layer's
-             MLP at 16 and 64 rows, silu and gelu_glu, also beside the two-K1
-             route on the same work; the slot-cache decode kernel (S1) at
+             the bytes bound); every decode entry in fp32 (the paged kernel
+             in both modes, K2 with an fp32 q, S1, S2); the int8 paged
+             decode (K2, at 7B widths and at TinyLlama's, a sentinel page
+             inside a split and a ctx == 0 slot) and the GPTQ-INT4
+             dequant-GEMM (K1, on a Llama-2-7B layer's four products at 16
+             and 2048 rows beside tinygemm and the dense ceiling, at 1, 17,
+             65 and 1000 rows, with fp16 and fp32 x on wo and w_down, every
+             row of 16- and 64-row products bit-identical to the row alone,
+             and one act-order weight) at Llama-2-7B widths; the fused
+             GPTQ-INT4 MLP (M1) on a 7B layer's MLP at 16 and 64 rows, silu
+             and gelu_glu, also beside the two-K1 route on the same work,
+             and with fp16 and fp32 x; the slot-cache decode kernel (S1) at
              TinyLlama and 7B decode widths over a 2048-row cache, and the
              ring-decode kernel (S2) at the decode probe's shapes (48 slots,
              1024 cache rows, a ring of 64) at ring steps 0, 32 and 63. K2
@@ -32,9 +38,12 @@ Phases (any failure exits non-zero; nothing is caught):
              greedy tokens are compared: the full-width bf16 TinyLlama
              (`decode_paged` steps), the same model on the slot cache
              (`core.prefill`, then scan-mode `core.decode` steps at
-             max_seq 2048, through S1), then a 4-layer GPTQ-INT4 model at
-             7B widths over an int8 pool (ring-decode steps and a flush),
-             with K1 for every product and with the MLP through M1.
+             max_seq 2048, through S1), a float32 model at the test
+             fixtures' tiny_llama widths (per-step and ring-chunk paged
+             decode on the fp32 bodies, launches counted), then a 4-layer
+             GPTQ-INT4 model at 7B widths over an int8 pool (ring-decode
+             steps and a flush), with K1 for every product and with the MLP
+             through M1, in bf16 and again in fp16.
   4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
              full TinyLlama-1.1B width (22 layers, random bf16 weights from
              a seeded generator on the card), decode chunks of 8 with the
@@ -69,7 +78,8 @@ Phases (any failure exits non-zero; nothing is caught):
              wall and device-busy time per step, the top kernels, and
              the ms and launches a step of the kernels each profile is
              about (the bf16 paged kernel after run 2, S1 after run 4, K1
-             and K2 after run 3, M1 after run 6).
+             and K2 after run 3, M1 and K1 after run 6; no `sum_splits`
+             kernel may run).
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -94,6 +104,7 @@ DEVICE = "cuda"                 # the CPU only in a rehearsal at tiny widths
 DTYPE = None                    # torch.bfloat16, set in main()
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 # the JAX reference package's directory (named here, never imported)
 JAX_PACKAGE_DIR = "text_generation_inference" + "_tpu"
 PORT_DIR = "text_generation_inference_tpu_torch"
@@ -157,9 +168,15 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def peak_flops(dtype) -> float:
+    """The card's peak for a kernel's operations: the bf16 tensor cores,
+    or the fp32 CUDA cores for the fp32 attention bodies."""
+    return PEAK_FP32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
+
+
+def bound(nbytes: float, flops: float, fp32: bool = False) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_BF16_FLOPS
+    t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -171,15 +188,19 @@ def nbytes(*tensors) -> int:
 # --- phase 2: kernels -------------------------------------------------------
 
 
-def check_flash_prefill(torch, timer, d: int, kh: int, g: int):
+def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
+    """Flash prefill over two right-padded sequences of a 2048 bucket at
+    (D, KV heads, group), bf16 by default; fp32 runs the fp32 CUDA-core
+    kernel, held to 1e-4."""
     from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
 
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + d)
     n, t = 2, 2048
     lengths = torch.tensor([1500, 900], dtype=torch.int32, device="cuda")
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v = rnd(n, t, kh, g, d), rnd(n, t, kh, d), rnd(n, t, kh, d)
     got = fp.flash_prefill(q, k, v, lengths)
@@ -189,8 +210,8 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int):
     err = diff.max().item()
     # the kernel rounds P to bf16 for the tensor-core value product (as
     # FlashAttention-2 does) and both round the output to bf16 once: allow
-    # about two bf16 ulps, atol 2e-2 + rtol 1e-2
-    atol, rtol = 2e-2, 1e-2
+    # about two bf16 ulps, atol 2e-2 + rtol 1e-2; fp32 computes in fp32
+    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
     tol = f"atol {atol} + rtol {rtol}"
     if not bool((diff <= atol + rtol * want.float().abs()).all()):
         raise AssertionError(f"flash_prefill D={d}: max abs err {err} "
@@ -208,19 +229,22 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int):
     rows = torch.arange(1, t + 1, device="cuda")
     pairs = sum(int(torch.clamp(rows, max=int(ln)).sum()) for ln in lengths)
     flops = 4.0 * d * kh * g * pairs
-    b_ms, b_by = bound(nbytes(q, k, v, got, lengths), flops)
+    b_ms, b_by = bound(nbytes(q, k, v, got, lengths), flops,
+                       fp32=dtype == torch.float32)
     tflops = flops / (ms * 1e-3) / 1e12
-    log(f"kernel flash_prefill D={d} N={n} T={t} H={kh * g} KV={kh}: "
+    log(f"kernel flash_prefill {str(dtype).split('.')[-1]} D={d} N={n} T={t} "
+        f"H={kh * g} KV={kh}: "
         f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}); {flops / 1e9:.1f} GFLOP at {tflops:.1f} TFLOP/s "
-        f"({100 * tflops / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 peak)")
+        f"({100 * tflops / (peak_flops(dtype) / 1e12):.1f}% of the "
+        f"{'fp32' if dtype == torch.float32 else 'bf16'} peak)")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, tflops=tflops)
 
 
 def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
-                 first_ctx=1):
+                 first_ctx=1, dtype=None):
     """Decode inputs (TinyLlama widths by default): 16 slots with contexts
     mixed up to max_pages * page, pages scattered over a pool four times
     the live size."""
@@ -240,7 +264,8 @@ def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
         used += need
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            dtype or torch.bfloat16)
 
     q = rnd(s, kh, g, d)
     kp = rnd(kh, num_pages * page, d)
@@ -266,10 +291,11 @@ def paged_library_call(torch, q, kp, vp, bt, ctx, page):
     return lambda: sdpa(qh, kd, vd, attn_mask=mask)
 
 
-def check_paged(torch, timer, stats: bool):
+def check_paged(torch, timer, stats: bool, dtype=None):
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
-    q, kp, vp, bt, ctx, page = paged_inputs(torch)
+    q, kp, vp, bt, ctx, page = paged_inputs(torch, dtype=dtype)
+    fp32 = q.dtype == torch.float32
     s, kh, g, d = q.shape
     if stats:
         fn = lambda: pa.paged_decode_attention_partial(q, kp, vp, bt, ctx, page)
@@ -279,7 +305,7 @@ def check_paged(torch, timer, stats: bool):
         acc_abs = pa.paged_decode_attention_partial_reference(
             q, kp, vp.abs(), bt, ctx, page)[0]
         torch.cuda.synchronize()
-        err, tol = stats_error(torch, got, want, acc_abs, "paged stats")
+        err, tol = stats_error(torch, got, want, acc_abs, "paged stats", fp32)
         out_bytes = nbytes(*got)
     else:
         fn = lambda: pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
@@ -287,7 +313,7 @@ def check_paged(torch, timer, stats: bool):
             q, kp, vp, bt, ctx, page)
         got, want = fn(), ref()
         torch.cuda.synchronize()
-        err, tol = bf16_close(torch, got, want, "paged decode")
+        err, tol = bf16_close(torch, got, want, "paged decode", fp32)
         out_bytes = nbytes(got)
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
@@ -296,10 +322,10 @@ def check_paged(torch, timer, stats: bool):
     kv_bytes = 2 * live * kh * d * kp.element_size()
     flops = 4.0 * live * kh * g * d
     moved = nbytes(q, bt, ctx) + kv_bytes + out_bytes
-    b_ms, b_by = bound(moved, flops)
+    b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
     name = "paged_decode_attention_stats" if stats else "paged_decode_attention"
-    log(f"kernel {name} S={s} KV={kh} G={g} D={d} page={page} ctx_max="
+    log(f"kernel {name} {str(q.dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} page={page} ctx_max="
         f"{int(ctx.max())} live_tokens={live}: max_abs_err {err:.3e} (tol "
         f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
@@ -308,7 +334,7 @@ def check_paged(torch, timer, stats: bool):
                 bound_by=b_by, library_ms=library_ms, gbps=gbps)
 
 
-def stats_error(torch, got, want, acc_abs, what):
+def stats_error(torch, got, want, acc_abs, what, fp32=False):
     """Max abs error of (acc, m, l) over the finite entries, each stat held
     to its own tolerance (raises if one is outside it; the -inf pattern of
     m must match):
@@ -317,7 +343,10 @@ def stats_error(torch, got, want, acc_abs, what):
            bf16 for its value product, at most 2^-9 of each term;
       m    1e-4 of max(1, |m|): both take the max of the same fp32 scores;
       l    1e-3 of max(1, max l): the same fp32 sum in another order.
-    Returns (max abs error, a description of the tolerances)."""
+    fp32 (`fp32`: the fp32 CUDA-core body, no rounding of p): acc within
+    1e-5 of acc_abs + 1e-5, m and l as above. Returns (max abs error, a
+    description of the tolerances)."""
+    p_round = 1e-5 if fp32 else 2.0 ** -8
     names = ("acc", "m", "l")
     err = 0.0
     for name, a, b in zip(names, got, want):
@@ -326,7 +355,7 @@ def stats_error(torch, got, want, acc_abs, what):
             raise AssertionError(f"{what}: {name}'s -inf pattern differs")
         diff = (a[finite] - b[finite]).abs()
         if name == "acc":
-            tol = 2.0 ** -8 * acc_abs[finite] + 1e-4
+            tol = p_round * acc_abs[finite] + (1e-5 if fp32 else 1e-4)
         elif name == "m":
             tol = 1e-4 * torch.clamp(b[finite].abs(), min=1.0)
         else:
@@ -335,11 +364,12 @@ def stats_error(torch, got, want, acc_abs, what):
             raise AssertionError(f"{what}: {name} max abs err "
                                  f"{diff.max().item()} outside its tolerance")
         err = max(err, diff.max().item())
-    return err, ("acc 2^-8 of sum p|v| + 1e-4, m 1e-4 of max(1, |m|), l 1e-3 "
-                 "of max(1, max l)")
+    return err, (f"acc {'1e-5' if fp32 else '2^-8'} of sum p|v| + "
+                 f"{'1e-5' if fp32 else '1e-4'}, m 1e-4 of max(1, |m|), l "
+                 "1e-3 of max(1, max l)")
 
 
-def check_paged_int8(torch, timer, kh=32, g=1, d=128):
+def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None):
     """K2, the stats mode over int8 pools: at Llama-2-7B decode widths (16
     slots, 32 kv heads, G = 1, D = 128) or TinyLlama's (4 kv heads, G = 8,
     D = 64); page 128 (two pages a split), contexts up to 1024, a ctx == 0
@@ -348,13 +378,15 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128):
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
     q, kp, vp, bt, ctx, page = paged_inputs(torch, s=16, kh=kh, g=g, d=d,
-                                            max_pages=8, first_ctx=0)
+                                            max_pages=8, first_ctx=0,
+                                            dtype=dtype)
+    fp32 = q.dtype == torch.float32
     bt[4, 1] = kp.shape[1] // page              # the sentinel, in split 0
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
     # the library call's input: the dequantized pools, made outside timing
-    kd = (kq.float() * ks[..., None]).to(torch.bfloat16)
-    vd = (vq.float() * vs[..., None]).to(torch.bfloat16)
+    kd = (kq.float() * ks[..., None]).to(q.dtype)
+    vd = (vq.float() * vs[..., None]).to(q.dtype)
     del kp, vp
     s = q.shape[0]
     fn = lambda: pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
@@ -365,7 +397,8 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128):
     acc_abs = pa.paged_decode_attention_partial_reference(
         q, kq, vq.abs(), bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)[0]
     torch.cuda.synchronize()
-    err, tol = stats_error(torch, got, want, acc_abs, "paged int8 stats")
+    err, tol = stats_error(torch, got, want, acc_abs, "paged int8 stats",
+                           fp32)
     if not (torch.isneginf(got[1][0]).all() and (got[2][0] == 0).all()
             and (got[0][0] == 0).all()):
         raise AssertionError("paged decode int8: ctx == 0 slot not empty")
@@ -383,9 +416,9 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128):
     kv_bytes = 2 * live * kh * (d * kq.element_size() + ks.element_size())
     flops = 4.0 * live * kh * g * d
     moved = nbytes(q, bt, ctx, *got) + kv_bytes
-    b_ms, b_by = bound(moved, flops)
+    b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
-    log(f"kernel paged_decode_attention_partial_i8 S={s} KV={kh} G={g} D={d} "
+    log(f"kernel paged_decode_attention_partial_i8 q {str(q.dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} "
         f"page={page} ctx_max={int(ctx.max())} live_tokens={live}: "
         f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA on the gathered, "
@@ -425,12 +458,13 @@ def spread_ctx(s: int, t: int, seed: int):
                           ).astype(np.int32)
 
 
-def bf16_close(torch, got, want, what):
+def bf16_close(torch, got, want, what, fp32=False):
     """Both versions compute in fp32 and round the output to bf16 once:
-    allow about two bf16 ulps, atol 2e-2 + rtol 2e-2."""
+    allow about two bf16 ulps, atol 2e-2 + rtol 2e-2 (fp32 outputs of the
+    fp32 bodies: 1e-4)."""
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    atol = rtol = 2e-2
+    atol = rtol = 1e-4 if fp32 else 2e-2
     if not (torch.isfinite(got).all()
             and bool((diff <= atol + rtol * want.float().abs()).all())):
         raise AssertionError(f"{what}: max abs err {err} outside atol {atol} "
@@ -450,21 +484,23 @@ def sdpa_call(torch, q, keys, values, live):
     return lambda: sdpa(qh, kx, vx, attn_mask=mask)
 
 
-def check_slot_decode(torch, timer, s, kh, g, d, t=2048):
+def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None):
     """S1 over one layer's slot cache [S, KV, T, D], ctx spread over
     0..T."""
     from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
     gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + d)
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
-                                     device="cuda").to(torch.bfloat16)
+                                     device="cuda").to(dtype)
     q, k, v = rnd(s, kh, g, d), rnd(s, kh, t, d), rnd(s, kh, t, d)
     ctx = torch.from_numpy(spread_ctx(s, t, d)).cuda()
     fn = lambda: da.decode_attention(q, k, v, ctx)
     ref = lambda: da.decode_attention_reference(q, k, v, ctx)
     got, want = fn(), ref()
     torch.cuda.synchronize()
-    err, tol = bf16_close(torch, got, want, f"decode_attention D={d}")
+    err, tol = bf16_close(torch, got, want, f"decode_attention D={d}", fp32)
     if not bool((got[ctx == 0] == 0).all()):
         raise AssertionError("decode_attention: a ctx == 0 slot is not 0")
     same_slot_in_a_batch(
@@ -477,10 +513,10 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048):
     library_ms = timer(sdpa_call(torch, q, k, v, live_rows))
     live = int(ctx.sum())
     flops = 4.0 * live * kh * g * d
-    moved = nbytes(q, ctx, got) + 2 * live * kh * d * 2
-    b_ms, b_by = bound(moved, flops)
+    moved = nbytes(q, ctx, got) + 2 * live * kh * d * q.element_size()
+    b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
-    log(f"kernel decode_attention S={s} KV={kh} G={g} D={d} T={t} "
+    log(f"kernel decode_attention {str(dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} T={t} "
         f"live_tokens={live}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, mask "
         f"over the whole T) bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
@@ -490,14 +526,16 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048):
 
 
 def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
-                      c=64):
+                      c=64, dtype=None):
     """S2 at the decode probe's shapes: cache rows < ctx (spread over
     0..rows), ring columns < step, and the current token."""
     from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
     gen = torch.Generator(device="cuda").manual_seed(SEED + 41 + step)
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
-                                     device="cuda").to(torch.bfloat16)
+                                     device="cuda").to(dtype)
     q = rnd(s, kh, g, d)
     k, v = rnd(s, kh, rows, d), rnd(s, kh, rows, d)
     kb, vb = rnd(s, kh, c, d), rnd(s, kh, c, d)
@@ -508,7 +546,8 @@ def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
     ref = lambda: rda.ring_decode_attention_reference(*args)
     got, want = fn(), ref()
     torch.cuda.synchronize()
-    err, tol = bf16_close(torch, got, want, f"ring_decode_attention step {step}")
+    err, tol = bf16_close(torch, got, want,
+                          f"ring_decode_attention step {step}", fp32)
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
     keys = torch.cat([k, kb, kn[:, :, None]], dim=2)
@@ -520,8 +559,9 @@ def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
     library_ms = timer(sdpa_call(torch, q, keys, values, live_rows))
     live = int(ctx.sum()) + s * (step + 1)
     flops = 4.0 * live * kh * g * d
-    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d * 2, flops)
-    log(f"kernel ring_decode_attention S={s} KV={kh} G={g} D={d} rows={rows} "
+    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d *
+                       q.element_size(), flops, fp32)
+    log(f"kernel ring_decode_attention {str(dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} rows={rows} "
         f"ring={c} step={step} live_tokens={live}: max_abs_err {err:.3e} (tol "
         f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} (SDPA over the concatenated sources) bound_ms "
@@ -598,22 +638,62 @@ def int4_library_call(torch, x, w):
                 f"({type(e).__name__}: {str(e)[:80]})")
 
 
+# K1's tolerance against its plain version: the weights enter the tensor
+# cores as exact integers and both versions sum in fp32, so the outputs
+# differ by the rounding of y to x's dtype, one ulp (2^-7 relative in bf16,
+# 2^-10 in fp16), plus 1e-3 for the summation order and fp32 x's hi + lo
+# split (the earlier design rounded every weight to bf16: atol 2e-2 +
+# rtol 1e-2)
+K1_RTOL = {"torch.bfloat16": 2.0 ** -7, "torch.float16": 2.0 ** -10,
+           "torch.float32": 1e-5}
+K1_ATOL = 1e-3
+K1_WEIGHTS = {}     # (in, out) -> a 2-layer stack, kept with keep=True
+
+
+def k1_close(torch, got, want, what, loose=False):
+    """Raises unless got is within K1's tolerance of want (with loose, the
+    earlier design's, which tools/kernel_ab.py holds every version to);
+    returns (max abs err, the tolerance)."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if loose:
+        atol, rtol = 2e-2, 1e-2
+    else:
+        atol, rtol = K1_ATOL, K1_RTOL[str(want.dtype)]
+    if not bool((diff <= atol + rtol * want.float().abs()).all()):
+        raise AssertionError(f"{what}: max abs err {err} outside atol {atol} "
+                             f"+ rtol {rtol}")
+    return err, f"atol {atol} + rtol {rtol:.3g}"
+
+
 def check_int4(torch, timer, entry: str, key: str, m: int,
-               act_order: bool = False):
-    """K1 through one of its three entry names on one 7B product at m rows:
-    the stacked name reads layer 1 of a 2-layer stack, the packed and the
-    s4 names a layer's view. With act_order, g_idx is shuffled, normalized
-    into a perm, and the product goes through `linear.matmul` (the perm
-    gather, then the s4 name, as a 2-D weight takes)."""
+               act_order: bool = False, dtype=None, light: bool = False,
+               keep: bool = False, loose: bool = False):
+    """K1 through one of its three entry names on one 7B product at m rows,
+    x in `dtype` (bf16 by default): the stacked name reads layer 1 of a
+    2-layer stack, the packed and the s4 names a layer's view. With
+    act_order, g_idx is shuffled, normalized into a perm, and the product
+    goes through `linear.matmul` (the perm gather, then the s4 name, as a
+    2-D weight takes). `light` checks and times the kernel only, beside its
+    bound; otherwise also the plain version, the library yardstick
+    (tinygemm) and the dense ceiling: torch.matmul on the weight
+    dequantized to bf16 beforehand, not the same function (it reads 4x the
+    weight bytes) but what the card reaches on a dense product of the
+    shape. `keep` reuses one weight per shape for the whole process."""
     from text_generation_inference_tpu_torch.ops import linear
     from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
     from text_generation_inference_tpu_torch.ops.quant import int4
 
+    dtype = dtype or torch.bfloat16
     in_f, out_f = K1_SHAPES[key]
     gen = torch.Generator(device="cuda").manual_seed(SEED + m + in_f + out_f)
-    stack = random_gptq(torch, gen, 2, in_f, out_f)
+    stack = K1_WEIGHTS.get((in_f, out_f)) if keep else None
+    if stack is None:
+        stack = random_gptq(torch, gen, 2, in_f, out_f)
+        if keep:
+            K1_WEIGHTS[(in_f, out_f)] = stack
     w = stack.layer(1)
-    x = torch.randn(m, in_f, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(m, in_f, generator=gen, device="cuda").to(dtype)
     xk = x
     if act_order:
         g_idx = w.g_idx[torch.randperm(in_f, generator=gen, device="cuda")]
@@ -627,29 +707,58 @@ def check_int4(torch, timer, entry: str, key: str, m: int,
     ref = lambda: im.int4_matmul_reference(xk, w)
     got, want = fn(), ref()
     torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    # the kernel rounds each dequantized weight to bf16 for the tensor
-    # cores (the plain version keeps it in f32); both round y to bf16 once
-    atol, rtol = 2e-2, 1e-2
-    if not bool((diff <= atol + rtol * want.float().abs()).all()):
-        raise AssertionError(f"{entry} {key} M={m}: max abs err {err} outside "
-                             f"atol {atol} + rtol {rtol}")
+    if got.dtype != dtype or got.shape != (m, out_f):
+        raise AssertionError(f"{entry} {key} M={m}: {got.dtype} "
+                             f"{tuple(got.shape)} from {dtype} x")
+    err, tol = k1_close(torch, got, want, f"{entry} {key} M={m} {dtype}",
+                        loose=loose)
     kernel = (lambda: im.int4_matmul_s4(xk, w)) if act_order else fn
     ms = timer(kernel)
+    # what the kernel reads: the words, the scales, the zero points, x; y
+    b_ms, b_by = bound(nbytes(w.qweight, w.scales, w.qzeros, x, got),
+                       2.0 * m * in_f * out_f)
+    label = (f"kernel {entry} {key} [{in_f}, {out_f}] M={m} "
+             f"{str(dtype).split('.')[-1]}{' act-order' if act_order else ''}")
+    if light:
+        log(f"{label}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
+        return dict(err=err, ms=ms, bound_ms=b_ms, bound_by=b_by)
     plain_ms = timer(ref, iters=3, warmup=1)
     lib_fn, lib_name = int4_library_call(torch, xk, w)
     lib_err = (lib_fn().float() - want.float()).abs().max().item()
     library_ms = timer(lib_fn)
-    b_ms, b_by = bound(nbytes(w.qweight, w.scales, w.zbias, x, got),
-                       2.0 * m * in_f * out_f)
-    log(f"kernel {entry} {key} [{in_f}, {out_f}] M={m}"
-        f"{' act-order' if act_order else ''}: max_abs_err {err:.3e} (tol "
-        f"atol {atol} + rtol {rtol}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {library_ms:.4f} ({lib_name}, max abs diff from plain "
-        f"{lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by})")
+    wd = int4.dequantize(w, dtype)
+    dense_ms = timer(lambda: torch.matmul(xk, wd))
+    del wd
+    log(f"{label}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} ({lib_name}, max abs "
+        f"diff from plain {lib_err:.3e}) dense ceiling ms {dense_ms:.4f} "
+        f"(torch.matmul on the dequantized weight) bound_ms {b_ms:.4f} "
+        f"({b_by}), {100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, library=lib_name)
+                bound_by=b_by, library_ms=library_ms, library=lib_name,
+                dense_ms=dense_ms)
+
+
+def check_int4_batch_invariance(torch, key: str):
+    """Every row of an M = 16 and an M = 64 product (the decode schedule)
+    bit-identical to the same row computed alone, in bf16 and fp32."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
+
+    in_f, out_f = K1_SHAPES[key]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    w = random_gptq(torch, gen, 1, in_f, out_f).layer(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for m in (16, 64):
+            x = torch.randn(m, in_f, generator=gen, device="cuda").to(dtype)
+            y = im.int4_matmul_s4(x, w)
+            for r in range(m):
+                alone = im.int4_matmul_s4(x[r:r + 1].contiguous(), w)
+                if not torch.equal(alone[0], y[r]):
+                    raise AssertionError(f"K1 {key} {dtype}: row {r} alone "
+                                         f"differs from the same row in M={m}")
+    log(f"K1 {key}: every row of M=16 and M=64 products (bf16, fp32) "
+        f"bit-identical to the row alone (splits {im.split_plan(out_f, in_f)})")
 
 
 # a Llama-2-7B layer's MLP: hidden, intermediate
@@ -672,7 +781,7 @@ def mlp_close(torch, got, want, what):
     return err, f"atol {atol:.3g} (3e-2 of max |y|) + rtol {rtol}"
 
 
-def check_int4_mlp(torch, timer, m: int, activation: str):
+def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None):
     """M1 on a 7B layer's MLP (layer 1 of 2-layer stacks: w_gu [4096,
     22016], w_down [11008, 4096], group 128) at m rows, against its plain
     version; beside it the two-K1 route on the same work (K1 on w_gu, the
@@ -682,18 +791,32 @@ def check_int4_mlp(torch, timer, m: int, activation: str):
     from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
 
     h, inter = M1_SHAPE
+    dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61 + m)
     gu = random_gptq(torch, gen, 2, h, 2 * inter)
     down = random_gptq(torch, gen, 2, inter, h)
-    x = torch.randn(m, h, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(m, h, generator=gen, device="cuda").to(dtype)
     fn = lambda: mlp.int4_mlp_s4_stacked(x, gu, down, 1, activation)
     ref = lambda: mlp.int4_mlp_reference(x, gu.layer(1), down.layer(1),
                                          activation)
     got, want = fn(), ref()
     torch.cuda.synchronize()
-    err, tol = mlp_close(torch, got, want, f"int4_mlp {activation} M={m}")
+    if got.dtype != dtype:
+        raise AssertionError(f"int4_mlp: {got.dtype} from {dtype} x")
+    err, tol = mlp_close(torch, got, want,
+                         f"int4_mlp {activation} M={m} {dtype}")
     if not torch.equal(got, fn()):
         raise AssertionError("int4_mlp: two launches differ")
+    wl = (gu.layer(1), down.layer(1))
+    b_ms, b_by = bound(nbytes(x, got, *(t for w in wl for t in
+                                         (w.qweight, w.scales, w.zbias))),
+                       2.0 * m * h * 2 * inter + 2.0 * m * inter * h)
+    if dtype != torch.bfloat16:
+        ms = timer(fn)
+        log(f"kernel int4_mlp_s4_stacked {activation} H={h} I={inter} M={m} "
+            f"{str(dtype).split('.')[-1]} x: max_abs_err {err:.3e} (tol "
+            f"{tol}) ms {ms:.4f} bound_ms {b_ms:.4f} ({b_by})")
+        return dict(err=err, ms=ms, bound_ms=b_ms, bound_by=b_by)
 
     def two_k1():
         g_u = im.int4_matmul_s4_stacked(x, gu, 1)
@@ -729,10 +852,6 @@ def check_int4_mlp(torch, timer, m: int, activation: str):
                     f"({type(e).__name__}: {str(e)[:80]})")
     lib_err = (library().float() - want.float()).abs().max().item()
     library_ms = timer(library)
-    wl = (gu.layer(1), down.layer(1))
-    b_ms, b_by = bound(nbytes(x, got, *(t for w in wl for t in
-                                         (w.qweight, w.scales, w.zbias))),
-                       2.0 * m * h * 2 * inter + 2.0 * m * inter * h)
     log(f"kernel int4_mlp_s4_stacked {activation} H={h} I={inter} M={m}: "
         f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} ({lib_name}, max abs "
@@ -749,8 +868,9 @@ def sum_results(results):
     products): times and bounds add, the error is the largest, and the
     bound is named by what bounds most of the summed bound."""
     out = dict(err=max(r["err"] for r in results))
-    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        out[k] = sum(r[k] for r in results)
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms", "dense_ms"):
+        if all(k in r for r in results):
+            out[k] = sum(r[k] for r in results)
     by_ops = sum(r["bound_ms"] for r in results if r["bound_by"] == "operations")
     out["bound_by"] = "operations" if 2 * by_ops > out["bound_ms"] else "bytes"
     return out
@@ -995,6 +1115,108 @@ def quant_parity(torch, spec, params, steps: int = 4):
             f"{max_err:.4f} (tol {tol}), greedy tokens equal {agree}/"
             f"{decided} ({agree / decided:.2f}); k pools: {int(far.sum())} of "
             f"{far.numel()} written int8 entries more than 1 apart")
+
+
+# the test fixtures' tiny_llama (tests/fixtures.py): 3 layers of 64, head
+# dim 16 (the paged kernels' fp32 body at D = 16; prefill buckets of 128
+# take the einsum path there by the JAX rule, d % 64 != 0)
+TINY_FIXTURE = dict(vocab_size=256, hidden_size=64, num_layers=3,
+                    num_heads=4, num_kv_heads=2, head_dim=16,
+                    intermediate_size=128, rope_theta=10000.0, norm_eps=1e-5,
+                    max_position_embeddings=256)
+
+
+def fp32_parity(torch, counters, steps: int = 4):
+    """A float32 model (DTYPE_STR=float32) through KERNELS and PLAIN: the
+    fixtures' tiny_llama widths, one `prefill_paged` at a bucket of 128,
+    `steps` per-step `decode_paged` steps (the paged kernel's normalized
+    mode) and `steps` ring-chunk steps (`decode_paged_ring_step`, its stats
+    mode), both runs fed the plain greedy tokens; the kernels' launches in
+    the kernel run are counted and must be positive, and the logits agree
+    within 1e-3 (fp32 against fp32)."""
+    global DTYPE
+    from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
+    from text_generation_inference_tpu_torch.models import paged_core
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.ops.attention import KERNELS, PLAIN
+
+    saved, DTYPE = DTYPE, torch.float32
+    try:
+        spec = llama_spec(TINY_FIXTURE)
+        params = fuse_params(spec, random_params(torch, spec))
+    finally:
+        DTYPE = saved
+    page, t, n = 16, 128, 2
+    lengths = torch.tensor([100, 37], dtype=torch.int32, device=DEVICE)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    max_pages = (t + 2 * steps) // page + 1
+    runs = {"kernels": KERNELS, "plain": PLAIN}
+    caches, logits = {}, {}
+    for name, attn in runs.items():
+        cache = PagedKVCache.create(spec, n * max_pages, page, n, max_pages,
+                                    torch.float32, DEVICE)
+        cache.block_table.copy_(torch.arange(
+            n * max_pages, dtype=torch.int32,
+            device=DEVICE).reshape(n, max_pages))
+        lg, cache = paged_core.prefill_paged(spec, params, ids, lengths,
+                                             slots, cache, page, attn=attn)
+        logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
+        caches[name] = cache
+    pos = lengths.clone()
+    next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
+    kernel_counts = {k: 0 for k in counters}
+
+    def count(fn):
+        for c in counters.values():
+            c.reset()
+        out = fn()
+        for k, c in counters.items():
+            kernel_counts[k] += c.read()
+        return out
+
+    for _ in range(steps):                     # per-step decode
+        for name, attn in runs.items():
+            call = lambda: paged_core.decode_paged(
+                spec, params, next_ids, pos, caches[name], pos + 1, page,
+                attn=attn)
+            lg, _ = count(call) if name == "kernels" else call()
+            logits[name].append(lg)
+        next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
+        pos = pos + 1
+    rings = {name: tuple(torch.zeros((spec.num_layers, n, spec.num_kv_heads,
+                                      steps, spec.head_dim),
+                                     dtype=torch.float32, device=DEVICE)
+                         for _ in range(2)) for name in runs}
+    chunk_start = pos.clone()
+    for i in range(steps):                     # one ring chunk
+        for name, attn in runs.items():
+            kbuf, vbuf = rings[name]
+            call = lambda: paged_core.decode_paged_ring_step(
+                spec, params, next_ids, chunk_start + i, caches[name], kbuf,
+                vbuf, i, chunk_start, page_size=page, attn=attn)
+            lg, k_all, v_all = count(call) if name == "kernels" else call()
+            kbuf[:, :, :, i] = k_all
+            vbuf[:, :, :, i] = v_all
+            logits[name].append(lg)
+        next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
+    sync(torch)
+    for key in ("paged_decode_attention", "paged_decode_attention_stats"):
+        if DEVICE == "cuda" and kernel_counts[key] <= 0:
+            raise AssertionError(f"fp32 parity: {key} never launched: "
+                                 f"{kernel_counts}")
+    tol = 1e-3
+    max_err, agree, decided = compare_logits(
+        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
+        tol, "fp32 parity")
+    log(f"fp32 parity: float32 tiny_llama widths ({spec.num_layers} layers of "
+        f"{spec.hidden_size}, head dim {spec.head_dim}), prefill (bucket {t}, "
+        f"lengths 100/37) + {steps} per-step + {steps} ring-chunk decode steps "
+        f"through KERNELS against PLAIN: logits max abs err {max_err:.3e} "
+        f"(tol {tol}), greedy tokens equal {agree}/{decided}; launches "
+        f"{ {k: v for k, v in kernel_counts.items() if v} }")
 
 
 # --- phase 4: serving -------------------------------------------------------
@@ -1411,13 +1633,31 @@ def main() -> int:
     log(card)
 
     timer = Timer(torch)
+    fp32 = torch.float32
     fp64 = check_flash_prefill(torch, timer, d=64, kh=4, g=8)
     fp128 = check_flash_prefill(torch, timer, d=128, kh=8, g=4)
     fp128_g1 = check_flash_prefill(torch, timer, d=128, kh=32, g=1)
+    # F2: head dims 256 (config.json of google/gemma-7b: 16 heads over 16
+    # kv heads; of google/gemma-2b: 8 over 1) and 192 (16 over 2), and fp32
+    # at TinyLlama widths
+    fp256 = check_flash_prefill(torch, timer, d=256, kh=16, g=1)
+    fp256_g8 = check_flash_prefill(torch, timer, d=256, kh=1, g=8)
+    fp192 = check_flash_prefill(torch, timer, d=192, kh=2, g=8)
+    fp_f32 = check_flash_prefill(torch, timer, d=64, kh=4, g=8, dtype=fp32)
     pn = check_paged(torch, timer, stats=False)
     ps = check_paged(torch, timer, stats=True)
     pi8 = check_paged_int8(torch, timer)
     pi8_64 = check_paged_int8(torch, timer, kh=4, g=8, d=64)
+    # F2: fp32 through every decode entry, against its plain version
+    f32_decode = {
+        "paged_decode_attention": check_paged(torch, timer, False, fp32),
+        "paged_decode_attention_stats": check_paged(torch, timer, True, fp32),
+        "paged_decode_attention_partial_i8": check_paged_int8(
+            torch, timer, kh=4, g=8, d=64, dtype=fp32),
+        "decode_attention": check_slot_decode(torch, timer, s=16, kh=4, g=8,
+                                              d=64, dtype=fp32),
+        "ring_decode_attention": check_ring_decode(torch, timer, 32,
+                                                   dtype=fp32)}
     # K1 on a 7B layer's four products: decode rows through the stacked
     # name, prefill rows through the packed name; act-order through s4
     k1 = {entry: sum_results([check_int4(torch, timer, entry, key, m)
@@ -1426,13 +1666,26 @@ def main() -> int:
                            (2048, "int4_matmul"))}
     k1["int4_matmul_s4"] = check_int4(torch, timer, "int4_matmul_s4", "wo",
                                       16, act_order=True)
+    # row counts off the tiles (1, 17, the first prefill 65, 1000), and
+    # fp16 / fp32 x on wo and w_down (K = 11008: 172 K tiles) on both routes
+    k1_edges = {(m, key): check_int4(torch, timer, "int4_matmul", key, m,
+                                     light=True)
+                for m in (1, 17, 65, 1000) for key in K1_SHAPES}
+    k1_dtypes = {(m, key, str(dt)): check_int4(torch, timer, "int4_matmul",
+                                               key, m, dtype=dt, light=True)
+                 for dt in (torch.float16, fp32) for key in ("wo", "w_down")
+                 for m in (16, 2048)}
+    for key in ("wo", "w_down"):
+        check_int4_batch_invariance(torch, key)
     s1 = check_slot_decode(torch, timer, s=16, kh=4, g=8, d=64)
     s1_7b = check_slot_decode(torch, timer, s=16, kh=32, g=1, d=128)
     s2 = {step: check_ring_decode(torch, timer, step) for step in (0, 32, 63)}
     # M1 at a 7B layer's MLP: decode rows of run 6 (16 slots) and the
-    # kernel's largest row tile, both activations
+    # kernel's largest row tile, both activations; fp16 / fp32 x (F3)
     m1 = {(m, act): check_int4_mlp(torch, timer, m, act)
           for m in (16, 64) for act in ("silu_glu", "gelu_glu")}
+    m1_dtypes = {str(dt): check_int4_mlp(torch, timer, 16, "silu_glu", dt)
+                 for dt in (torch.float16, fp32)}
 
     spec = llama_spec()
     params = random_params(torch, spec)
@@ -1476,6 +1729,7 @@ def main() -> int:
                 "paged_decode_steps": Counter(counting, "calls")}
     paged_kernels = ("paged_decode_attention", "paged_decode_attention_stats",
                      "paged_decode_attention_partial_i8")
+    fp32_parity(torch, counters)
     try:
         import grpc  # noqa: F401
         import google.protobuf  # noqa: F401
@@ -1533,6 +1787,11 @@ def main() -> int:
     # the quantized path at Llama-2-7B widths: GPTQ-INT4 weights, int8 KV
     spec4 = llama_spec(LLAMA7B, num_layers=4)
     quant_parity(torch, spec4, random_params(torch, spec4, gptq=True))
+    # the same in fp16 (DTYPE_STR=float16 on a GPTQ model): K1 and M1 take
+    # fp16 x and return fp16
+    DTYPE = torch.float16
+    quant_parity(torch, spec4, random_params(torch, spec4, gptq=True))
+    DTYPE = torch.bfloat16
     spec7b = llama_spec(LLAMA7B)
     params7b = random_params(torch, spec7b, gptq=True)
     quantized = dict(kv_cache_dtype="int8", decode_chunk=8,
@@ -1552,7 +1811,9 @@ def main() -> int:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
     prof3 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv",
                            quantized, max_seq=1024, live=16, calls=4,
-                           focus=("int4_matmul_kernel", "split_kernel"))
+                           focus=("k1_", "split_kernel", "sum_splits"))
+    if prof3 and prof3["sum_splits_launches"]:
+        raise AssertionError(f"a sum_splits kernel ran: {prof3}")
 
     # run 6: run 3's config under INT4_FUSED_MLP=1 with a soft-prompt store;
     # M1 takes the MLP of every decode layer, K1 keeps w_qkv and wo
@@ -1579,61 +1840,87 @@ def main() -> int:
         f"(w_gu + the GLU + w_down)")
     prof6 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv fused",
                            quantized, max_seq=1024, live=16, calls=4,
-                           fused=True, focus=("int4_mlp_kernel",))
+                           fused=True,
+                           focus=("int4_mlp_kernel", "k1_", "sum_splits"))
+    if prof6 and prof6["sum_splits_launches"]:
+        raise AssertionError(f"a sum_splits kernel ran: {prof6}")
     if prof3 and prof6:
         log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
             f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
 
     runs = (run1, run2, run3, run4, run5, run6, probe_counts)
 
-    def record(name, source, replaces, res):
-        return {"name": name, "route": "cuda",
-                "source": f"{PORT_DIR}/csrc/{source}",
-                "replaces": f"{JAX_PACKAGE_DIR}/ops/pallas/{replaces}",
-                "launches": sum(run[name] for run in runs),
-                "max_abs_err": res["err"], "ms": res["ms"],
-                "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-                "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+    def record(name, source, replaces, res, shapes):
+        out = {"name": name, "route": "cuda",
+               "source": f"{PORT_DIR}/csrc/{source}",
+               "replaces": f"{JAX_PACKAGE_DIR}/ops/pallas/{replaces}",
+               "launches": sum(run[name] for run in runs),
+               "max_abs_err": res["err"], "ms": res["ms"],
+               "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+               "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+               "shapes": shapes}
+        if "dense_ms" in res:
+            out["dense_ceiling_ms"] = res["dense_ms"]
+        return out
 
     kernels = [
         record("flash_prefill", "flash_prefill.cu", "flash_prefill.py:143",
-               fp64),
+               fp64, "bf16, N=2, T=2048, lengths 1500/900, H=32, KV=4, D=64"),
         record("paged_decode_attention", "paged_attention.cu",
-               "paged_attention.py:261", pn),
+               "paged_attention.py:261", pn,
+               "bf16, S=16, KV=4, G=8, D=64, page 128, ctx up to 2048"),
         record("paged_decode_attention_stats", "paged_attention.cu",
-               "paged_attention.py:407", ps),
+               "paged_attention.py:407", ps,
+               "bf16, S=16, KV=4, G=8, D=64, page 128, ctx up to 2048 "
+               "(rows 3 and 4: the per-layer and the stacked pool view)"),
         record("paged_decode_attention_partial_i8", "paged_attention.cu",
-               "paged_attention.py:153", pi8),
+               "paged_attention.py:153", pi8,
+               "int8 pools, bf16 q, S=16, KV=32, G=1, D=128, page 128, ctx "
+               "0 to 1024"),
         record("int4_matmul_s4_stacked", "int4_matmul.cu",
-               "int4_matmul.py:453", k1["int4_matmul_s4_stacked"]),
+               "int4_matmul.py:453", k1["int4_matmul_s4_stacked"],
+               "bf16, the sum over a 7B layer's 4 products (w_qkv, wo, w_gu, "
+               "w_down) at M=16"),
         record("int4_matmul_s4", "int4_matmul.cu", "int4_matmul.py:572",
-               k1["int4_matmul_s4"]),
+               k1["int4_matmul_s4"], "bf16, wo [4096, 4096], M=16, act-order"),
         record("int4_matmul", "int4_matmul.cu", "int4_matmul.py:637",
-               k1["int4_matmul"]),
+               k1["int4_matmul"],
+               "bf16, the sum over a 7B layer's 4 products at M=2048"),
         record("decode_attention", "slot_attention.cu",
-               "decode_attention.py:142", s1),
+               "decode_attention.py:142", s1,
+               "bf16, S=16, KV=4, G=8, D=64, T=2048"),
         record("ring_decode_attention", "slot_attention.cu",
-               "ring_decode_attention.py:239", s2[32]),
+               "ring_decode_attention.py:239", s2[32],
+               "bf16, S=48, KV=4, G=8, D=64, 1024 cache rows, ring 64, "
+               "step 32"),
         record("int4_mlp_s4_stacked", "int4_mlp.cu", "int4_matmul.py:366",
-               m1[(16, "silu_glu")]),
+               m1[(16, "silu_glu")],
+               "bf16, a 7B layer's MLP (H=4096, I=11008), silu, M=16"),
     ]
     for (m, act), res in m1.items():
         log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
-    log(f"flash_prefill at D=128 (H=32, KV=8): {json.dumps(fp128)}")
-    log(f"flash_prefill at D=128 (H=32, KV=32, G=1): {json.dumps(fp128_g1)}")
+    for dt, res in m1_dtypes.items():
+        log(f"int4_mlp_s4_stacked silu M=16 {dt} x: {json.dumps(res)}")
+    for label, res in (("D=128 (H=32, KV=8)", fp128),
+                       ("D=128 (H=32, KV=32, G=1)", fp128_g1),
+                       ("D=256 (gemma-7b: H=16, KV=16)", fp256),
+                       ("D=256 (gemma-2b: H=8, KV=1)", fp256_g8),
+                       ("D=192 (H=16, KV=2)", fp192),
+                       ("fp32 D=64 (H=32, KV=4)", fp_f32)):
+        log(f"flash_prefill at {label}: {json.dumps(res)}")
+    for name, res in f32_decode.items():
+        log(f"{name} fp32: {json.dumps(res)}")
+    log(f"int4 edges (M, product): "
+        f"{json.dumps({f'{m} {k}': r for (m, k), r in k1_edges.items()})}")
+    log(f"int4 fp16 / fp32 x: "
+        f"{json.dumps({f'{m} {k} {d}': r for (m, k, d), r in k1_dtypes.items()})}")
     log(f"decode_attention at D=128 (KV=32, G=1): {json.dumps(s1_7b)}")
     log(f"paged_decode_attention_partial_i8 at D=64 (KV=4, G=8): "
         f"{json.dumps(pi8_64)}")
     for step in (0, 63):
         log(f"ring_decode_attention at step {step}: {json.dumps(s2[step])}")
-    log("paged_decode_attention_partial_i8 record: 7B widths; "
-        "decode_attention record: TinyLlama widths; ring_decode_attention "
-        "record: step 32; launches: decode_attention in the serving runs, "
-        "ring_decode_attention in the probe")
-    log("int4_matmul_s4_stacked and int4_matmul records: the sums over a 7B "
-        "layer's four products (w_qkv, wo, w_gu, w_down) at M=16 and M=2048; "
-        "int4_matmul_s4: wo at M=16 with act-order; int4_mlp_s4_stacked: a "
-        "7B layer's MLP at M=16, silu, launches from run 6")
+    log("launches: decode_attention in the serving runs, "
+        "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,11 @@ bf16 paged kernels also round P to bf16 for their tensor-core value
 products); fp32 stats within 2e-3 relative (the same sums in another
 order, with P rounded to bf16 in the bf16 paged kernel); the fused
 MLP, two chained products over bf16-rounded weights, within 3e-2 of its
-largest output plus 2e-2 relative.
+largest output plus 2e-2 relative. float32 attention (the fp32 CUDA-core
+bodies) within 1e-4. K1 (`close_k1`): the weights enter the tensor cores
+as exact integers and both versions sum in fp32, so the outputs differ by
+the rounding of y to x's dtype, one ulp (2^-7 relative in bf16, 2^-10 in
+fp16), plus 1e-3 for the summation order and fp32 x's hi + lo split.
 """
 
 import math
@@ -267,16 +271,32 @@ def int4_weight(rng, in_f, out_f, device, gs=128, act_order=False):
     return int4.Int4Weight(*(None if f is None else f.to(device) for f in w))
 
 
+K1_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 1e-5}
+
+
+def close_k1(got, want):
+    """K1 against its plain version (see the module docstring): one ulp of
+    x's dtype relative plus 1e-3."""
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-3 + K1_RTOL[want.dtype] * want.float().abs()
+    assert bool((diff <= tol).all()), float(diff.max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 16, 40, 300])
-@pytest.mark.parametrize("in_f,out_f", [(256, 512), (1408, 64), (512, 1536)])
-def test_int4_matmul_kernel(cuda_device, m, in_f, out_f):
-    """K1 on decode and prefill row counts, split-K and not, a K with 11
-    groups (not a power of two) and an N of one column tile; the three
-    entry names reach the same kernel."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("m", [1, 16, 40, 65, 300])
+@pytest.mark.parametrize("in_f,out_f", [(256, 512), (1408, 64), (512, 1536),
+                                        (768, 264)])
+def test_int4_matmul_kernel(cuda_device, m, in_f, out_f, dtype):
+    """K1 on decode and prefill row counts (both schedules), split-K and
+    not, a K with 11 groups (not a power of two), an N of one column tile
+    and one of a part tile, x in bf16, fp16 and fp32; the three entry names
+    reach the same kernel and return x's dtype."""
     rng = np.random.default_rng(m + in_f + out_f)
     w = int4_weight(rng, in_f, out_f, cuda_device)
-    x = bf16(rng, m, in_f, device=cuda_device)
+    x = bf16(rng, m, in_f, device=cuda_device).to(dtype)
     want = im.int4_matmul_reference(x, w)
     stack = int4.Int4Weight(*(None if f is None else torch.stack([f, f])
                               for f in w))
@@ -288,9 +308,28 @@ def test_int4_matmul_kernel(cuda_device, m, in_f, out_f):
     assert (im.int4_matmul.launches, im.int4_matmul_s4.launches,
             im.int4_matmul_s4_stacked.launches) == tuple(b + 1 for b in before)
     for got in outs:
-        assert got.shape == (m, out_f) and got.dtype == torch.bfloat16
-        close(got, want, 2e-2)
+        assert got.shape == (m, out_f) and got.dtype == dtype
+        close_k1(got, want)
         assert torch.equal(got, outs[0])
+    close_k1(outs[0], im.int4_matmul_group_dot_reference(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_matmul_rows_are_batch_invariant(cuda_device, dtype):
+    """Within the decode schedule every row of an M = 16 and an M = 64
+    product is bit-identical to the same row computed alone (the K splits
+    come from (N, K) alone); the workspace and counters serve the next
+    launch."""
+    rng = np.random.default_rng(77)
+    w = int4_weight(rng, 2048, 1024, cuda_device)
+    assert im.split_plan(1024, 2048) > 1
+    for m in (16, 64):
+        x = bf16(rng, m, 2048, device=cuda_device).to(dtype)
+        y = im.int4_matmul_s4(x, w)
+        for r in range(m):
+            alone = im.int4_matmul_s4(x[r:r + 1].contiguous(), w)
+            assert torch.equal(alone[0], y[r]), (m, r)
 
 
 @pytest.mark.cuda
@@ -366,9 +405,9 @@ def test_wrappers_reject_bad_inputs(cuda_device):
         pa.paged_decode_attention_partial_i8(q, k8, k8, ks.half(), ks, bt, ctx,
                                              PAGE)
     # K2, like the other entries, takes the head dims of HEAD_DIMS and q in
-    # bf16 or fp16; a head dim of 48 and a float32 q are refused
+    # bf16, fp16 or fp32; a head dim of 48 and a float64 q are refused
     k8 = kp.to(torch.int8)
-    for qbad in (bf16(rng, 5, 2, 8, 64, device=cuda_device).float(),
+    for qbad in (bf16(rng, 5, 2, 8, 64, device=cuda_device).double(),
                  bf16(rng, 5, 2, 8, 48, device=cuda_device)):
         pk = k8 if qbad.shape[-1] == 64 else torch.zeros(
             2, kp.shape[1], 48, dtype=torch.int8, device=cuda_device)
@@ -383,7 +422,7 @@ def test_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         im.int4_matmul(bf16(rng, 4, 128, device=cuda_device), w)
     with pytest.raises(ValueError):
-        im.int4_matmul(bf16(rng, 4, 256, device=cuda_device).float(), w)
+        im.int4_matmul(bf16(rng, 4, 256, device=cuda_device).double(), w)
     assert math.isfinite(float(q.float().sum()))
 
 
@@ -550,6 +589,23 @@ def test_int4_mlp_kernel(cuda_device, s, activation, gs_down):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32])
+def test_int4_mlp_takes_every_dtype(cuda_device, dtype):
+    """F3: M1 takes fp16 and fp32 x (converted to bf16 as it is staged, as
+    the JAX kernel casts x to its bf16 compute dtype) and returns x's
+    dtype, within close_mlp of its plain version."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(530)
+    w_gu, w_down = mlp_case(rng, cuda_device)
+    x = bf16(rng, 16, 256, device=cuda_device).to(dtype)
+    got = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 1)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (16, 256)
+    close_mlp(got, mlp.int4_mlp_reference(x, w_gu.layer(1), w_down.layer(1)))
+
+
+@pytest.mark.cuda
 def test_int4_mlp_rows_are_independent(cuda_device):
     """A row's output does not change when the other rows of the batch, or
     their number, change (fixed summation order, no atomics)."""
@@ -589,7 +645,7 @@ def test_int4_mlp_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="fuse"):
         mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 0, "gelu_tanh_glu")
     with pytest.raises(ValueError):
-        mlp.int4_mlp_s4_stacked(x.float(), w_gu, w_down, 0)
+        mlp.int4_mlp_s4_stacked(x.double(), w_gu, w_down, 0)
 
 
 # --- K2 and S1 on the split body; the attention routes (F1) ----------------
@@ -795,7 +851,10 @@ def _dtype_case(rng, shape, dtype, device):
 SHAPE_CASES = [(16, 4, torch.bfloat16), (80, 1, torch.bfloat16),
                (80, 16, torch.float16), (256, 8, torch.bfloat16),
                (64, 20, torch.bfloat16), (128, 16, torch.float16),
-               (64, 8, torch.float16)]
+               (64, 8, torch.float16), (192, 8, torch.bfloat16),
+               (192, 16, torch.float16), (64, 8, torch.float32),
+               (128, 1, torch.float32), (192, 20, torch.float32),
+               (16, 4, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -809,6 +868,8 @@ def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
     from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
 
     rng = np.random.default_rng(900 + d + g)
+    # fp32 runs on the fp32 CUDA-core body: fp32 accuracy
+    tol, mtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3)
     q, kp, vp, bt, ctx, page = split_case(rng, cuda_device, d, g)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
     dead = torch.isnan(kp[0, :, 0])
@@ -816,15 +877,15 @@ def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
     out = pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
     assert out.dtype == dtype and torch.all(out[0] == 0)
     close(out, pa.paged_decode_attention_reference(q, kz, vz, bt, ctx, page),
-          2e-2)
+          tol)
     acc, m, l = pa.paged_decode_attention_partial(q, kp, vp, bt, ctx, page)
     racc, rm, rl = pa.paged_decode_attention_partial_reference(
         q, kz, vz, bt, ctx, page)
     live = ~torch.isneginf(rm)
     assert torch.equal(live, ~torch.isneginf(m))
-    close(m[live], rm[live], 2e-3)
-    close(l, rl, 2e-2 * max(1.0, float(rl.max())))
-    close(acc, racc, 2e-2 * max(1.0, float(racc.abs().max())))
+    close(m[live], rm[live], mtol)
+    close(l, rl, tol * max(1.0, float(rl.max())))
+    close(acc, racc, tol * max(1.0, float(racc.abs().max())))
     kq, ks = quantize_kv(kz)
     vq, vs = quantize_kv(vz)
     ks[:, dead] = vs[:, dead] = 0.0
@@ -833,9 +894,9 @@ def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
     racc, rm, rl = pa.paged_decode_attention_partial_reference(
         q, kq, vq, bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)
     assert torch.all(torch.isneginf(m[0])) and torch.all(l[0] == 0)
-    close(m[live], rm[live], 2e-3)
-    close(l, rl, 2e-2 * max(1.0, float(rl.max())))
-    close(acc, racc, 2e-2 * max(1.0, float(racc.abs().max())))
+    close(m[live], rm[live], mtol)
+    close(l, rl, tol * max(1.0, float(rl.max())))
+    close(acc, racc, tol * max(1.0, float(racc.abs().max())))
 
     # S1 and S2 over a narrowed slot cache
     s, kh, t, c, step = 5, 2, 512, 8, 5
@@ -846,14 +907,14 @@ def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
     sq = _dtype_case(rng, (s, kh, g, d), dtype, cuda_device)
     got = da.decode_attention(sq, k, v, sctx)
     assert got.dtype == dtype and torch.all(got[0] == 0)
-    close(got, da.decode_attention_reference(sq, k, v, sctx), 2e-2)
+    close(got, da.decode_attention_reference(sq, k, v, sctx), tol)
     kb, vb = (_dtype_case(rng, (s, kh, c, d), dtype, cuda_device)
               for _ in range(2))
     kn, vn = (_dtype_case(rng, (s, kh, d), dtype, cuda_device)
               for _ in range(2))
     close(rda.ring_decode_attention(sq, k, v, kb, vb, kn, vn, sctx, step),
           rda.ring_decode_attention_reference(sq, k, v, kb, vb, kn, vn, sctx,
-                                              step), 2e-2)
+                                              step), tol)
 
 
 @pytest.mark.cuda
@@ -868,3 +929,35 @@ def test_flash_prefill_kernel_float16(cuda_device, d, g):
     got = fp.flash_prefill(q, k, v, lengths)
     assert got.dtype == torch.float16
     close(got, fp.flash_prefill_reference(q, k, v, lengths), 2e-2)
+
+
+# (head dim, group, dtype): the wgmma kernel's 64-key tiles at head dims
+# 192 and 256 (gemma-7b: 16 heads of 256 over 16 kv heads; gemma-2b: 8 over
+# 1), and the fp32 CUDA-core kernel
+FLASH_CASES = [(192, 8, torch.bfloat16), (256, 1, torch.bfloat16),
+               (256, 8, torch.float16), (192, 1, torch.float16),
+               (64, 8, torch.float32), (128, 1, torch.float32),
+               (256, 4, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,dtype", FLASH_CASES)
+def test_flash_prefill_large_head_dims_and_float32(cuda_device, d, g, dtype):
+    """F2: flash prefill at D 192 / 256 and in fp32 against its plain
+    version, lengths on and off the 64-key tile edges, a length-0 row and
+    NaN past the lengths (never read into the output)."""
+    rng = np.random.default_rng(970 + d + g)
+    n, t, kh = 3, 300, 2
+    q = bf16(rng, n, t, kh, g, d, device=cuda_device).to(dtype)
+    k = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    v = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    lengths = torch.tensor([257, 0, 64], dtype=torch.int32, device=cuda_device)
+    want = fp.flash_prefill_reference(q, k, v, lengths)
+    k[2, 64:] = float("nan")
+    v[2, 64:] = float("nan")
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    assert got.dtype == dtype and torch.all(got[1] == 0)
+    close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)

@@ -233,7 +233,7 @@ def _stub(monkeypatch, module, name, out):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("g", [1, 8, 16])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 128, 192, 256])
 def test_attention_routes_mirror_the_jax_rule(d, g, dtype, monkeypatch):
     """F1: each route of `KERNELS` calls its kernel's wrapper exactly when
     the JAX rule calls its kernel (the prefill and slot rules with their

@@ -236,6 +236,13 @@ struct Elem<__half> {
   }
 };
 
+// float32 runs on the CUDA cores (split_kernel_f32): only the output
+// conversion is needed.
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float from_float(float x) { return x; }
+};
+
 // Shared-memory layout of one block.
 template <int D, bool kInt8>
 struct Layout {
@@ -287,9 +294,10 @@ __device__ __forceinline__ void load_row_bytes(uint32_t (&w)[(N + 3) / 4],
 // Writes one query head's result: out in T, or acc / m (natural log) / l.
 // `m2` is the merged max in log2 units; `head` the query head's index in
 // [S * KH * G].
-template <typename T, int D, Mode M>
-__device__ __forceinline__ void write_result(const Args& a, size_t head, int d,
-                                             float acc, float m2, float l) {
+template <typename T, Mode M>
+__device__ __forceinline__ void write_result(const Args& a, size_t head, int D,
+                                             int d, float acc, float m2,
+                                             float l) {
   if constexpr (M == kStats) {
     static_cast<float*>(a.out)[head * D + d] = acc;
     if (d == 0) {
@@ -300,6 +308,133 @@ __device__ __forceinline__ void write_result(const Args& a, size_t head, int d,
     static_cast<T*>(a.out)[head * D + d] =
         Elem<T>::from_float(acc / fmaxf(l, 1e-30f));
   }
+}
+
+// The end of every split kernel: the 4 warps' softmax states (o_w [kWarps]
+// [kMaxGroup][D], m_w / l_w [kWarps][kMaxGroup], in shared memory and
+// complete) are merged; a slot with one split writes its result, otherwise
+// the split writes (acc, m, l) to the scratch and, in kOut / kStats, the
+// last split of the (slot, kv head, chunk) to arrive merges every split in
+// split order and resets the counter.
+template <typename T, Mode M>
+__device__ __forceinline__ void finish_split(const Args& a, int D, int s,
+                                             int kh, int g0, int gb,
+                                             int split, int n_splits,
+                                             const float* o_w,
+                                             float (*m_w)[kMaxGroup],
+                                             float (*l_w)[kMaxGroup],
+                                             bool& last_s) {
+  const int tid = threadIdx.x;
+  const size_t sk = (size_t)s * gridDim.y + blockIdx.y;
+  const size_t head0 = ((size_t)s * a.KH + kh) * a.G + g0;
+  const int splits = gridDim.z;
+  const int gs = min(a.G, kMaxGroup);  // rows a split's scratch holds
+  const bool direct = M != kParts && n_splits == 1;
+  for (int i = tid; i < gb * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_w[w][g]);
+    const float m_safe = mx == -INFINITY ? 0.f : mx;
+    float acc = 0.f, l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = m_w[w][g] == -INFINITY ? 0.f : exp2f(m_w[w][g] - m_safe);
+      acc += wt * o_w[(w * kMaxGroup + g) * D + d];
+      l += wt * l_w[w][g];
+    }
+    if (direct) {
+      write_result<T, M>(a, head0 + g, D, d, acc, mx, l);
+    } else {
+      float* row = a.part + ((sk * splits + split) * gs + g) * (D + 2);
+      row[d] = acc;
+      if (d == 0) {
+        row[D] = mx;
+        row[D + 1] = l;
+      }
+    }
+  }
+  if (direct || M == kParts) return;
+
+  // the last split of this (slot, kv head, chunk) to arrive merges them all
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned int prev = atomicAdd(&a.arrivals[sk], 1u);
+    last_s = prev == (unsigned int)(n_splits - 1);
+    if (last_s) a.arrivals[sk] = 0u;     // ready for the next launch
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const float* base = a.part + sk * splits * gs * (D + 2);
+  for (int i = tid; i < gb * D; i += kThreads) {
+    const int g = i / D;
+    const int d = i % D;
+    float mx = -INFINITY;
+    for (int sp = 0; sp < n_splits; ++sp)
+      mx = fmaxf(mx, __ldcg(base + (sp * gs + g) * (D + 2) + D));
+    const float m_safe = mx == -INFINITY ? 0.f : mx;
+    float acc = 0.f, l = 0.f;
+    for (int sp = 0; sp < n_splits; ++sp) {
+      const float* row = base + (sp * gs + g) * (D + 2);
+      const float m = __ldcg(row + D);
+      const float wt = m == -INFINITY ? 0.f : exp2f(m - m_safe);
+      acc += wt * __ldcg(row + d);
+      l += wt * __ldcg(row + D + 1);
+    }
+    write_result<T, M>(a, head0 + g, D, d, acc, mx, l);
+  }
+}
+
+// The split's positions [p0, p1) and the base addresses of its rows, as
+// every split kernel finds them (a paged block also reads its split's
+// block-table entries into pid_s: -1 for a page that is not mapped).
+// Returns false when the split lies past the slot's live keys.
+template <bool kPaged>
+__device__ __forceinline__ bool split_range(const Args& a, int D, int elem,
+                                            int s, int kh, int split,
+                                            int* pid_s, int& n_splits,
+                                            int& p0, int& p1,
+                                            const unsigned char*& kbase,
+                                            const unsigned char*& vbase,
+                                            size_t& row_bytes) {
+  const int tid = threadIdx.x;
+  if constexpr (kPaged) {
+    const int n_pages =
+        min((max(a.ctx[s], 0) + a.page - 1) / a.page, a.max_pages);
+    const int ctx = min(max(a.ctx[s], 0), n_pages * a.page);
+    n_splits = max(1, (n_pages + a.pages_per_split - 1) / a.pages_per_split);
+    if (split >= n_splits) return false;
+    const int first_page = split * a.pages_per_split;
+    p0 = first_page * a.page;
+    p1 = min(p0 + a.pages_per_split * a.page, ctx);
+    for (int i = tid; i < a.pages_per_split; i += kThreads) {
+      int pid = -1;
+      if (first_page + i < n_pages) {
+        pid = a.block_table[(size_t)s * a.max_pages + first_page + i];
+        if (pid < 0 || pid >= a.num_pages) pid = -1;
+      }
+      pid_s[i] = pid;
+    }
+    const size_t head = (size_t)kh * a.R * D * elem;
+    kbase = static_cast<const unsigned char*>(a.k) + head;
+    vbase = static_cast<const unsigned char*>(a.v) + head;
+    row_bytes = (size_t)D * elem;
+    __syncthreads();
+  } else {
+    const int ctx = min(max(a.ctx[s], 0), a.T);
+    n_splits = max(1, (ctx + a.rows_per_split - 1) / a.rows_per_split);
+    if (split >= n_splits) return false;
+    p0 = split * a.rows_per_split;
+    p1 = min(p0 + a.rows_per_split, ctx);
+    const size_t head = ((size_t)s * a.st_s + (size_t)kh * a.st_k) * elem;
+    kbase = static_cast<const unsigned char*>(a.k) + head;
+    vbase = static_cast<const unsigned char*>(a.v) + head;
+    row_bytes = (size_t)a.st_t * elem;
+  }
+  return true;
 }
 
 template <typename T, int D, bool kPaged, bool kInt8, Mode M>
@@ -340,40 +475,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const unsigned char* kbase;
   const unsigned char* vbase;
   size_t row_bytes;                    // bytes from one row to the next
-  if constexpr (kPaged) {
-    const int n_pages =
-        min((max(a.ctx[s], 0) + a.page - 1) / a.page, a.max_pages);
-    const int ctx = min(max(a.ctx[s], 0), n_pages * a.page);
-    n_splits = max(1, (n_pages + a.pages_per_split - 1) / a.pages_per_split);
-    if (split >= n_splits) return;
-    const int first_page = split * a.pages_per_split;
-    p0 = first_page * a.page;
-    p1 = min(p0 + a.pages_per_split * a.page, ctx);
-    // read ahead: the split's block-table entries (-1: not mapped)
-    for (int i = tid; i < a.pages_per_split; i += kThreads) {
-      int pid = -1;
-      if (first_page + i < n_pages) {
-        pid = a.block_table[(size_t)s * a.max_pages + first_page + i];
-        if (pid < 0 || pid >= a.num_pages) pid = -1;
-      }
-      pid_s[i] = pid;
-    }
-    const size_t head = (size_t)kh * a.R * D * L::kElem;
-    kbase = static_cast<const unsigned char*>(a.k) + head;
-    vbase = static_cast<const unsigned char*>(a.v) + head;
-    row_bytes = (size_t)D * L::kElem;
-    __syncthreads();
-  } else {
-    const int ctx = min(max(a.ctx[s], 0), a.T);
-    n_splits = max(1, (ctx + a.rows_per_split - 1) / a.rows_per_split);
-    if (split >= n_splits) return;
-    p0 = split * a.rows_per_split;
-    p1 = min(p0 + a.rows_per_split, ctx);
-    const size_t head = ((size_t)s * a.st_s + (size_t)kh * a.st_k) * L::kElem;
-    kbase = static_cast<const unsigned char*>(a.k) + head;
-    vbase = static_cast<const unsigned char*>(a.v) + head;
-    row_bytes = (size_t)a.st_t * L::kElem;
-  }
+  if (!split_range<kPaged>(a, D, L::kElem, s, kh, split, pid_s, n_splits, p0,
+                           p1, kbase, vbase, row_bytes))
+    return;
   const int n_tiles = p1 > p0 ? (p1 - p0 + kTile - 1) / kTile : 0;
 
   // the row (pool row, or cache row) of position p; false for a dead key
@@ -639,68 +743,162 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // this block's (slot, kv head, chunk), and its first query head
-  const size_t sk = (size_t)s * gridDim.y + blockIdx.y;
-  const size_t head0 = ((size_t)s * a.KH + kh) * a.G + g0;
-  const int splits = gridDim.z;
-  const int gs = min(a.G, kMaxGroup);  // rows a split's scratch holds
-  const bool direct = M != kParts && n_splits == 1;
-  for (int i = tid; i < gb * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float mx = -INFINITY;
+  finish_split<T, M>(a, D, s, kh, g0, gb, split, n_splits, o_w, m_w, l_w,
+                     last_s);
+}
+
+// The float32 body: the same grid, split plan, scratch and merge as
+// split_kernel, on the CUDA cores in fp32 FMA (the JAX kernels cast q, k
+// and v to f32 and compute in f32), with the head dim at run time (any
+// multiple of 16 up to 256). Each warp walks every 4th key of the split and
+// keeps an online softmax for each of the block's query heads: the lane
+// holds dims lane + 32 i of the key and value rows, a score is a warp sum,
+// and the warp's accumulators live in shared memory (o_w, the layout the
+// merge reads). Over int8 rows the k scale multiplies the score and the v
+// scale the probability, l sums the unscaled probabilities, as the mma body
+// does. No family the port serves runs fp32 on the card; this body is kept
+// simple and bound by its per-key warp sums, not by bytes.
+constexpr int kMaxDim = 256;
+constexpr int kLaneDims = kMaxDim / 32;     // dims a lane holds at most
+
+template <bool kPaged, bool kInt8>
+__device__ __forceinline__ float row_value(const unsigned char* base,
+                                           size_t off, int d) {
+  if constexpr (kInt8) return (float)reinterpret_cast<const int8_t*>(base + off)[d];
+  else return reinterpret_cast<const float*>(base + off)[d];
+}
+
+template <bool kPaged, bool kInt8, Mode M>
+__global__ void __launch_bounds__(kThreads)
+    split_kernel_f32(const Args a, int D) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* o_w = reinterpret_cast<float*>(smem_raw);    // [kWarps][16][D]
+  float* q_s = o_w + kWarps * kMaxGroup * D;          // [16][D]
+  __shared__ int pid_s[kMaxSplitPages];
+  __shared__ float m_w[kWarps][kMaxGroup], l_w[kWarps][kMaxGroup];
+  __shared__ bool last_s;
+  const int elem = kInt8 ? 1 : 4;
+
+  const int chunks = (a.G + kMaxGroup - 1) / kMaxGroup;
+  const int s = blockIdx.x;
+  const int kh = blockIdx.y / chunks;
+  const int g0 = (blockIdx.y % chunks) * kMaxGroup;
+  const int gb = min(kMaxGroup, a.G - g0);
+  const int split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  int n_splits, p0, p1;
+  const unsigned char* kbase;
+  const unsigned char* vbase;
+  size_t row_bytes;
+  if (!split_range<kPaged>(a, D, elem, s, kh, split, pid_s, n_splits, p0, p1,
+                           kbase, vbase, row_bytes))
+    return;
+
+  const float* qb = static_cast<const float*>(a.q) +
+                    (((size_t)s * a.KH + kh) * a.G + g0) * D;
+  for (int i = tid; i < gb * D; i += kThreads) q_s[i] = qb[i];
+  float* o_mine = o_w + warp * kMaxGroup * D;
+  for (int i = lane; i < gb * D; i += 32) o_mine[i] = 0.f;
+  __syncthreads();
+
+  float m_r[kMaxGroup], l_r[kMaxGroup];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_w[w][g]);
-    const float m_safe = mx == -INFINITY ? 0.f : mx;
-    float acc = 0.f, l = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float wt = m_w[w][g] == -INFINITY ? 0.f : exp2f(m_w[w][g] - m_safe);
-      acc += wt * o_w[(w * kMaxGroup + g) * D + d];
-      l += wt * l_w[w][g];
+  for (int h = 0; h < kMaxGroup; ++h) {
+    m_r[h] = -INFINITY;
+    l_r[h] = 0.f;
+  }
+  for (int p = p0 + warp; p < p1; p += kWarps) {
+    size_t row = (size_t)p;
+    if constexpr (kPaged) {
+      const int pid = pid_s[(p - p0) / a.page];
+      if (pid < 0) continue;                  // a sentinel page: no key
+      row = (size_t)pid * a.page + p % a.page;
     }
-    if (direct) {
-      write_result<T, D, M>(a, head0 + g, d, acc, mx, l);
-    } else {
-      float* row = a.part + ((sk * splits + split) * gs + g) * (D + 2);
-      row[d] = acc;
-      if (d == 0) {
-        row[D] = mx;
-        row[D + 1] = l;
+    const size_t off = row * row_bytes;
+    float kr[kLaneDims], vr[kLaneDims];
+#pragma unroll
+    for (int i = 0; i < kLaneDims; ++i) {
+      const int d = lane + 32 * i;
+      const bool in = d < D;
+      kr[i] = in ? row_value<kPaged, kInt8>(kbase, off, d) : 0.f;
+      vr[i] = in ? row_value<kPaged, kInt8>(vbase, off, d) : 0.f;
+    }
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kInt8) {
+      ks = a.k_scale[(size_t)kh * a.R + row];
+      vs = a.v_scale[(size_t)kh * a.R + row];
+    }
+#pragma unroll
+    for (int h = 0; h < kMaxGroup; ++h) {
+      if (h >= gb) break;
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kLaneDims; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) dot = fmaf(q_s[h * D + d], kr[i], dot);
+      }
+#pragma unroll
+      for (int off2 = 16; off2 > 0; off2 >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off2);
+      const float sc = dot * a.scale_log2 * ks;
+      const float m_new = fmaxf(m_r[h], sc);
+      const float alpha = exp2f(m_r[h] - m_new);      // 0 while m is -inf
+      const float pr = exp2f(sc - m_new);
+      l_r[h] = l_r[h] * alpha + pr;
+      m_r[h] = m_new;
+      const float pv = pr * vs;
+#pragma unroll
+      for (int i = 0; i < kLaneDims; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) o_mine[h * D + d] = fmaf(o_mine[h * D + d], alpha, pv * vr[i]);
       }
     }
   }
-  if (direct || M == kParts) return;
-
-  // the last split of this (slot, kv head, chunk) to arrive merges them all
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    const unsigned int prev = atomicAdd(&a.arrivals[sk], 1u);
-    last_s = prev == (unsigned int)(n_splits - 1);
-    if (last_s) a.arrivals[sk] = 0u;     // ready for the next launch
-  }
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  const float* base = a.part + sk * splits * gs * (D + 2);
-  for (int i = tid; i < gb * D; i += kThreads) {
-    const int g = i / D;
-    const int d = i % D;
-    float mx = -INFINITY;
-    for (int sp = 0; sp < n_splits; ++sp)
-      mx = fmaxf(mx, __ldcg(base + (sp * gs + g) * (D + 2) + D));
-    const float m_safe = mx == -INFINITY ? 0.f : mx;
-    float acc = 0.f, l = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) {
-      const float* row = base + (sp * gs + g) * (D + 2);
-      const float m = __ldcg(row + D);
-      const float wt = m == -INFINITY ? 0.f : exp2f(m - m_safe);
-      acc += wt * __ldcg(row + d);
-      l += wt * __ldcg(row + D + 1);
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < kMaxGroup; ++h) {
+      m_w[warp][h] = m_r[h];
+      l_w[warp][h] = l_r[h];
     }
-    write_result<T, D, M>(a, head0 + g, d, acc, mx, l);
   }
+  __syncthreads();
+  finish_split<float, M>(a, D, s, kh, g0, gb, split, n_splits, o_w, m_w, l_w,
+                         last_s);
+}
+
+// Opts a kernel into `bytes` of dynamic shared memory once per device.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool (&attr_set)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <bool kPaged, bool kInt8, Mode M>
+cudaError_t launch_f32(const Args& a, int S, int D, int splits,
+                       cudaStream_t stream) {
+  if (D <= 0 || D > kMaxDim || D % 16) return cudaErrorInvalidValue;
+  static bool attr_set[64] = {};
+  const size_t smem = (size_t)(kWarps + 1) * kMaxGroup * kMaxDim * sizeof(float);
+  cudaError_t err = allow_smem(split_kernel_f32<kPaged, kInt8, M>, smem, attr_set);
+  if (err != cudaSuccess) return err;
+  const int chunks = (a.G + kMaxGroup - 1) / kMaxGroup;
+  split_kernel_f32<kPaged, kInt8, M>
+      <<<dim3(S, a.KH * chunks, splits), kThreads,
+         (size_t)(kWarps + 1) * kMaxGroup * D * sizeof(float), stream>>>(a, D);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, bool kPaged, bool kInt8, Mode M>
@@ -708,17 +906,9 @@ cudaError_t launch(const Args& a, int S, int splits, cudaStream_t stream) {
   constexpr size_t smem = Layout<D, kInt8>::kBytes;
   // above 48 KB of dynamic shared memory: opt in once per device
   static bool attr_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      allow_smem(split_kernel<T, D, kPaged, kInt8, M>, smem, attr_set);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!attr_set[dev]) {
-    err = cudaFuncSetAttribute(split_kernel<T, D, kPaged, kInt8, M>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    attr_set[dev] = true;
-  }
   const int chunks = (a.G + kMaxGroup - 1) / kMaxGroup;
   split_kernel<T, D, kPaged, kInt8, M>
       <<<dim3(S, a.KH * chunks, splits), kThreads, smem, stream>>>(a);
@@ -733,16 +923,21 @@ cudaError_t launch_d(const Args& a, int S, int D, int splits,
     case 64: return launch<T, 64, kPaged, kInt8, M>(a, S, splits, st);
     case 80: return launch<T, 80, kPaged, kInt8, M>(a, S, splits, st);
     case 128: return launch<T, 128, kPaged, kInt8, M>(a, S, splits, st);
+    case 192: return launch<T, 192, kPaged, kInt8, M>(a, S, splits, st);
     case 256: return launch<T, 256, kPaged, kInt8, M>(a, S, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Element types of q (and of rows that are not int8), as the entries take
+// them: bf16 and fp16 on the mma body, fp32 on the CUDA-core body.
+enum DType { kBf16 = 0, kFp16 = 1, kFp32 = 2 };
+
 // Checks what every entry shares and launches at the head dim D (16, 64, 80,
-// 128 or 256) with q (and rows that are not int8) in fp16 when `half`,
-// else bf16.
+// 128, 192 or 256 for bf16 / fp16; any multiple of 16 up to 256 for fp32)
+// with q (and rows that are not int8) of element type `dtype`.
 template <bool kPaged, bool kInt8, Mode M>
-int dispatch(const Args& a, int S, int D, int half, int splits, void* stream) {
+int dispatch(const Args& a, int S, int D, int dtype, int splits, void* stream) {
   const long long chunks = (a.G + kMaxGroup - 1) / kMaxGroup;
   if (S <= 0 || a.KH <= 0 || a.G <= 0 || a.KH * chunks > 65535 ||
       splits <= 0 || splits > 65535 ||
@@ -750,8 +945,13 @@ int dispatch(const Args& a, int S, int D, int half, int splits, void* stream) {
       (M != kParts && splits > 1 && !a.arrivals))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (half) return (int)launch_d<__half, kPaged, kInt8, M>(a, S, D, splits, st);
-  return (int)launch_d<__nv_bfloat16, kPaged, kInt8, M>(a, S, D, splits, st);
+  switch (dtype) {
+    case kBf16:
+      return (int)launch_d<__nv_bfloat16, kPaged, kInt8, M>(a, S, D, splits, st);
+    case kFp16: return (int)launch_d<__half, kPaged, kInt8, M>(a, S, D, splits, st);
+    case kFp32: return (int)launch_f32<kPaged, kInt8, M>(a, S, D, splits, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace decode_split

@@ -3,9 +3,10 @@
 // Replaces: the JAX package's ops/pallas/flash_prefill.py
 //           flash_prefill (the Pallas `_kernel`, pallas_call at :143).
 //
-// q, k, v and out are bf16, or fp16 when the entry's `half` is nonzero (the
-// kernel is templated on the element type T; only the wgmma type, the
-// tensor maps' type and the rounding of P and of the output differ).
+// q, k, v and out are bf16 or fp16 (the entry's `dtype` 0 or 1: the wgmma
+// kernel, templated on the element type T; only the wgmma type, the tensor
+// maps' type and the rounding of P and of the output differ), or fp32
+// (`dtype` 2: a CUDA-core kernel in fp32 FMA, `flash_prefill_f32_kernel`).
 //
 // Computes, per (sequence n, kv head kh, query head g of the kv group):
 //   out[n, i, kh, g] = softmax_j(q[n, i, kh, g] . k[n, j, kh] * scale) v[n, j, kh]
@@ -30,15 +31,17 @@
 //     kv head) sit side by side in launch order: they run together and
 //     read its K/V tiles from L2, not each from device memory.
 //   - Loads. TMA with mbarriers: Q once per block (a 5-D map over (D, G, KH,
-//     T, N)), then K and V tiles of 128 keys (4-D maps over (D, KH, T, N);
+//     T, N)), then K and V tiles of 128 keys, 64 at D = 192 and 256, where
+//     Q takes 48 or 64 KB (4-D maps over (D, KH, T, N);
 //     a tile past T is zero-filled by the hardware) into a ring of kStages
 //     stages with full / empty barriers, 128-byte swizzled in [D / 64]
 //     column blocks of [rows][64]. The maps are encoded per call on the
 //     host through cudaGetDriverEntryPoint (no link flag) and passed as
 //     __grid_constant__ parameters.
 //   - Products. Both on wgmma with fp32 accumulators in registers:
-//     S = Q K^T (m64n128k16, A = Q and B = the K tile from shared memory,
-//     both K-major), then O += P V (m64nDk16, A = P from registers, rounded
+//     S = Q K^T (m64n128k16, m64n64k16 over 64-key tiles; A = Q and B = the
+//     K tile from shared memory, both K-major), then O += P V (m64nDk16,
+//     D up to 256: 128 accumulators a thread; A = P from registers, rounded
 //     to T, B = the V tile straight from its row-major [keys, D] layout
 //     as an MN-major operand: no transpose).
 //   - Overlap within a warpgroup. Tile kt's S product is started together
@@ -64,255 +67,57 @@
 // persistent grid would overlap it with the previous tile's epilogue; the
 // output leaves through 4-byte stores rather than a TMA store.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kBlockM = 128;                 // rows (token * G + g) a block
-constexpr int kBlockN = 128;                 // keys a tile
 constexpr int kConsumers = 2;                // warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kBoxBytes = 128 * 64 * 2;      // one [128 rows][64] box of T
+constexpr int kQBox = 128 * 64 * 2;          // one [128 rows][64] box of T
 constexpr uint32_t kRowBytes = 128;          // one swizzled row of 64 T
 
+// Keys a tile: 128 up to D = 128; 64 at D = 192 and 256, where Q (48 or
+// 64 KB) and two stages of 128-key K and V tiles would not fit beside it.
 template <int D>
 struct Config {
   static constexpr int kCols = D / 64;       // 64-column blocks of the head dim
-  static constexpr int kStages = D == 64 ? 4 : 3;   // 225 KB at D = 128
-  static constexpr int kTileBytes = kCols * kBoxBytes;   // Q, one K, one V
-  static constexpr int kSmem = kTileBytes * (1 + 2 * kStages) + 1024;
+  static constexpr int kBlockN = D <= 128 ? 128 : 64;
+  static constexpr int kKvBox = kBlockN * 64 * 2;      // one [keys][64] box
+  static constexpr int kStages = D == 64 ? 4 : (D == 256 ? 2 : 3);
+  static constexpr int kQBytes = kCols * kQBox;
+  static constexpr int kTileBytes = kCols * kKvBox;    // one K or one V tile
+  // 225 KB at D = 128, 193 KB at D = 192 and 256
+  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
-      :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-      :: "r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
-}
-
-// K-major operand (Q, K): 8-row groups of 128-byte rows, 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
-
-// MN-major operand (V): the 64-column blocks kBoxBytes apart, 8-key groups
+// MN-major operand (V): the 64-column blocks `box` bytes apart, 8-key groups
 // 1024 bytes apart
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return smem_desc(addr, kBoxBytes, 1024);
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t box) {
+  return smem_desc(addr, box, 1024);
 }
 
-// 2^x on the special-function unit (2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+// S = Q K^T over a tile of kBlockN keys
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_scores(float (&s)[N / 2], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64<T>(s, desc_a, desc_b, accumulate);
+  else wgmma_ss_n128<T>(s, desc_a, desc_b, accumulate);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed wgmma groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// keeps the compiler from touching accumulators across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// the wgmma element type of T, for the instruction strings below
-template <typename T>
-constexpr bool kIsHalf = false;
-template <>
-constexpr bool kIsHalf<__half> = true;
-
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A and B from shared memory, both
-// K-major (128B swizzle); accumulate == 0 overwrites D
-#define TGI_WGMMA_SS_N128(TY)                                                 \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "      \
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "      \
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "      \
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "    \
-      "1, 0, 0;\n}\n"                                                         \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),         \
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),         \
-      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
-      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),         \
-      "+f"(d[62]), "+f"(d[63])                                                 \
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
-
-template <typename T>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b, int accumulate) {
-  if constexpr (kIsHalf<T>) TGI_WGMMA_SS_N128("f16");
-  else TGI_WGMMA_SS_N128("bf16");
-}
-#undef TGI_WGMMA_SS_N128
-
-// D[64 x 64] += A[64 x 16] B[16 x 64]; A from registers, B from shared
-// memory MN-major (128B swizzle)
-#define TGI_WGMMA_RS_N64(TY)                                                  \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "              \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"      \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])          \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
-
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  if constexpr (kIsHalf<T>) TGI_WGMMA_RS_N64("f16");
-  else TGI_WGMMA_RS_N64("bf16");
-}
-#undef TGI_WGMMA_RS_N64
-
-// D[64 x 128] += A[64 x 16] B[16 x 128]; A from registers, B from shared
-// memory MN-major (128B swizzle)
-#define TGI_WGMMA_RS_N128(TY)                                                 \
-  asm volatile(                                                               \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                            \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "             \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "   \
-      "%67}, %68, p, 1, 1, 1;\n}\n"                                           \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),         \
-      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),         \
-      "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),         \
-      "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),         \
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),         \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),         \
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),         \
-      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),         \
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),         \
-      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),         \
-      "+f"(d[62]), "+f"(d[63])                                                 \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
-
-template <typename T>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
-  if constexpr (kIsHalf<T>) TGI_WGMMA_RS_N128("f16");
-  else TGI_WGMMA_RS_N128("bf16");
-}
-#undef TGI_WGMMA_RS_N128
-
+// O += P V, N = D
 template <typename T, int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 64) wgmma_rs_n64<T>(o, a, desc_b);
-  else wgmma_rs_n128<T>(o, a, desc_b);
-}
-
-// two floats rounded to T, lower element in the lower half
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (kIsHalf<T>) {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  } else {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  }
+  if constexpr (D == 64) wgmma_rs_mn_n64<T>(o, a, desc_b, 1);
+  else if constexpr (D == 128) wgmma_rs_mn_n128<T>(o, a, desc_b, 1);
+  else if constexpr (D == 192) wgmma_rs_mn_n192<T>(o, a, desc_b, 1);
+  else wgmma_rs_mn_n256<T>(o, a, desc_b, 1);
 }
 
 template <typename T, int D>
@@ -324,6 +129,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      T* __restrict__ out,                   // [N, T, KH, G, D]
                      int T_len, int KH, int G, float scale_log2) {
   using C = Config<D>;
+  constexpr int kBlockN = C::kBlockN;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[C::kStages];
   __shared__ __align__(8) uint64_t empty_bar[C::kStages];
@@ -332,7 +138,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   unsigned char* base =
       smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
   unsigned char* qs = base;
-  unsigned char* ks = base + C::kTileBytes;               // + stage * kTileBytes
+  unsigned char* ks = base + C::kQBytes;                  // + stage * kTileBytes
   unsigned char* vs = ks + C::kStages * C::kTileBytes;
 
   const int kh = blockIdx.y;
@@ -368,7 +174,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(&q_bar, C::kCols * rows * kRowBytes);
 #pragma unroll
       for (int cb = 0; cb < C::kCols; ++cb)
-        tma_load_5d(qs + cb * kBoxBytes, &tm_q, &q_bar, cb * 64, 0, kh, tok0,
+        tma_load_5d(qs + cb * kQBox, &tm_q, &q_bar, cb * 64, 0, kh, tok0,
                     n);
       for (int kt = 0; kt <= last_tile; ++kt) {
         const int st = kt % C::kStages;
@@ -377,7 +183,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(&full_bar[st], 2 * C::kTileBytes);
 #pragma unroll
         for (int cb = 0; cb < C::kCols; ++cb) {
-          const int off = st * C::kTileBytes + cb * kBoxBytes;
+          const int off = st * C::kTileBytes + cb * C::kKvBox;
           tma_load_4d(ks + off, &tm_k, &full_bar[st], cb * 64, kh,
                       kt * kBlockN, n);
           tma_load_4d(vs + off, &tm_v, &full_bar[st], cb * 64, kh,
@@ -409,7 +215,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float s[64];
+    float s[kBlockN / 2];
     uint32_t pa[kBlockN / 16][4];                 // P of the previous tile
     float m[2] = {-INFINITY, -INFINITY};          // row max, scaled log2 units
     float l[2] = {0.f, 0.f};                      // this lane's partial sums
@@ -429,7 +235,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int i = wtid; i < (kBlockN - dead0) * C::kCols * 8; i += 128) {
           const int r = dead0 + i / (C::kCols * 8);
           const int c = i % (C::kCols * 8);
-          *reinterpret_cast<uint4*>(v_tile + (c / 8) * kBoxBytes +
+          *reinterpret_cast<uint4*>(v_tile + (c / 8) * C::kKvBox +
                                     r * kRowBytes + (c % 8) * 16) =
               make_uint4(0u, 0u, 0u, 0u);
         }
@@ -441,9 +247,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int ks16 = 0; ks16 < D / 16; ++ks16) {
-        const uint32_t off = (ks16 / 4) * kBoxBytes + (ks16 % 4) * 32;
-        wgmma_ss_n128<T>(s, desc_k_major(q_addr + off),
-                      desc_k_major(k_addr + off), ks16 > 0);
+        const uint32_t sub = (ks16 % 4) * 32;
+        wgmma_scores<T, kBlockN>(
+            s, desc_k_major(q_addr + (ks16 / 4) * kQBox + sub),
+            desc_k_major(k_addr + (ks16 / 4) * C::kKvBox + sub), ks16 > 0);
       }
       wgmma_commit();
       fence_regs(s);
@@ -456,7 +263,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int k16 = 0; k16 < kBlockN / 16; ++k16)
-        wgmma_pv<T, D>(o, pa[k16], desc_mn_major(v_addr + k16 * 2048));
+        wgmma_pv<T, D>(o, pa[k16], desc_mn_major(v_addr + k16 * 2048, C::kKvBox));
       wgmma_commit();
       fence_regs(o);
     };
@@ -466,14 +273,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int key0 = kt * kBlockN;
       if (key0 + kBlockN > min(wg_first_tok + 1, len)) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kBlockN / 2; ++i) {
           const int key = key0 + (i / 4) * 8 + quad * 2 + (i % 2);
           if (key > tok[(i / 2) % 2] || key >= len) s[i] = -INFINITY;
         }
       }
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) tmax[(i / 2) % 2] = fmaxf(tmax[(i / 2) % 2], s[i]);
+      for (int i = 0; i < kBlockN / 2; ++i) tmax[(i / 2) % 2] = fmaxf(tmax[(i / 2) % 2], s[i]);
       float m_safe[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -486,7 +293,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[h] *= alpha[h];
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kBlockN / 2; ++i) {
         const int h = (i / 2) % 2;
         s[i] = fast_exp2(fmaf(s[i], scale_log2, -m_safe[h]));   // -inf -> 0
         l[h] += s[i];
@@ -586,27 +393,6 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-// cuTensorMapEncodeTiled from the driver, without linking libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a tensor map of 16-bit elements (fp16 when `half`, else bf16) over `rank`
 // dims (innermost first), 128-byte swizzle
 bool make_map(CUtensorMap* map, const void* ptr, int rank,
@@ -641,7 +427,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const cuuint32_t q_box[5] = {64, (cuuint32_t)G, 1, (cuuint32_t)tpb, 1};
   const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)T_len,
                                  (cuuint64_t)N};
-  const cuuint32_t kv_box[4] = {64, 1, kBlockN, 1};
+  const cuuint32_t kv_box[4] = {64, 1, C::kBlockN, 1};
   constexpr bool half = kIsHalf<T>;
   if (!make_map(&tm_q, q, 5, q_dims, q_box, half) ||
       !make_map(&tm_k, k, 4, kv_dims, kv_box, half) ||
@@ -667,11 +453,139 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The float32 kernel, on the CUDA cores in fp32 FMA (the JAX kernel casts q,
+// k and v to f32 and computes in f32; a single TF32 pass would keep 10 of
+// the 23 mantissa bits). A block takes kF32Rows query tokens of one query
+// head; each token's row is held by kF32Lanes neighbouring threads, each
+// with the dims lane + kF32Lanes * i of q and of the accumulator in
+// registers. K and V tiles of kF32Keys keys go through shared memory by
+// 16-byte loads (value rows at or past the length zeroed), a score is
+// summed across the row's threads by shuffles, and the online softmax runs
+// in exp2 units as the wgmma kernel's does. Bound by its FMAs and shuffles:
+// no family the port serves runs fp32 on the card.
+constexpr int kF32Threads = 256;
+constexpr int kF32Lanes = 8;                        // threads a query row
+constexpr int kF32Rows = kF32Threads / kF32Lanes;   // query tokens a block
+// keys a tile: 32, or 16 at D 192 / 256 (the static 48 KB of K and V)
+template <int D>
+constexpr int kF32Keys = D <= 128 ? 32 : 16;
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
+                         const float* __restrict__ k,   // [N, T, KH, D]
+                         const float* __restrict__ v,
+                         const int32_t* __restrict__ lengths,
+                         float* __restrict__ out,       // [N, T, KH, G, D]
+                         int T_len, int KH, int G, float scale_log2) {
+  constexpr int kDims = D / kF32Lanes;                 // dims a thread holds
+  constexpr int kVecs = kF32Keys<D> * D / 4 / kF32Threads;   // float4 a thread
+  __shared__ __align__(16) float k_s[kF32Keys<D> * D];
+  __shared__ __align__(16) float v_s[kF32Keys<D> * D];
+  const int n = blockIdx.z;
+  const int kh = blockIdx.y / G;
+  const int g = blockIdx.y % G;
+  const int tid = threadIdx.x;
+  const int r = tid / kF32Lanes;
+  const int j = tid % kF32Lanes;
+  // the last row tiles first: the longest walks start first
+  const int tok0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
+  const int tok = tok0 + r;
+  const int len = max(0, min(lengths[n], T_len));
+  const int last_key = min(min(tok0 + kF32Rows - 1, T_len - 1), len - 1);
+  const size_t q_row = ((((size_t)n * T_len + tok) * KH + kh) * G + g) * D;
+
+  float qv[kDims], acc[kDims];
+#pragma unroll
+  for (int i = 0; i < kDims; ++i) {
+    qv[i] = tok < T_len ? q[q_row + j + kF32Lanes * i] * scale_log2 : 0.f;
+    acc[i] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int key0 = 0; key0 <= last_key; key0 += kF32Keys<D>) {
+    __syncthreads();                          // the last tile is consumed
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int e = (tid + i * kF32Threads) * 4;
+      const int key = key0 + e / D;
+      const bool live = key < len;
+      const size_t off = (((size_t)n * T_len + key) * KH + kh) * D + e % D;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(k_s + e) =
+          live ? *reinterpret_cast<const float4*>(k + off) : zero;
+      *reinterpret_cast<float4*>(v_s + e) =
+          live ? *reinterpret_cast<const float4*>(v + off) : zero;
+    }
+    __syncthreads();
+    float sc[kF32Keys<D>];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < kF32Keys<D>; ++jj) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDims; ++i)
+        dot = fmaf(qv[i], k_s[jj * D + j + kF32Lanes * i], dot);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+      const int key = key0 + jj;
+      sc[jj] = (key <= tok && key < len) ? dot : -INFINITY;
+      tmax = fmaxf(tmax, sc[jj]);
+    }
+    const float m_new = fmaxf(m, tmax);
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = m == -INFINITY ? 0.f : exp2f(m - m_safe);
+    m = m_new;
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < kDims; ++i) acc[i] *= alpha;
+#pragma unroll
+    for (int jj = 0; jj < kF32Keys<D>; ++jj) {
+      const float p = sc[jj] == -INFINITY ? 0.f : exp2f(sc[jj] - m_safe);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < kDims; ++i)
+        acc[i] = fmaf(p, v_s[jj * D + j + kF32Lanes * i], acc[i]);
+    }
+  }
+  if (tok >= T_len) return;
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < kDims; ++i) out[q_row + j + kF32Lanes * i] = acc[i] * inv;
+}
+
+template <int D>
+cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
+                         const int32_t* lengths, void* out, int N, int T_len,
+                         int KH, int G, float scale, cudaStream_t stream) {
+  const dim3 grid((T_len + kF32Rows - 1) / kF32Rows, KH * G, N);
+  flash_prefill_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), lengths, static_cast<float*>(out), T_len,
+      KH, G, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const int32_t* lengths, void* out, int N, int T_len,
+                       int KH, int G, int D, float scale, cudaStream_t stream) {
+  if ((long long)KH * G > 65535) return cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return launch_f32_d<64>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
+    case 128: return launch_f32_d<128>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
+    case 192: return launch_f32_d<192>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
+    case 256: return launch_f32_d<256>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the CUDA-core
+// kernel); D 64, 128, 192 or 256
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
                                  const int32_t* lengths, void* out, int N,
-                                 int T, int KH, int G, int D, int half,
+                                 int T, int KH, int G, int D, int dtype,
                                  float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte aligned bases; a block holds at least one token
@@ -679,14 +593,21 @@ extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
       N > 65535 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
-  if (half) {
-    if (D == 64) return (int)launch<__half, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);
-    if (D == 128) return (int)launch<__half, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s);
-  } else {
-    if (D == 64) return (int)launch<__nv_bfloat16, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);
-    if (D == 128) return (int)launch<__nv_bfloat16, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s);
+#define TGI_FLASH_D(TY)                                                        \
+  switch (D) {                                                                 \
+    case 64: return (int)launch<TY, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);   \
+    case 128: return (int)launch<TY, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
+    case 192: return (int)launch<TY, 192>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
+    case 256: return (int)launch<TY, 256>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
+    default: return (int)cudaErrorInvalidValue;                                \
   }
-  return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: TGI_FLASH_D(__nv_bfloat16)
+    case 1: TGI_FLASH_D(__half)
+    case 2: return (int)launch_f32(q, k, v, lengths, out, N, T, KH, G, D, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TGI_FLASH_D
 }
 
 extern "C" const char* tgi_flash_prefill_error_string(int code) {

@@ -15,13 +15,14 @@
 //      in L2).
 //   2. down: a work item is (64 columns of H, one of `splits` fixed slices of
 //      I); it writes an fp32 partial [S, 64] to a scratch [splits, S, H].
-//   3. the partials are added in split order and rounded to bf16.
+//   3. the partials are added in split order and written in x's dtype.
 // Every output element is summed in one fixed order, whatever the grid size
 // or the other rows: the result is bit-identical run to run (no atomics on
 // data; the barrier counter is the only atomic).
 //
 // Layouts, as the loader stores them (GPTQ natural layout, no TPU blocking):
-// x [S, H] bf16; gu qweight [H/8, 2I] int32 (gate columns [0, I), up
+// x [S, H] in bf16, fp16 or fp32, converted to bf16 as it is staged (the
+// JAX kernel's x.astype(compute_dtype)), y [S, H] in x's dtype; gu qweight [H/8, 2I] int32 (gate columns [0, I), up
 // columns [I, 2I), models/fuse.py), scales / zbias [H/gs_gu, 2I] f32;
 // down qweight [I/8, H], scales / zbias [I/gs_down, H]. Dequant is
 // fma(q, scale, -zbias) with the nibble read unsigned, as K1 does
@@ -37,6 +38,7 @@
 // Not yet: cp.async / TMA pipelines, ldmatrix, wgmma, overlap of the phases.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,13 +89,47 @@ struct Layout {
   static constexpr int kXVecs = BM * kBK / 8 / kThreads;  // 16-byte A loads
 };
 
+// Eight elements of an input row as eight bf16 (x.astype(bf16), as the JAX
+// kernel casts x to its compute dtype), read through L2 (__ldcg).
+__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
+  return __ldcg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ uint4 load8_bf16(const __half* p) {
+  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) o[i] = pack_bf16(__low2float(h[i]), __high2float(h[i]));
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+__device__ __forceinline__ uint4 load8_bf16(const float* p) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
+template <typename XT>
+__device__ __forceinline__ XT from_float(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half(v);
+}
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+
 // acc = a[0:BM, k-tiles t_begin..t_end) @ dequant(w)[.., this tile], for a
 // 64-column tile of w whose column for this thread's load slot (tid % 64) is
-// `n`. `a` is [M, K] bf16 (rows >= M read as 0) and is read through L2
-// (__ldcg): in phase 2 it was written by other blocks of this launch.
-template <int BM>
+// `n`. `a` is [M, K] in AT (bf16, fp16 or fp32, converted to bf16 as it is
+// staged; rows >= M read as 0) and is read through L2 (__ldcg): in phase 2
+// it was written by other blocks of this launch.
+template <int BM, typename AT>
 __device__ __forceinline__ void dequant_gemm(
-    const __nv_bfloat16* a, int M, int K, const int32_t* __restrict__ qweight,
+    const AT* a, int M, int K, const int32_t* __restrict__ qweight,
     const float* __restrict__ scales, const float* __restrict__ zbias, int N,
     int n, int gs, int t_begin, int t_end, __nv_bfloat16 (*xs)[kLd],
     __nv_bfloat16 (*wt)[kLd], float (&acc)[Layout<BM>::kNTiles][4]) {
@@ -122,7 +158,7 @@ __device__ __forceinline__ void dequant_gemm(
       const int idx = tid + i * kThreads;
       const int r = idx / (kBK / 8);
       const int c = (idx % (kBK / 8)) * 8;
-      xr[i] = r < M ? __ldcg(reinterpret_cast<const uint4*>(a + (size_t)r * K + k0 + c))
+      xr[i] = r < M ? load8_bf16(a + (size_t)r * K + k0 + c)
                     : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -197,9 +233,9 @@ __device__ __forceinline__ void grid_barrier(unsigned int* counter,
   __syncthreads();
 }
 
-template <int BM, int ACT>
+template <int BM, int ACT, typename XT>
 __global__ void __launch_bounds__(kThreads, 4)
-int4_mlp_kernel(const __nv_bfloat16* __restrict__ x,   // [M, H]
+int4_mlp_kernel(const XT* __restrict__ x,              // [M, H]
                 const int32_t* __restrict__ gu_q,      // [H/8, 2I]
                 const float* __restrict__ gu_s,        // [H/gs_gu, 2I]
                 const float* __restrict__ gu_z,
@@ -209,7 +245,7 @@ int4_mlp_kernel(const __nv_bfloat16* __restrict__ x,   // [M, H]
                 __nv_bfloat16* abuf,                   // [M, I] scratch
                 float* partial,                        // [splits, M, H] scratch
                 unsigned int* counter,
-                __nv_bfloat16* __restrict__ y,         // [M, H]
+                XT* __restrict__ y,                    // [M, H]
                 int M, int H, int I, int gs_gu, int gs_down, int splits) {
   using L = Layout<BM>;
   __shared__ __align__(16) __nv_bfloat16 xs[BM][kLd];
@@ -231,7 +267,7 @@ int4_mlp_kernel(const __nv_bfloat16* __restrict__ x,   // [M, H]
     const int i0 = item * kHalf;
     const int wcol = tid % kBN;
     const int n = wcol < kHalf ? i0 + wcol : I + i0 + (wcol - kHalf);
-    dequant_gemm<BM>(x, M, H, gu_q, gu_s, gu_z, 2 * I, n, gs_gu, 0, H / kBK,
+    dequant_gemm<BM, XT>(x, M, H, gu_q, gu_s, gu_z, 2 * I, n, gs_gu, 0, H / kBK,
                      xs, wt, acc);
 #pragma unroll
     for (int j = 0; j < L::kNTiles; ++j) {
@@ -262,7 +298,7 @@ int4_mlp_kernel(const __nv_bfloat16* __restrict__ x,   // [M, H]
     const int split = item / tiles_h;
     const int t_begin = (int)((long long)tiles_i * split / splits);
     const int t_end = (int)((long long)tiles_i * (split + 1) / splits);
-    dequant_gemm<BM>(abuf, M, I, d_q, d_s, d_z, H, h0 + tid % kBN, gs_down,
+    dequant_gemm<BM, __nv_bfloat16>(abuf, M, I, d_q, d_s, d_z, H, h0 + tid % kBN, gs_down,
                      t_begin, t_end, xs, wt, acc);
 #pragma unroll
     for (int j = 0; j < L::kNTiles; ++j) {
@@ -278,13 +314,13 @@ int4_mlp_kernel(const __nv_bfloat16* __restrict__ x,   // [M, H]
   }
   grid_barrier(counter, 2u * gridDim.x);
 
-  // phase 3: y = bf16(sum over splits, in split order)
+  // phase 3: y = sum over splits, in split order, in x's dtype
   const size_t mh = (size_t)M * H;
   for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < mh;
        i += (size_t)gridDim.x * kThreads) {
     float s = 0.f;
     for (int k = 0; k < splits; ++k) s += __ldcg(partial + (size_t)k * mh + i);
-    y[i] = __float2bfloat16(s);
+    y[i] = from_float<XT>(s);
   }
 }
 
@@ -297,16 +333,16 @@ int sm_count() {
   return sms;
 }
 
-template <int BM, int ACT>
+template <int BM, int ACT, typename XT>
 cudaError_t launch(const void* x, const void* gu_q, const void* gu_s,
                    const void* gu_z, const void* d_q, const void* d_s,
                    const void* d_z, void* abuf, void* partial, void* counter,
                    void* y, int M, int H, int I, int gs_gu, int gs_down,
                    int splits, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&int4_mlp_kernel<BM, ACT>);
+  const void* kernel = reinterpret_cast<const void*>(&int4_mlp_kernel<BM, ACT, XT>);
   int per_sm = 0;
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, int4_mlp_kernel<BM, ACT>, kThreads, 0);
+      &per_sm, int4_mlp_kernel<BM, ACT, XT>, kThreads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int items1 = I / kHalf;
@@ -316,7 +352,7 @@ cudaError_t launch(const void* x, const void* gu_q, const void* gu_s,
   const int grid = items < resident ? items : resident;
   err = cudaMemsetAsync(counter, 0, sizeof(unsigned int), stream);
   if (err != cudaSuccess) return err;
-  auto xp = static_cast<const __nv_bfloat16*>(x);
+  auto xp = static_cast<const XT*>(x);
   auto guq = static_cast<const int32_t*>(gu_q);
   auto gus = static_cast<const float*>(gu_s);
   auto guz = static_cast<const float*>(gu_z);
@@ -326,14 +362,14 @@ cudaError_t launch(const void* x, const void* gu_q, const void* gu_s,
   auto ab = static_cast<__nv_bfloat16*>(abuf);
   auto pp = static_cast<float*>(partial);
   auto cp = static_cast<unsigned int*>(counter);
-  auto yp = static_cast<__nv_bfloat16*>(y);
+  auto yp = static_cast<XT*>(y);
   void* args[] = {&xp, &guq, &gus, &guz, &dq, &ds, &dz, &ab, &pp, &cp, &yp,
                   &M, &H, &I, &gs_gu, &gs_down, &splits};
   return cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
                                      0, stream);
 }
 
-template <int ACT>
+template <int ACT, typename XT>
 cudaError_t launch_rows(const void* x, const void* gu_q, const void* gu_s,
                         const void* gu_z, const void* d_q, const void* d_s,
                         const void* d_z, void* abuf, void* partial,
@@ -341,13 +377,31 @@ cudaError_t launch_rows(const void* x, const void* gu_q, const void* gu_s,
                         int gs_down, int splits, cudaStream_t st) {
   const int bm = block_rows(M);
   if (bm == 16)
-    return launch<16, ACT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf, partial,
-                           counter, y, M, H, I, gs_gu, gs_down, splits, st);
+    return launch<16, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                               partial, counter, y, M, H, I, gs_gu, gs_down,
+                               splits, st);
   if (bm == 32)
-    return launch<32, ACT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf, partial,
-                           counter, y, M, H, I, gs_gu, gs_down, splits, st);
-  return launch<64, ACT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf, partial,
-                         counter, y, M, H, I, gs_gu, gs_down, splits, st);
+    return launch<32, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                               partial, counter, y, M, H, I, gs_gu, gs_down,
+                               splits, st);
+  return launch<64, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                             partial, counter, y, M, H, I, gs_gu, gs_down,
+                             splits, st);
+}
+
+template <typename XT>
+cudaError_t launch_act(const void* x, const void* gu_q, const void* gu_s,
+                       const void* gu_z, const void* d_q, const void* d_s,
+                       const void* d_z, void* abuf, void* partial,
+                       void* counter, void* y, int M, int H, int I, int gs_gu,
+                       int gs_down, int splits, int act, cudaStream_t st) {
+  if (act == kSiluGlu)
+    return launch_rows<kSiluGlu, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                                     partial, counter, y, M, H, I, gs_gu,
+                                     gs_down, splits, st);
+  return launch_rows<kGeluGlu, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                                   partial, counter, y, M, H, I, gs_gu,
+                                   gs_down, splits, st);
 }
 
 }  // namespace
@@ -366,27 +420,39 @@ extern "C" int tgi_int4_mlp_splits(int H, int I) {
   return s > 1 ? s : 1;
 }
 
-// act: 0 silu_glu, 1 gelu_glu (the erf GELU). abuf is [M, I] bf16, partial
-// [splits, M, H] f32, counter one uint32 (zeroed here, on the stream).
+// act: 0 silu_glu, 1 gelu_glu (the erf GELU). dtype of x and y: 0 bf16, 1
+// fp16, 2 fp32 (x is converted to bf16 as it is staged, the JAX kernel's
+// x.astype(compute_dtype); y is written in x's dtype). abuf is [M, I] bf16,
+// partial [splits, M, H] f32, counter one uint32 (zeroed here, on the
+// stream).
 extern "C" int tgi_int4_mlp(const void* x, const void* gu_q, const void* gu_s,
                             const void* gu_z, const void* d_q, const void* d_s,
                             const void* d_z, void* abuf, void* partial,
                             void* counter, void* y, int M, int H, int I,
                             int gs_gu, int gs_down, int splits, int act,
-                            void* stream) {
+                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || M > 64 || H <= 0 || I <= 0 || H % kBN || I % kBK ||
       gs_gu <= 0 || gs_gu % kBK || H % gs_gu || gs_down <= 0 ||
       gs_down % kBK || I % gs_down || splits < 1 || splits > I / kBK ||
       (act != kSiluGlu && act != kGeluGlu) || !abuf || !partial || !counter)
     return (int)cudaErrorInvalidValue;
-  if (act == kSiluGlu)
-    return (int)launch_rows<kSiluGlu>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                                      partial, counter, y, M, H, I, gs_gu,
-                                      gs_down, splits, st);
-  return (int)launch_rows<kGeluGlu>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+  switch (dtype) {
+    case 0:
+      return (int)launch_act<__nv_bfloat16>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z,
+                                            abuf, partial, counter, y, M, H, I,
+                                            gs_gu, gs_down, splits, act, st);
+    case 1:
+      return (int)launch_act<__half>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
+                                     partial, counter, y, M, H, I, gs_gu,
+                                     gs_down, splits, act, st);
+    case 2:
+      return (int)launch_act<float>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
                                     partial, counter, y, M, H, I, gs_gu,
-                                    gs_down, splits, st);
+                                    gs_down, splits, act, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* tgi_int4_mlp_error_string(int code) {

@@ -14,8 +14,9 @@
 //                              per-row-per-head scale pools (k_scale /
 //                              v_scale [KH, R], indexed by the same pool rows)
 //
-// Every entry takes `half`: q (and pools that are not int8) in fp16 when it
-// is nonzero, else bf16.
+// Every entry takes `dtype`, the element type of q and of pools that are not
+// int8: 0 bf16, 1 fp16 (the mma body), 2 fp32 (the fp32 CUDA-core body,
+// `split_kernel_f32`; K2 then takes fp32 q over its int8 pools).
 //
 // Replaces: the JAX package's ops/pallas/paged_attention.py
 //   normalized: paged_decode_attention (`_kernel_all_heads` +
@@ -89,14 +90,14 @@ extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
                                 unsigned int* arrivals, int S, int KH, int G,
                                 int D, int R, int page, int max_pages,
                                 int num_pages, int pages_per_split, int splits,
-                                int half, float scale, void* stream) {
+                                int dtype, float scale, void* stream) {
   Args a;
   if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, out, nullptr,
                   nullptr, part, arrivals, KH, G, R, page, max_pages,
                   num_pages, pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<true, false, decode_split::kOut>(
-      a, S, D, half, splits, stream);
+      a, S, D, dtype, splits, stream);
 }
 
 extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
@@ -108,14 +109,14 @@ extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
                                       int G, int D, int R, int page,
                                       int max_pages, int num_pages,
                                       int pages_per_split, int splits,
-                                      int half, float scale, void* stream) {
+                                      int dtype, float scale, void* stream) {
   Args a;
   if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, acc, m_out, l_out,
                   part, arrivals, KH, G, R, page, max_pages, num_pages,
                   pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<true, false, decode_split::kStats>(
-      a, S, D, half, splits, stream);
+      a, S, D, dtype, splits, stream);
 }
 
 // K2: the stats mode over int8 pools; k_scale / v_scale are the layer's
@@ -125,7 +126,7 @@ extern "C" int tgi_paged_decode_stats_i8(
     const float* k_scale, const float* v_scale, const int32_t* block_table,
     const int32_t* ctx, float* acc, float* m_out, float* l_out, float* part,
     unsigned int* arrivals, int S, int KH, int G, int D, int R, int page,
-    int max_pages, int num_pages, int pages_per_split, int splits, int half,
+    int max_pages, int num_pages, int pages_per_split, int splits, int dtype,
     float scale, void* stream) {
   Args a;
   if (!k_scale || !v_scale ||
@@ -136,7 +137,7 @@ extern "C" int tgi_paged_decode_stats_i8(
   a.k_scale = k_scale;
   a.v_scale = v_scale;
   return decode_split::dispatch<true, true, decode_split::kStats>(
-      a, S, D, half, splits, stream);
+      a, S, D, dtype, splits, stream);
 }
 
 extern "C" const char* tgi_paged_decode_error_string(int code) {

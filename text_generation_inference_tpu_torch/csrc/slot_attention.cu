@@ -16,8 +16,9 @@
 //   ops/pallas/ring_decode_attention.py ring_decode_attention (`_kernel`,
 //                                       pallas_call at :239), S2.
 //
-// Layouts (the JAX layouts): q [S, KH, G, D] in T (bf16, or fp16 when the
-// entry's `half` is nonzero); the cache k/v [S, KH, T, D] in T with the head
+// Layouts (the JAX layouts): q [S, KH, G, D] in T (the entry's `dtype`:
+// 0 bf16, 1 fp16, 2 fp32, the last on the split body's fp32 CUDA-core
+// kernel); the cache k/v [S, KH, T, D] in T with the head
 // dim contiguous and any strides over S, KH and T (a layer view
 // `cache.k[l]`, or a view narrowed to the first T rows of a longer cache,
 // costs no copy); ring buffers [S, KH, C, D] and the current k/v [S, KH, D]
@@ -43,11 +44,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
 
 // Phase 2 of S2: merge the live splits of one (slot, kv head), the ring
 // columns < step and the current token; normalize and round to T. part is
 // the split body's scratch [S, KH * chunks, splits, min(G, 16), D + 2].
-template <typename T, int D>
+// kD: the head dim, or 0 to take it at run time (`D_rt`, the fp32 entry)
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 ring_merge_kernel(const T* __restrict__ q,              // [S, KH, G, D]
                   const float* __restrict__ part,
@@ -57,8 +60,9 @@ ring_merge_kernel(const T* __restrict__ q,              // [S, KH, G, D]
                   const T* __restrict__ k_new,          // [S, KH, D]
                   const T* __restrict__ v_new,
                   T* __restrict__ out,                  // [S, KH, G, D]
-                  int KH, int G, int T_rows, int rows_per_split, int splits,
-                  int C, int step, float scale_log2) {
+                  int KH, int G, int D_rt, int T_rows, int rows_per_split,
+                  int splits, int C, int step, float scale_log2) {
+  const int D = kD ? kD : D_rt;
   // q [G * D], p [G * (C + 1)], the merged max and sum [G] each
   extern __shared__ float ring_s[];
   constexpr int kMaxGroup = decode_split::kMaxGroup;
@@ -151,26 +155,27 @@ ring_merge_kernel(const T* __restrict__ q,              // [S, KH, G, D]
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_merge(const decode_split::Args& a, int S,
+template <typename T, int kD>
+cudaError_t launch_merge(const decode_split::Args& a, int S, int D,
                          const void* kbuf, const void* vbuf,
                          const void* k_new, const void* v_new, int splits,
                          int C, int step, cudaStream_t stream) {
   const size_t smem = (size_t)a.G * (D + C + 3) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ring_merge_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ring_merge_kernel<T, kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
-  ring_merge_kernel<T, D><<<dim3(S, a.KH), kThreads, smem, stream>>>(
+  ring_merge_kernel<T, kD><<<dim3(S, a.KH), kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), a.part, a.ctx, static_cast<const T*>(kbuf),
       static_cast<const T*>(vbuf), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), static_cast<T*>(a.out), a.KH, a.G, a.T,
+      static_cast<const T*>(v_new), static_cast<T*>(a.out), a.KH, a.G, D, a.T,
       a.rows_per_split, splits, C, step, a.scale_log2);
   return cudaGetLastError();
 }
 
+// bf16 and fp16 at the head dims the split body is built for
 template <typename T>
 cudaError_t launch_merge_d(const decode_split::Args& a, int S, int D,
                            const void* kbuf, const void* vbuf,
@@ -179,17 +184,15 @@ cudaError_t launch_merge_d(const decode_split::Args& a, int S, int D,
   switch (D) {
 #define TGI_RING_CASE(DV)                                                   \
     case DV:                                                                \
-      return launch_merge<T, DV>(a, S, kbuf, vbuf, k_new, v_new, splits, C, \
-                                 step, st);
+      return launch_merge<T, DV>(a, S, D, kbuf, vbuf, k_new, v_new, splits, \
+                                 C, step, st);
     TGI_RING_CASE(16) TGI_RING_CASE(64) TGI_RING_CASE(80) TGI_RING_CASE(128)
-    TGI_RING_CASE(256)
+    TGI_RING_CASE(192) TGI_RING_CASE(256)
 #undef TGI_RING_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
-// The arguments S1 and S2's first phase share: the slot cache as the row
-// source, `rows_per_split` rows a split.
 bool slot_args(decode_split::Args& a, const void* q, const void* k,
                const void* v, const int32_t* ctx, void* out, float* part,
                unsigned int* arrivals, int KH, int G, int T, long long st_s,
@@ -230,13 +233,13 @@ extern "C" int tgi_slot_decode(const void* q, const void* k, const void* v,
                                unsigned int* arrivals, int S, int KH, int G,
                                int D, int T, long long st_s, long long st_k,
                                long long st_t, int rows_per_split, int splits,
-                               int half, float scale, void* stream) {
+                               int dtype, float scale, void* stream) {
   decode_split::Args a;
   if (!slot_args(a, q, k, v, ctx, out, part, arrivals, KH, G, T, st_s, st_k,
                  st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<false, false, decode_split::kOut>(
-      a, S, D, half, splits, stream);
+      a, S, D, dtype, splits, stream);
 }
 
 // S2: part is the split scratch as S1's, written by every live split;
@@ -249,21 +252,27 @@ extern "C" int tgi_ring_decode(const void* q, const void* k, const void* v,
                                int S, int KH, int G, int D, int T,
                                long long st_s, long long st_k, long long st_t,
                                int rows_per_split, int splits, int C, int step,
-                               int half, float scale, void* stream) {
+                               int dtype, float scale, void* stream) {
   decode_split::Args a;
   if (C <= 0 || C > kMaxRing || step < 0 || step > C ||
       !slot_args(a, q, k, v, ctx, out, part, nullptr, KH, G, T, st_s, st_k,
                  st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   int code = decode_split::dispatch<false, false, decode_split::kParts>(
-      a, S, D, half, splits, stream);
+      a, S, D, dtype, splits, stream);
   if (code != 0) return code;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(half ? launch_merge_d<__half>(a, S, D, kbuf, vbuf, k_new,
-                                             v_new, splits, C, step, st)
-                    : launch_merge_d<__nv_bfloat16>(a, S, D, kbuf, vbuf,
-                                                    k_new, v_new, splits, C,
-                                                    step, st));
+  switch (dtype) {
+    case decode_split::kBf16:
+      return (int)launch_merge_d<__nv_bfloat16>(a, S, D, kbuf, vbuf, k_new,
+                                                v_new, splits, C, step, st);
+    case decode_split::kFp16:
+      return (int)launch_merge_d<__half>(a, S, D, kbuf, vbuf, k_new, v_new,
+                                         splits, C, step, st);
+    default:
+      return (int)launch_merge<float, 0>(a, S, D, kbuf, vbuf, k_new, v_new,
+                                         splits, C, step, st);
+  }
 }
 
 extern "C" const char* tgi_slot_attention_error_string(int code) {

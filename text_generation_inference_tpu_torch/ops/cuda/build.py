@@ -29,6 +29,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 
+# the element-type code every attention entry takes (`dtype`): bf16 and
+# fp16 on the tensor cores, fp32 on the fp32 CUDA-core bodies
+DTYPE_CODES = {"torch.bfloat16": 0, "torch.float16": 1, "torch.float32": 2}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -47,14 +51,15 @@ _SIGNATURES = {
         "tgi_paged_decode_stats": [_vp] * 10 + [_i32] * 11 + [_f32, _vp],
         "tgi_paged_decode_stats_i8": [_vp] * 12 + [_i32] * 11 + [_f32, _vp],
     },
+    # x, qweight, qzeros, scales, y, split workspace, arrival counters; then
+    # M, N, K, group size, splits, dtype
     "int4_matmul": {
-        "tgi_int4_matmul": [_vp] * 6 + [_i32] * 5 + [_vp],
-        "tgi_int4_matmul_splits": [_i32] * 3,
+        "tgi_int4_matmul": [_vp] * 7 + [_i32] * 6 + [_vp],
     },
     # x, the six weight tensors, a, partials, barrier counter, y; then M, H,
-    # I, the two group sizes, splits, activation
+    # I, the two group sizes, splits, activation, dtype
     "int4_mlp": {
-        "tgi_int4_mlp": [_vp] * 11 + [_i32] * 7 + [_vp],
+        "tgi_int4_mlp": [_vp] * 11 + [_i32] * 8 + [_vp],
         "tgi_int4_mlp_splits": [_i32] * 2,
     },
     # cache strides over S, K, T are int64; S1: q, k, v, ctx, out, split
@@ -156,6 +161,11 @@ def library(name: str) -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _libs[name] = lib
     return lib
+
+
+def dtype_code(dtype) -> int:
+    """The `dtype` argument of an entry for a torch element type."""
+    return DTYPE_CODES[str(dtype)]
 
 
 def check(name: str, code: int) -> None:

@@ -10,8 +10,9 @@ Counterpart of the JAX package's `ops/pallas/decode_attention.py`
   ctx:  [S] int32      live cache rows per slot, the current token included
   out:  [S, K, G, D]   in q's dtype
 
-q and the cache are bf16 or fp16 (`DTYPES`); the kernel takes every head
-dim in `HEAD_DIMS` and any group G.
+q and the cache are bf16, fp16 or fp32 (`DTYPES`, fp32 on the split
+body's fp32 CUDA-core kernel); the kernel takes every head dim in
+`HEAD_DIMS` and any group G.
 
 A slot with ctx == 0 gives 0, as the JAX kernel does (it clamps the softmax
 denominator at 1e-30); the JAX reference gives NaN there. Rows at or past
@@ -160,7 +161,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
             out.data_ptr(), None if part is None else part.data_ptr(),
             counters.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows,
-            splits, int(q.dtype == torch.float16), 1.0 / math.sqrt(d), stream)
+            splits, build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("slot_attention", code)
     decode_attention.launches += 1
     return out

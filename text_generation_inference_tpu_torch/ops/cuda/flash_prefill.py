@@ -8,9 +8,13 @@ when j <= i and j < lengths[n]; rows with lengths[n] == 0 give 0.
 
 `flash_prefill_tiled_reference` is the plain twin of the kernel's schedule:
 row tiles of BLOCK_M rows (row = token * G + g) in two halves of 64 (the
-kernel's consumer warpgroups), key tiles of BLOCK_N, each half walking key
-tiles up to its causal and length limit and masking only the tiles that
-cross its diagonal or the length.
+kernel's consumer warpgroups), key tiles of `key_tile(d)` keys (128, or 64
+at head dims 192 and 256), each half walking key tiles up to its causal and
+length limit and masking only the tiles that cross its diagonal or the
+length.
+
+bf16 and fp16 run on the wgmma kernel; fp32 runs on the source's fp32
+CUDA-core kernel (the JAX kernel computes in f32).
 
 `flash_prefill` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `flash_prefill.launches`
@@ -25,10 +29,17 @@ import torch
 
 from . import build
 
-HEAD_DIMS = (64, 128)   # head dims the kernel is compiled for
-DTYPES = (torch.bfloat16, torch.float16)   # element types it is built for
+HEAD_DIMS = (64, 128, 192, 256)   # head dims the kernel is compiled for
+# element types it is built for
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 BLOCK_M = 128           # rows (token * G + g) a block of the kernel takes
-BLOCK_N = 128           # keys a tile of the kernel
+BLOCK_N = 128           # keys a tile of the kernel up to head dim 128
+
+
+def key_tile(d: int) -> int:
+    """Keys a tile of the wgmma kernel at head dim d: 64 past 128, where
+    the Q tile leaves no room for two stages of 128-key K and V tiles."""
+    return BLOCK_N if d <= 128 else 64
 
 
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
@@ -54,12 +65,13 @@ def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
 def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, lengths: torch.Tensor,
                                   block_m: int = BLOCK_M,
-                                  block_n: int = BLOCK_N) -> torch.Tensor:
+                                  block_n: int | None = None) -> torch.Tensor:
     """Plain twin of the kernel's schedule (fp32 math, output in q's dtype):
     online softmax in exp2 units over the key tiles a half row tile walks,
     masks only on the tiles that cross the half's diagonal or the length,
     dead value rows zeroed on the length-edge tile."""
     n, t, kh, g, d = q.shape
+    block_n = block_n or key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
     rows_q = q.to(torch.float32).permute(0, 2, 1, 3, 4).reshape(n, kh, t * g, d)
     kf = k.to(torch.float32).permute(0, 2, 1, 3)                # [N, K, T, D]
@@ -154,7 +166,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), n, t, kh, g, d, int(q.dtype == torch.float16),
+            out.data_ptr(), n, t, kh, g, d, build.dtype_code(q.dtype),
             1.0 / math.sqrt(d), stream)
     build.check("flash_prefill", code)
     flash_prefill.launches += 1

@@ -18,6 +18,11 @@ is the exact (erf) GELU of g times u, as `models/core._activate` defines it.
 The JAX kernel computes `gelu_glu` with the tanh approximation; the port
 does not copy that (see ROADMAP Queue 3, the `gelu_glu` fault).
 
+x is bf16, fp16 or fp32 (`DTYPES`): the kernel converts it to bf16 as it
+stages it (the JAX kernel's `x.astype(compute_dtype)`, bf16 by default)
+and writes y in x's dtype. The plain version computes in f32 from x as it
+is.
+
 The wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. It counts its
 launches in `.launches`.
@@ -30,7 +35,7 @@ import torch.nn.functional as F
 
 from ..quant.int4 import Int4Weight
 from . import build
-from .int4_matmul import K_TILE, int4_matmul_reference
+from .int4_matmul import DTYPES, K_TILE, int4_matmul_reference
 
 MAX_ROWS = 64          # decode rows the kernel takes (the JAX fusion limit)
 ACTIVATIONS = {"silu_glu": 0, "gelu_glu": 1}
@@ -89,9 +94,9 @@ def _check_pair(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
 
 def _check_cuda(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight) -> None:
     """What the kernel takes on the card."""
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"int4_mlp: x must be a contiguous bfloat16 tensor, "
-                         f"got {x.dtype}")
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise ValueError(f"int4_mlp: x must be a contiguous tensor of one of "
+                         f"{DTYPES}, got {x.dtype}")
     if x.data_ptr() % 16:
         raise ValueError("int4_mlp: x must be 16-byte aligned")
     for name, w in (("w_gu", w_gu), ("w_down", w_down)):
@@ -126,7 +131,7 @@ def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
     _check_cuda(x, wg, wd)
     m, h = x.shape
     inter = wd.in_features
-    y = torch.empty((m, h), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, h), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
     lib = build.library("int4_mlp")
@@ -141,7 +146,8 @@ def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
             wg.zbias.data_ptr(), wd.qweight.data_ptr(), wd.scales.data_ptr(),
             wd.zbias.data_ptr(), abuf.data_ptr(), partial.data_ptr(),
             counter.data_ptr(), y.data_ptr(), m, h, inter, wg.groupsize,
-            wd.groupsize, splits, ACTIVATIONS[activation], stream)
+            wd.groupsize, splits, ACTIVATIONS[activation],
+            build.dtype_code(x.dtype), stream)
     build.check("int4_mlp", code)
     int4_mlp_s4_stacked.launches += 1
     return y

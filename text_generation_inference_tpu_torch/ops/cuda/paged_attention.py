@@ -17,9 +17,11 @@ Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
                probabilities before the value product, and l sums the
                unscaled probabilities (JAX `_flash_page_update` with ks/vs)
 
-q, and pools that are not int8, are bf16 or fp16 (`DTYPES`); the kernel
-takes every head dim in `HEAD_DIMS` and any group G (a block takes the
-query heads of a kv head GROUP_BLOCK at a time).
+q, and pools that are not int8, are bf16, fp16 or fp32 (`DTYPES`; fp32
+runs on the split body's fp32 CUDA-core kernel, as the JAX kernels compute
+in f32; K2 takes fp32 q over its int8 pools); the kernel takes every head
+dim in `HEAD_DIMS` and any group G (a block takes the query heads of a kv
+head GROUP_BLOCK at a time).
 
 The plain versions gather each slot's pages with explicit masking: a key
 position is live when it is below ctx and its page id lies in
@@ -52,9 +54,10 @@ import torch
 from . import build
 
 # head dims the kernel is built for: the JAX package's families (64, 80,
-# 128, 256) and the test fixtures' 16
-HEAD_DIMS = (16, 64, 80, 128, 256)
-DTYPES = (torch.bfloat16, torch.float16)  # element types it is built for
+# 128, 192, 256) and the test fixtures' 16
+HEAD_DIMS = (16, 64, 80, 128, 192, 256)
+# element types it is built for
+DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 GROUP_BLOCK = 16  # query heads a block of the split kernel takes
 SPLIT_KEYS = 256  # keys a split of the paged kernel covers (whole pages)
 
@@ -257,7 +260,7 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
             None if part is None else part.data_ptr(), counters.data_ptr(),
             s, kh, g, d, pool_rows, page_size, max_pages,
             pool_rows // page_size, pages_per_split, splits,
-            int(q.dtype == torch.float16), 1.0 / math.sqrt(d), stream)
+            build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("paged_attention", code)
 
 

@@ -57,7 +57,7 @@ def _launch(q, k, v, ctx, ring_args, ring_dims):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
             *[x.data_ptr() for x in ring_args], part.data_ptr(),
             out.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows, splits,
-            *ring_dims, int(q.dtype == torch.float16), 1.0 / math.sqrt(d),
+            *ring_dims, build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
             stream)
     build.check("slot_attention", code)
     return out

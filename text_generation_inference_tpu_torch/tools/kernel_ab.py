@@ -6,10 +6,13 @@ in one process on one card:
 
 `--only TEXT` (before the sources) runs only the checks whose label holds
 TEXT, e.g. `--only S2` for the ring-decode checks of slot_attention.
+`--plans` (int4_matmul) runs K1's decode checks once for each of 1, 2, 4
+and 8 blocks an SM in the split plan (`int4_matmul.BLOCKS_PER_SM`).
 
 Libraries with checks: flash_prefill, paged_attention (the bf16 kernel in
-both modes, K2 at 7B and TinyLlama widths) and slot_attention (S1 at both
-widths, S2 at three ring steps). A version is any source with the
+both modes, K2 at 7B and TinyLlama widths), slot_attention (S1 at both
+widths, S2 at three ring steps) and int4_matmul (label `K1`: a 7B layer's
+four products at M = 16 and at M = 2048). A version is any source with the
 library's C entry points: a copy with other constants (beside its own
 copy of any header it includes), or a file that includes an older source
 under other entry names and defines the checkout's entries over them.
@@ -39,6 +42,15 @@ from ..ops.cuda import build
 REPO_ROOT = build.PACKAGE_DIR.parent
 
 
+def _plans(library: str, plans: bool):
+    """(label suffix, BLOCKS_PER_SM) of the split plans to run."""
+    if not plans:
+        return [("", None)]
+    if library != "int4_matmul":
+        raise SystemExit("kernel_ab: --plans is for int4_matmul")
+    return [(f" plan {b}/SM", b) for b in (1, 2, 4, 8)]
+
+
 def _checks(cs, torch, timer, library: str, only: str = ""):
     """(label, result) of chip_smoke's checks of one library, those whose
     label holds `only`; a check runs only when its label is taken."""
@@ -65,6 +77,21 @@ def _checks(cs, torch, timer, library: str, only: str = ""):
                     lambda step=step: cs.check_ring_decode(torch, timer,
                                                            step))
                    for step in (0, 32, 63)]
+    elif library == "int4_matmul":
+        # K1 on a 7B layer's four products, both routes: decode rows through
+        # the stacked name, prefill rows through the packed name. Each
+        # weight lives for the whole run (`keep`: a version may cache what
+        # it derives from a weight by its address), and every version is
+        # held to the earlier design's tolerance (that kernel rounds each
+        # weight to bf16)
+        checks = [(f"K1 {route} M={m} {key}",
+                   lambda key=key, m=m, entry=entry: cs.check_int4(
+                       torch, timer, entry, key, m, light=True, keep=True,
+                       loose=True))
+                  for route, m, entry in (
+                      ("decode", 16, "int4_matmul_s4_stacked"),
+                      ("prefill", 2048, "int4_matmul"))
+                  for key in cs.K1_SHAPES]
     else:
         raise SystemExit(f"kernel_ab: no checks for library {library!r}")
     for label, check in checks:
@@ -80,7 +107,7 @@ def _ptxas_lines(log: str) -> list[str]:
 def _load(library: str, source: Path, out_dir: Path) -> ctypes.CDLL:
     """Build another version of a library's source and load it with the
     library's argument types."""
-    target = out_dir / f"lib{library}-ab-{source.stem}.so"
+    target = out_dir / f"lib{library}-ab-{source.parent.name}-{source.stem}.so"
     proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(target),
                            str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -113,6 +140,9 @@ def main(argv: list[str]) -> int:
     only = ""
     if len(argv) > 2 and argv[1] == "--only":
         only, argv = argv[2], argv[:1] + argv[3:]
+    plans = len(argv) > 1 and argv[1] == "--plans"
+    if plans:
+        argv = argv[:1] + argv[2:]
     library, others = argv[0], [Path(p).resolve() for p in argv[1:]]
     cs.DTYPE = torch.bfloat16
     log = build.build_all()[library]
@@ -127,11 +157,18 @@ def main(argv: list[str]) -> int:
         builds[str(src)] = _load(library, src, build.BUILD_DIR)
     timer = cs.Timer(torch)
     order = list(builds) + list(reversed(builds))
+    from ..ops.cuda import int4_matmul as im
+
+    blocks_per_sm = im.BLOCKS_PER_SM
     for name in order:
         build._libs[library] = builds[name]
-        for label, res in _checks(cs, torch, timer, library, only):
-            print(json.dumps({"build": name, "check": label, **res}),
-                  flush=True)
+        for suffix, plan in _plans(library, plans):
+            if plan is not None:
+                im.BLOCKS_PER_SM = plan
+            for label, res in _checks(cs, torch, timer, library, only):
+                print(json.dumps({"build": name, "check": label + suffix,
+                                  **res}), flush=True)
+    im.BLOCKS_PER_SM = blocks_per_sm
     build._libs[library] = builds["checkout"]
     return 0
 
