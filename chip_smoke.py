@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught):
              beside the least time the card could take: flash prefill and
              paged decode at TinyLlama-1.1B widths in bf16 (flash prefill
              also at head dim 128, G=4 and G=1, at 256 with gemma-7b's and
-             gemma-2b's heads, at 192, and in fp32, each with its achieved
+             gemma-2b's heads, at 192, and in fp32 on the 3xTF32 kernel at
+             head dims 64, 128, 192 and 256, each with its achieved
              TFLOP/s; paged decode in both modes with its GB/s and share of
              the bytes bound); every decode entry in fp32 (the paged kernel
              in both modes, K2 with an fp32 q, S1, S2); the int8 paged
@@ -39,8 +40,10 @@ Phases (any failure exits non-zero; nothing is caught):
              (`decode_paged` steps), the same model on the slot cache
              (`core.prefill`, then scan-mode `core.decode` steps at
              max_seq 2048, through S1), a float32 model at the test
-             fixtures' tiny_llama widths (per-step and ring-chunk paged
-             decode on the fp32 bodies, launches counted), then a 4-layer
+             fixtures' tiny_llama widths with head dim 64 (its prefill
+             through flash prefill's 3xTF32 kernel, per-step and
+             ring-chunk paged decode on the fp32 bodies, launches
+             counted), then a 4-layer
              GPTQ-INT4 model at 7B widths over an int8 pool (ring-decode
              steps and a flush), with K1 for every product and with the MLP
              through M1, in bf16 and again in fp16.
@@ -105,6 +108,7 @@ DTYPE = None                    # torch.bfloat16, set in main()
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 494.7e12      # H100 SXM dense TF32 tensor cores
 # the JAX reference package's directory (named here, never imported)
 JAX_PACKAGE_DIR = "text_generation_inference" + "_tpu"
 PORT_DIR = "text_generation_inference_tpu_torch"
@@ -169,14 +173,22 @@ class Timer:
 
 
 def peak_flops(dtype) -> float:
-    """The card's peak for a kernel's operations: the bf16 tensor cores,
-    or the fp32 CUDA cores for the fp32 attention bodies."""
-    return PEAK_FP32_FLOPS if str(dtype) == "torch.float32" else PEAK_BF16_FLOPS
+    """The card's peak for flash prefill's operations: the bf16 tensor
+    cores, or for fp32 what the card does for fp32-accurate products on its
+    tensor cores: three TF32 products a product (3xTF32), a third of the
+    TF32 peak."""
+    if str(dtype) == "torch.float32":
+        return PEAK_TF32_FLOPS / 3
+    return PEAK_BF16_FLOPS
 
 
-def bound(nbytes: float, flops: float, fp32: bool = False) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, fp32: bool = False,
+          peak: float | None = None) -> tuple[float, str]:
+    """The least time (ms) for the bytes and operations, and which bounds
+    it; operations over `peak`, else the fp32 CUDA-core peak (the fp32
+    decode bodies) or the bf16 tensor cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_ops = flops / (peak or (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -190,8 +202,9 @@ def nbytes(*tensors) -> int:
 
 def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
     """Flash prefill over two right-padded sequences of a 2048 bucket at
-    (D, KV heads, group), bf16 by default; fp32 runs the fp32 CUDA-core
-    kernel, held to 1e-4."""
+    (D, KV heads, group), bf16 by default; fp32 runs the 3xTF32 tensor-core
+    kernel, held to 1e-4 of the plain version (and its error against its
+    twin, `flash_prefill_tf32x3_reference`, is logged)."""
     from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
 
     dtype = dtype or torch.bfloat16
@@ -216,6 +229,11 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
     if not bool((diff <= atol + rtol * want.float().abs()).all()):
         raise AssertionError(f"flash_prefill D={d}: max abs err {err} "
                              f"outside {tol}")
+    if dtype == torch.float32:
+        twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths)
+        tol += (f"; against the 3xTF32 twin "
+                f"{(got - twin).abs().max().item():.3e}")
+        del twin
     ms = timer(lambda: fp.flash_prefill(q, k, v, lengths))
     plain_ms = timer(lambda: fp.flash_prefill_reference(q, k, v, lengths),
                      iters=3, warmup=1)
@@ -230,7 +248,7 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
     pairs = sum(int(torch.clamp(rows, max=int(ln)).sum()) for ln in lengths)
     flops = 4.0 * d * kh * g * pairs
     b_ms, b_by = bound(nbytes(q, k, v, got, lengths), flops,
-                       fp32=dtype == torch.float32)
+                       peak=peak_flops(dtype))
     tflops = flops / (ms * 1e-3) / 1e12
     log(f"kernel flash_prefill {str(dtype).split('.')[-1]} D={d} N={n} T={t} "
         f"H={kh * g} KV={kh}: "
@@ -238,7 +256,7 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}); {flops / 1e9:.1f} GFLOP at {tflops:.1f} TFLOP/s "
         f"({100 * tflops / (peak_flops(dtype) / 1e12):.1f}% of the "
-        f"{'fp32' if dtype == torch.float32 else 'bf16'} peak)")
+        f"{'3xTF32' if dtype == torch.float32 else 'bf16'} peak)")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=library_ms, tflops=tflops)
 
@@ -766,10 +784,10 @@ M1_SHAPE = (4096, 11008)
 
 
 def mlp_close(torch, got, want, what):
-    """M1 rounds every dequantized weight and the GLU output `a` to bf16
-    for the tensor cores (the plain version keeps the weights in f32): its
-    error grows with the terms summed, not with each output. Allowed: 3e-2
-    of the largest output plus 2e-2 relative."""
+    """M1 rounds the GLU output `a` to x's dtype, and fp32 x and `a` enter
+    the tensor cores as two bf16 terms (the plain version keeps them in
+    f32): its error grows with the terms summed, not with each output.
+    Allowed: 3e-2 of the largest output plus 2e-2 relative."""
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
     scale = max(1.0, want.float().abs().max().item())
@@ -781,20 +799,32 @@ def mlp_close(torch, got, want, what):
     return err, f"atol {atol:.3g} (3e-2 of max |y|) + rtol {rtol}"
 
 
-def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None):
+M1_WEIGHTS = []     # (w_gu, w_down) 2-layer stacks, kept with keep=True
+
+
+def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None,
+                   keep: bool = False):
     """M1 on a 7B layer's MLP (layer 1 of 2-layer stacks: w_gu [4096,
     22016], w_down [11008, 4096], group 128) at m rows, against its plain
     version; beside it the two-K1 route on the same work (K1 on w_gu, the
     activation, K1 on w_down) and the library yardstick
-    (torch._weight_int4pack_mm on each weight, the activation between)."""
+    (torch._weight_int4pack_mm on each weight, the activation between).
+    `keep` reuses one pair of weights for the whole process (a version
+    under tools/kernel_ab.py may cache what it derives from a weight by
+    its address)."""
     from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
     from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
 
     h, inter = M1_SHAPE
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61 + m)
-    gu = random_gptq(torch, gen, 2, h, 2 * inter)
-    down = random_gptq(torch, gen, 2, inter, h)
+    if keep and M1_WEIGHTS:
+        gu, down = M1_WEIGHTS[0]
+    else:
+        gu = random_gptq(torch, gen, 2, h, 2 * inter)
+        down = random_gptq(torch, gen, 2, inter, h)
+        if keep:
+            M1_WEIGHTS.append((gu, down))
     x = torch.randn(m, h, generator=gen, device="cuda").to(dtype)
     fn = lambda: mlp.int4_mlp_s4_stacked(x, gu, down, 1, activation)
     ref = lambda: mlp.int4_mlp_reference(x, gu.layer(1), down.layer(1),
@@ -807,9 +837,11 @@ def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None):
                          f"int4_mlp {activation} M={m} {dtype}")
     if not torch.equal(got, fn()):
         raise AssertionError("int4_mlp: two launches differ")
+    # what the kernel reads: the words, scales and zero-point words of both
+    # weights, x; y
     wl = (gu.layer(1), down.layer(1))
     b_ms, b_by = bound(nbytes(x, got, *(t for w in wl for t in
-                                         (w.qweight, w.scales, w.zbias))),
+                                         (w.qweight, w.scales, w.qzeros))),
                        2.0 * m * h * 2 * inter + 2.0 * m * inter * h)
     if dtype != torch.bfloat16:
         ms = timer(fn)
@@ -1126,14 +1158,22 @@ TINY_FIXTURE = dict(vocab_size=256, hidden_size=64, num_layers=3,
                     max_position_embeddings=256)
 
 
+# the fixtures' tiny_llama at head dim 64 (4 heads over 2 kv heads), so
+# that its prefill at a bucket of 128 takes flash prefill (the JAX rule:
+# D % 64 == 0)
+FP32_SPEC = dict(TINY_FIXTURE, hidden_size=256, head_dim=64,
+                 intermediate_size=512)
+
+
 def fp32_parity(torch, counters, steps: int = 4):
-    """A float32 model (DTYPE_STR=float32) through KERNELS and PLAIN: the
-    fixtures' tiny_llama widths, one `prefill_paged` at a bucket of 128,
-    `steps` per-step `decode_paged` steps (the paged kernel's normalized
-    mode) and `steps` ring-chunk steps (`decode_paged_ring_step`, its stats
-    mode), both runs fed the plain greedy tokens; the kernels' launches in
-    the kernel run are counted and must be positive, and the logits agree
-    within 1e-3 (fp32 against fp32)."""
+    """A float32 model (DTYPE_STR=float32) through KERNELS and PLAIN:
+    FP32_SPEC's widths, one `prefill_paged` at a bucket of 128 (flash
+    prefill's 3xTF32 kernel), `steps` per-step `decode_paged` steps (the
+    paged kernel's normalized mode) and `steps` ring-chunk steps
+    (`decode_paged_ring_step`, its stats mode), both runs fed the plain
+    greedy tokens; the kernels' launches in the kernel run are counted
+    (returned) and must be positive, and the logits agree within 1e-3
+    (fp32 against fp32)."""
     global DTYPE
     from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
     from text_generation_inference_tpu_torch.models import paged_core
@@ -1142,7 +1182,7 @@ def fp32_parity(torch, counters, steps: int = 4):
 
     saved, DTYPE = DTYPE, torch.float32
     try:
-        spec = llama_spec(TINY_FIXTURE)
+        spec = llama_spec(FP32_SPEC)
         params = fuse_params(spec, random_params(torch, spec))
     finally:
         DTYPE = saved
@@ -1155,18 +1195,6 @@ def fp32_parity(torch, counters, steps: int = 4):
     max_pages = (t + 2 * steps) // page + 1
     runs = {"kernels": KERNELS, "plain": PLAIN}
     caches, logits = {}, {}
-    for name, attn in runs.items():
-        cache = PagedKVCache.create(spec, n * max_pages, page, n, max_pages,
-                                    torch.float32, DEVICE)
-        cache.block_table.copy_(torch.arange(
-            n * max_pages, dtype=torch.int32,
-            device=DEVICE).reshape(n, max_pages))
-        lg, cache = paged_core.prefill_paged(spec, params, ids, lengths,
-                                             slots, cache, page, attn=attn)
-        logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
-        caches[name] = cache
-    pos = lengths.clone()
-    next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
     kernel_counts = {k: 0 for k in counters}
 
     def count(fn):
@@ -1177,6 +1205,19 @@ def fp32_parity(torch, counters, steps: int = 4):
             kernel_counts[k] += c.read()
         return out
 
+    for name, attn in runs.items():
+        cache = PagedKVCache.create(spec, n * max_pages, page, n, max_pages,
+                                    torch.float32, DEVICE)
+        cache.block_table.copy_(torch.arange(
+            n * max_pages, dtype=torch.int32,
+            device=DEVICE).reshape(n, max_pages))
+        call = lambda: paged_core.prefill_paged(spec, params, ids, lengths,
+                                                slots, cache, page, attn=attn)
+        lg, cache = count(call) if name == "kernels" else call()
+        logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
+        caches[name] = cache
+    pos = lengths.clone()
+    next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
     for _ in range(steps):                     # per-step decode
         for name, attn in runs.items():
             call = lambda: paged_core.decode_paged(
@@ -1203,7 +1244,8 @@ def fp32_parity(torch, counters, steps: int = 4):
             logits[name].append(lg)
         next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
     sync(torch)
-    for key in ("paged_decode_attention", "paged_decode_attention_stats"):
+    for key in ("flash_prefill", "paged_decode_attention",
+                "paged_decode_attention_stats"):
         if DEVICE == "cuda" and kernel_counts[key] <= 0:
             raise AssertionError(f"fp32 parity: {key} never launched: "
                                  f"{kernel_counts}")
@@ -1211,12 +1253,13 @@ def fp32_parity(torch, counters, steps: int = 4):
     max_err, agree, decided = compare_logits(
         torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
         tol, "fp32 parity")
-    log(f"fp32 parity: float32 tiny_llama widths ({spec.num_layers} layers of "
+    log(f"fp32 parity: float32 model ({spec.num_layers} layers of "
         f"{spec.hidden_size}, head dim {spec.head_dim}), prefill (bucket {t}, "
         f"lengths 100/37) + {steps} per-step + {steps} ring-chunk decode steps "
         f"through KERNELS against PLAIN: logits max abs err {max_err:.3e} "
         f"(tol {tol}), greedy tokens equal {agree}/{decided}; launches "
         f"{ {k: v for k, v in kernel_counts.items() if v} }")
+    return kernel_counts
 
 
 # --- phase 4: serving -------------------------------------------------------
@@ -1644,6 +1687,14 @@ def main() -> int:
     fp256_g8 = check_flash_prefill(torch, timer, d=256, kh=1, g=8)
     fp192 = check_flash_prefill(torch, timer, d=192, kh=2, g=8)
     fp_f32 = check_flash_prefill(torch, timer, d=64, kh=4, g=8, dtype=fp32)
+    # the 3xTF32 kernel at the other head dims (the shapes above)
+    fp_f32_dims = {
+        "D=128 (H=32, KV=8)": check_flash_prefill(torch, timer, d=128, kh=8,
+                                                  g=4, dtype=fp32),
+        "D=256 (H=16, KV=16)": check_flash_prefill(torch, timer, d=256,
+                                                   kh=16, g=1, dtype=fp32),
+        "D=192 (H=16, KV=2)": check_flash_prefill(torch, timer, d=192, kh=2,
+                                                  g=8, dtype=fp32)}
     pn = check_paged(torch, timer, stats=False)
     ps = check_paged(torch, timer, stats=True)
     pi8 = check_paged_int8(torch, timer)
@@ -1729,7 +1780,7 @@ def main() -> int:
                 "paged_decode_steps": Counter(counting, "calls")}
     paged_kernels = ("paged_decode_attention", "paged_decode_attention_stats",
                      "paged_decode_attention_partial_i8")
-    fp32_parity(torch, counters)
+    fp32_counts = fp32_parity(torch, counters)
     try:
         import grpc  # noqa: F401
         import google.protobuf  # noqa: F401
@@ -1896,6 +1947,13 @@ def main() -> int:
         record("int4_mlp_s4_stacked", "int4_mlp.cu", "int4_matmul.py:366",
                m1[(16, "silu_glu")],
                "bf16, a 7B layer's MLP (H=4096, I=11008), silu, M=16"),
+        # the 3xTF32 body of flash prefill: the float32 model's prefill
+        # (the fp32 parity phase) is its path; launches counted there
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp_f32,
+                    "fp32, N=2, T=2048, lengths 1500/900, H=32, KV=4, D=64"),
+             name="flash_prefill_f32",
+             launches=fp32_counts["flash_prefill"]),
     ]
     for (m, act), res in m1.items():
         log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
@@ -1906,7 +1964,8 @@ def main() -> int:
                        ("D=256 (gemma-7b: H=16, KV=16)", fp256),
                        ("D=256 (gemma-2b: H=8, KV=1)", fp256_g8),
                        ("D=192 (H=16, KV=2)", fp192),
-                       ("fp32 D=64 (H=32, KV=4)", fp_f32)):
+                       ("fp32 D=64 (H=32, KV=4)", fp_f32),
+                       *((f"fp32 {k}", r) for k, r in fp_f32_dims.items())):
         log(f"flash_prefill at {label}: {json.dumps(res)}")
     for name, res in f32_decode.items():
         log(f"{name} fp32: {json.dumps(res)}")
@@ -1920,7 +1979,8 @@ def main() -> int:
     for step in (0, 63):
         log(f"ring_decode_attention at step {step}: {json.dumps(s2[step])}")
     log("launches: decode_attention in the serving runs, "
-        "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6")
+        "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6, "
+        "flash_prefill_f32 in the fp32 parity phase")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,11 @@ bf16 paged kernels also round P to bf16 for their tensor-core value
 products); fp32 stats within 2e-3 relative (the same sums in another
 order, with P rounded to bf16 in the bf16 paged kernel); the fused
 MLP, two chained products over bf16-rounded weights, within 3e-2 of its
-largest output plus 2e-2 relative. float32 attention (the fp32 CUDA-core
-bodies) within 1e-4. K1 (`close_k1`): the weights enter the tensor cores
+largest output plus 2e-2 relative, and within two ulps of x's dtype of
+its largest output against its twin (`int4_mlp_split_reference`: `a` and y
+are each rounded once on both sides). float32 attention (the fp32
+CUDA-core decode bodies, flash prefill's 3xTF32 kernel) within 1e-4; the
+flash kernel also within 1e-5 of its twin. K1 (`close_k1`): the weights enter the tensor cores
 as exact integers and both versions sum in fp32, so the outputs differ by
 the rounding of y to x's dtype, one ulp (2^-7 relative in bf16, 2^-10 in
 fp16), plus 1e-3 for the summation order and fp32 x's hi + lo split.
@@ -961,3 +964,105 @@ def test_flash_prefill_large_head_dims_and_float32(cuda_device, d, g, dtype):
     assert fp.flash_prefill.launches == before + 1
     assert got.dtype == dtype and torch.all(got[1] == 0)
     close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+
+
+# --- the fp32 flash body on the tensor cores (3xTF32) -----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 4, 12, 16])
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_flash_prefill_float32_3xtf32(cuda_device, d, g):
+    """The fp32 kernel (mma.sync in 3xTF32) at every head dim, groups up to
+    16 (12: row tiles that split a token's heads), lengths on and off its
+    key-tile edges, a length-0 row and NaN past the lengths, against the
+    plain version at 1e-4 and its twin at 1e-5."""
+    rng = np.random.default_rng(1100 + d + g)
+    n, t, kh = 4, 200, 2
+    tile = fp.f32_key_tile(d)
+
+    def f32(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            cuda_device)
+
+    q, k, v = f32(n, t, kh, g, d), f32(n, t, kh, d), f32(n, t, kh, d)
+    lengths = torch.tensor([t - 7, 0, tile, tile + 1], dtype=torch.int32,
+                           device=cuda_device)
+    want = fp.flash_prefill_reference(q, k, v, lengths)
+    twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths)
+    for i, ln in enumerate(lengths.tolist()):
+        k[i, ln:] = float("nan")
+        v[i, ln:] = float("nan")
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert torch.all(got[1] == 0)
+    close(got, want, 1e-4)
+    close(got, twin, 1e-5)
+
+
+# --- M1 on K1's decode schedule ----------------------------------------------
+
+
+def ulps_of_max(got, want, dtype, n):
+    """got within n ulps of x's dtype (fp32: 1e-5) of the largest output."""
+    ulp = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+           torch.float32: 1e-5}[dtype]
+    bound = n * ulp * max(1.0, float(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("activation", ["silu_glu", "gelu_glu"])
+@pytest.mark.parametrize("m", [1, 16, 17, 64])
+def test_int4_mlp_redesign(cuda_device, m, activation, dtype):
+    """M1 at row counts on and off its 16-, 32- and 64-row tiles, both
+    activations, three dtypes: within close_mlp of the plain version and
+    within two ulps of the largest output of its twin (`a` and y each
+    rounded once on both sides); every row bit-identical to the same row
+    alone; two launches bit-identical."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(1200 + m)
+    w_gu, w_down = mlp_case(rng, cuda_device)
+    x = bf16(rng, m, 256, device=cuda_device).to(dtype)
+    got = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 2, activation)
+    again = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 2, activation)
+    rows = [mlp.int4_mlp_s4_stacked(x[r:r + 1].contiguous(), w_gu, w_down, 2,
+                                    activation) for r in range(m)]
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, 256)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    close_mlp(got, mlp.int4_mlp_reference(x, w_gu.layer(2), w_down.layer(2),
+                                          activation))
+    ulps_of_max(got, mlp.int4_mlp_split_reference(
+        x, w_gu.layer(2), w_down.layer(2), activation), dtype, 2)
+    for r in range(m):
+        assert torch.equal(rows[r][0], got[r]), r
+
+
+@pytest.mark.cuda
+def test_int4_mlp_partial_slices_and_unsplit_plans(cuda_device):
+    """An intermediate size off the 128-column blocks (I = 320, groups of
+    64: the last slice has one K tile), a width whose gate/up plan is one
+    split (the activation straight from the accumulators: H = 64) and one
+    whose down plan is one split (I = 64); 40 rows (a 64-row tile)."""
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+
+    rng = np.random.default_rng(1300)
+    for h, inter in ((256, 320), (64, 256), (256, 64)):
+        w_gu = int4_stack(rng, 2, h, 2 * inter, cuda_device, gs=64)
+        w_down = int4_stack(rng, 2, inter, h, cuda_device, gs=64)
+        x = bf16(rng, 40, h, device=cuda_device)
+        got = mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 1)
+        torch.cuda.synchronize()
+        close_mlp(got, mlp.int4_mlp_reference(x, w_gu.layer(1),
+                                              w_down.layer(1)))
+        ulps_of_max(got, mlp.int4_mlp_split_reference(
+            x, w_gu.layer(1), w_down.layer(1)), torch.bfloat16, 2)
+    assert im.split_plan(2 * 256, 64) == 1 and im.split_plan(256, 64) == 1

@@ -311,6 +311,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(pair):
         mlp.int4_mlp_s4_stacked(x, w_gu, w_down, 0, "gelu_tanh_glu")
     with pytest.raises(ValueError, match="pair"):
         mlp.int4_mlp_s4_stacked(x, w_down, w_gu, 0)
+    # the kernel reads the zero points from qzeros: one of another shape
+    # is refused on any device
+    with pytest.raises(ValueError, match="qzeros"):
+        mlp.int4_mlp_s4_stacked(x, w_gu, w_down._replace(
+            qzeros=w_down.qzeros[:, :1].contiguous()), 0)
     assert mlp.int4_mlp_s4_stacked.launches == 0      # the CPU launches nothing
 
 

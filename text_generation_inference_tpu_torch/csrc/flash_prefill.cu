@@ -6,7 +6,8 @@
 // q, k, v and out are bf16 or fp16 (the entry's `dtype` 0 or 1: the wgmma
 // kernel, templated on the element type T; only the wgmma type, the tensor
 // maps' type and the rounding of P and of the output differ), or fp32
-// (`dtype` 2: a CUDA-core kernel in fp32 FMA, `flash_prefill_f32_kernel`).
+// (`dtype` 2: `flash_prefill_f32_kernel`, mma.sync in 3xTF32, at the end of
+// this file).
 //
 // Computes, per (sequence n, kv head kh, query head g of the kv group):
 //   out[n, i, kh, g] = softmax_j(q[n, i, kh, g] . k[n, j, kh] * scale) v[n, j, kh]
@@ -453,113 +454,314 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The float32 kernel, on the CUDA cores in fp32 FMA (the JAX kernel casts q,
-// k and v to f32 and computes in f32; a single TF32 pass would keep 10 of
-// the 23 mantissa bits). A block takes kF32Rows query tokens of one query
-// head; each token's row is held by kF32Lanes neighbouring threads, each
-// with the dims lane + kF32Lanes * i of q and of the accumulator in
-// registers. K and V tiles of kF32Keys keys go through shared memory by
-// 16-byte loads (value rows at or past the length zeroed), a score is
-// summed across the row's threads by shuffles, and the online softmax runs
-// in exp2 units as the wgmma kernel's does. Bound by its FMAs and shuffles:
-// no family the port serves runs fp32 on the card.
-constexpr int kF32Threads = 256;
-constexpr int kF32Lanes = 8;                        // threads a query row
-constexpr int kF32Rows = kF32Threads / kF32Lanes;   // query tokens a block
-// keys a tile: 32, or 16 at D 192 / 256 (the static 48 KB of K and V)
+// The float32 kernel (`dtype` 2), on the tensor cores in 3xTF32. The JAX
+// kernel casts q, k and v to f32 and computes both products in f32; one
+// TF32 pass keeps 10 of the 23 mantissa bits and misses a 1e-4 tolerance.
+// So every operand is split into two TF32 terms, hi = rna(x) and
+// lo = rna(x - hi), and each product is three tensor-core products with
+// fp32 accumulation, lo.hi + hi.lo + hi.hi (lo.lo is below fp32's
+// rounding): both S = Q K^T and O += P V, with P split the same way.
+//
+// Design:
+//   - mma.sync m16n8k8 in .tf32 (wgmma takes .tf32 operands only K-major,
+//     and V is MN-major in the value product; mma.sync reads B fragments
+//     from registers, so V stays in its row-major [keys, D] layout). Each
+//     operand is split in registers as its fragment is loaded.
+//   - Rows are folded as in the wgmma kernel (row = token * G + g), in flat
+//     tiles of kRows rows of one (sequence, kv head), so K and V are staged
+//     once for all G query heads and any G runs; each warp takes 16 rows.
+//   - Fragment orders: the head dim inside a k8 step is permuted (k
+//     position q <-> d 2q, q + 4 <-> d 2q + 1, the same in Q and K), so a
+//     thread reads its Q and K pairs as 8-byte loads; for P V the keys are
+//     permuted the same way, so the S accumulators are P's A fragments in
+//     place, and V's B fragments are two 4-byte loads. Row strides D + 8
+//     (Q, K) and D + 4 (V) make every such load free of bank conflicts.
+//   - Q once and K / V tiles of kKeys keys by 16-byte cp.async into two
+//     stages; keys at or past the length are zero-filled (the padding may
+//     hold NaN), so the length-edge tile's dead value rows are 0.
+//   - The online softmax in exp2 units as the wgmma kernel's; masks only on
+//     the tiles that cross a warp's diagonal or the length; a warp skips the
+//     tiles wholly above its diagonal; the longest row tiles start first;
+//     lengths[n] == 0 gives 0.
+// Bound by its tensor-core products (three a product) and the splits.
 template <int D>
-constexpr int kF32Keys = D <= 128 ? 32 : 16;
+struct F32Config {
+  static constexpr int kWarps = D <= 128 ? 8 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;        // rows a block
+  static constexpr int kKeys = D <= 128 ? 64 : 32; // keys a tile
+  static constexpr int kLdK = D + 8;               // Q and K row stride
+  static constexpr int kLdV = D + 4;               // V row stride
+  // 109 KB at D = 64 (two blocks an SM), 207 / 153 / 202 KB at 128 / 192 /
+  // 256
+  static constexpr int kSmem =
+      4 * (kRows * kLdK + 2 * kKeys * (kLdK + kLdV));
+  static constexpr int kMinBlocks = D == 64 ? 2 : 1;
+};
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32 (round to nearest, ties away)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// not volatile: the compiler may interleave independent products
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[i] += a b[i] to fp32 accuracy from the split terms, for kN B fragments
+// (b[i][0], b[i][1]): the small terms first, and each term over all kN
+// accumulators before the next, so that no product waits on the one
+// before it
+template <int kN>
+__device__ __forceinline__ void mma_3xtf32(float (*d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const float (&b)[kN][2]) {
+  uint32_t bh[kN][2], bl[kN][2];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    split_tf32(b[i][0], bh[i][0], bl[i][0]);
+    split_tf32(b[i][1], bh[i][1], bl[i][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(d[i], a_lo, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(d[i], a_hi, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) mma_tf32(d[i], a_hi, bh[i][0], bh[i][1]);
+}
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(smem)), "l"(gmem), "r"(bytes) : "memory");
+}
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(F32Config<D>::kThreads,
+                                  F32Config<D>::kMinBlocks)
 flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
                          const float* __restrict__ k,   // [N, T, KH, D]
                          const float* __restrict__ v,
                          const int32_t* __restrict__ lengths,
                          float* __restrict__ out,       // [N, T, KH, G, D]
                          int T_len, int KH, int G, float scale_log2) {
-  constexpr int kDims = D / kF32Lanes;                 // dims a thread holds
-  constexpr int kVecs = kF32Keys<D> * D / 4 / kF32Threads;   // float4 a thread
-  __shared__ __align__(16) float k_s[kF32Keys<D> * D];
-  __shared__ __align__(16) float v_s[kF32Keys<D> * D];
-  const int n = blockIdx.z;
-  const int kh = blockIdx.y / G;
-  const int g = blockIdx.y % G;
-  const int tid = threadIdx.x;
-  const int r = tid / kF32Lanes;
-  const int j = tid % kF32Lanes;
-  // the last row tiles first: the longest walks start first
-  const int tok0 = (gridDim.x - 1 - blockIdx.x) * kF32Rows;
-  const int tok = tok0 + r;
-  const int len = max(0, min(lengths[n], T_len));
-  const int last_key = min(min(tok0 + kF32Rows - 1, T_len - 1), len - 1);
-  const size_t q_row = ((((size_t)n * T_len + tok) * KH + kh) * G + g) * D;
+  using C = F32Config<D>;
+  constexpr int kKeys = C::kKeys;
+  extern __shared__ __align__(16) float smf[];
+  float* qs = smf;                                     // [kRows][kLdK]
+  float* ks = qs + C::kRows * C::kLdK;                 // [2][kKeys][kLdK]
+  float* vs = ks + 2 * kKeys * C::kLdK;                // [2][kKeys][kLdV]
 
-  float qv[kDims], acc[kDims];
-#pragma unroll
-  for (int i = 0; i < kDims; ++i) {
-    qv[i] = tok < T_len ? q[q_row + j + kF32Lanes * i] * scale_log2 : 0.f;
-    acc[i] = 0.f;
+  const int kh = blockIdx.y;
+  const int n = blockIdx.z;
+  const int rows_total = T_len * G;
+  // the last row tiles first: the longest walks start first
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * C::kRows;
+  const int len = max(0, min(lengths[n], T_len));
+  const int tok_last = (min(r0 + C::kRows, rows_total) - 1) / G;
+  // -1 when len == 0: no key tile
+  const int last_tile = min(tok_last / kKeys, (len + kKeys - 1) / kKeys - 1);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int qd = lane % 4;
+
+  for (int i = tid; i < C::kRows * (D / 4); i += C::kThreads) {
+    const int r = i / (D / 4);
+    const int c = 4 * (i % (D / 4));
+    const int row = r0 + r;
+    const bool ok = row < rows_total;
+    const float* src =
+        q + ((((size_t)n * T_len + row / G) * KH + kh) * G + row % G) * D + c;
+    cp_async_16(qs + r * C::kLdK + c, ok ? src : q, ok ? 16 : 0);
   }
-  float m = -INFINITY, l = 0.f;
-  for (int key0 = 0; key0 <= last_key; key0 += kF32Keys<D>) {
-    __syncthreads();                          // the last tile is consumed
-#pragma unroll
-    for (int i = 0; i < kVecs; ++i) {
-      const int e = (tid + i * kF32Threads) * 4;
-      const int key = key0 + e / D;
-      const bool live = key < len;
-      const size_t off = (((size_t)n * T_len + key) * KH + kh) * D + e % D;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      *reinterpret_cast<float4*>(k_s + e) =
-          live ? *reinterpret_cast<const float4*>(k + off) : zero;
-      *reinterpret_cast<float4*>(v_s + e) =
-          live ? *reinterpret_cast<const float4*>(v + off) : zero;
+  auto load_kv = [&](int kt, int st) {
+    for (int i = tid; i < kKeys * (D / 4); i += C::kThreads) {
+      const int r = i / (D / 4);
+      const int c = 4 * (i % (D / 4));
+      const int key = kt * kKeys + r;
+      const bool ok = key < len;
+      const size_t off = (((size_t)n * T_len + key) * KH + kh) * D + c;
+      cp_async_16(ks + (st * kKeys + r) * C::kLdK + c, ok ? k + off : k,
+                  ok ? 16 : 0);
+      cp_async_16(vs + (st * kKeys + r) * C::kLdV + c, ok ? v + off : v,
+                  ok ? 16 : 0);
     }
-    __syncthreads();
-    float sc[kF32Keys<D>];
-    float tmax = -INFINITY;
+  };
+  if (last_tile >= 0) load_kv(0, 0);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // this warp's rows: g and g + 8 of the 16 from wr
+  const int wr = r0 + warp * 16;
+  const int tok[2] = {(wr + g) / G, (wr + g + 8) / G};
+  const int w_first_tok = wr / G;
+  // the last tile this warp computes: later ones lie wholly above its
+  // diagonal (-1 for a warp past the rows)
+  const int my_last =
+      wr < rows_total ? min(last_tile, (min(wr + 15, rows_total - 1) / G) / kKeys)
+                      : -1;
+  const float* q_a = qs + (warp * 16 + g) * C::kLdK + 2 * qd;
+
+  float o[D / 8][4];
 #pragma unroll
-    for (int jj = 0; jj < kF32Keys<D>; ++jj) {
-      float dot = 0.f;
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};      // row max, scaled log2 units
+  float l[2] = {0.f, 0.f};                  // this lane's partial sums
+
+  for (int kt = 0; kt <= last_tile; ++kt) {
+    if (kt < last_tile) load_kv(kt + 1, (kt + 1) % 2);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();                        // tile kt (and Q) landed
+    if (kt <= my_last) {
+      const float* kt_s = ks + (kt % 2) * kKeys * C::kLdK;
+      const float* vt_s = vs + (kt % 2) * kKeys * C::kLdV;
+      // S = Q K^T
+      float s[kKeys / 8][4];
 #pragma unroll
-      for (int i = 0; i < kDims; ++i)
-        dot = fmaf(qv[i], k_s[jj * D + j + kF32Lanes * i], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-      const int key = key0 + jj;
-      sc[jj] = (key <= tok && key < len) ? dot : -INFINITY;
-      tmax = fmaxf(tmax, sc[jj]);
+      for (int j = 0; j < kKeys / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll 2
+      for (int d8 = 0; d8 < D / 8; ++d8) {
+        const float2 qa = *reinterpret_cast<const float2*>(q_a + 8 * d8);
+        const float2 qb =
+            *reinterpret_cast<const float2*>(q_a + 8 * C::kLdK + 8 * d8);
+        uint32_t ah[4], al[4];
+        split_tf32(qa.x, ah[0], al[0]);
+        split_tf32(qb.x, ah[1], al[1]);
+        split_tf32(qa.y, ah[2], al[2]);
+        split_tf32(qb.y, ah[3], al[3]);
+        float kb[kKeys / 8][2];
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              kt_s + (8 * j + g) * C::kLdK + 8 * d8 + 2 * qd);
+          kb[j][0] = b.x;
+          kb[j][1] = b.y;
+        }
+        mma_3xtf32<kKeys / 8>(s, ah, al, kb);
+      }
+      // masks only on a tile that crosses this warp's diagonal or the length
+      const int key0 = kt * kKeys;
+      if (key0 + kKeys > min(w_first_tok + 1, len)) {
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = key0 + 8 * j + 2 * qd + (e & 1);
+            if (key > tok[e / 2] || key >= len) s[j][e] = -INFINITY;
+          }
+      }
+      // online softmax in exp2 units; row h is accumulators 2h, 2h + 1
+      float alpha[2], m_safe[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float m_new = fmaxf(m[h], tmax * scale_log2);
+        m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[h] = exp2f(m[h] - m_safe[h]);       // 0 while m is -inf
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -m_safe[e / 2]));  // -inf -> 0
+          l[e / 2] += s[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][0] *= alpha[0];
+        o[i][1] *= alpha[0];
+        o[i][2] *= alpha[1];
+        o[i][3] *= alpha[1];
+      }
+      // O += P V: key step j's A fragment is S tile j's accumulators (keys
+      // 2q, 2q + 1 at k positions q, q + 4)
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = vt_s + (8 * j + 2 * qd) * C::kLdV + g;
+        // four value fragments at a time
+#pragma unroll
+        for (int i0 = 0; i0 < D / 8; i0 += 4) {
+          float vb[4][2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            vb[i][0] = v0[8 * (i0 + i)];
+            vb[i][1] = v0[C::kLdV + 8 * (i0 + i)];
+          }
+          mma_3xtf32<4>(o + i0, ph, pl, vb);
+        }
+      }
     }
-    const float m_new = fmaxf(m, tmax);
-    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = m == -INFINITY ? 0.f : exp2f(m - m_safe);
-    m = m_new;
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < kDims; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int jj = 0; jj < kF32Keys<D>; ++jj) {
-      const float p = sc[jj] == -INFINITY ? 0.f : exp2f(sc[jj] - m_safe);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < kDims; ++i)
-        acc[i] = fmaf(p, v_s[jj * D + j + kF32Lanes * i], acc[i]);
-    }
+    __syncthreads();                        // stage kt % 2 is free
   }
-  if (tok >= T_len) return;
-  const float inv = 1.f / fmaxf(l, 1e-30f);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+
+  // full row sums across the quad, normalize, store pairs
 #pragma unroll
-  for (int i = 0; i < kDims; ++i) out[q_row + j + kF32Lanes * i] = acc[i] * inv;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    l[h] = 1.f / fmaxf(l[h], 1e-30f);
+    const int row = wr + g + 8 * h;
+    if (row >= rows_total) continue;
+    float* dst =
+        out + ((((size_t)n * T_len + row / G) * KH + kh) * G + row % G) * D +
+        2 * qd;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<float2*>(dst + 8 * i) =
+          make_float2(o[i][2 * h] * l[h], o[i][2 * h + 1] * l[h]);
+  }
 }
 
 template <int D>
 cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
                          const int32_t* lengths, void* out, int N, int T_len,
                          int KH, int G, float scale, cudaStream_t stream) {
-  const dim3 grid((T_len + kF32Rows - 1) / kF32Rows, KH * G, N);
-  flash_prefill_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+  using C = F32Config<D>;
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(flash_prefill_f32_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
+  }
+  const long long rows = (long long)T_len * G;
+  const dim3 grid((unsigned)((rows + C::kRows - 1) / C::kRows), KH, N);
+  flash_prefill_f32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), lengths, static_cast<float*>(out), T_len,
       KH, G, scale * 1.4426950408889634f);
@@ -569,7 +771,6 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int32_t* lengths, void* out, int N, int T_len,
                        int KH, int G, int D, float scale, cudaStream_t stream) {
-  if ((long long)KH * G > 65535) return cudaErrorInvalidValue;
   switch (D) {
     case 64: return launch_f32_d<64>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
     case 128: return launch_f32_d<128>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
@@ -581,8 +782,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the CUDA-core
-// kernel); D 64, 128, 192 or 256
+// dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the 3xTF32
+// mma.sync kernel); D 64, 128, 192 or 256
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
                                  const int32_t* lengths, void* out, int N,
                                  int T, int KH, int G, int D, int dtype,

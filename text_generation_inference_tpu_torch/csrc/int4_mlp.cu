@@ -1,76 +1,57 @@
 // Fused GPTQ-INT4 GLU MLP for sm_90a (kernel M1), decode rows only:
-//   y = dequant(down)[act(x @ dequant(gate)) * (x @ dequant(up))]
-// for one layer of a layer-stacked weight, S <= 64 rows.
+//   y = a @ dequant(down),  a = act(x @ dequant(gate)) * (x @ dequant(up))
+// for one layer of a layer-stacked pair, S <= 64 rows.
 //
 // Replaces: the JAX package's ops/pallas/int4_matmul.py
 //   int4_mlp_s4_stacked (`_kernel_mlp_s4_stacked`, pallas_call at :366).
 // The TPU kernel walked blocks of the intermediate dim in order and kept the
-// [S, H] sum in VMEM. On the GPU the blocks run in parallel and none can
-// hold [S, H] f32, so the one launch runs three phases separated by grid-wide
-// barriers (a cooperative launch, so that every block is resident):
-//   1. gate/up: a work item is 32 intermediate columns: their 32 gate and 32
-//      up columns of w_gu are one 64-column tile of a dequant-GEMM over H;
-//      the epilogue applies the activation in fp32 and writes
-//      a = bf16(act(g) * u) to a scratch [S, I] (352 KB at S = 16: it stays
-//      in L2).
-//   2. down: a work item is (64 columns of H, one of `splits` fixed slices of
-//      I); it writes an fp32 partial [S, 64] to a scratch [splits, S, H].
-//   3. the partials are added in split order and written in x's dtype.
-// Every output element is summed in one fixed order, whatever the grid size
-// or the other rows: the result is bit-identical run to run (no atomics on
-// data; the barrier counter is the only atomic).
+// [S, H] sum in VMEM. On the GPU the blocks run in parallel, so the launch is
+// one block for each work item over K1's decode schedule
+// (csrc/int4_decode.cuh), with no grid-wide barrier:
+//   - gate/up items: a block of 128 intermediate columns (its 128 gate
+//     columns of w_gu and the matching 128 up columns, the two 128-column
+//     sub-blocks of the schedule), one K split of H, one tile of rows. The
+//     last split to arrive at the column block adds the splits' fp32
+//     partials in split order, applies the activation in fp32, writes
+//     a = act(g) * u rounded to x's dtype (the compute dtype) and raises
+//     the slice's ready flag;
+//   - down items: 256 columns of H, one K split of I, one row tile. An item
+//     waits only on the ready flags of the slices of I its split reads;
+//     the last split to arrive at the column block adds the partials in
+//     split order and writes y in x's dtype.
+// A block takes its item from a ticket counter as it starts, so items are
+// taken in order, every gate/up item before any down item: a block waiting
+// on a flag waits on gate/up items that running blocks hold, never on an
+// item no block has taken, whatever order the card starts blocks in.
+// The splits come from (N, K) alone (the wrapper's split plans), never M,
+// and every sum runs in one fixed order: a row's result is the same bits
+// alone or in a batch, run to run. Every counter and flag is reset by the
+// kernel (the last arrival, the last reader), so no memset runs; the
+// partials and `a` live in the wrapper's per-device workspace.
 //
-// Layouts, as the loader stores them (GPTQ natural layout, no TPU blocking):
-// x [S, H] in bf16, fp16 or fp32, converted to bf16 as it is staged (the
-// JAX kernel's x.astype(compute_dtype)), y [S, H] in x's dtype; gu qweight [H/8, 2I] int32 (gate columns [0, I), up
-// columns [I, 2I), models/fuse.py), scales / zbias [H/gs_gu, 2I] f32;
-// down qweight [I/8, H], scales / zbias [I/gs_down, H]. Dequant is
-// fma(q, scale, -zbias) with the nibble read unsigned, as K1 does
-// (csrc/int4_matmul.cu), rounded to bf16 for the tensor cores (mma.sync
-// m16n8k16, fp32 accumulation). Rows past S are zero (padded to 16, 32 or
-// 64 inside the kernel).
+// Layouts, as the loader stores them (GPTQ natural layout): x [S, H] in
+// bf16, fp16 or fp32; y [S, H] in x's dtype; gu qweight [H/8, 2I] int32 (gate
+// columns [0, I), up columns [I, 2I), models/fuse.py), qzeros [H/gs, 2I/8],
+// scales [H/gs, 2I] f32; down qweight [I/8, H], qzeros [I/gs, H/8], scales
+// [I/gs, H]. The weights enter the tensor cores as the exact integers
+// q - zero - 1, as in K1; fp32 x (and fp32 a) as two bf16 terms.
 //
 // What bounds it on an H100: 2 * S flops per weight nibble at S <= 64, far
 // below the 295 flops a byte the card needs to leave the memory bound: it is
-// bound by the ~76 MB of weights, scales and zbias of a 7B layer (3.35 TB/s,
-// ~0.023 ms). Each phase keeps 300+ blocks of weight loads in flight; the
-// scratch traffic (a, partials) stays in L2.
-// Not yet: cp.async / TMA pipelines, ldmatrix, wgmma, overlap of the phases.
+// bound by the ~73 MB of words, scales and zero points of a 7B layer (3.35
+// TB/s, ~0.022 ms). The partials and `a` stay in L2.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "int4_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 64;             // output columns of a tile
-constexpr int kHalf = kBN / 2;      // intermediate columns of a phase-1 item
-constexpr int kBK = 64;             // K rows per tile (inside one group)
-constexpr int kLd = kBK + 8;        // padded shared-memory row (bf16)
+using namespace int4dec;
+
+constexpr int kStages = 4;
+constexpr int kSub = 2;                 // gate + up, or 256 columns of H
 constexpr int kMaxSplits = 16;
 constexpr int kSiluGlu = 0;
 constexpr int kGeluGlu = 1;
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int ACT>
 __device__ __forceinline__ float glu(float g, float u) {
@@ -78,380 +59,332 @@ __device__ __forceinline__ float glu(float g, float u) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f)) * u;   // erf GELU
 }
 
-int block_rows(int M) { return M <= 16 ? 16 : (M <= 32 ? 32 : 64); }
+__device__ __forceinline__ unsigned int load_acquire(const unsigned int* p) {
+  unsigned int v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
 
-template <int BM>
-struct Layout {
-  static constexpr int kWarpsM = BM / 16;                 // 1, 2, 4
-  static constexpr int kWarpsN = kWarps / kWarpsM;        // 4, 2, 1
-  static constexpr int kWarpCols = kBN / kWarpsN;         // 16, 32, 64
-  static constexpr int kNTiles = kWarpCols / 8;           // n8 tiles a warp
-  static constexpr int kXVecs = BM * kBK / 8 / kThreads;  // 16-byte A loads
+__device__ __forceinline__ void store_release(unsigned int* p,
+                                              unsigned int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+struct Args {
+  const void* x;                          // [M, H] in XT
+  const int32_t* gu_q;                    // [H/8, 2I]
+  const int32_t* gu_z;                    // [H/gs_gu, 2I/8]
+  const float* gu_s;                      // [H/gs_gu, 2I]
+  const int32_t* d_q;                     // [I/8, H]
+  const int32_t* d_z;                     // [I/gs_down, H/8]
+  const float* d_s;                       // [I/gs_down, H]
+  float* part_gu;                         // [splits_gu, M, 2I]
+  float* part_d;                          // [splits_down, M, H]
+  void* a;                                // [M, I] in XT
+  // per (column block, row tile), all zero: gate/up arrivals, ready flags,
+  // readers of each ready flag, down arrivals; then the ticket
+  unsigned int* arrive_gu;
+  unsigned int* ready;
+  unsigned int* readers;
+  unsigned int* arrive_d;
+  unsigned int* ticket;
+  void* y;                                // [M, H] in XT
+  int M, H, I, gs_gu, gs_down, splits_gu, splits_down, row_tiles;
 };
 
-// Eight elements of an input row as eight bf16 (x.astype(bf16), as the JAX
-// kernel casts x to its compute dtype), read through L2 (__ldcg).
-__device__ __forceinline__ uint4 load8_bf16(const __nv_bfloat16* p) {
-  return __ldcg(reinterpret_cast<const uint4*>(p));
-}
-__device__ __forceinline__ uint4 load8_bf16(const __half* p) {
-  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
-  const __half2* h = reinterpret_cast<const __half2*>(&v);
-  uint32_t o[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) o[i] = pack_bf16(__low2float(h[i]), __high2float(h[i]));
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-__device__ __forceinline__ uint4 load8_bf16(const float* p) {
-  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+int block_rows(int M) { return M <= 16 ? 16 : (M <= 32 ? 32 : 64); }
+
+// the K tiles [t0, t1) of split s of `splits` over `tiles`
+__device__ __forceinline__ int split_begin(int tiles, int s, int splits) {
+  return (int)((long long)tiles * s / splits);
 }
 
-template <typename XT>
-__device__ __forceinline__ XT from_float(float v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float v) {
-  return __float2half(v);
-}
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-
-// acc = a[0:BM, k-tiles t_begin..t_end) @ dequant(w)[.., this tile], for a
-// 64-column tile of w whose column for this thread's load slot (tid % 64) is
-// `n`. `a` is [M, K] in AT (bf16, fp16 or fp32, converted to bf16 as it is
-// staged; rows >= M read as 0) and is read through L2 (__ldcg): in phase 2
-// it was written by other blocks of this launch.
-template <int BM, typename AT>
-__device__ __forceinline__ void dequant_gemm(
-    const AT* a, int M, int K, const int32_t* __restrict__ qweight,
-    const float* __restrict__ scales, const float* __restrict__ zbias, int N,
-    int n, int gs, int t_begin, int t_end, __nv_bfloat16 (*xs)[kLd],
-    __nv_bfloat16 (*wt)[kLd], float (&acc)[Layout<BM>::kNTiles][4]) {
-  using L = Layout<BM>;
-  constexpr int kWordRows = kBK / 8;                  // 8 word rows a tile
-  constexpr int kWords = kWordRows * kBN / kThreads;  // 4 words a thread
-  constexpr int kRowStep = kThreads / kBN;            // 2
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int group = lane / 4;
-  const int quad = lane % 4;
-  const int wm = warp / L::kWarpsN;
-  const int wn = warp % L::kWarpsN;
-  const int wcol = tid % kBN;
-  const int wrow = tid / kBN;
-
-  uint4 xr[L::kXVecs];
-  uint32_t qr[kWords];
-  float sc = 0.f, zb = 0.f;
-
-  auto load_tile = [&](int t) {
-    const int k0 = t * kBK;
-#pragma unroll
-    for (int i = 0; i < L::kXVecs; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / (kBK / 8);
-      const int c = (idx % (kBK / 8)) * 8;
-      xr[i] = r < M ? load8_bf16(a + (size_t)r * K + k0 + c)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const int kw = k0 / 8 + wrow + i * kRowStep;
-      qr[i] = static_cast<uint32_t>(qweight[(size_t)kw * N + n]);
-    }
-    const size_t g = (size_t)(k0 / gs) * N + n;
-    sc = scales[g];
-    zb = zbias[g];
-  };
-
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < L::kXVecs; ++i) {
-      const int idx = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(&xs[idx / (kBK / 8)][(idx % (kBK / 8)) * 8]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const uint32_t w = qr[i];
-      uint32_t p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lo = (float)((w >> (8 * e)) & 0xFu);
-        const float hi = (float)((w >> (8 * e + 4)) & 0xFu);
-        p[e] = pack_bf16(fmaf(lo, sc, -zb), fmaf(hi, sc, -zb));
-      }
-      *reinterpret_cast<uint4*>(&wt[wcol][(wrow + i * kRowStep) * 8]) =
-          make_uint4(p[0], p[1], p[2], p[3]);
-    }
-  };
-
-#pragma unroll
-  for (int j = 0; j < L::kNTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  if (t_begin < t_end) load_tile(t_begin);
-  for (int t = t_begin; t < t_end; ++t) {
-    __syncthreads();     // the previous tile (or work item) is fully consumed
-    store_tile();
-    __syncthreads();
-    if (t + 1 < t_end) load_tile(t + 1);   // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      const __nv_bfloat16* xa = &xs[wm * 16 + group][kk + quad * 2];
-      uint32_t af[4];
-      af[0] = load_pair(xa);
-      af[1] = load_pair(xa + 8 * kLd);
-      af[2] = load_pair(xa + 8);
-      af[3] = load_pair(xa + 8 * kLd + 8);
-#pragma unroll
-      for (int j = 0; j < L::kNTiles; ++j) {
-        const __nv_bfloat16* wb = &wt[wn * L::kWarpCols + j * 8 + group][kk + quad * 2];
-        mma_bf16(acc[j], af, load_pair(wb), load_pair(wb + 8));
-      }
-    }
-  }
-}
-
-// Grid-wide barrier of a cooperative launch: the counter is zeroed before the
-// launch and the k-th barrier waits for k * gridDim.x arrivals.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter,
-                                             unsigned int target) {
+// The last block to arrive at counter `c` (of `total` arrivals) sees true
+// and resets it; every thread of the block returns the same.
+__device__ __forceinline__ bool last_arrival(unsigned int* c, int total,
+                                             bool* last_s) {
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) {
-    atomicAdd(counter, 1u);
-    while (*reinterpret_cast<volatile unsigned int*>(counter) < target)
-      __nanosleep(64);
-    __threadfence();
+    const unsigned int prev = atomicAdd(c, 1u);
+    *last_s = prev == (unsigned int)(total - 1);
+    if (*last_s) *c = 0u;                 // ready for the next launch
   }
   __syncthreads();
+  const bool last = *last_s;
+  if (last) __threadfence();
+  return last;
 }
 
-template <int BM, int ACT, typename XT>
-__global__ void __launch_bounds__(kThreads, 4)
-int4_mlp_kernel(const XT* __restrict__ x,              // [M, H]
-                const int32_t* __restrict__ gu_q,      // [H/8, 2I]
-                const float* __restrict__ gu_s,        // [H/gs_gu, 2I]
-                const float* __restrict__ gu_z,
-                const int32_t* __restrict__ d_q,       // [I/8, H]
-                const float* __restrict__ d_s,         // [I/gs_down, H]
-                const float* __restrict__ d_z,
-                __nv_bfloat16* abuf,                   // [M, I] scratch
-                float* partial,                        // [splits, M, H] scratch
-                unsigned int* counter,
-                XT* __restrict__ y,                    // [M, H]
-                int M, int H, int I, int gs_gu, int gs_down, int splits) {
-  using L = Layout<BM>;
-  __shared__ __align__(16) __nv_bfloat16 xs[BM][kLd];
-  __shared__ __align__(16) __nv_bfloat16 wt[kBN][kLd];
-  __shared__ float stage[BM][kBN + 4];
+template <typename XT, int BM, int ACT>
+__global__ void __launch_bounds__(kThreads)
+int4_mlp_kernel(const Args a) {
+  using L = Layout<XT, BM, kSub, kStages>;
+  constexpr int kNT = BM / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last_s;
+  __shared__ int item_s;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int lane = tid % 32;
-  const int group = lane / 4;
-  const int quad = lane % 4;
-  const int wm = warp / L::kWarpsN;
-  const int wn = warp % L::kWarpsN;
-  float acc[L::kNTiles][4];
+  const int q = lane % 4;
+  const int c_a = (tid / 32) * 16 + lane / 4;
+  const int M = a.M, H = a.H, I = a.I;
+  const int rt = a.row_tiles;
+  const int blocks_gu = (I + kBN - 1) / kBN;
+  const int blocks_d = (H + kSub * kBN - 1) / (kSub * kBN);
+  const int items_gu = blocks_gu * a.splits_gu * rt;
+  const int items = items_gu + blocks_d * a.splits_down * rt;
+  const XT* x = static_cast<const XT*>(a.x);
+  XT* abuf = static_cast<XT*>(a.a);
+  XT* y = static_cast<XT*>(a.y);
+  float tot[kSub][kNT][4];
 
-  // phase 1: a[:, i0:i0+32] = bf16(act(x @ gate) * (x @ up))
-  const int items1 = I / kHalf;
-  for (int item = blockIdx.x; item < items1; item += gridDim.x) {
-    const int i0 = item * kHalf;
-    const int wcol = tid % kBN;
-    const int n = wcol < kHalf ? i0 + wcol : I + i0 + (wcol - kHalf);
-    dequant_gemm<BM, XT>(x, M, H, gu_q, gu_s, gu_z, 2 * I, n, gs_gu, 0, H / kBK,
-                     xs, wt, acc);
+  if (tid == 0) {
+    const unsigned int t = atomicAdd(a.ticket, 1u);
+    // the last ticket: every block holds its own, reset for the next launch
+    if (t == (unsigned int)(items - 1)) *a.ticket = 0u;
+    item_s = (int)t;
+  }
+  __syncthreads();
+  const int item = item_s;
+  if (item < items_gu) {
+    // --- gate/up: columns i0 + [0, 128) of a, split s of H, row tile r
+    const int r = item % rt;
+    const int s = (item / rt) % a.splits_gu;
+    const int cb = item / rt / a.splits_gu;
+    const int i0 = cb * kBN;
+    const int m0 = r * BM;
+    const int tiles = H / kBK;
+    decode_tiles<XT, BM, kSub, kStages>(
+        smem, x + (size_t)m0 * H, M - m0, H, a.gu_q, a.gu_s, a.gu_z, 2 * I,
+        Cols{i0, I, I, I}, a.gs_gu, split_begin(tiles, s, a.splits_gu),
+        split_begin(tiles, s + 1, a.splits_gu), tot);
+    const int slot = cb * rt + r;
+    bool raise = true;                  // this block writes the slice
+    if (a.splits_gu == 1) {
+      // the gate and up columns c_a (+ 8) are this thread's sub-blocks
 #pragma unroll
-    for (int j = 0; j < L::kNTiles; ++j) {
-      const int col = wn * L::kWarpCols + j * 8 + quad * 2;
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 16 + group + 8 * h;
-        stage[r][col] = acc[j][2 * h];
-        stage[r][col + 1] = acc[j][2 * h + 1];
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 8 * j + 2 * q + (e & 1);
+          const int i = i0 + c_a + (e < 2 ? 0 : 8);
+          if (m < M && i < I)
+            abuf[(size_t)m * I + i] =
+                from_float<XT>(glu<ACT>(tot[0][j][e], tot[1][j][e]));
+        }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kSub; ++u)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = m0 + 8 * j + 2 * q + (e & 1);
+            const int i = i0 + c_a + (e < 2 ? 0 : 8);
+            if (m < M && i < I)
+              a.part_gu[((size_t)s * M + m) * 2 * I + u * I + i] =
+                  tot[u][j][e];
+          }
+      raise = last_arrival(&a.arrive_gu[slot], a.splits_gu, &last_s);
+      if (raise) {
+        // four columns a thread: every split's gate and up partials
+        // loaded, added in split order, the activation in fp32
+        for (int idx = tid; idx < BM * (kBN / 4); idx += kThreads) {
+          const int m = m0 + idx / (kBN / 4);
+          const int i = i0 + 4 * (idx % (kBN / 4));
+          if (m >= M || i >= I) continue;
+          float4 g = make_float4(0.f, 0.f, 0.f, 0.f), u = g;
+          for (int sp = 0; sp < a.splits_gu; ++sp) {
+            const float* p = a.part_gu + ((size_t)sp * M + m) * 2 * I + i;
+            const float4 pg = __ldcg(reinterpret_cast<const float4*>(p));
+            const float4 pu = __ldcg(reinterpret_cast<const float4*>(p + I));
+            g.x += pg.x; g.y += pg.y; g.z += pg.z; g.w += pg.w;
+            u.x += pu.x; u.y += pu.y; u.z += pu.z; u.w += pu.w;
+          }
+          XT* dst = abuf + (size_t)m * I + i;
+          dst[0] = from_float<XT>(glu<ACT>(g.x, u.x));
+          dst[1] = from_float<XT>(glu<ACT>(g.y, u.y));
+          dst[2] = from_float<XT>(glu<ACT>(g.z, u.z));
+          dst[3] = from_float<XT>(glu<ACT>(g.w, u.w));
+        }
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < M * kHalf; idx += kThreads) {
-      const int r = idx / kHalf;
-      const int c = idx % kHalf;
-      abuf[(size_t)r * I + i0 + c] =
-          __float2bfloat16(glu<ACT>(stage[r][c], stage[r][kHalf + c]));
+    if (raise) {
+      // a[rows of r, i0 + [0, 128)] is written: raise the slice's flag
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) store_release(&a.ready[slot], 1u);
     }
-    __syncthreads();
-  }
-  grid_barrier(counter, gridDim.x);
-
-  // phase 2: partial[split][:, h0:h0+64] = a[:, slice] @ dequant(down)[slice, ..]
-  const int tiles_h = H / kBN;
-  const int tiles_i = I / kBK;
-  for (int item = blockIdx.x; item < tiles_h * splits; item += gridDim.x) {
-    const int h0 = (item % tiles_h) * kBN;
-    const int split = item / tiles_h;
-    const int t_begin = (int)((long long)tiles_i * split / splits);
-    const int t_end = (int)((long long)tiles_i * (split + 1) / splits);
-    dequant_gemm<BM, __nv_bfloat16>(abuf, M, I, d_q, d_s, d_z, H, h0 + tid % kBN, gs_down,
-                     t_begin, t_end, xs, wt, acc);
+  } else {
+    // --- down: columns h0 + [0, 256) of y, split s of I, row tile r
+    const int d = item - items_gu;
+    const int r = d % rt;
+    const int cb = (d / rt) % blocks_d;
+    const int s = d / rt / blocks_d;
+    const int h0 = cb * kSub * kBN;
+    const int m0 = r * BM;
+    const int tiles = I / kBK;
+    const int t0 = split_begin(tiles, s, a.splits_down);
+    const int t1 = split_begin(tiles, s + 1, a.splits_down);
+    // Wait for the slices of a this split reads (two K tiles a slice), a
+    // lane of warp 0 a slice, once the first stages' weights are in
+    // flight; then count this item among each flag's readers: the last
+    // reader lowers the flag for the next launch.
+    auto wait_slices = [&]() {
+      if (tid < 32) {
+        for (int j = t0 / 2 + lane; j <= (t1 - 1) / 2; j += 32) {
+          unsigned int* flag = &a.ready[j * rt + r];
+          // a flag never raised is a fault: trap (a launch error) after
+          // seconds rather than hang the card
+          for (long long spins = 0; load_acquire(flag) == 0u; ++spins) {
+            if (spins > (1ll << 26)) __trap();
+            __nanosleep(64);
+          }
+          unsigned int readers = 0;
+          for (int sp = 0; sp < a.splits_down; ++sp)
+            readers += split_begin(tiles, sp, a.splits_down) < 2 * j + 2 &&
+                       split_begin(tiles, sp + 1, a.splits_down) > 2 * j;
+          readers *= blocks_d;
+          if (atomicAdd(&a.readers[j * rt + r], 1u) + 1u == readers) {
+            a.readers[j * rt + r] = 0u;
+            *flag = 0u;
+          }
+        }
+        __threadfence();
+      }
+      __syncthreads();
+    };
+    decode_tiles<XT, BM, kSub, kStages>(
+        smem, abuf + (size_t)m0 * I, M - m0, I, a.d_q, a.d_s, a.d_z, H,
+        Cols{h0, kBN, H, 0}, a.gs_down, t0, t1, tot, wait_slices);
+    const bool direct = a.splits_down == 1;
 #pragma unroll
-    for (int j = 0; j < L::kNTiles; ++j) {
-      const int col = h0 + wn * L::kWarpCols + j * 8 + quad * 2;
+    for (int u = 0; u < kSub; ++u)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = wm * 16 + group + 8 * h;
-        if (row >= M) continue;
-        *reinterpret_cast<float2*>(partial + ((size_t)split * M + row) * H + col) =
-            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + 8 * j + 2 * q + (e & 1);
+          const int n = h0 + u * kBN + c_a + (e < 2 ? 0 : 8);
+          if (m >= M || n >= H) continue;
+          if (direct) y[(size_t)m * H + n] = from_float<XT>(tot[u][j][e]);
+          else a.part_d[((size_t)s * M + m) * H + n] = tot[u][j][e];
+        }
+    if (!direct &&
+        last_arrival(&a.arrive_d[cb * rt + r], a.splits_down, &last_s)) {
+      for (int idx = tid; idx < BM * (L::kCols / 4); idx += kThreads) {
+        const int m = m0 + idx / (L::kCols / 4);
+        const int n = h0 + 4 * (idx % (L::kCols / 4));
+        if (m >= M || n >= H) continue;
+        float4 p[kMaxSplits];
+#pragma unroll
+        for (int sp = 0; sp < kMaxSplits; ++sp)
+          if (sp < a.splits_down)
+            p[sp] = __ldcg(reinterpret_cast<const float4*>(
+                a.part_d + ((size_t)sp * M + m) * H + n));
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int sp = 0; sp < kMaxSplits; ++sp)
+          if (sp < a.splits_down) {
+            v.x += p[sp].x;
+            v.y += p[sp].y;
+            v.z += p[sp].z;
+            v.w += p[sp].w;
+          }
+        XT* yr = y + (size_t)m * H + n;
+        yr[0] = from_float<XT>(v.x);
+        yr[1] = from_float<XT>(v.y);
+        yr[2] = from_float<XT>(v.z);
+        yr[3] = from_float<XT>(v.w);
       }
     }
   }
-  grid_barrier(counter, 2u * gridDim.x);
+}
 
-  // phase 3: y = sum over splits, in split order, in x's dtype
-  const size_t mh = (size_t)M * H;
-  for (size_t i = (size_t)blockIdx.x * kThreads + tid; i < mh;
-       i += (size_t)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += __ldcg(partial + (size_t)k * mh + i);
-    y[i] = from_float<XT>(s);
+template <typename XT, int BM, int ACT>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  using L = Layout<XT, BM, kSub, kStages>;
+  auto kernel = int4_mlp_kernel<XT, BM, ACT>;
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!attr_set[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kSmem);
+    if (err != cudaSuccess) return err;
+    attr_set[dev] = true;
   }
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      sms <= 0)
-    return 132;
-  return sms;
-}
-
-template <int BM, int ACT, typename XT>
-cudaError_t launch(const void* x, const void* gu_q, const void* gu_s,
-                   const void* gu_z, const void* d_q, const void* d_s,
-                   const void* d_z, void* abuf, void* partial, void* counter,
-                   void* y, int M, int H, int I, int gs_gu, int gs_down,
-                   int splits, cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(&int4_mlp_kernel<BM, ACT, XT>);
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, int4_mlp_kernel<BM, ACT, XT>, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int items1 = I / kHalf;
-  const int items2 = (H / kBN) * splits;
-  const int items = items1 > items2 ? items1 : items2;
-  const int resident = per_sm * sm_count();
-  const int grid = items < resident ? items : resident;
-  err = cudaMemsetAsync(counter, 0, sizeof(unsigned int), stream);
-  if (err != cudaSuccess) return err;
-  auto xp = static_cast<const XT*>(x);
-  auto guq = static_cast<const int32_t*>(gu_q);
-  auto gus = static_cast<const float*>(gu_s);
-  auto guz = static_cast<const float*>(gu_z);
-  auto dq = static_cast<const int32_t*>(d_q);
-  auto ds = static_cast<const float*>(d_s);
-  auto dz = static_cast<const float*>(d_z);
-  auto ab = static_cast<__nv_bfloat16*>(abuf);
-  auto pp = static_cast<float*>(partial);
-  auto cp = static_cast<unsigned int*>(counter);
-  auto yp = static_cast<XT*>(y);
-  void* args[] = {&xp, &guq, &gus, &guz, &dq, &ds, &dz, &ab, &pp, &cp, &yp,
-                  &M, &H, &I, &gs_gu, &gs_down, &splits};
-  return cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
-                                     0, stream);
-}
-
-template <int ACT, typename XT>
-cudaError_t launch_rows(const void* x, const void* gu_q, const void* gu_s,
-                        const void* gu_z, const void* d_q, const void* d_s,
-                        const void* d_z, void* abuf, void* partial,
-                        void* counter, void* y, int M, int H, int I, int gs_gu,
-                        int gs_down, int splits, cudaStream_t st) {
-  const int bm = block_rows(M);
-  if (bm == 16)
-    return launch<16, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                               partial, counter, y, M, H, I, gs_gu, gs_down,
-                               splits, st);
-  if (bm == 32)
-    return launch<32, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                               partial, counter, y, M, H, I, gs_gu, gs_down,
-                               splits, st);
-  return launch<64, ACT, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                             partial, counter, y, M, H, I, gs_gu, gs_down,
-                             splits, st);
+  const int items =
+      ((a.I + kBN - 1) / kBN * a.splits_gu +
+       (a.H + kSub * kBN - 1) / (kSub * kBN) * a.splits_down) * a.row_tiles;
+  kernel<<<items, kThreads, L::kSmem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename XT>
-cudaError_t launch_act(const void* x, const void* gu_q, const void* gu_s,
-                       const void* gu_z, const void* d_q, const void* d_s,
-                       const void* d_z, void* abuf, void* partial,
-                       void* counter, void* y, int M, int H, int I, int gs_gu,
-                       int gs_down, int splits, int act, cudaStream_t st) {
-  if (act == kSiluGlu)
-    return launch_rows<kSiluGlu, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                                     partial, counter, y, M, H, I, gs_gu,
-                                     gs_down, splits, st);
-  return launch_rows<kGeluGlu, XT>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                                   partial, counter, y, M, H, I, gs_gu,
-                                   gs_down, splits, st);
+cudaError_t launch_dtype(const Args& a, int act, cudaStream_t st) {
+  const bool silu = act == kSiluGlu;
+  if (block_rows(a.M) == 16)
+    return silu ? launch<XT, 16, kSiluGlu>(a, st) : launch<XT, 16, kGeluGlu>(a, st);
+  if (block_rows(a.M) == 32)
+    return silu ? launch<XT, 32, kSiluGlu>(a, st) : launch<XT, 32, kGeluGlu>(a, st);
+  return silu ? launch<XT, 64, kSiluGlu>(a, st) : launch<XT, 64, kGeluGlu>(a, st);
 }
 
 }  // namespace
 
-// Number of fixed slices of I the down product is split into: enough
-// (64-column of H, slice) items to give every SM two, at most 16 and at most
-// one per 64-deep tile of I. It depends on H, I and the card only, so a row's
-// result does not depend on the batch. The caller allocates the
-// [splits, M, H] f32 partial buffer.
-extern "C" int tgi_int4_mlp_splits(int H, int I) {
-  if (H < kBN || I < kBK) return 1;
-  const int tiles_h = H / kBN;
-  int s = (2 * sm_count() + tiles_h - 1) / tiles_h;
-  s = s < kMaxSplits ? s : kMaxSplits;
-  s = s < I / kBK ? s : I / kBK;
-  return s > 1 ? s : 1;
-}
-
-// act: 0 silu_glu, 1 gelu_glu (the erf GELU). dtype of x and y: 0 bf16, 1
-// fp16, 2 fp32 (x is converted to bf16 as it is staged, the JAX kernel's
-// x.astype(compute_dtype); y is written in x's dtype). abuf is [M, I] bf16,
-// partial [splits, M, H] f32, counter one uint32 (zeroed here, on the
-// stream).
-extern "C" int tgi_int4_mlp(const void* x, const void* gu_q, const void* gu_s,
-                            const void* gu_z, const void* d_q, const void* d_s,
-                            const void* d_z, void* abuf, void* partial,
-                            void* counter, void* y, int M, int H, int I,
-                            int gs_gu, int gs_down, int splits, int act,
-                            int dtype, void* stream) {
+// y = the fused MLP of x [M, H] (M <= 64). act: 0 silu_glu, 1 gelu_glu (the
+// erf GELU). dtype of x, a and y: 0 bf16, 1 fp16, 2 fp32. splits_gu and
+// splits_down: the wrapper's split plans (ops/cuda/int4_matmul.py
+// split_plan of (2I, H) and (H, I)). workspace: fp32, at least
+// splits_gu * M * 2I (when splits_gu > 1) + splits_down * M * H (when
+// splits_down > 1) + M * I floats, 16-byte aligned. counters: uint32, at
+// least (3 * ceil(I / 128) + ceil(H / 256)) * row tiles + 1 (row tiles of
+// 16 rows up to 16, of 32 up to 32, else one of 64), all zero; the kernel
+// leaves them zero.
+extern "C" int tgi_int4_mlp(const void* x, const void* gu_q, const void* gu_z,
+                            const void* gu_s, const void* d_q, const void* d_z,
+                            const void* d_s, void* workspace, void* counters,
+                            void* y, int M, int H, int I, int gs_gu,
+                            int gs_down, int splits_gu, int splits_down,
+                            int act, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || M > 64 || H <= 0 || I <= 0 || H % kBN || I % kBK ||
+  if (M <= 0 || M > 64 || H <= 0 || I <= 0 || H % kBK || I % kBK ||
       gs_gu <= 0 || gs_gu % kBK || H % gs_gu || gs_down <= 0 ||
-      gs_down % kBK || I % gs_down || splits < 1 || splits > I / kBK ||
-      (act != kSiluGlu && act != kGeluGlu) || !abuf || !partial || !counter)
+      gs_down % kBK || I % gs_down || splits_gu < 1 ||
+      splits_gu > kMaxSplits || splits_gu > H / kBK || splits_down < 1 ||
+      splits_down > kMaxSplits || splits_down > I / kBK ||
+      (act != kSiluGlu && act != kGeluGlu) || !workspace || !counters ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(workspace) % 16)
     return (int)cudaErrorInvalidValue;
+  const int bm = block_rows(M);
+  const int rt = (M + bm - 1) / bm;
+  const int blocks_gu = (I + kBN - 1) / kBN;
+  float* ws = static_cast<float*>(workspace);
+  float* part_gu = ws;
+  float* part_d = part_gu + (splits_gu > 1 ? (size_t)splits_gu * M * 2 * I : 0);
+  float* abuf = part_d + (splits_down > 1 ? (size_t)splits_down * M * H : 0);
+  unsigned int* c = static_cast<unsigned int*>(counters);
+  Args a{x, static_cast<const int32_t*>(gu_q), static_cast<const int32_t*>(gu_z),
+         static_cast<const float*>(gu_s), static_cast<const int32_t*>(d_q),
+         static_cast<const int32_t*>(d_z), static_cast<const float*>(d_s),
+         part_gu, part_d, abuf, c, c + blocks_gu * rt, c + 2 * blocks_gu * rt,
+         c + 3 * blocks_gu * rt,
+         c + (3 * blocks_gu + (H + kSub * kBN - 1) / (kSub * kBN)) * rt, y, M,
+         H, I, gs_gu, gs_down, splits_gu, splits_down, rt};
   switch (dtype) {
-    case 0:
-      return (int)launch_act<__nv_bfloat16>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z,
-                                            abuf, partial, counter, y, M, H, I,
-                                            gs_gu, gs_down, splits, act, st);
-    case 1:
-      return (int)launch_act<__half>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                                     partial, counter, y, M, H, I, gs_gu,
-                                     gs_down, splits, act, st);
-    case 2:
-      return (int)launch_act<float>(x, gu_q, gu_s, gu_z, d_q, d_s, d_z, abuf,
-                                    partial, counter, y, M, H, I, gs_gu,
-                                    gs_down, splits, act, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return (int)launch_dtype<__nv_bfloat16>(a, act, st);
+    case 1: return (int)launch_dtype<__half>(a, act, st);
+    case 2: return (int)launch_dtype<float>(a, act, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

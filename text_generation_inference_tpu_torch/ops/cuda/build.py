@@ -56,11 +56,11 @@ _SIGNATURES = {
     "int4_matmul": {
         "tgi_int4_matmul": [_vp] * 7 + [_i32] * 6 + [_vp],
     },
-    # x, the six weight tensors, a, partials, barrier counter, y; then M, H,
-    # I, the two group sizes, splits, activation, dtype
+    # x, the six weight tensors (words, zero points, scales of w_gu, then of
+    # w_down), workspace, counters, y; then M, H, I, the two group sizes,
+    # the two split counts, activation, dtype
     "int4_mlp": {
-        "tgi_int4_mlp": [_vp] * 11 + [_i32] * 8 + [_vp],
-        "tgi_int4_mlp_splits": [_i32] * 2,
+        "tgi_int4_mlp": [_vp] * 10 + [_i32] * 9 + [_vp],
     },
     # cache strides over S, K, T are int64; S1: q, k, v, ctx, out, split
     # scratch, arrival counters, then rows per split, splits and half; S2:

@@ -14,7 +14,11 @@ length limit and masking only the tiles that cross its diagonal or the
 length.
 
 bf16 and fp16 run on the wgmma kernel; fp32 runs on the source's fp32
-CUDA-core kernel (the JAX kernel computes in f32).
+kernel, mma.sync on the tensor cores in 3xTF32 (the JAX kernel computes in
+f32): every operand is split into two TF32 terms, hi = rna(x) and lo =
+rna(x - hi), and each product is lo.hi + hi.lo + hi.hi with fp32 sums.
+`flash_prefill_tf32x3_reference` is the plain twin of that arithmetic over
+its key tiles (`f32_key_tile(d)`: 64 keys, 32 at head dims 192 and 256).
 
 `flash_prefill` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `flash_prefill.launches`
@@ -40,6 +44,70 @@ def key_tile(d: int) -> int:
     """Keys a tile of the wgmma kernel at head dim d: 64 past 128, where
     the Q tile leaves no room for two stages of 128-key K and V tiles."""
     return BLOCK_N if d <= 128 else 64
+
+
+def f32_key_tile(d: int) -> int:
+    """Keys a tile of the fp32 kernel at head dim d."""
+    return 64 if d <= 128 else 32
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x (f32) rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (`cvt.rna.tf32.f32`)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum(eq, a, b) as the fp32 kernel computes it: a and b split into
+    TF32 hi and lo terms, lo.hi + hi.lo + hi.hi."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor,
+                                   lengths: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the fp32 kernel's arithmetic (f32 inputs and output):
+    rows token * G + g, key tiles of `f32_key_tile(d)` keys in order, both
+    products in 3xTF32, the online softmax in exp2 units, keys at or past
+    the length read as 0. A tile the kernel skips for a row (wholly above
+    its diagonal or past the length) is fully masked here, which leaves the
+    row's state as it was."""
+    n, t, kh, g, d = q.shape
+    tile = f32_key_tile(d)
+    scale_log2 = math.log2(math.e) / math.sqrt(d)
+    qf = q.to(torch.float32).permute(0, 2, 1, 3, 4).reshape(n, kh, t * g, d)
+    live = (torch.arange(t, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])                    # [N, T]
+    pad = (-t) % tile
+    kf, vf = (torch.nn.functional.pad(
+        torch.where(live[:, :, None, None], x.to(torch.float32), 0.0)
+        .permute(0, 2, 1, 3), (0, 0, 0, pad)) for x in (k, v))  # [N, K, T', D]
+    tok = torch.arange(t * g, device=q.device) // g
+    m = torch.full((n, kh, t * g), -math.inf, device=q.device)
+    l = torch.zeros((n, kh, t * g), device=q.device)
+    o = torch.zeros((n, kh, t * g, d), device=q.device)
+    ln = lengths.to(q.device).clamp(0, t)
+    for key0 in range(0, int(ln.max()) if n else 0, tile):
+        keys = torch.arange(key0, key0 + tile, device=q.device)
+        sc = _product_3xtf32("nkrd,nkjd->nkrj", qf,
+                             kf[:, :, key0:key0 + tile])
+        vis = ((keys[None, :] <= tok[:, None])[None]
+               & (keys[None, None, :] < ln[:, None, None]))     # [N, R, J]
+        sc = torch.where(vis[:, None], sc, -math.inf)
+        m_new = torch.maximum(m, sc.max(dim=-1).values * scale_log2)
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        alpha = torch.exp2(m - m_safe)
+        p = torch.exp2(sc * scale_log2 - m_safe[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha[..., None] + _product_3xtf32(
+            "nkrj,nkjd->nkrd", p, vf[:, :, key0:key0 + tile])
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(n, kh, t, g, d).permute(0, 2, 1, 3, 4).contiguous()
 
 
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,

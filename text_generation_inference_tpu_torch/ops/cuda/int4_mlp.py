@@ -18,10 +18,16 @@ is the exact (erf) GELU of g times u, as `models/core._activate` defines it.
 The JAX kernel computes `gelu_glu` with the tanh approximation; the port
 does not copy that (see ROADMAP Queue 3, the `gelu_glu` fault).
 
-x is bf16, fp16 or fp32 (`DTYPES`): the kernel converts it to bf16 as it
-stages it (the JAX kernel's `x.astype(compute_dtype)`, bf16 by default)
-and writes y in x's dtype. The plain version computes in f32 from x as it
-is.
+x is bf16, fp16 or fp32 (`DTYPES`), and x's dtype is the compute dtype:
+the kernel runs K1's decode schedule on both products (bf16 or fp16
+operands, fp32 x and fp32 `a` as two bf16 terms), rounds `a` to x's dtype
+before the down product and writes y in x's dtype. The weights enter the
+tensor cores as the exact integers q - zero - 1 (zero points from
+`qzeros`) and every group's product is scaled in fp32, as in K1. The plain
+version (`int4_mlp_reference`) computes in f32 from x as it is;
+`int4_mlp_split_reference` is the plain twin of the kernel's order: the
+group-dot form, the split plans over H and I (`split_plan(2I, H)`,
+`split_plan(H, I)`, from the shapes alone) summed in split order.
 
 The wrapper takes the plain version only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises. It counts its
@@ -33,11 +39,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..quant.int4 import Int4Weight
+from ..quant.int4 import Int4Weight, unpack_cols, unpack_rows
 from . import build
-from .int4_matmul import DTYPES, K_TILE, int4_matmul_reference
+from .int4_matmul import (DTYPES, K_TILE, int4_matmul_reference,
+                          operand_terms, split_plan, split_tiles, workspace)
+from .paged_attention import arrivals
 
 MAX_ROWS = 64          # decode rows the kernel takes (the JAX fusion limit)
+BLOCK_I = 128          # intermediate columns (gate and up each) of a work item
+BLOCK_H = 256          # hidden columns of a down work item
 ACTIVATIONS = {"silu_glu": 0, "gelu_glu": 1}
 
 
@@ -63,6 +73,45 @@ def int4_mlp_reference(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
     return int4_matmul_reference(a, w_down).to(x.dtype)
 
 
+def _split_group_dot(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
+    """x @ W in the decode schedule's order, f32: for each split of
+    `split_plan(out, in)` in turn, the f32 products of x's operand terms
+    with the exact integers q - zero - 1 of each group's rows inside the
+    split, times the group's scales, added in group order; then the splits
+    added in split order."""
+    gs = w.groupsize
+    q = unpack_rows(w.qweight).to(torch.float32)
+    z = (unpack_cols(w.qzeros) + 1).to(torch.float32)
+    sc = w.scales.to(torch.float32)
+    terms = operand_terms(x)
+    y = torch.zeros((x.shape[0], w.out_features), dtype=torch.float32,
+                    device=x.device)
+    for t0, t1 in split_tiles(w.out_features, w.in_features):
+        part = torch.zeros_like(y)
+        k = t0 * K_TILE
+        while k < t1 * K_TILE:
+            g = k // gs
+            end = min(t1 * K_TILE, (g + 1) * gs)
+            wi = q[k:end] - z[g]
+            part = part + sum(torch.matmul(t[:, k:end], wi)
+                              for t in terms) * sc[g]
+            k = end
+        y = y + part
+    return y
+
+
+def int4_mlp_split_reference(x: torch.Tensor, w_gu: Int4Weight,
+                             w_down: Int4Weight,
+                             activation: str = "silu_glu") -> torch.Tensor:
+    """Plain twin of the kernel's order: both products in the split
+    group-dot form (`_split_group_dot`), the activation in f32, `a` rounded
+    to x's dtype before the down product; returns x's dtype."""
+    inter = w_down.in_features
+    gu = _split_group_dot(x, w_gu)
+    a = glu(gu[:, :inter], gu[:, inter:], activation).to(x.dtype)
+    return _split_group_dot(a, w_down).to(x.dtype)
+
+
 def _check_pair(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
                 layer: int, activation: str) -> None:
     """What the fused route takes, on any device."""
@@ -74,8 +123,12 @@ def _check_pair(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
             raise ValueError(f"int4_mlp: {name} must be layer-stacked")
         if w.perm is not None:
             raise ValueError(f"int4_mlp: {name} has an act-order perm")
-        if w.zbias is None:
-            raise ValueError(f"int4_mlp: {name} has no zbias (compute_zbias)")
+        groups = w.in_features // w.groupsize
+        if (w.qzeros is None or w.qzeros.shape[1:]
+                != (groups, w.out_features // 8)):
+            raise ValueError(f"int4_mlp: {name} qzeros must be [L, {groups}, "
+                             f"{w.out_features // 8}] (the kernel's zero "
+                             "points)")
     layers = w_gu.qweight.shape[0]
     if w_down.qweight.shape[0] != layers or not 0 <= layer < layers:
         raise ValueError(f"int4_mlp: layer {layer} outside the {layers}-layer "
@@ -100,22 +153,24 @@ def _check_cuda(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight) -> None:
     if x.data_ptr() % 16:
         raise ValueError("int4_mlp: x must be 16-byte aligned")
     for name, w in (("w_gu", w_gu), ("w_down", w_down)):
-        for field in ("qweight", "scales", "zbias"):
+        for field in ("qweight", "qzeros", "scales"):
             t = getattr(w, field)
             if t.device != x.device or not t.is_contiguous():
                 raise ValueError(f"int4_mlp: {name}.{field} must be contiguous "
                                  f"on {x.device}")
-        if (w.qweight.dtype != torch.int32 or w.scales.dtype != torch.float32
-                or w.zbias.dtype != torch.float32
-                or w.scales.shape != w.zbias.shape):
-            raise ValueError(f"int4_mlp: {name} must be int32 words with "
-                             "float32 scales and zbias of one shape")
+        if (w.qweight.dtype != torch.int32 or w.qzeros.dtype != torch.int32
+                or w.scales.dtype != torch.float32
+                or w.scales.shape != (w.in_features // w.groupsize,
+                                      w.out_features)):
+            raise ValueError(f"int4_mlp: {name} must be int32 words and zero "
+                             "points with float32 scales [groups, out]")
+        if any(t.data_ptr() % 16 for t in (w.qweight, w.scales)):
+            raise ValueError(f"int4_mlp: {name} qweight and scales must be "
+                             "16-byte aligned")
         if w.in_features % K_TILE or w.groupsize % K_TILE:
             raise ValueError(f"int4_mlp: {name} in {w.in_features} and group "
                              f"size {w.groupsize} must be multiples of "
                              f"{K_TILE}")
-    if w_down.out_features % 64:
-        raise ValueError("int4_mlp: the hidden size must be a multiple of 64")
 
 
 def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
@@ -127,6 +182,9 @@ def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
     _check_pair(x, w_gu, w_down, layer, activation)
     wg, wd = w_gu.layer(layer), w_down.layer(layer)
     if x.device.type == "cpu":
+        if wg.zbias is None or wd.zbias is None:
+            raise ValueError("int4_mlp: the plain version needs zbias "
+                             "(compute_zbias)")
         return int4_mlp_reference(x, wg, wd, activation)
     _check_cuda(x, wg, wd)
     m, h = x.shape
@@ -135,19 +193,25 @@ def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
     if m == 0:
         return y
     lib = build.library("int4_mlp")
-    splits = lib.tgi_int4_mlp_splits(h, inter)
-    abuf = torch.empty((m, inter), dtype=torch.bfloat16, device=x.device)
-    partial = torch.empty((splits, m, h), dtype=torch.float32, device=x.device)
-    counter = torch.empty((1,), dtype=torch.int32, device=x.device)
+    splits_gu, splits_down = split_plan(2 * inter, h), split_plan(h, inter)
+    ws = workspace(x.device, (splits_gu * m * 2 * inter if splits_gu > 1
+                              else 0)
+                   + (splits_down * m * h if splits_down > 1 else 0)
+                   + m * inter)
+    # per (column block, row tile): gate/up arrivals, ready flags, their
+    # readers, down arrivals; then the kernel's ticket (counted for 16-row
+    # tiles, the most row tiles any tiling of m rows has)
+    counters = arrivals(x.device, (3 * -(-inter // BLOCK_I)
+                                   + -(-h // BLOCK_H)) * -(-m // 16) + 1)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.tgi_int4_mlp(
-            x.data_ptr(), wg.qweight.data_ptr(), wg.scales.data_ptr(),
-            wg.zbias.data_ptr(), wd.qweight.data_ptr(), wd.scales.data_ptr(),
-            wd.zbias.data_ptr(), abuf.data_ptr(), partial.data_ptr(),
-            counter.data_ptr(), y.data_ptr(), m, h, inter, wg.groupsize,
-            wd.groupsize, splits, ACTIVATIONS[activation],
-            build.dtype_code(x.dtype), stream)
+            x.data_ptr(), wg.qweight.data_ptr(), wg.qzeros.data_ptr(),
+            wg.scales.data_ptr(), wd.qweight.data_ptr(), wd.qzeros.data_ptr(),
+            wd.scales.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+            y.data_ptr(), m, h, inter, wg.groupsize, wd.groupsize, splits_gu,
+            splits_down, ACTIVATIONS[activation], build.dtype_code(x.dtype),
+            stream)
     build.check("int4_mlp", code)
     int4_mlp_s4_stacked.launches += 1
     return y

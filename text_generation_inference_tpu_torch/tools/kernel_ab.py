@@ -6,13 +6,17 @@ in one process on one card:
 
 `--only TEXT` (before the sources) runs only the checks whose label holds
 TEXT, e.g. `--only S2` for the ring-decode checks of slot_attention.
-`--plans` (int4_matmul) runs K1's decode checks once for each of 1, 2, 4
-and 8 blocks an SM in the split plan (`int4_matmul.BLOCKS_PER_SM`).
+`--plans` (int4_matmul, int4_mlp) runs K1's decode checks, or M1's, once
+for each of 1, 2, 4 and 8 blocks an SM in the split plan
+(`int4_matmul.BLOCKS_PER_SM`, which M1's plans and the two-K1 route
+beside it read too).
 
-Libraries with checks: flash_prefill, paged_attention (the bf16 kernel in
-both modes, K2 at 7B and TinyLlama widths), slot_attention (S1 at both
-widths, S2 at three ring steps) and int4_matmul (label `K1`: a 7B layer's
-four products at M = 16 and at M = 2048). A version is any source with the
+Libraries with checks: flash_prefill (bf16 at D 64 / 128, and the fp32
+body at D 64 / 128), paged_attention (the bf16 kernel in both modes, K2 at
+7B and TinyLlama widths), slot_attention (S1 at both widths, S2 at three
+ring steps), int4_matmul (label `K1`: a 7B layer's four products at M = 16
+and at M = 2048) and int4_mlp (label `M1`: a 7B layer's MLP at M = 16 and
+64, each with the two-K1 route's time on the same work). A version is any source with the
 library's C entry points: a copy with other constants (beside its own
 copy of any header it includes), or a file that includes an older source
 under other entry names and defines the checkout's entries over them.
@@ -46,8 +50,8 @@ def _plans(library: str, plans: bool):
     """(label suffix, BLOCKS_PER_SM) of the split plans to run."""
     if not plans:
         return [("", None)]
-    if library != "int4_matmul":
-        raise SystemExit("kernel_ab: --plans is for int4_matmul")
+    if library not in ("int4_matmul", "int4_mlp"):
+        raise SystemExit("kernel_ab: --plans is for int4_matmul and int4_mlp")
     return [(f" plan {b}/SM", b) for b in (1, 2, 4, 8)]
 
 
@@ -59,6 +63,11 @@ def _checks(cs, torch, timer, library: str, only: str = ""):
                    lambda d=d, kh=kh, g=g: cs.check_flash_prefill(
                        torch, timer, d=d, kh=kh, g=g))
                   for d, kh, g in ((64, 4, 8), (128, 8, 4), (128, 32, 1))]
+        # the fp32 body at TinyLlama's heads and at D = 128
+        checks += [(f"fp32 D={d} KV={kh} G={g}",
+                    lambda d=d, kh=kh, g=g: cs.check_flash_prefill(
+                        torch, timer, d=d, kh=kh, g=g, dtype=torch.float32))
+                   for d, kh, g in ((64, 4, 8), (128, 8, 4))]
     elif library == "paged_attention":
         checks = [(f"bf16 stats={st}",
                    lambda st=st: cs.check_paged(torch, timer, st))
@@ -92,6 +101,13 @@ def _checks(cs, torch, timer, library: str, only: str = ""):
                       ("decode", 16, "int4_matmul_s4_stacked"),
                       ("prefill", 2048, "int4_matmul"))
                   for key in cs.K1_SHAPES]
+    elif library == "int4_mlp":
+        # M1 on a 7B layer's MLP at decode rows, beside the two-K1 route on
+        # the same work (`two_k1_ms`); one pair of weights for the run
+        checks = [(f"M1 M={m}",
+                   lambda m=m: cs.check_int4_mlp(torch, timer, m, "silu_glu",
+                                                 keep=True))
+                  for m in (16, 64)]
     else:
         raise SystemExit(f"kernel_ab: no checks for library {library!r}")
     for label, check in checks:
