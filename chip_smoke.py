@@ -74,15 +74,28 @@ Phases (any failure exits non-zero; nothing is caught):
              width, attention inline (the engine's formulation) or through
              S2, at context buckets of 256 and 1024 rows; ms per step, and
              whether the two formulations choose the same greedy ids.
-  6. profile decode steps under torch.profiler, after run 2 (16 per-step
-             decodes of 8 live requests), after run 3 (4 chunks of 8
-             steps, 16 live requests), after run 4 (16 scan-mode steps
-             of 8 live requests) and after run 6 (as run 3, INT4_FUSED_MLP=1):
-             wall and device-busy time per step, the top kernels, and
-             the ms and launches a step of the kernels each profile is
-             about (the bf16 paged kernel after run 2, S1 after run 4, K1
-             and K2 after run 3, M1 and K1 after run 6; no `sum_splits`
-             kernel may run).
+  6. graphs  the decode programs (one captured CUDA graph per decode key,
+             `engine/programs.py`) in four configs, after run 2 (TinyLlama
+             bf16 paged, per-step decode, 8 live requests), after run 4
+             (the slot engine in scan mode, 8 live), after run 3 (7B GPTQ
+             + int8 KV, ring chunks of 8, 16 live) and after run 6 (as run
+             3, INT4_FUSED_MLP=1): (1) a graph engine and an eager one
+             (`eager_decode=True`) built alike, in lockstep through a
+             staggered schedule (`tools/decode_replay.py`): outputs, state
+             and KV equal bit for bit, keys replayed out of their capture
+             order, pipelined dispatch equal to sequential; (2) in turns
+             eager, graphs, graphs, eager: wall ms a step by the host clock,
+             device busy ms and idle share from torch.profiler (CUDA-event
+             spans where CUPTI reports no kernel of a replay), host calls
+             that enqueue device work a step, the programs captured, their
+             capture seconds and the graphs' pool, beside the card's name
+             and power limit; the kernels each config is about (the bf16
+             paged kernel, S1, K1 and K2, M1 and K1; no `sum_splits` kernel
+             may run).
+
+Serving runs 1-6 serve through the captured programs: every decode
+dispatch must be a graph replay, and a kernel's launches count each
+replay of a graph times the launches its capture recorded.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -1074,6 +1087,7 @@ def quant_parity(torch, spec, params, steps: int = 4):
     in-chunk ring, weights routed as a decode dispatch routes them), all
     fed the same (plain) greedy tokens; one `paged_ring_flush` closes the
     chunk and the pools' int8 rows are compared."""
+    from text_generation_inference_tpu_torch.engine import programs
     from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
     from text_generation_inference_tpu_torch.models import paged_core
     from text_generation_inference_tpu_torch.models.fuse import fuse_params
@@ -1108,7 +1122,7 @@ def quant_parity(torch, spec, params, steps: int = 4):
                      for fuse in (False, True)}
     chunk_start = lengths.clone()
     next_ids = logits["plain"][0].argmax(-1).to(torch.int32)
-    m1_before = mlp.int4_mlp_s4_stacked.launches
+    m1_before = programs.launches(mlp.int4_mlp_s4_stacked)
     for i in range(steps):
         for name, (attn, fuse) in runs.items():
             kbuf, vbuf = rings[name]
@@ -1125,7 +1139,7 @@ def quant_parity(torch, spec, params, steps: int = 4):
         paged_core.paged_ring_flush(caches[name], *rings[name], chunk_start,
                                     active, t + steps, page)
     sync(torch)
-    m1_launches = mlp.int4_mlp_s4_stacked.launches - m1_before
+    m1_launches = programs.launches(mlp.int4_mlp_s4_stacked) - m1_before
     if DEVICE == "cuda" and m1_launches != steps * spec.num_layers:
         raise AssertionError(f"quant parity: M1 launched {m1_launches} times, "
                              f"not once a layer a step")
@@ -1447,12 +1461,14 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
 
 
 def make_engine(torch, spec, params, max_seq, overrides, slot=False,
-                fused=False):
+                fused=False, eager=False, num_pages=None):
     """A PagedInferenceEngine with 16 slots and 128-token pages (the pool
-    is sized from the card's memory, so the engines of earlier phases are
-    collected first), or with `slot` the slot engine (InferenceEngine, the
-    server's PAGED_ATTENTION=0) with 16 slots. `fused` builds it under
-    INT4_FUSED_MLP=1, which the engine reads when it is built."""
+    is sized from the card's memory unless `num_pages` is given, so the
+    engines of earlier phases are collected first), or with `slot` the slot
+    engine (InferenceEngine, the server's PAGED_ATTENTION=0) with 16 slots.
+    `fused` builds it under INT4_FUSED_MLP=1, which the engine reads when it
+    is built. Its decode dispatches replay captured CUDA graphs, or with
+    `eager` run the step functions eagerly (the reference)."""
     import gc
 
     from text_generation_inference_tpu_torch.config import ServingConfig
@@ -1466,12 +1482,17 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
     config = ServingConfig(max_sequence_length=max_seq, max_new_tokens=256,
                            max_batch_slots=16, kv_page_size=128, **overrides)
     config.validate()
-    cls = InferenceEngine if slot else PagedInferenceEngine
+    kw = dict(eager_decode=eager)
+    if slot:
+        cls = InferenceEngine
+    else:
+        cls, kw["num_pages"] = PagedInferenceEngine, num_pages
     before = os.environ.get("INT4_FUSED_MLP")
     os.environ["INT4_FUSED_MLP"] = "1" if fused else "0"
     try:
         engine = cls(spec, params, config,
-                     eos_token_id=ByteTokenizer.eos_token_id, device=DEVICE)
+                     eos_token_id=ByteTokenizer.eos_token_id, device=DEVICE,
+                     **kw)
     finally:
         if before is None:
             del os.environ["INT4_FUSED_MLP"]
@@ -1482,77 +1503,170 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
     return engine, config
 
 
-def profile_decode(torch, spec, params, label, overrides=None,
-                   max_seq=2048, live=8, calls=16, slot=False, fused=False,
-                   focus=()):
-    """Where a decode step's time goes: `live` requests (512-token prompts),
-    `calls` decode dispatches (of decode_chunk steps each) under
-    torch.profiler. Prints the step's wall time, the card's busy time and
-    share, the kernels that take the most device time, and the share of
-    the kernels whose name holds each string of `focus`."""
+# host-side CUDA runtime calls that enqueue device work (the profiler's
+# CPU-side events): a kernel launch, a graph launch, a copy or a fill
+HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchCooperative")
+
+
+def time_decode(torch, engine, label, live=8, calls=16, focus=()):
+    """Where a decode dispatch's time goes on `engine` (its decode graphs,
+    or its step functions when built with eager_decode): `live` requests
+    (512-token prompts), then `calls` dispatches (of decode_chunk steps
+    each) timed by the host clock ending in torch.cuda.synchronize() (and
+    CUDA events around each dispatch), then `calls` more under
+    torch.profiler: the card's busy time and idle share, the host calls
+    that enqueue device work a step, the kernels that take the most device
+    time, and the share of the kernels whose name holds each string of
+    `focus`. Frees every slot again (in place) at the end."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
 
-    engine, _ = make_engine(torch, spec, params, max_seq, overrides or {},
-                            slot=slot, fused=fused)
-    steps = calls * engine.decode_chunk
+    eager = not engine.programs.capture
+    chunk = engine.decode_chunk
+    steps = calls * chunk
     rng = np.random.default_rng(SEED + 11)
     slots = [engine.acquire_slot() for _ in range(live)]
-    rp = RequestParams(max_new_tokens=steps + 4 * engine.decode_chunk)
+    rp = RequestParams(max_new_tokens=(2 * calls + 4) * chunk)
+    t0 = time.monotonic()
     for i in range(0, live, 8):
         engine.prefill(slots[i:i + 8],
                        [[int(x) for x in rng.integers(3, 259, 512)]
                         for _ in slots[i:i + 8]], [rp] * len(slots[i:i + 8]))
+    sync(torch)
+    setup_s = time.monotonic() - t0
     for _ in range(2):
         engine.decode_steps(want_details=False)
     sync(torch)
+    spans = []
+    t0 = time.monotonic()
+    for _ in range(calls):
+        if DEVICE == "cuda":
+            spans.append([torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)])
+            spans[-1][0].record()
+        engine.decode_steps(want_details=False)
+        if spans:
+            spans[-1][1].record()
+    sync(torch)
+    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    span_ms = sum(a.elapsed_time(b) for a, b in spans) / steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
         for _ in range(calls):
             engine.decode_steps(want_details=False)
         sync(torch)
-        wall_ms = (time.monotonic() - t0) * 1e3
-    # device-side events only: an operator's own "self device time" is the
-    # time of the kernels it launched, which appear as events of their own
-    from torch.autograd import DeviceType
-
-    kernels = []
+    kernels, host = [], 0
     for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) != DeviceType.CUDA:
-            continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            kernels.append((dev_us / 1e3, evt.count, evt.key))
-    if not kernels:
-        log(f"profile[{label}]: the profiler recorded no device events")
-        return None
-    busy_ms = sum(k[0] for k in kernels)
-    launches = sum(k[1] for k in kernels)
+        if getattr(evt, "device_type", None) == DeviceType.CUDA:
+            # device-side events only: an operator's own "self device time"
+            # is the time of the kernels it launched, events of their own
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0)
+            if dev_us > 0:
+                kernels.append((dev_us / 1e3, evt.count, evt.key))
+        elif evt.key.startswith(HOST_LAUNCHES):
+            host += evt.count
     kernels.sort(reverse=True)
-    log(f"profile[{label}]: {steps} decode steps ({live} live slots, ctx "
-        f"~{512 + 2 * engine.decode_chunk}, chunk {engine.decode_chunk}): "
-        f"wall {wall_ms / steps:.3f} ms/step, device busy "
-        f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}% "
-        f"busy, {100 - 100 * busy_ms / wall_ms:.1f}% idle), "
-        f"{launches / steps:.1f} kernel launches/step")
-    for ms, count, key in kernels[:10]:
-        log(f"profile[{label}]:   {ms / steps:8.4f} ms/step  "
+    progs = engine.programs
+    out = dict(label=label, mode="eager" if eager else "graphs",
+               wall_ms=wall_ms, dispatch_span_ms=span_ms,
+               host_launches=host / steps, setup_s=setup_s,
+               programs=len(progs), capture_s=progs.seconds,
+               pool_mb=(progs.pool_bytes() or 0) / 2 ** 20,
+               kernels_reported=bool(kernels))
+    if kernels:
+        busy_ms = sum(k[0] for k in kernels) / steps
+        out.update(busy_ms=busy_ms, busy_from="cupti kernels",
+                   launches=sum(k[1] for k in kernels) / steps)
+    else:
+        # CUPTI reported no kernel: the dispatches' CUDA-event spans
+        busy_ms = span_ms
+        out.update(busy_ms=busy_ms, busy_from="cuda events")
+    out["idle"] = max(0.0, 1 - busy_ms / wall_ms)
+    log(f"time[{label}, {out['mode']}]: {steps} decode steps ({live} live "
+        f"slots, ctx 512..{512 + (2 * calls + 2) * chunk}, chunk {chunk}): wall "
+        f"{wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
+        f"({out['busy_from']}; dispatch span {span_ms:.3f} ms/step), "
+        f"{100 * out['idle']:.1f}% idle, {host / steps:.1f} host launches/"
+        f"step, {out.get('launches', 0):.1f} device kernel and copy events/"
+        f"step; {len(progs)} programs captured in {progs.seconds:.1f}s, "
+        f"graph pool {out['pool_mb']:.1f} MiB")
+    for ms, count, key in kernels[:8]:
+        log(f"time[{label}, {out['mode']}]:   {ms / steps:8.4f} ms/step  "
             f"{count / steps:7.2f} launches/step  {key[:90]}")
-    out = dict(wall_ms=wall_ms / steps, busy_ms=busy_ms / steps,
-               launches=launches / steps)
+    shares = {}
     for name in focus:
-        f_ms = sum(k[0] for k in kernels if name in k[2])
-        f_n = sum(k[1] for k in kernels if name in k[2])
-        log(f"profile[{label}]: {name}: {f_ms / steps:.4f} ms/step "
-            f"({100 * f_ms / busy_ms:.1f}% of the busy time), "
-            f"{f_n / steps:.2f} launches/step")
-        out.update({f"{name}_ms": f_ms / steps,
-                    f"{name}_launches": f_n / steps})
+        shares[f"{name}_ms"] = sum(k[0] for k in kernels if name in k[2]) / steps
+        shares[f"{name}_launches"] = sum(k[1] for k in kernels
+                                         if name in k[2]) / steps
+    if focus:
+        log(f"time[{label}, {out['mode']}]: kernels a step {json.dumps(shares)}")
+    out.update(shares)
+    engine._clear_slots()
     return out
+
+
+def graphs(torch, spec, params, label, card, overrides=None, slot=False,
+           fused=False, max_seq=2048, live=8, calls=16, focus=()):
+    """The graphs phase for one profile config: (1) a graph engine and an
+    eager engine built alike (a small pool), driven in lockstep through a
+    staggered schedule (`tools.decode_replay.lockstep`): every dispatch's
+    outputs and the state and KV equal bit for bit, keys replayed out of
+    their capture order; then pipelined dispatch on the graph engine equal
+    to sequential dispatch on the eager one; (2) the time of a decode step
+    in turns, eager, graphs, graphs, eager (`time_decode`) on the same two
+    engines. Returns the second graphs turn's record (and both modes'
+    means)."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    t0 = time.monotonic()
+    # 128 pages: the lockstep's requests, then `live` timed ones
+    engines = {mode: make_engine(torch, spec, params, max_seq,
+                                 overrides or {}, slot=slot, fused=fused,
+                                 eager=mode == "eager", num_pages=128)[0]
+               for mode in ("graphs", "eager")}
+    replayed, eager = engines["graphs"], engines["eager"]
+    seen = decode_replay.lockstep(replayed, eager,
+                                  vocab=TINYLLAMA["vocab_size"])
+    if not seen["out_of_capture_order"]:
+        raise AssertionError(f"graphs[{label}]: keys replayed in capture "
+                             f"order: {seen}")
+    if DEVICE == "cuda" and not all(
+            p.graph is not None for p in replayed.programs.programs.values()):
+        raise AssertionError(f"graphs[{label}]: a program is not a graph")
+    for e in (replayed, eager):
+        e._clear_slots()
+    tokens = decode_replay.pipelined_matches_sequential(
+        replayed, eager, vocab=TINYLLAMA["vocab_size"])
+    sync(torch)
+    for e in (replayed, eager):
+        e._clear_slots()
+    log(f"graphs[{label}]: replay == eager bit for bit over "
+        f"{seen['dispatches']} staggered dispatches (keys in first-use order "
+        f"{seen['keys']}, captured as {seen['capture_order']}); pipelined "
+        f"dispatch == sequential on {tokens} tokens "
+        f"({time.monotonic() - t0:.1f}s)")
+    turns = [time_decode(torch, engines[mode], label, live, calls, focus)
+             for mode in ("eager", "graphs", "graphs", "eager")]
+    summary = {}
+    for mode, runs in (("eager", turns[0::3]), ("graphs", turns[1:3])):
+        summary[mode] = {k: float(np.mean([r[k] for r in runs]))
+                         for k in ("wall_ms", "busy_ms", "idle",
+                                   "host_launches", "dispatch_span_ms")}
+    for turn in turns:
+        if turn.get("sum_splits_launches"):
+            raise AssertionError(f"a sum_splits kernel ran: {turn}")
+    g = turns[2]
+    summary["graphs"].update(programs=g["programs"], capture_s=g["capture_s"],
+                             pool_mb=g["pool_mb"],
+                             kernels_reported=g["kernels_reported"],
+                             busy_from=g["busy_from"])
+    log(f"graphs[{label}] on {card}: {json.dumps(summary)}")
+    return dict(g, summary=summary)
 
 
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
@@ -1570,7 +1684,21 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
 
     engine, config = make_engine(torch, spec, params, max_seq, overrides,
                                  slot=slot, fused=fused)
+    t0 = time.monotonic()
     engine.warmup(batch_sizes=(1,))
+    warmup_s = time.monotonic() - t0
+    progs = engine.programs
+    captured = (len(progs), progs.seconds, (progs.pool_bytes() or 0) / 2 ** 20)
+    # every decode dispatch of the run must be a replay of a captured graph
+    begin = engine.decode_steps_begin
+
+    def counted_begin(*args, **kw):
+        counted_begin.calls += 1
+        return begin(*args, **kw)
+
+    counted_begin.calls = 0
+    engine.decode_steps_begin = counted_begin
+    replays0 = sum(p.replays for p in progs.programs.values())
     tokenizer = ByteTokenizer()
     waves, new = traffic
     prompt_cache = build_prompt_cache(config, spec.hidden_size)
@@ -1608,6 +1736,13 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         c.reset()
     reqs, wall, ttft = asyncio.run(drive())
     counts = {k: c.read() for k, c in counters.items()}
+    replays = sum(p.replays for p in progs.programs.values()) - replays0
+    if DEVICE == "cuda" and (
+            replays != counted_begin.calls or counted_begin.calls == 0
+            or not all(p.graph is not None for p in progs.programs.values())):
+        raise AssertionError(
+            f"serve[{name}]: {counted_begin.calls} decode dispatches, "
+            f"{replays} graph replays")
     tokens = sum(r.generated_count for r in reqs)
     n_pre = sum(1 for r in reqs if r.prefix_id)
     log(f"serve[{name}] {type(engine).__name__} {overrides}"
@@ -1618,21 +1753,34 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         f" tokens, {tokens} tokens generated in {wall:.2f}s wall "
         f"({tokens / wall:.1f} tok/s), streaming TTFT mean "
         f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms; "
-        f"launches {counts}")
+        f"{counted_begin.calls} decode dispatches, each a graph replay "
+        f"({captured[0]} programs captured at warmup in {captured[1]:.1f}s of "
+        f"{warmup_s:.1f}s, graph pool {captured[2]:.1f} MiB; "
+        f"{len(progs)} programs at the end); launches {counts}")
     return counts
 
 
 class Counter:
-    """Reads and zeroes one launch counter (an attribute on a wrapper)."""
+    """Reads and zeroes one launch counter (an attribute on a wrapper). A
+    captured decode graph's launches are counted once per replay
+    (`engine.programs.replayed`: captured x replays), eager ones as the
+    wrapper counts them."""
 
     def __init__(self, holder, attr="launches"):
+        from text_generation_inference_tpu_torch.engine import programs
+
+        self.programs = programs
         self.holder, self.attr = holder, attr
+        programs.track(holder, attr)
+        self.base = 0
 
     def reset(self):
         setattr(self.holder, self.attr, 0)
+        self.base = self.programs.replayed(self.holder, self.attr)
 
     def read(self):
-        return getattr(self.holder, self.attr)
+        return (getattr(self.holder, self.attr)
+                + self.programs.replayed(self.holder, self.attr) - self.base)
 
 
 def main() -> int:
@@ -1675,6 +1823,13 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(card)
 
+    marks = [time.monotonic()]
+
+    def mark(phase):
+        marks.append(time.monotonic())
+        log(f"phase {phase}: {marks[-1] - marks[-2]:.1f}s")
+
+    mark("build")
     timer = Timer(torch)
     fp32 = torch.float32
     fp64 = check_flash_prefill(torch, timer, d=64, kh=4, g=8)
@@ -1738,6 +1893,7 @@ def main() -> int:
     m1_dtypes = {str(dt): check_int4_mlp(torch, timer, 16, "silu_glu", dt)
                  for dt in (torch.float16, fp32)}
 
+    mark("kernels")
     spec = llama_spec()
     params = random_params(torch, spec)
     model_parity(torch, spec, params)
@@ -1803,8 +1959,10 @@ def main() -> int:
         if run[key] <= 0:
             raise AssertionError(f"{key} never ran in a serving run: {run}")
 
-    profile_decode(torch, spec, params, "tinyllama bf16",
-                   focus=("split_kernel",))
+    mark("parity, serving runs 1-2")
+    graphs(torch, spec, params, "tinyllama bf16 paged", card,
+           focus=("split_kernel",))
+    mark("graphs: tinyllama bf16 paged")
 
     # the slot engine (PAGED_ATTENTION=0): run 4 in scan mode, every decode
     # step through S1; run 5 with int8 KV on ring chunks of 8
@@ -1820,8 +1978,10 @@ def main() -> int:
                      with_grpc=False, slot=True)
     if run5["flash_prefill"] <= 0 or any(run5[key] for key in paged_kernels):
         raise AssertionError(f"run 5 left the slot ring path: {run5}")
-    profile_decode(torch, spec, params, "tinyllama slot scan", scan,
-                   slot=True, focus=("split_kernel",))
+    mark("serving runs 4-5")
+    graphs(torch, spec, params, "tinyllama slot scan", card, scan, slot=True,
+           focus=("split_kernel",))
+    mark("graphs: tinyllama slot scan")
 
     # the ring-decode probe: S2's caller, as in the JAX package
     for c in counters.values():
@@ -1860,11 +2020,10 @@ def main() -> int:
     if run3["paged_decode_attention"] or run3["dense_gather_chunks"] \
             or run3["int4_mlp_s4_stacked"]:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
-    prof3 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv",
-                           quantized, max_seq=1024, live=16, calls=4,
-                           focus=("k1_", "split_kernel", "sum_splits"))
-    if prof3 and prof3["sum_splits_launches"]:
-        raise AssertionError(f"a sum_splits kernel ran: {prof3}")
+    mark("probe, quant parity, serving run 3")
+    prof3 = graphs(torch, spec7b, params7b, "7b gptq int8kv", card,
+                   quantized, max_seq=1024, live=16, calls=4,
+                   focus=("k1_", "split_kernel", "sum_splits"))
 
     # run 6: run 3's config under INT4_FUSED_MLP=1 with a soft-prompt store;
     # M1 takes the MLP of every decode layer, K1 keeps w_qkv and wo
@@ -1889,15 +2048,13 @@ def main() -> int:
     log(f"decode launches per layer-step: K1 {k1_rate['run 3']:.0f} in run 3 "
         f"-> {k1_rate['run 6']:.0f} in run 6 (w_qkv, wo), M1 {m1_rate:.0f} "
         f"(w_gu + the GLU + w_down)")
-    prof6 = profile_decode(torch, spec7b, params7b, "7b gptq int8kv fused",
-                           quantized, max_seq=1024, live=16, calls=4,
-                           fused=True,
-                           focus=("int4_mlp_kernel", "k1_", "sum_splits"))
-    if prof6 and prof6["sum_splits_launches"]:
-        raise AssertionError(f"a sum_splits kernel ran: {prof6}")
-    if prof3 and prof6:
-        log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
-            f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
+    mark("graphs: 7b gptq int8kv, serving run 6")
+    prof6 = graphs(torch, spec7b, params7b, "7b gptq int8kv fused", card,
+                   quantized, max_seq=1024, live=16, calls=4, fused=True,
+                   focus=("int4_mlp_kernel", "k1_", "sum_splits"))
+    mark("graphs: 7b gptq int8kv fused")
+    log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
+        f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
 
     runs = (run1, run2, run3, run4, run5, run6, probe_counts)
 

@@ -1066,3 +1066,171 @@ def test_int4_mlp_partial_slices_and_unsplit_plans(cuda_device):
         ulps_of_max(got, mlp.int4_mlp_split_reference(
             x, w_gu.layer(1), w_down.layer(1)), torch.bfloat16, 2)
     assert im.split_plan(2 * 256, 64) == 1 and im.split_plan(256, 64) == 1
+
+
+# --- decode programs: one captured CUDA graph per decode key ----------------
+
+GRAPH_SPEC = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                  num_kv_heads=2, head_dim=64, intermediate_size=512)
+# case -> (engine, config, GPTQ-INT4 weights, INT4_FUSED_MLP)
+GRAPH_CASES = {
+    "paged-chunk1-bf16": ("paged", dict(), False, False),
+    "paged-ring4-bf16": ("paged", dict(decode_chunk=4,
+                                       paged_gather_ctx_max=0), False, False),
+    "paged-ring4-dense-gather": ("paged", dict(decode_chunk=4,
+                                               paged_gather_ctx_max=256),
+                                 False, False),
+    "paged-ring4-gptq-int8": ("paged", dict(decode_chunk=4,
+                                            kv_cache_dtype="int8",
+                                            paged_gather_ctx_max=0),
+                              True, False),
+    "paged-ring4-gptq-int8-fused": ("paged", dict(decode_chunk=4,
+                                                  kv_cache_dtype="int8",
+                                                  paged_gather_ctx_max=0),
+                                    True, True),
+    "slot-scan-chunk1-s1": ("slot", dict(decode_write_mode="scan",
+                                         stream_decode_chunk=0), False, False),
+    "slot-ring4-gptq-int8": ("slot", dict(decode_chunk=4,
+                                          kv_cache_dtype="int8",
+                                          decode_ctx_buckets=[256, 1024]),
+                             True, False),
+}
+
+
+def graph_params(device, gptq: bool):
+    """GRAPH_SPEC's weights: bf16 (`probe_decode.random_params`), or with
+    every layer linear a random GPTQ-INT4 stack."""
+    from text_generation_inference_tpu_torch.models.core import DecoderSpec
+    from text_generation_inference_tpu_torch.tools.probe_decode import (
+        random_params)
+
+    spec = DecoderSpec(**GRAPH_SPEC)
+    params = random_params(spec, device, torch.bfloat16, seed=9)
+    if gptq:
+        rng = np.random.default_rng(9)
+        layers = params["layers"]
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            _, in_f, out_f = layers[name].shape
+            layers[name] = int4_stack(rng, spec.num_layers, in_f, out_f,
+                                      device)
+    return spec, params
+
+
+def graph_engine(case, device, monkeypatch, eager=False):
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.engine import (
+        InferenceEngine)
+    from text_generation_inference_tpu_torch.engine.paged_engine import (
+        PagedInferenceEngine)
+
+    kind, kw, gptq, fused = GRAPH_CASES[case]
+    monkeypatch.setenv("INT4_FUSED_MLP", "1" if fused else "0")
+    spec, params = graph_params(device, gptq)
+    # max_seq 2048: the scan case's slot cache takes S1's route
+    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
+                           max_batch_slots=6, prefill_buckets=[16, 64, 256],
+                           kv_page_size=16, **kw)
+    config.validate()
+    if kind == "slot":
+        return InferenceEngine(spec, params, config, eos_token_id=2,
+                               device=device, eager_decode=eager)
+    return PagedInferenceEngine(spec, params, config, eos_token_id=2,
+                                num_pages=6 * 32, device=device,
+                                eager_decode=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_decode_graphs_replay_equals_eager(cuda_device, monkeypatch, case):
+    """Every decode dispatch of an engine is a replay of a captured graph,
+    and equals an engine built alike that runs its step functions eagerly,
+    bit for bit, through a staggered schedule (details on and off, a slot
+    freed mid-chunk, keys out of their capture order); pipelined dispatch
+    equals sequential dispatch; the kernels' launches count captured x
+    replays."""
+    from text_generation_inference_tpu_torch.engine import programs
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = graph_engine(case, cuda_device, monkeypatch)
+    eager = graph_engine(case, cuda_device, monkeypatch, eager=True)
+    k1_before = programs.launches(im.int4_matmul_s4_stacked)
+    seen = decode_replay.lockstep(engine, eager, vocab=512)
+    torch.cuda.synchronize()
+    assert seen["out_of_capture_order"], seen
+    progs = engine.programs.programs.values()
+    assert all(p.graph is not None for p in progs)
+    assert sum(p.replays for p in progs) == seen["dispatches"]
+    assert all(p.graph is None for p in eager.programs.programs.values())
+    _, kw, gptq, fused = GRAPH_CASES[case]
+    if gptq:
+        assert programs.launches(im.int4_matmul_s4_stacked) > k1_before
+        fused_launches = sum(p.replays * p.launches.get(
+            (mlp.int4_mlp_s4_stacked, "launches"), 0) for p in progs)
+        assert (fused_launches > 0) == fused
+    assert decode_replay.pipelined_matches_sequential(
+        graph_engine(case, cuda_device, monkeypatch),
+        graph_engine(case, cuda_device, monkeypatch), vocab=512) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged-ring4-gptq-int8-fused",
+                                  "slot-scan-chunk1-s1", "paged-chunk1-bf16"])
+def test_decode_capture_and_dispatch_are_sync_free(cuda_device, monkeypatch,
+                                                   case):
+    """The captures (and the eager runs before them) and a decode dispatch
+    run under torch.cuda.set_sync_debug_mode("error"): no host sync."""
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+
+    engine = graph_engine(case, cuda_device, monkeypatch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = engine.precompile_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n == len(engine.programs) > 0
+    slot = engine.acquire_slot()
+    engine.prefill([slot], [list(range(3, 60))],
+                   [RequestParams(max_new_tokens=64)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = engine.decode_steps_begin(want_details=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert engine.decode_steps_end(handle)[0].next_ids.shape == (6,)
+
+
+@pytest.mark.cuda
+def test_reset_after_a_device_error_recaptures(cuda_device, monkeypatch):
+    """A dispatch that fails raises EngineDeviceError; reset() rebuilds the
+    pool and the state, drops every graph and captures them again, and the
+    next dispatches equal an eager engine's bit for bit."""
+    from text_generation_inference_tpu_torch.engine.engine import (
+        EngineDeviceError, RequestParams)
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    case = "paged-ring4-gptq-int8"
+    engine = graph_engine(case, cuda_device, monkeypatch)
+    slot = engine.acquire_slot()
+    engine.prefill([slot], [list(range(3, 60))],
+                   [RequestParams(max_new_tokens=64)])
+    engine.decode_steps()
+    old = dict(engine.programs.programs)
+    program = next(iter(old.values()))
+
+    def fail():
+        raise RuntimeError("simulated device fault")
+
+    for p in old.values():
+        p.run = fail
+    with pytest.raises(EngineDeviceError):
+        engine.decode_steps()
+    engine.reset()
+    assert len(engine.programs) == len(old)
+    assert all(engine.programs.programs[k] is not old[k] for k in old)
+    assert program.graph is not None
+    decode_replay.lockstep(engine, graph_engine(case, cuda_device,
+                                                monkeypatch, eager=True),
+                           vocab=512)

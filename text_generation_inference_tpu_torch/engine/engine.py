@@ -15,13 +15,21 @@ and the paged engine share, and `InferenceEngine`, the slot engine
   * `free(slot)` is host bookkeeping; the device-side mask update is
     applied at the start of the next engine call.
 
-Differences from the JAX engine, all of them mechanical: PyTorch runs
-eagerly, so there is no jit, no AOT `precompile_decode`, and `warmup` runs
-each prefill and decode shape once (which also builds the CUDA kernels);
-the cache and the state are updated in place on the device (the JAX engine
-donated them to each step); meshes are a later slice. Every call selects
-the engine's CUDA device first and runs on its current stream, so device
-work stays in call order whichever thread of the batcher calls.
+Decode programs: as the JAX engines compile one program per decode key
+(want_details, context rows, chunk) and `warmup` compiles them all
+(`precompile_decode`), an engine on the card captures one CUDA graph per
+key (`engine.programs`) and each decode dispatch replays one; prefill runs
+eagerly (`warmup` runs each prefill shape once, which builds the kernels).
+The programs are captured against the engine's own cache and state
+tensors, so those are reset in place, never rebound, while programs live;
+`reset()` after a device error rebuilds them and recaptures every program.
+On the CPU the programs are the eager step functions.
+
+Other differences from the JAX engine, all of them mechanical: the cache
+and the state are updated in place on the device (the JAX engine donated
+them to each step); meshes are a later slice. Every call selects the
+engine's CUDA device first and runs on its current stream, so device work
+stays in call order whichever thread of the batcher calls.
 
 Both engines take soft prompts (prompt tuning: `prefix_embeds` of
 `prefill`, a `utils.prompt_cache.PrefixEntry` or a [P, D] array per
@@ -33,6 +41,7 @@ it, the decode steps run a GPTQ-INT4 model's MLP as one kernel
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
 import threading
@@ -49,6 +58,7 @@ from ..models.core import DecoderSpec, KVCache, check_supported
 from ..ops import linear as linops
 from . import sampling
 from .memory import budget_bytes, plan_memory
+from .programs import DecodePrograms
 from .sampling import SlotSamplingParams
 
 logger = logging.getLogger(__name__)
@@ -88,6 +98,16 @@ class EngineState(NamedTuple):
             active=full(False, torch.bool),
             params=SlotSamplingParams.empty(num_slots, device),
         )
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [*self[:-1], *self.params]
+
+    def reset_(self) -> None:
+        """Refill every tensor with `create`'s values, in place: captured
+        decode programs hold these addresses."""
+        fresh = EngineState.create(*self.history.shape, self.history.device)
+        for dst, src in zip(self.tensors(), fresh.tensors()):
+            dst.copy_(src)
 
 
 @dataclasses.dataclass
@@ -307,15 +327,22 @@ class SlotBatchEngine:
     chunk grids, and the host side of prefill and of the two-phase decode.
 
     A subclass sets spec, model_params, config, eos_token_id, device,
-    num_slots, max_seq, decode_chunk and state, calls `_init_host()`, and
-    implements `_decode_chunk(want_details, chunk)`."""
+    num_slots, max_seq, decode_chunk and state, calls
+    `_init_host(eager_decode)`, and implements `_decode_chunk(want_details,
+    bucket, chunk)`, the eager decode step, `_bucket_grid()` and
+    `_pick_bucket()` (context rows or live pages: the middle of a decode
+    program's key)."""
 
     # the batcher may dispatch chunk N+1 before fetching chunk N
     supports_decode_pipeline = True
     # the batcher may ask for a smaller chunk while a request streams
     supports_chunk_override = True
 
-    def _init_host(self) -> None:
+    def _init_host(self, eager_decode: bool = False) -> None:
+        # decode programs: CUDA graphs on the card unless eager_decode (the
+        # eager reference tests compare with), the step functions elsewhere
+        self.programs = DecodePrograms(
+            self.device, self.device.type == "cuda" and not eager_decode)
         self.free_slots: list[int] = list(range(self.num_slots))
         # free() runs on the event-loop thread while decode runs on the
         # executor thread (pipelined decode): guard the pending list
@@ -339,6 +366,16 @@ class SlotBatchEngine:
         with self._free_lock:
             self._pending_frees.clear()
         self._slot_ctx[:] = 0
+
+    def _clear_slots(self) -> None:
+        """Free every slot, keeping the device tensors (the state back to
+        `create`'s values, in place): captured programs stay valid."""
+        self.state.reset_()
+        self._reset_host()
+
+    def _live(self) -> bool:
+        """Whether a request is live on the device (prefilled, not freed)."""
+        return bool(self._slot_ctx.any())
 
     @property
     def num_active(self) -> int:
@@ -458,6 +495,83 @@ class SlotBatchEngine:
                 })
         return PrefillResult(first_token=first, prompt_details=prompt_details)
 
+    # -- decode programs ----------------------------------------------------
+
+    def _decode_keys(self, details=(False, True)) -> list[tuple]:
+        """The JAX engines' decode-program grid: bucket x details x chunk."""
+        return [(want_details, bucket, chunk)
+                for bucket in self._bucket_grid()
+                for want_details in details
+                for chunk in self._chunk_grid()]
+
+    def precompile_decode(self, details=(False, True)) -> int:
+        """Make every decode program of the grid (on the card: run each once
+        eagerly, then capture it) and return how many keys the grid holds,
+        the JAX engines' count. The eager runs write the engine's state, so
+        on the card no request may be in flight (warmup and reset call this
+        with none)."""
+        self._use_device()
+        self._apply_pending_frees()
+        if self.programs.capture and self._live():
+            raise RuntimeError("precompile_decode runs every decode program "
+                               "once on the engine's state: call it with no "
+                               "request in flight")
+        keys = self._decode_keys(details)
+        if self.programs.capture:
+            # the programs pin the shared scratch: size it for every row
+            # count first, prefill's included
+            linops.reserve_scratch(self.model_params, self.device,
+                                   self.fuse_mlp)
+        self.programs.build({key: functools.partial(self._decode_chunk, *key)
+                             for key in keys})
+        return len(keys)
+
+    def _ensure_programs(self) -> None:
+        """An engine that never made its decode programs makes the whole
+        grid while no request is live, so while its eager runs are safe:
+        before its first prefill installs a request (or its first
+        dispatch)."""
+        if not len(self.programs) and not self._live():
+            self.precompile_decode()
+
+    def _get_decode_fn(self, want_details: bool, bucket: int, chunk: int):
+        """The decode program of a key; a key outside the grid (a chunk
+        override) is captured alone at its first use, as JAX compiles one
+        at its first call."""
+        key = (want_details, bucket, chunk)
+        if self.programs.get(key) is None:
+            self._ensure_programs()
+            self.programs.build(
+                {key: functools.partial(self._decode_chunk, *key)},
+                warm=False)
+        return self.programs.get(key)
+
+    def _warm_decode(self) -> int:
+        """warmup's decode half, once the state it will serve with holds no
+        request: make every program (`precompile_decode`) and run each once
+        (the JAX engines run one chunk per program after compiling: a first
+        run pays one-time costs). Returns the JAX count of programs."""
+        n = self.precompile_decode()
+        for program in self.programs.programs.values():
+            program.run()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
+
+    def _fetch(self, packed: torch.Tensor):
+        """Start copying a dispatch's packed outputs to the host: into a
+        pinned buffer of the handle's own, with an event, on the card (a
+        replay's output is overwritten by the next replay, and the batcher
+        dispatches chunk N+1 before it fetches chunk N); as they are on the
+        CPU."""
+        if packed.device.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
     def decode(self) -> StepResult:
         """One decode step across all slots (inactive slots masked)."""
         return self.decode_steps()[0]
@@ -466,26 +580,32 @@ class SlotBatchEngine:
         """Enqueue one decode chunk on the device without fetching its
         outputs (the two-phase pipelining contract: callers overlap chunk
         N+1's device work with chunk N's host fetch). `chunk` overrides this
-        dispatch's step count (stream-aware chunking)."""
+        dispatch's step count (stream-aware chunking). On the card the
+        dispatch is one replay of the key's program, and its outputs are
+        copied out before this returns."""
         chunk = self.decode_chunk if chunk is None else max(1, chunk)
         self.last_n_emitted = None   # every step row is valid for every slot
         self._use_device()
         self._apply_pending_frees()
         t0 = time.monotonic_ns()
         try:
-            packed = self._decode_chunk(want_details, chunk)
+            program = self._get_decode_fn(want_details, self._pick_bucket(),
+                                          chunk)
+            fetched = self._fetch(program.run())
         except Exception as e:
             raise EngineDeviceError(f"decode dispatch failed: {e}") from e
         np.minimum(np.where(self._slot_ctx > 0, self._slot_ctx + chunk, 0),
                    self.max_seq, out=self._slot_ctx)
-        return (packed, chunk, t0)
+        return (fetched, chunk, t0)
 
     def decode_steps_end(self, handle) -> list[StepResult]:
         """Fetch the outputs of a chunk dispatched by decode_steps_begin;
         device-side failures of the chunk surface here."""
-        packed, chunk, t0 = handle
+        (packed, done), chunk, t0 = handle
         try:
-            packed = packed.cpu().numpy()
+            if done is not None:
+                done.synchronize()
+            packed = packed.numpy()
         except Exception as e:
             raise EngineDeviceError(f"decode step failed: {e}") from e
         if chunk == 1:
@@ -508,7 +628,7 @@ class InferenceEngine(SlotBatchEngine):
     and the slot state on one device; host-level prefill / decode / free."""
 
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
-                 eos_token_id: int, device=None):
+                 eos_token_id: int, device=None, eager_decode: bool = False):
         self.device = resolve_device(device)
         check_supported(spec)
         check_decode_config(config)
@@ -536,8 +656,7 @@ class InferenceEngine(SlotBatchEngine):
                                     self._cache_dtype, self.device)
         self.state = EngineState.create(self.num_slots, self.max_seq,
                                         self.device)
-        self._init_host()
-        self._warmup_rows: Optional[int] = None
+        self._init_host(eager_decode)
         logger.info("slot KV cache: %d slots x %d tokens (%s, %.2f GiB) on %s",
                     self.num_slots, self.max_seq, self._cache_dtype,
                     self.memory_plan.kv_bytes_per_slot * self.num_slots
@@ -546,13 +665,20 @@ class InferenceEngine(SlotBatchEngine):
     def reset(self) -> None:
         """Rebuild the cache and the state after an EngineDeviceError: all
         slots become free; callers must have failed their in-flight requests
-        first."""
+        first. The decode programs were captured against the old tensors:
+        they are dropped, and recaptured against the new ones if there were
+        any (as the JAX engine recompiles against new buffers)."""
         self._use_device()
+        had_programs = len(self.programs) > 0
+        self.programs.clear()
+        self.cache = self.state = None    # free them before reallocating
         self.cache = KVCache.create(self.spec, self.num_slots, self.max_seq,
                                     self._cache_dtype, self.device)
         self.state = EngineState.create(self.num_slots, self.max_seq,
                                         self.device)
         self._reset_host()
+        if had_programs:
+            self.precompile_decode()
         logger.warning("engine device state reset (all slots cleared)")
 
     def prefill(self, slots, token_ids, request_params,
@@ -565,6 +691,7 @@ class InferenceEngine(SlotBatchEngine):
         assert len(slots) == len(token_ids) == len(request_params)
         self._use_device()
         self._apply_pending_frees()
+        self._ensure_programs()
         for slot, rp in zip(slots, request_params):
             self.set_request_params(slot, rp)
 
@@ -578,11 +705,11 @@ class InferenceEngine(SlotBatchEngine):
                                  prefix_embeds)
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
-        """Run every prefill (batch, bucket) shape and every decode variant
-        (context bucket x details x chunk) once, then reset the slot state.
-        Eager PyTorch compiles nothing per shape, but the first call builds
-        the CUDA kernels and warms cuBLAS and the allocator, which should
-        not land on the first request."""
+        """Run every prefill (batch, bucket) shape once (the first call
+        builds the CUDA kernels and warms cuBLAS and the allocator, which
+        should not land on the first request), reset the slot state in
+        place, then make every decode program (context bucket x details x
+        chunk: `precompile_decode`) and run each once."""
         if batch_sizes is None:
             batch_sizes = self._warmup_batch_grid()
         t0 = time.monotonic()
@@ -596,23 +723,13 @@ class InferenceEngine(SlotBatchEngine):
                 ids = [[1] * min(bucket, self.max_seq - 2)] * n
                 self.prefill(list(range(n)), ids, [RequestParams()] * n)
                 n_runs += 1
-        try:
-            for rows in self._ctx_bucket_grid():
-                self._warmup_rows = rows
-                for want_details in (False, True):
-                    for chunk in self._chunk_grid():
-                        self.decode_steps(want_details=want_details,
-                                          chunk=chunk)
-                        n_runs += 1
-        finally:
-            self._warmup_rows = None
-        # reset the slot state the dummy prefills polluted (the cache rows
-        # they wrote are overwritten by the next prefill of each slot)
-        self.state = EngineState.create(self.num_slots, self.max_seq,
-                                        self.device)
-        self._reset_host()
-        logger.info("warmup ran %d shapes in %.1fs", n_runs,
-                    time.monotonic() - t0)
+        # reset the slot state the dummy prefills polluted, in place (the
+        # cache rows they wrote are overwritten by the next prefill of each
+        # slot), before the decode programs run against it
+        self._clear_slots()
+        n_programs = self._warm_decode()
+        logger.info("warmup ran %d prefill shapes and made %d decode programs "
+                    "in %.1fs", n_runs, n_programs, time.monotonic() - t0)
 
     def _ctx_bucket_grid(self) -> list[int]:
         """Distinct cache_rows values decode may read (ring chunks only)."""
@@ -627,8 +744,6 @@ class InferenceEngine(SlotBatchEngine):
         history (host mirror, no device fetch). Slots freed while a
         pipelined chunk is in flight may read past the bucket on device;
         their outputs are discarded."""
-        if self._warmup_rows is not None:
-            return self._warmup_rows
         if self._write_mode != "ring" or self.decode_chunk == 1:
             return self.max_seq
         need = int(self._slot_ctx.max(initial=0))
@@ -637,7 +752,13 @@ class InferenceEngine(SlotBatchEngine):
                 return b
         return self.max_seq
 
-    def _decode_chunk(self, want_details: bool, chunk: int) -> torch.Tensor:
+    _bucket_grid = _ctx_bucket_grid
+    _pick_bucket = _pick_cache_rows
+
+    def _decode_chunk(self, want_details: bool, cache_rows: int,
+                      chunk: int) -> torch.Tensor:
+        """The eager decode step of a program key (want_details, cache_rows,
+        chunk): returns the packed outputs."""
         mode = self._write_mode
         if chunk == 1:
             # ring is a chunk scheme; a single step writes "post"
@@ -650,7 +771,7 @@ class InferenceEngine(SlotBatchEngine):
             return _decode_ring_multi(self.spec, self.eos_token_id, chunk,
                                       self.model_params, self.cache,
                                       self.state, want_details=want_details,
-                                      cache_rows=self._pick_cache_rows(),
+                                      cache_rows=cache_rows,
                                       fuse_mlp=self.fuse_mlp)
         return _decode_multi(self.spec, self.eos_token_id, chunk,
                              self.model_params, self.cache, self.state,

@@ -5,10 +5,17 @@ The KV pool is sized from the device memory budget, requests reserve
 exactly ceil((input + max_new) / page_size) pages at admission, and the
 scheduler's admission question becomes "are there enough free pages".
 
-Differences from the JAX engine, all of them mechanical:
-  * PyTorch runs eagerly, so there is no jit and no AOT
-    `precompile_decode`; `warmup` runs each prefill and decode shape once
-    (which also builds the CUDA kernels).
+Decode programs: as the JAX engine compiles one program per decode key
+(want_details, live pages, chunk) and `warmup` compiles them all
+(`precompile_decode`), this engine on the card captures one CUDA graph per
+key (`engine.programs`; the host side is `engine.SlotBatchEngine`'s) and
+each decode dispatch replays one. The programs hold the addresses of the
+pool, the block table and the state, so `warmup` resets them in place;
+`reset()` after a device error rebuilds them and recaptures every program.
+
+Other differences from the JAX engine, all of them mechanical:
+  * Prefill runs eagerly; `warmup` runs each prefill shape once (which also
+    builds the CUDA kernels).
   * The pools and the engine state are updated in place on the device
     (the JAX engine donated them to each step).
   * `decode_write_mode` "post" and "scan" both run chunks as a loop of
@@ -144,7 +151,7 @@ class PagedInferenceEngine(SlotBatchEngine):
 
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
                  eos_token_id: int, num_pages: Optional[int] = None,
-                 device=None):
+                 device=None, eager_decode: bool = False):
         self.device = resolve_device(device)
         check_supported(spec)
         check_decode_config(config)
@@ -178,12 +185,11 @@ class PagedInferenceEngine(SlotBatchEngine):
                                         self.device)
         self.decode_chunk = max(1, config.decode_chunk)
         self._write_mode = config.decode_write_mode
-        self._init_host()
+        self._init_host(eager_decode)
         # host mirror of the block table; unmapped entries carry the
         # sentinel so overrun writes drop (see PagedKVCache.create)
         self._bt_host = np.full((self.num_slots, max_pages_per_slot),
                                 num_pages, np.int32)
-        self._warmup_pages = None
 
         logger.info("paged KV pool: %d pages x %d tokens (%s, %.2f GiB) on %s",
                     num_pages, self.page_size, self._cache_dtype,
@@ -205,8 +211,6 @@ class PagedInferenceEngine(SlotBatchEngine):
     def _pick_live_pages(self) -> int:
         """Smallest page bucket covering every live slot's pre-chunk
         context (host mirror; freed-slot staleness is read-only safe)."""
-        if self._warmup_pages is not None:
-            return self._warmup_pages
         mp = self.allocator.max_pages_per_slot
         if self._write_mode != "ring" or self.decode_chunk == 1:
             return mp
@@ -216,28 +220,47 @@ class PagedInferenceEngine(SlotBatchEngine):
                 return b
         return mp
 
+    _bucket_grid = _page_bucket_grid
+    _pick_bucket = _pick_live_pages
+
     def reset(self) -> None:
         """Rebuild pool and state after an EngineDeviceError: all pages and
-        slots become free."""
+        slots become free. The decode programs were captured against the
+        old tensors: they are dropped, and recaptured against the new ones
+        if there were any (as the JAX engine recompiles)."""
         self._use_device()
+        had_programs = len(self.programs) > 0
+        self.programs.clear()
+        num_pages = self.allocator.num_pages
+        self.cache = self.state = None    # free the pool before reallocating
         self.cache = PagedKVCache.create(
-            self.spec, self.allocator.num_pages, self.page_size,
-            self.num_slots, self.allocator.max_pages_per_slot,
-            self._cache_dtype, self.device)
+            self.spec, num_pages, self.page_size, self.num_slots,
+            self.allocator.max_pages_per_slot, self._cache_dtype, self.device)
+        self.state = EngineState.create(self.num_slots, self.max_seq,
+                                        self.device)
+        self._clear_slots()
+        if had_programs:
+            self.precompile_decode()
+        logger.warning("paged engine device state reset (all slots cleared)")
+
+    def _clear_slots(self) -> None:
+        """Free every page and slot, keeping the device tensors: the block
+        table back to the sentinel and the state to `create`'s values, in
+        place (the pool's rows are unreachable through the table)."""
         self.allocator = PageAllocator(self.allocator.num_pages,
                                        self.page_size,
                                        self.allocator.max_pages_per_slot)
-        self.state = EngineState.create(self.num_slots, self.max_seq,
-                                        self.device)
+        self.state.reset_()
         self._reset_host()
         self._bt_host[:] = self.allocator.num_pages
-        logger.warning("paged engine device state reset (all slots cleared)")
+        self.cache.block_table.copy_(torch.from_numpy(self._bt_host))
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
-        """Run every prefill (batch, bucket) shape and every decode variant
-        once, then reset. Eager PyTorch compiles nothing per shape, but the
-        first call builds the CUDA kernels and warms cuBLAS and the
-        allocator, which should not land on the first request."""
+        """Run every prefill (batch, bucket) shape once (the first call
+        builds the CUDA kernels and warms cuBLAS and the allocator, which
+        should not land on the first request), free every page and slot in
+        place, then make every decode program (live-page bucket x details x
+        chunk: `precompile_decode`) and run each once."""
         if batch_sizes is None:
             batch_sizes = self._warmup_batch_grid()
         t0 = time.monotonic()
@@ -266,18 +289,11 @@ class PagedInferenceEngine(SlotBatchEngine):
                 n_runs += 1
                 for slot in slots:
                     self.free(slot)
-        try:
-            for pages in self._page_bucket_grid():
-                self._warmup_pages = pages
-                for want_details in (False, True):
-                    for chunk in self._chunk_grid():
-                        self.decode_steps(want_details=want_details,
-                                          chunk=chunk)
-                        n_runs += 1
-        finally:
-            self._warmup_pages = None
-        self.reset()
-        logger.info("paged warmup ran %d shapes in %.1fs", n_runs,
+        # the pool is the largest allocation on the card: reset in place
+        self._clear_slots()
+        n_programs = self._warm_decode()
+        logger.info("paged warmup ran %d prefill shapes and made %d decode "
+                    "programs in %.1fs", n_runs, n_programs,
                     time.monotonic() - t0)
 
     def _pool_size_from_hbm(self, dtype) -> int:
@@ -318,6 +334,7 @@ class PagedInferenceEngine(SlotBatchEngine):
                 prefix_embeds=None) -> PrefillResult:
         self._use_device()
         self._apply_pending_frees()
+        self._ensure_programs()
         _, prefix_lens = self._prefixes(prefix_embeds, len(slots))
         # allocate pages for the whole potential sequence of each request
         for slot, toks, rp, plen in zip(slots, token_ids, request_params,
@@ -340,7 +357,10 @@ class PagedInferenceEngine(SlotBatchEngine):
         return self._run_prefill(step, slots, token_ids, want_prompt_details,
                                  prefix_embeds)
 
-    def _decode_chunk(self, want_details: bool, chunk: int) -> torch.Tensor:
+    def _decode_chunk(self, want_details: bool, live_pages: int,
+                      chunk: int) -> torch.Tensor:
+        """The eager decode step of a program key (want_details, live_pages,
+        chunk): returns the packed outputs."""
         if chunk == 1:
             return _paged_decode_step(
                 self.spec, self.eos_token_id, self.page_size,
@@ -354,6 +374,6 @@ class PagedInferenceEngine(SlotBatchEngine):
         return _paged_ring_multi(
             self.spec, self.eos_token_id, self.page_size, chunk,
             self.model_params, self.cache, self.state,
-            want_details=want_details, live_pages=self._pick_live_pages(),
+            want_details=want_details, live_pages=live_pages,
             gather_ctx_max=self.config.paged_gather_ctx_max,
             fuse_mlp=self.fuse_mlp)

@@ -1,0 +1,211 @@
+"""Decode programs: the counterpart of the JAX engines' compiled decode
+steps (their `_decode_fns` dict and `.lower().compile()`).
+
+The JAX engines build one program per decode dispatch shape, keyed by
+(want_details, context rows or live pages, chunk), and compile every key
+ahead of time at warmup (`precompile_decode`), so serving dispatches one
+compiled program a chunk. Here a program is one `torch.cuda.CUDAGraph`
+captured from the engine's eager step function. Its inputs are the
+engine's own state, cache and params tensors, which the step updates in
+place (no staging copies), and its output is the static tensor the capture
+allocated (the packed step outputs, [chunk, S, W] or [S, W]). A dispatch
+is one replay.
+
+`DecodePrograms.build` follows the PyTorch recipe: every new program runs
+once eagerly on a side stream first (building the kernels, warming cuBLAS
+and the allocator, and growing the kernels' shared scratch to the largest
+size any program needs), then the scratch is pinned and each program is
+captured on that stream. All of an engine's graphs share one memory pool:
+they replay one at a time on one stream, in any order, and the engine
+copies a replay's output out before the next replay may reuse the pool.
+The eager runs write the engine's state and cache, so `build` runs them
+only with no request in flight; a program added later (a chunk override
+outside the grid, as JAX compiles one lazily) is captured without them.
+
+On the CPU a program is the eager step function itself, under the same
+keys and counts: the CPU is asked for explicitly, so this is its path, not
+a fallback. An engine built with `eager_decode=True` runs its programs
+eagerly on the card too: the reference that tests and `chip_smoke.py`
+compare replays with.
+
+Launch counts. The kernel wrappers count their Python calls in
+`.launches`: a capture calls each wrapper once per launch it records, a
+replay calls none. So a capture's calls are taken out of the counters and
+recorded per program, and each program counts its replays; `launches`
+reports a counter's own count plus, over every live program, captured x
+replays. `track` adds another counter (a function attribute) to that
+accounting.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+import weakref
+from typing import Callable, Optional
+
+import torch
+
+from ..ops.cuda import paged_attention as scratch
+
+# every DecodePrograms alive, for the launch accounting
+_SETS: "weakref.WeakSet[DecodePrograms]" = weakref.WeakSet()
+# counters beyond the kernel wrappers' (see `track`)
+_TRACKED: list[tuple[object, str]] = []
+
+
+@functools.cache
+def _kernel_wrappers() -> tuple:
+    from ..ops.cuda import decode_attention, flash_prefill, int4_matmul
+    from ..ops.cuda import int4_mlp, paged_attention, ring_decode_attention
+
+    return (flash_prefill.flash_prefill,
+            paged_attention.paged_decode_attention,
+            paged_attention.paged_decode_attention_partial,
+            paged_attention.paged_decode_attention_partial_i8,
+            int4_matmul.int4_matmul, int4_matmul.int4_matmul_s4,
+            int4_matmul.int4_matmul_s4_stacked,
+            int4_mlp.int4_mlp_s4_stacked, decode_attention.decode_attention,
+            ring_decode_attention.ring_decode_attention)
+
+
+def track(holder, attr: str = "launches") -> None:
+    """Count `holder.attr` (an int attribute the caller increments) the way
+    the kernel wrappers' launches are counted: captures record it, replays
+    multiply it."""
+    if (holder, attr) not in _counters():
+        _TRACKED.append((holder, attr))
+
+
+def _counters() -> list[tuple[object, str]]:
+    return [(fn, "launches") for fn in _kernel_wrappers()] + _TRACKED
+
+
+def _read() -> dict:
+    return {key: getattr(*key) for key in _counters()}
+
+
+def replayed(holder, attr: str = "launches") -> int:
+    """The increments of `holder.attr` that the replays of every live
+    program stand for: captured x replays, summed over the programs."""
+    key = (holder, attr)
+    return sum(p.replays * p.launches.get(key, 0)
+               for progs in list(_SETS) for p in progs.programs.values())
+
+
+def launches(holder, attr: str = "launches") -> int:
+    """A counter's launches: its eager calls plus its replayed ones."""
+    return getattr(holder, attr) + replayed(holder, attr)
+
+
+class DecodeProgram:
+    """One decode program: a captured graph and its static output, or (on
+    the CPU, or eager on the card) the step function itself."""
+
+    def __init__(self, fn: Optional[Callable] = None,
+                 graph: Optional["torch.cuda.CUDAGraph"] = None,
+                 output: Optional[torch.Tensor] = None,
+                 launches: Optional[dict] = None, seconds: float = 0.0):
+        self.fn, self.graph, self.output = fn, graph, output
+        self.launches = launches or {}   # (holder, attr) -> per replay
+        self.seconds = seconds           # capture time
+        self.replays = 0
+
+    def run(self) -> torch.Tensor:
+        """One dispatch: a replay (the static output, valid until the next
+        replay of any program of its set) or an eager call."""
+        self.replays += 1
+        if self.graph is None:
+            return self.fn()
+        self.graph.replay()
+        return self.output
+
+
+class DecodePrograms:
+    """An engine's decode programs by key; `capture` is whether they are
+    CUDA graphs (an engine on the card, unless built with eager_decode)."""
+
+    def __init__(self, device: torch.device, capture: bool):
+        self.device = device
+        self.capture = capture
+        self.programs: dict[tuple, DecodeProgram] = {}
+        self._pool = None
+        self._stream = None
+        _SETS.add(self)
+
+    def __len__(self) -> int:
+        return len(self.programs)
+
+    def get(self, key: tuple) -> Optional[DecodeProgram]:
+        return self.programs.get(key)
+
+    @property
+    def seconds(self) -> float:
+        """Seconds spent capturing (eager runs included)."""
+        return sum(p.seconds for p in self.programs.values())
+
+    def build(self, fns: dict, warm: bool = True) -> None:
+        """Make a program for every key of `fns` (key -> step function) that
+        has none. With `warm`, each new program first runs eagerly on the
+        capture stream (it writes the engine's state and cache: no request
+        may be in flight); without, the capture alone runs, which executes
+        nothing."""
+        new = {k: fn for k, fn in fns.items() if k not in self.programs}
+        if not self.capture:
+            self.programs.update((k, DecodeProgram(fn)) for k, fn in new.items())
+            return
+        if not new:
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        main = torch.cuda.current_stream(self.device)
+        t0 = time.monotonic()
+        if warm:
+            self._stream.wait_stream(main)
+            with torch.cuda.stream(self._stream):
+                for fn in new.values():
+                    fn()
+            main.wait_stream(self._stream)
+        warm_s = (time.monotonic() - t0) / len(new)
+        # the eager runs grew the scratch to every program's size
+        scratch.pin_scratch(self, self.device)
+        for key, fn in new.items():
+            self.programs[key] = self._capture(fn, warm_s)
+
+    def _capture(self, fn: Callable, warm_s: float) -> DecodeProgram:
+        before = _read()
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.monotonic()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream):
+                output = fn()
+            after = _read()
+        finally:
+            # a capture launches nothing: take its calls out of the counters
+            for (holder, attr), n in before.items():
+                setattr(holder, attr, n)
+        counted = {k: after[k] - n for k, n in before.items()
+                   if after[k] != n}
+        return DecodeProgram(graph=graph, output=output, launches=counted,
+                             seconds=warm_s + time.monotonic() - t0)
+
+    def clear(self) -> None:
+        """Drop every program (and with them the graphs' pool)."""
+        self.programs.clear()
+        self._pool = None
+        scratch.unpin_scratch(self)
+
+    def pool_bytes(self) -> Optional[int]:
+        """Bytes of the graphs' memory pool (the allocator's segments of
+        this pool), or None when no graph is captured or the allocator's
+        snapshot names no pools."""
+        if self._pool is None:
+            return None
+        pool = tuple(self._pool)
+        segments = torch.cuda.memory_snapshot()
+        if not segments or "segment_pool_id" not in segments[0]:
+            return None
+        return sum(s["total_size"] for s in segments
+                   if tuple(s["segment_pool_id"]) == pool)

@@ -176,7 +176,6 @@ def apply_warpers(
     The top-k and top-p warpers share a single ascending sort of the scores.
     """
     n, v = scores.shape
-    neg_inf = torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device)
 
     # --- temperature (0 encodes greedy => treated as 1.0, tokens.py:202) ---
     temp = torch.where(temperature == 0.0, 1.0, temperature)
@@ -188,8 +187,8 @@ def apply_warpers(
     k = torch.clamp(top_k, 0, v)
     kth_pos = torch.clamp(v - k, 0, v - 1).long()
     kth_score = torch.gather(sorted_asc, 1, kth_pos[:, None])
-    kth_score = torch.where((top_k > 0)[:, None], kth_score, neg_inf)
-    scores = torch.where(scores < kth_score, neg_inf, scores)
+    kth_score = torch.where((top_k > 0)[:, None], kth_score, NEG_INF)
+    scores = torch.where(scores < kth_score, NEG_INF, scores)
 
     # --- top-p: drop the low-probability prefix of the ascending order whose
     # cumulative mass is <= 1 - top_p, always keeping the most likely token
@@ -200,7 +199,7 @@ def apply_warpers(
     remove_sorted &= (top_p < 1.0)[:, None]
     remove_sorted[:, -1] = False
     remove = torch.zeros_like(remove_sorted).scatter(1, order, remove_sorted)
-    scores = torch.where(remove, neg_inf, scores)
+    scores = torch.where(remove, NEG_INF, scores)
 
     # --- typical-p: keep the smallest set of tokens (by closeness of their
     # surprisal to the entropy) whose mass reaches typical_p
@@ -217,7 +216,7 @@ def apply_warpers(
     last_ind = torch.clamp(last_ind, 0, v - 1)
     last_ind = torch.where(typical_p >= 1.0, v - 1, last_ind)
     threshold = torch.gather(shifted_sorted, 1, last_ind[:, None])
-    return torch.where(shifted > threshold, neg_inf, scores)
+    return torch.where(shifted > threshold, NEG_INF, scores)
 
 
 _MASK32 = 0xFFFFFFFF

@@ -209,8 +209,8 @@ def _rope_freqs(spec: DecoderSpec, positions: torch.Tensor
     rd = spec.rotary_dim
     exps = torch.arange(0, rd, 2, dtype=torch.float32,
                         device=positions.device) / rd
-    inv_freq = 1.0 / torch.pow(torch.tensor(spec.rope_theta, dtype=torch.float32,
-                                            device=positions.device), exps)
+    # a Python scalar base: no host-to-device copy (a decode step is captured)
+    inv_freq = 1.0 / torch.pow(float(spec.rope_theta), exps)
     pos = positions.to(torch.float32) / spec.rope_scaling
     freqs = pos[..., None] * inv_freq
     if spec.rope_interleaved:

@@ -8,14 +8,15 @@ through the block table.
 Writes update the pools IN PLACE (the JAX package donated the pools to
 each jitted step instead). Writes that JAX routed out of bounds and dropped
 (`.at[].set(mode="drop")`: inactive slots, padded prefill positions, ring
-positions past max_seq, unmapped sentinel pages) are masked out explicitly
-here: the valid rows are selected once per call, and only they are
-written. Reads through the block table clamp (`gather_dense_view`) or skip
-unmapped pages (the paged kernel).
+positions past max_seq, unmapped sentinel pages) write nothing new here,
+with static shapes and no host synchronisation, so that a decode step can
+be captured into a CUDA graph (`_write_plan`). Reads through the block
+table clamp (`gather_dense_view`) or skip unmapped pages (the paged
+kernel).
 
 int8 pools: rows are quantized as they are written (prefill scatter, ring
-flush; `core.quantize_kv`), and the scale pools go through the same valid-row
-selection as the value pools. The per-step `decode_paged` has no int8 write
+flush; `core.quantize_kv`), and the scale pools take the same write plan as
+the value pools. The per-step `decode_paged` has no int8 write
 path (the engine requires ring chunks for int8, as the JAX engine does).
 
 Each function takes `attn`, the kernel implementation: `KERNELS` (the CUDA
@@ -50,13 +51,36 @@ from .core import (
 )
 
 
-def _valid_rows(rows: torch.Tensor, valid: torch.Tensor, pool_rows: int):
-    """Flatten and select the write targets that JAX's mode="drop" would
-    keep: (source indices, pool rows), both int64 1-D."""
+def _write_plan(rows: torch.Tensor, valid: torch.Tensor, pool_rows: int):
+    """Where each flattened write goes, keeping JAX's mode="drop": returns
+    (src, dst, kept), src and dst int64 [n] and kept a 0-dim bool (some write
+    is kept). A kept write i writes source row i to pool row rows[i]. A
+    dropped write repeats the first kept write, the same source to the same
+    row, so the duplicates carry equal values and the scatter stays
+    deterministic whichever lands last; with no kept write at all, every
+    write targets one clamped row and `_put_rows` writes back that row's own
+    contents. Static shapes, no host synchronisation (no `nonzero`), so a
+    decode step can be captured. Clamping a dropped write onto a row of its
+    own would race with a kept write to that row."""
     rows = rows.reshape(-1).to(torch.int64)
     keep = valid.reshape(-1) & (rows >= 0) & (rows < pool_rows)
-    src = torch.nonzero(keep).squeeze(1)
-    return src, rows[src]
+    # index 0 when none is kept; [1], not 0-dim (indexing by a 0-dim tensor
+    # reads it on the host)
+    first = torch.argmax(keep.to(torch.int32)).view(1)
+    src = torch.where(keep, torch.arange(rows.numel(), device=rows.device),
+                      first)
+    dst = torch.where(keep, rows,
+                      rows.index_select(0, first).clamp(0, pool_rows - 1))
+    return src, dst, keep.any()
+
+
+def _put_rows(pool: torch.Tensor, axis: int, dst: torch.Tensor,
+              values: torch.Tensor, kept: torch.Tensor) -> None:
+    """pool[..., dst, ...] = values along `axis`, in place, by a plan of
+    `_write_plan`: when it keeps no write, the targeted row gets its own
+    contents back."""
+    index = (slice(None),) * axis + (dst,)
+    pool[index] = torch.where(kept, values.to(pool.dtype), pool[index])
 
 
 def decode_paged(
@@ -91,7 +115,7 @@ def decode_paged(
             * page_size + positions % page_size)
     valid = (torch.ones_like(rows, dtype=torch.bool) if active is None
              else active.to(torch.bool))
-    src, dst = _valid_rows(rows, valid, pool_rows)
+    src, dst, kept = _write_plan(rows, valid, pool_rows)
     ctx = context_len.to(torch.int32).contiguous()
     group = spec.num_heads // spec.num_kv_heads
 
@@ -102,8 +126,8 @@ def decode_paged(
         q, k, v = _qkv(spec, lp, h)                     # q [S,H,Dh]; k/v [S,K,Dh]
         q = _apply_rope(spec, q, cos, sin)
         k = _apply_rope(spec, k, cos, sin)
-        kp[:, dst] = k[src].transpose(0, 1).to(kp.dtype)
-        vp[:, dst] = v[src].transpose(0, 1).to(vp.dtype)
+        _put_rows(kp, 1, dst, k[src].transpose(0, 1), kept)
+        _put_rows(vp, 1, dst, v[src].transpose(0, 1), kept)
 
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim).contiguous()
         a = attn.paged_decode(qg, kp, vp, bt, ctx, page_size)
@@ -250,7 +274,7 @@ def paged_ring_flush(cache: PagedKVCache, kbuf: torch.Tensor,
     page_idx = torch.clamp(wpos // page_size, 0, bt.shape[1] - 1)
     rows = (bt[torch.arange(s, device=dev)[None, :], page_idx].to(torch.int64)
             * page_size + wpos % page_size)                        # [C, S]
-    src, dst = _valid_rows(rows, valid, pool_rows)
+    src, dst, kept = _write_plan(rows, valid, pool_rows)
     # ring [L, S, K, C, D] -> [L, K, C, S, D] -> [L, K, C*S, D]
     L, kh, d = kbuf.shape[0], kbuf.shape[2], kbuf.shape[4]
     kr = kbuf.permute(0, 2, 3, 1, 4).reshape(L, kh, n_buf * s, d)[:, :, src]
@@ -258,10 +282,10 @@ def paged_ring_flush(cache: PagedKVCache, kbuf: torch.Tensor,
     if cache.quantized:
         kr, ksc = quantize_kv(kr)
         vr, vsc = quantize_kv(vr)
-        cache.k_scale[:, :, dst] = ksc
-        cache.v_scale[:, :, dst] = vsc
-    cache.k[:, :, dst] = kr.to(cache.k.dtype)
-    cache.v[:, :, dst] = vr.to(cache.v.dtype)
+        _put_rows(cache.k_scale, 2, dst, ksc, kept)
+        _put_rows(cache.v_scale, 2, dst, vsc, kept)
+    _put_rows(cache.k, 2, dst, kr, kept)
+    _put_rows(cache.v, 2, dst, vr, kept)
     return cache
 
 
@@ -292,7 +316,7 @@ def prefill_paged(
     page_idx = (positions // page_size).clamp(0, bt.shape[1] - 1).long()
     pages = bt[slots.long()[:, None], page_idx].to(torch.int64)   # [N, T]
     flat = pages * page_size + positions % page_size
-    src, dst = _valid_rows(flat, key_valid, pool_rows)
+    src, dst, kept = _write_plan(flat, key_valid, pool_rows)
 
     def write_kv(li, k, v):
         k_rows = k.reshape(-1, spec.num_kv_heads, spec.head_dim)[src]
@@ -301,10 +325,10 @@ def prefill_paged(
             # quantize on the way in: [rows, K, D] int8 + [rows, K] scales
             k_rows, ksc = quantize_kv(k_rows)
             v_rows, vsc = quantize_kv(v_rows)
-            cache.k_scale[li][:, dst] = ksc.transpose(0, 1)
-            cache.v_scale[li][:, dst] = vsc.transpose(0, 1)
-        cache.k[li][:, dst] = k_rows.transpose(0, 1).to(cache.k.dtype)
-        cache.v[li][:, dst] = v_rows.transpose(0, 1).to(cache.v.dtype)
+            _put_rows(cache.k_scale[li], 1, dst, ksc.transpose(0, 1), kept)
+            _put_rows(cache.v_scale[li], 1, dst, vsc.transpose(0, 1), kept)
+        _put_rows(cache.k[li], 1, dst, k_rows.transpose(0, 1), kept)
+        _put_rows(cache.v[li], 1, dst, v_rows.transpose(0, 1), kept)
 
     return prefill_forward(spec, params, ids, lengths, attn, write_kv,
                            prefix_embeds, prefix_len), cache

@@ -42,7 +42,7 @@ import torch
 
 from ..quant.int4 import Int4Weight, unpack_cols, unpack_rows
 from . import build
-from .paged_attention import arrivals
+from .paged_attention import arrivals, grow_scratch
 
 K_TILE = 64    # the kernel's K tile: in_features and the group size are multiples
 BLOCK_N = 128  # W columns a block of either schedule
@@ -120,14 +120,19 @@ _WORKSPACE: dict[torch.device, torch.Tensor] = {}
 
 def workspace(device: torch.device, numel: int) -> torch.Tensor:
     """The device's fp32 split workspace, at least `numel` floats; it grows
-    (rarely: to the largest [splits, M, N] seen) and is otherwise reused by
-    every launch on the stream."""
-    buf = _WORKSPACE.get(device)
-    if buf is None or buf.numel() < numel:
-        buf = torch.empty(max(numel, 1 << 20), dtype=torch.float32,
-                          device=device)
-        _WORKSPACE[device] = buf
-    return buf
+    (rarely: to the largest [splits, M, N] seen, never while captured decode
+    programs pin it: `paged_attention.grow_scratch`) and is otherwise reused
+    by every launch on the stream."""
+    return grow_scratch(_WORKSPACE, device, numel, lambda n: torch.empty(
+        max(n, 1 << 20), dtype=torch.float32, device=device))
+
+
+def scratch_need(n: int, k: int, m: int = DECODE_ROWS) -> tuple[int, int]:
+    """(workspace floats, arrival counters) a launch of m rows on an [in k,
+    out n] weight takes; m = DECODE_ROWS gives the most any row count
+    takes."""
+    splits = split_plan(n, k) if m <= DECODE_ROWS else 1
+    return (splits * m * n if splits > 1 else 0), -(-n // BLOCK_N)
 
 
 def _check(fn: str, x: torch.Tensor, w: Int4Weight) -> None:
@@ -172,8 +177,9 @@ def _launch(fn: str, x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
         return y
     lib = build.library("int4_matmul")
     splits = split_plan(n, k) if m <= DECODE_ROWS else 1
-    partial = workspace(x.device, splits * m * n) if splits > 1 else None
-    counters = arrivals(x.device, -(-n // BLOCK_N))
+    floats, n_counters = scratch_need(n, k, m)
+    partial = workspace(x.device, floats) if floats else None
+    counters = arrivals(x.device, n_counters)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.tgi_int4_matmul(

@@ -173,6 +173,23 @@ def _check_cuda(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight) -> None:
                              f"{K_TILE}")
 
 
+def scratch_need(h: int, inter: int, m: int = MAX_ROWS) -> tuple[int, int]:
+    """(workspace floats, arrival counters) a launch of m rows on a [H, 2I]
+    / [I, H] pair takes; m = MAX_ROWS gives the most any row count takes.
+    The workspace holds the split partials of both products and `a`."""
+    splits_gu, splits_down = split_plan(2 * inter, h), split_plan(h, inter)
+    floats = ((splits_gu * m * 2 * inter if splits_gu > 1 else 0)
+              + (splits_down * m * h if splits_down > 1 else 0) + m * inter)
+    # per (column block, row tile): gate/up arrivals, ready flags, their
+    # readers, down arrivals; then the kernel's ticket (counted for 16-row
+    # tiles, the most row tiles any tiling of m rows has). The kernel
+    # returns the ticket, the flags and every count to zero at the end of
+    # each launch: a replayed decode graph relies on that, as it finds the
+    # buffer as the launch before left it
+    counters = (3 * -(-inter // BLOCK_I) + -(-h // BLOCK_H)) * -(-m // 16) + 1
+    return floats, counters
+
+
 def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
                         layer: int, activation: str = "silu_glu"
                         ) -> torch.Tensor:
@@ -194,15 +211,9 @@ def int4_mlp_s4_stacked(x: torch.Tensor, w_gu: Int4Weight, w_down: Int4Weight,
         return y
     lib = build.library("int4_mlp")
     splits_gu, splits_down = split_plan(2 * inter, h), split_plan(h, inter)
-    ws = workspace(x.device, (splits_gu * m * 2 * inter if splits_gu > 1
-                              else 0)
-                   + (splits_down * m * h if splits_down > 1 else 0)
-                   + m * inter)
-    # per (column block, row tile): gate/up arrivals, ready flags, their
-    # readers, down arrivals; then the kernel's ticket (counted for 16-row
-    # tiles, the most row tiles any tiling of m rows has)
-    counters = arrivals(x.device, (3 * -(-inter // BLOCK_I)
-                                   + -(-h // BLOCK_H)) * -(-m // 16) + 1)
+    floats, n_counters = scratch_need(h, inter, m)
+    ws = workspace(x.device, floats)
+    counters = arrivals(x.device, n_counters)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = lib.tgi_int4_mlp(

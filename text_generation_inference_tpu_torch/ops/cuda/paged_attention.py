@@ -48,6 +48,7 @@ tensor it launches the kernel or raises. `paged_decode_attention.launches`,
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 
@@ -190,16 +191,47 @@ def scratch_blocks(s: int, kh: int, g: int) -> tuple[int, int]:
 
 
 _ARRIVALS: dict[torch.device, torch.Tensor] = {}
+# owners of captured CUDA graphs (engine.programs.DecodePrograms) -> their
+# device: a graph holds the raw addresses of the shared scratch below and
+# of K1's workspace, so neither may be replaced on that device while one
+# lives
+_PINS: "weakref.WeakKeyDictionary[object, torch.device]" = (
+    weakref.WeakKeyDictionary())
+
+
+def pin_scratch(owner, device: torch.device) -> None:
+    """Freeze the device's shared scratch while `owner` lives (or until
+    `unpin_scratch`): growing it then raises."""
+    _PINS[owner] = torch.device(device)
+
+
+def unpin_scratch(owner) -> None:
+    _PINS.pop(owner, None)
+
+
+def grow_scratch(cache: dict, device: torch.device, numel: int, make):
+    """The cached scratch tensor of `device` with at least `numel` elements,
+    replaced by `make(numel)` when it is smaller. Raises instead while a
+    captured graph on the device pins the scratch: the replaced tensor would
+    be freed under the graph's writes."""
+    buf = cache.get(device)
+    if buf is None or buf.numel() < numel:
+        if buf is not None and torch.device(device) in _PINS.values():
+            raise RuntimeError(
+                f"the shared kernel scratch on {device} must grow to {numel} "
+                f"elements while captured decode programs hold its address; "
+                "size it before the first capture (an eager run of every "
+                "program first)")
+        buf = make(numel)
+        cache[device] = buf
+    return buf
 
 
 def arrivals(device: torch.device, n: int) -> torch.Tensor:
     """The device's arrival counters, at least n of them, all zero (each
-    launch leaves them zero)."""
-    buf = _ARRIVALS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _ARRIVALS[device] = buf
-    return buf
+    launch leaves them zero, so a replayed graph finds them zero too)."""
+    return grow_scratch(_ARRIVALS, device, n, lambda k: torch.zeros(
+        max(k, 64), dtype=torch.int32, device=device))
 
 
 def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,

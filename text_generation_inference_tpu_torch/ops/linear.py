@@ -39,10 +39,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .cuda import int4_matmul as k1
+from .cuda import int4_mlp as m1
 from .cuda.int4_matmul import (int4_matmul, int4_matmul_reference,
                                int4_matmul_s4, int4_matmul_s4_stacked)
 from .cuda.int4_mlp import (ACTIVATIONS, MAX_ROWS, int4_mlp_reference,
                             int4_mlp_s4_stacked)
+from .cuda.paged_attention import arrivals
 from .quant.int4 import Int4Weight
 
 
@@ -152,3 +155,24 @@ def prepare_params(params: dict, rows: Optional[int] = None,
 def prepare_storage(params: dict) -> dict:
     """Identity: the kernel reads the GPTQ packing as the loader stores it."""
     return params
+
+
+def reserve_scratch(params: dict, device: torch.device,
+                    fuse_mlp: bool = False) -> None:
+    """Grow the kernels' shared scratch (K1's split workspace and the
+    arrival counters) to the most any product of these params takes, at any
+    row count: captured decode programs pin it, and prefill rows must not
+    outgrow it afterwards. With `fuse_mlp`, M1's need for the MLP pair too."""
+    weights = [w for w in (*params.get("layers", {}).values(),
+                           params.get("lm_head"))
+               if isinstance(w, Int4Weight)]
+    needs = [k1.scratch_need(w.out_features, w.in_features) for w in weights]
+    pair = params.get("layers", {})
+    if fuse_mlp and isinstance(pair.get("w_down"), Int4Weight):
+        w_down = pair["w_down"]
+        needs.append(m1.scratch_need(w_down.out_features,
+                                     w_down.in_features))
+    if needs:
+        k1.workspace(device, max(n for n, _ in needs))
+        arrivals(device, max(c for _, c in needs))
+

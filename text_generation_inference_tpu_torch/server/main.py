@@ -101,6 +101,13 @@ async def async_serve(config: ServingConfig, device=None) -> None:
     if os.getenv("WARMUP", "1").lower() not in ("0", "false"):
         logger.info("warming up (set WARMUP=0 to skip)")
         engine.warmup()
+        # the JAX server logs its compiles here; on the card each decode
+        # program is one captured CUDA graph (with WARMUP=0 they are
+        # captured before the first prefill instead)
+        programs = engine.programs
+        logger.info("decode programs: %d %s in %.1fs", len(programs),
+                    "captured as CUDA graphs" if programs.capture
+                    else "made (eager step functions)", programs.seconds)
 
     batcher = Batcher(engine, tokenizer, config, prompt_cache=prompt_cache)
     batcher.start()

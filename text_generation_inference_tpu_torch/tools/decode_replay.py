@@ -1,0 +1,156 @@
+"""Checks of the engines' decode programs (`engine/programs.py`), shared by
+the card tests (`tests/test_torch_cuda.py`), the CPU tests and
+`chip_smoke.py`'s graphs phase:
+
+  * `lockstep(replayed, eager)`: two engines built alike, one dispatching
+    its decode programs (CUDA graphs on the card) and one built with
+    `eager_decode=True`, go through the same staggered schedule: requests
+    prefilled at different dispatches, greedy and seeded ones, details on
+    and off, a slot freed while its chunk is in flight and its slot reused.
+    Every dispatch's outputs for the slots live at its start, and at the
+    end the engine state and the KV rows of every slot that held a request
+    (the whole pools of a paged engine), must be equal bit for bit. The
+    keys are dispatched in another order than they were captured.
+  * `pipelined_matches_sequential(a, b)`: the same requests on two engines
+    built alike, one dispatching chunk N+1 before it fetches chunk N
+    (`decode_steps_begin` twice, then `decode_steps_end`), as the batcher
+    does, and one dispatching and fetching in turn: the same outputs.
+
+Both return what they saw (dispatches, keys, the order of first use), for
+the caller to print.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..engine.engine import RequestParams
+
+# prompt lengths of the requests, in the order they arrive
+PROMPT_LENS = (40, 95, 17, 130, 61, 8)
+
+
+def _prompt(rng, vocab: int, n: int) -> list[int]:
+    return [int(x) for x in rng.integers(3, vocab, size=n)]
+
+
+def _params(i: int, max_new: int) -> RequestParams:
+    """Even requests greedy, odd ones seeded samples (top-k, top-p)."""
+    if i % 2 == 0:
+        return RequestParams(max_new_tokens=max_new)
+    return RequestParams(max_new_tokens=max_new, temperature=0.8, top_k=40,
+                         top_p=0.95, seed=1000 + i)
+
+
+def _same_rows(a, b, rows, what: str) -> None:
+    """Every field of two StepResults equal (NaN equal to NaN) on `rows`."""
+    for name, x, y in zip(a._fields, a, b):
+        if not np.array_equal(np.asarray(x)[rows], np.asarray(y)[rows],
+                              equal_nan=True):
+            raise AssertionError(f"{what}: {name} differs on rows {rows}")
+
+
+def _used_rows_equal(a, b, used: list[int]) -> None:
+    """The engine state, and the KV a request may read, equal bit for bit:
+    the whole pools of a paged engine (its eager warm-up runs drop every
+    write), the rows below each used slot's history of a slot engine (its
+    warm-up writes only rows no request has reached yet)."""
+    idx = torch.as_tensor(used, dtype=torch.long, device=a.state.history.device)
+    for x, y in zip(a.state.tensors(), b.state.tensors()):
+        if not torch.equal(x[idx], y[idx]):
+            raise AssertionError("engine state differs")
+    pools = [t for t in a.cache if isinstance(t, torch.Tensor)]
+    others = [t for t in b.cache if isinstance(t, torch.Tensor)]
+    paged = hasattr(a.cache, "block_table")
+    hist = a.state.history_len.cpu().numpy()
+    for x, y in zip(pools, others):
+        if paged:
+            if not torch.equal(x, y):
+                raise AssertionError("the paged pools differ")
+            continue
+        for s in used:           # slot cache [L, S, K, T(, D)]
+            if not torch.equal(x[:, s, :, :hist[s]], y[:, s, :, :hist[s]]):
+                raise AssertionError(f"slot {s}'s KV rows differ")
+
+
+def lockstep(replayed, eager, vocab: int, dispatches: int = 16,
+             seed: int = 0, max_new: int = 200) -> dict:
+    """Drive both engines through one staggered schedule (see the module
+    docstring) and hold them equal. Returns {dispatches, keys (first-use
+    order), capture order}."""
+    rng = np.random.default_rng(seed)
+    engines = (replayed, eager)
+    # before dispatch i: (prompts to prefill); while dispatch i is in
+    # flight: the index into the live slots of the one to free
+    arrive = {0: [0, 1], 2: [2], 5: [3], 9: [4], 11: [5]}
+    free_mid = {4: 0, 8: 1, 12: 0}
+    live: list[int] = []
+    used: set[int] = set()
+    first_use: list[tuple] = []
+    n_req = 0
+    for i in range(dispatches):
+        for j in arrive.get(i, []):
+            ids = _prompt(rng, vocab, PROMPT_LENS[j])
+            slots = [e.acquire_slot() for e in engines]
+            if slots[0] is None or slots[0] != slots[1]:
+                raise AssertionError(f"slots differ: {slots}")
+            rp = _params(n_req, max_new)
+            n_req += 1
+            firsts = [e.prefill([slots[0]], [ids], [rp]).first_token
+                      for e in engines]
+            _same_rows(*firsts, [0], f"prefill of request {n_req}")
+            live.append(slots[0])
+            used.add(slots[0])
+        want = i % 3 != 1
+        rows = sorted(live)
+        before = {k: p.replays for k, p in replayed.programs.programs.items()}
+        handles = [e.decode_steps_begin(want_details=want) for e in engines]
+        ran = [k for k, p in replayed.programs.programs.items()
+               if p.replays != before.get(k, 0)]
+        if len(ran) != 1:
+            raise AssertionError(f"dispatch {i} ran programs {ran}")
+        if ran[0] not in first_use:
+            first_use.append(ran[0])
+        if i in free_mid and live:
+            slot = live.pop(free_mid[i])
+            for e in engines:
+                e.free(slot)
+        outs = [e.decode_steps_end(h) for e, h in zip(engines, handles)]
+        for step, (a, b) in enumerate(zip(*outs)):
+            _same_rows(a, b, rows, f"dispatch {i} step {step}")
+    _used_rows_equal(replayed, eager, sorted(used))
+    capture_order = list(replayed.programs.programs)
+    order = [capture_order.index(k) for k in first_use if k in capture_order]
+    return dict(dispatches=dispatches, keys=first_use,
+                capture_order=capture_order,
+                out_of_capture_order=order != sorted(order))
+
+
+def pipelined_matches_sequential(pipelined, sequential, vocab: int,
+                                 dispatches: int = 8, seed: int = 1,
+                                 max_new: int = 200) -> int:
+    """The same four requests on both engines; `pipelined` dispatches chunk
+    N+1 before it fetches chunk N. Returns the tokens compared."""
+    rng = np.random.default_rng(seed)
+    prompts = [_prompt(rng, vocab, n) for n in PROMPT_LENS[:4]]
+    rps = [_params(i, max_new) for i in range(4)]
+    for e in (pipelined, sequential):
+        slots = [e.acquire_slot() for _ in prompts]
+        e.prefill(slots, prompts, rps)
+    seq = [sequential.decode_steps(want_details=True)
+           for _ in range(dispatches)]
+    pipe = []
+    handle = pipelined.decode_steps_begin(want_details=True)
+    for _ in range(dispatches - 1):
+        nxt = pipelined.decode_steps_begin(want_details=True)
+        pipe.append(pipelined.decode_steps_end(handle))
+        handle = nxt
+    pipe.append(pipelined.decode_steps_end(handle))
+    rows = sorted(slots)
+    n = 0
+    for i, (a_steps, b_steps) in enumerate(zip(pipe, seq)):
+        for a, b in zip(a_steps, b_steps):
+            _same_rows(a, b, rows, f"pipelined dispatch {i}")
+            n += len(rows)
+    return n
