@@ -33,7 +33,15 @@ Phases (any failure exits non-zero; nothing is caught):
              ring-decode kernel (S2) at the decode probe's shapes (48 slots,
              1024 cache rows, a ring of 64) at ring steps 0, 32 and 63. K2
              and S1 also show each slot alone bit-identical to the same
-             slot in a batch of 40.
+             slot in a batch of 40. Sliding windows at run 7's shapes:
+             flash prefill at Mistral-7B's heads and window (4096) in a
+             6144 bucket with prompts of 6000 and 4500 tokens (and a window
+             of 512 in a 2048 bucket, bf16 and its fp32 body), S1 at run
+             7's decode widths and contexts with lower bounds ctx - 4096
+             over 8192 rows (and against its split twin); each check must
+             also reject the plain version with the window's edge moved by
+             one key. The split body at head dim 96 (gpt-neox-20b) in both
+             paged modes.
   3. parity  one prefill and a few decode steps with the kernels and with
              their plain versions (`ops.attention.PLAIN`); logits and
              greedy tokens are compared: the full-width bf16 TinyLlama
@@ -46,7 +54,13 @@ Phases (any failure exits non-zero; nothing is caught):
              counted), then a 4-layer
              GPTQ-INT4 model at 7B widths over an int8 pool (ring-decode
              steps and a flush), with K1 for every product and with the MLP
-             through M1, in bf16 and again in fp16.
+             through M1, in bf16 and again in fp16; then the families
+             beyond Llama (FAMILY_CONFIGS: Mistral-7B, Qwen2-7B, Gemma-7B,
+             gpt-neox-20b, gpt-j-6b, codegen-6B-mono, phi-2, falcon-7b) at
+             their published widths and 2 layers, random weights, the
+             paged prefill and 4 decode steps (Mistral: the slot cache at
+             8192 rows, prompts of 4600 and 1000 tokens past its window),
+             each family's launches counted.
   4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
              full TinyLlama-1.1B width (22 layers, random bf16 weights from
              a seeded generator on the card), decode chunks of 8 with the
@@ -68,7 +82,17 @@ Phases (any failure exits non-zero; nothing is caught):
              (16 and 128 vectors, a raw tensor and a PEFT file), four of
              the eight requests behind a soft prompt (+ gRPC with a
              prefix_id, and an unknown one refused); M1 must replace the two
-             K1 launches of every decode layer's MLP.
+             K1 launches of every decode layer's MLP. Run 7: Mistral-7B-v0.1
+             at full width and depth (random bf16 weights) on the slot
+             engine in scan mode, max_seq 8192, 8 slots, 8 prompts of
+             300-6000 tokens (four past its window of 4096): flash prefill
+             and S1 must both run cut at the window. Run 8: Gemma-7B at full
+             width and depth on the default paged engine, max_seq 2048,
+             two requests streaming, then eight prompts near max_seq in one
+             prefill batch of 8 (the default max_prefill_batch): flash
+             prefill's D = 256 body and the split body at D = 256. Both
+             with gRPC. Every run logs its prefill batches and its peak of
+             allocated device memory.
   5. probe   the port's ring-decode probe (`tools/probe_decode.py`): one
              chunk of 64 ring-decode steps over 48 slots at full TinyLlama
              width, attention inline (the engine's formulation) or through
@@ -93,7 +117,7 @@ Phases (any failure exits non-zero; nothing is caught):
              paged kernel, S1, K1 and K2, M1 and K1; no `sum_splits` kernel
              may run).
 
-Serving runs 1-6 serve through the captured programs: every decode
+Serving runs 1-8 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
 replay of a graph times the launches its capture recorded.
 
@@ -138,6 +162,62 @@ LLAMA7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32,
                intermediate_size=11008, rope_theta=10000.0, norm_eps=1e-5,
                max_position_embeddings=4096)
 GPTQ_GROUP = 128
+
+# The RoPE families beyond Llama at their published widths: the fields of
+# each config.json that the port's spec builders read (`models/families.py`
+# FAMILIES), from the model repos named beside them.
+FAMILY_CONFIGS = {
+    # mistralai/Mistral-7B-v0.1
+    "mistral": dict(model_type="mistral", vocab_size=32000,
+                    hidden_size=4096, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8,
+                    intermediate_size=14336, max_position_embeddings=32768,
+                    rms_norm_eps=1e-5, rope_theta=10000.0,
+                    sliding_window=4096, tie_word_embeddings=False),
+    # Qwen/Qwen2-7B
+    "qwen2": dict(model_type="qwen2", vocab_size=152064, hidden_size=3584,
+                  num_hidden_layers=28, num_attention_heads=28,
+                  num_key_value_heads=4, intermediate_size=18944,
+                  max_position_embeddings=131072, rms_norm_eps=1e-6,
+                  rope_theta=1000000.0, sliding_window=131072,
+                  use_sliding_window=False, tie_word_embeddings=False),
+    # google/gemma-7b
+    "gemma": dict(model_type="gemma", vocab_size=256000, hidden_size=3072,
+                  num_hidden_layers=28, num_attention_heads=16,
+                  num_key_value_heads=16, head_dim=256,
+                  intermediate_size=24576, max_position_embeddings=8192,
+                  rms_norm_eps=1e-6, rope_theta=10000.0, hidden_act="gelu"),
+    # EleutherAI/gpt-neox-20b
+    "gpt_neox": dict(model_type="gpt_neox", vocab_size=50432,
+                     hidden_size=6144, num_hidden_layers=44,
+                     num_attention_heads=64, intermediate_size=24576,
+                     rotary_pct=0.25, rotary_emb_base=10000,
+                     max_position_embeddings=2048, layer_norm_eps=1e-5,
+                     hidden_act="gelu_fast", use_parallel_residual=True),
+    # EleutherAI/gpt-j-6b
+    "gptj": dict(model_type="gptj", vocab_size=50400, n_embd=4096,
+                 n_layer=28, n_head=16, rotary_dim=64, n_positions=2048,
+                 n_inner=None, layer_norm_epsilon=1e-5,
+                 activation_function="gelu_new"),
+    # Salesforce/codegen-6B-mono
+    "codegen": dict(model_type="codegen", vocab_size=51200, n_embd=4096,
+                    n_layer=33, n_head=16, rotary_dim=64, n_positions=2048,
+                    n_inner=None, layer_norm_epsilon=1e-5,
+                    activation_function="gelu_new"),
+    # microsoft/phi-2
+    "phi": dict(model_type="phi", vocab_size=51200, hidden_size=2560,
+                num_hidden_layers=32, num_attention_heads=32,
+                intermediate_size=10240, partial_rotary_factor=0.4,
+                max_position_embeddings=2048, layer_norm_eps=1e-5,
+                hidden_act="gelu_new", rope_theta=10000.0,
+                qk_layernorm=False),
+    # tiiuae/falcon-7b
+    "falcon": dict(model_type="falcon", vocab_size=65024, hidden_size=4544,
+                   num_hidden_layers=32, num_attention_heads=71,
+                   multi_query=True, parallel_attn=True,
+                   new_decoder_architecture=False, alibi=False, bias=False,
+                   layer_norm_epsilon=1e-5),
+}
 
 
 def log(msg: str) -> None:
@@ -213,24 +293,32 @@ def nbytes(*tensors) -> int:
 # --- phase 2: kernels -------------------------------------------------------
 
 
-def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
-    """Flash prefill over two right-padded sequences of a 2048 bucket at
-    (D, KV heads, group), bf16 by default; fp32 runs the 3xTF32 tensor-core
-    kernel, held to 1e-4 of the plain version (and its error against its
-    twin, `flash_prefill_tf32x3_reference`, is logged)."""
+def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
+                        window: int = 0, t: int = 2048, lens=(1500, 900)):
+    """Flash prefill over right-padded sequences of `lens` tokens in a
+    bucket of t at (D, KV heads, group), bf16 by default; fp32 runs the
+    3xTF32 tensor-core kernel, held to 1e-4 of the plain version (and its
+    error against its twin, `flash_prefill_tf32x3_reference`, is logged).
+    With `window`, a sliding window of that many keys (its library call:
+    SDPA with the band as a boolean mask), q scaled by 4 (exact in bf16) so
+    that a few keys carry each row, and the tolerance must reject the plain
+    version at window - 1, window + 1 and without a window: the check
+    tells a kernel that misplaces the window's edge by one key."""
     from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
 
     dtype = dtype or torch.bfloat16
-    gen = torch.Generator(device="cuda").manual_seed(SEED + d)
-    n, t = 2, 2048
-    lengths = torch.tensor([1500, 900], dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + d + window)
+    n = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
     q, k, v = rnd(n, t, kh, g, d), rnd(n, t, kh, d), rnd(n, t, kh, d)
-    got = fp.flash_prefill(q, k, v, lengths)
-    want = fp.flash_prefill_reference(q, k, v, lengths)
+    if window:
+        q = q * 4
+    got = fp.flash_prefill(q, k, v, lengths, window=window)
+    want = fp.flash_prefill_reference(q, k, v, lengths, window)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
@@ -240,31 +328,55 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None):
     atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
     tol = f"atol {atol} + rtol {rtol}"
     if not bool((diff <= atol + rtol * want.float().abs()).all()):
-        raise AssertionError(f"flash_prefill D={d}: max abs err {err} "
-                             f"outside {tol}")
+        raise AssertionError(f"flash_prefill D={d} window {window}: max abs "
+                             f"err {err} outside {tol}")
+    del diff
+    if window:
+        for other in (window - 1, window + 1, 0):
+            wrong = fp.flash_prefill_reference(q, k, v, lengths, other)
+            gap = (wrong.float() - want.float()).abs()
+            if bool((gap <= atol + rtol * want.float().abs()).all()):
+                raise AssertionError(
+                    f"flash_prefill window {window}: {tol} does not reject "
+                    f"the plain version at window {other}")
+            tol += (f"; rejects window {other} (max gap "
+                    f"{gap.max().item():.3e})")
+            del wrong, gap
     if dtype == torch.float32:
-        twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths)
+        twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths, window)
         tol += (f"; against the 3xTF32 twin "
                 f"{(got - twin).abs().max().item():.3e}")
         del twin
-    ms = timer(lambda: fp.flash_prefill(q, k, v, lengths))
-    plain_ms = timer(lambda: fp.flash_prefill_reference(q, k, v, lengths),
+    ms = timer(lambda: fp.flash_prefill(q, k, v, lengths, window=window))
+    plain_ms = timer(lambda: fp.flash_prefill_reference(q, k, v, lengths,
+                                                        window),
                      iters=3, warmup=1)
-    # yardstick: one causal SDPA call over the full bucket (no lengths)
+    # yardstick: one causal SDPA call over the full bucket (no lengths;
+    # with a window, its band as a boolean mask)
     qh = q.reshape(n, t, kh * g, d).transpose(1, 2).contiguous()
     kx = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     vx = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = timer(lambda: sdpa(qh, kx, vx, is_causal=True))
-    # work this run's data needs: query row i sees min(i+1, len) keys
+    if window:
+        pos = torch.arange(t, device="cuda")
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        library_ms = timer(lambda: sdpa(qh, kx, vx, attn_mask=band))
+    else:
+        library_ms = timer(lambda: sdpa(qh, kx, vx, is_causal=True))
+    # work this run's data needs: query row i < len sees min(i+1, window)
+    # keys, a padded row the len live ones
     rows = torch.arange(1, t + 1, device="cuda")
-    pairs = sum(int(torch.clamp(rows, max=int(ln)).sum()) for ln in lengths)
+    pairs = sum(int(torch.where(rows <= int(ln),
+                                torch.clamp(rows, max=window or t),
+                                int(ln)).sum()) for ln in lengths)
     flops = 4.0 * d * kh * g * pairs
     b_ms, b_by = bound(nbytes(q, k, v, got, lengths), flops,
                        peak=peak_flops(dtype))
     tflops = flops / (ms * 1e-3) / 1e12
     log(f"kernel flash_prefill {str(dtype).split('.')[-1]} D={d} N={n} T={t} "
-        f"H={kh * g} KV={kh}: "
+        f"lengths {list(lens)} H={kh * g} KV={kh}"
+        f"{f' window {window}' if window else ''}: "
         f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}); {flops / 1e9:.1f} GFLOP at {tflops:.1f} TFLOP/s "
@@ -322,10 +434,13 @@ def paged_library_call(torch, q, kp, vp, bt, ctx, page):
     return lambda: sdpa(qh, kd, vd, attn_mask=mask)
 
 
-def check_paged(torch, timer, stats: bool, dtype=None):
+def check_paged(torch, timer, stats: bool, dtype=None, kh=4, g=8, d=64):
+    """The paged kernel (normalized, or its stats mode) at TinyLlama decode
+    widths by default."""
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
-    q, kp, vp, bt, ctx, page = paged_inputs(torch, dtype=dtype)
+    q, kp, vp, bt, ctx, page = paged_inputs(torch, kh=kh, g=g, d=d,
+                                            dtype=dtype)
     fp32 = q.dtype == torch.float32
     s, kh, g, d = q.shape
     if stats:
@@ -515,39 +630,76 @@ def sdpa_call(torch, q, keys, values, live):
     return lambda: sdpa(qh, kx, vx, attn_mask=mask)
 
 
-def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None):
-    """S1 over one layer's slot cache [S, KV, T, D], ctx spread over
-    0..T."""
+def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None,
+                      window=0, ctx=None):
+    """S1 over one layer's slot cache [S, KV, T, D], ctx spread over 0..T
+    unless given; with `window`, the lower bounds lo = ctx - window (a
+    sliding window). There the keys at lo - 1 (just outside) and lo (the
+    first one inside) of every cut slot point along the slot's queries, the
+    outer one harder, and the tolerance must reject the plain version at
+    the bounds lo - 1 and lo + 1: the check tells a kernel that misplaces
+    the bound by one row."""
     from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
 
     dtype = dtype or torch.bfloat16
     fp32 = dtype == torch.float32
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + d)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + d + window)
     rnd = lambda *shape: torch.randn(*shape, generator=gen,
                                      device="cuda").to(dtype)
     q, k, v = rnd(s, kh, g, d), rnd(s, kh, t, d), rnd(s, kh, t, d)
-    ctx = torch.from_numpy(spread_ctx(s, t, d)).cuda()
-    fn = lambda: da.decode_attention(q, k, v, ctx)
-    ref = lambda: da.decode_attention_reference(q, k, v, ctx)
+    ctx = torch.from_numpy(spread_ctx(s, t, d) if ctx is None else
+                           np.asarray(ctx, np.int32)).cuda()
+    lo = (ctx - window).clamp(min=0).to(torch.int32) if window else None
+    if window:
+        # the queries' mean direction per (slot, kv head): scores of about
+        # 30 (outer) and 20 (inner) against about 1 for a random key
+        u = q.float().sum(2)
+        u = u / u.norm(dim=-1, keepdim=True)
+        for slot in torch.nonzero(lo > 0).flatten().tolist():
+            b = int(lo[slot])
+            k[slot, :, b - 1] = (60 * u[slot]).to(dtype)
+            k[slot, :, b] = (40 * u[slot]).to(dtype)
+    fn = lambda: da.decode_attention(q, k, v, ctx, lo)
+    ref = lambda: da.decode_attention_reference(q, k, v, ctx, lo)
     got, want = fn(), ref()
     torch.cuda.synchronize()
     err, tol = bf16_close(torch, got, want, f"decode_attention D={d}", fp32)
     if not bool((got[ctx == 0] == 0).all()):
         raise AssertionError("decode_attention: a ctx == 0 slot is not 0")
+    if window:
+        twin = da.decode_attention_split_reference(q, k, v, ctx, lo=lo)
+        bf16_close(torch, got, twin, f"decode_attention D={d} window "
+                   f"{window} against its split twin", fp32)
+        cut = lo > 0
+        for shift in (-1, 1):
+            wrong = da.decode_attention_reference(
+                q, k, v, ctx, torch.where(cut, lo + shift, lo))
+            gap = (wrong.float() - want.float()).abs()
+            atol = 1e-4 if fp32 else 2e-2
+            if bool((gap <= atol + atol * want.float().abs()).all()):
+                raise AssertionError(
+                    f"decode_attention window {window}: {tol} does not "
+                    f"reject the plain version at lo {shift:+d}")
+            tol += f"; rejects lo {shift:+d} (max gap {gap.max().item():.3e})"
     same_slot_in_a_batch(
         torch, f"decode_attention D={d}",
-        lambda idx: da.decode_attention(q[idx].contiguous(), k[idx], v[idx],
-                                        ctx[idx].contiguous()), s)
+        lambda idx: da.decode_attention(
+            q[idx].contiguous(), k[idx], v[idx], ctx[idx].contiguous(),
+            None if lo is None else lo[idx].contiguous()), s)
     ms = timer(fn, iters=20)
     plain_ms = timer(ref, iters=3, warmup=1)
-    live_rows = torch.arange(t, device="cuda")[None, :] < ctx[:, None]
+    rows = torch.arange(t, device="cuda")[None, :]
+    live_rows = rows < ctx[:, None]
+    if window:
+        live_rows = live_rows & (rows >= lo[:, None])
     library_ms = timer(sdpa_call(torch, q, k, v, live_rows))
-    live = int(ctx.sum())
+    live = int(live_rows.sum())
     flops = 4.0 * live * kh * g * d
     moved = nbytes(q, ctx, got) + 2 * live * kh * d * q.element_size()
     b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel decode_attention {str(dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} T={t} "
+        f"{f'window {window} ctx {ctx.tolist()} ' if window else ''}"
         f"live_tokens={live}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, mask "
         f"over the whole T) bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
@@ -963,6 +1115,72 @@ def random_params(torch, spec, gptq: bool = False):
     }
 
 
+def family_spec(name, **overrides):
+    """The port's spec for a family's published config (its own spec
+    builder), with `overrides` (depth)."""
+    import dataclasses
+
+    from text_generation_inference_tpu_torch.models import families
+
+    spec = families.FAMILIES[FAMILY_CONFIGS[name]["model_type"]][0](
+        FAMILY_CONFIGS[name])
+    return dataclasses.replace(spec, **overrides)
+
+
+# the families whose checkpoints carry an lm_head bias (their loaders read it)
+LM_HEAD_BIAS = ("gptj", "codegen", "phi")
+
+
+def family_model(torch, name, seed, **overrides):
+    """(spec, random params) of a family at its published widths."""
+    spec = family_spec(name, **overrides)
+    return spec, family_params(torch, spec, seed, name in LM_HEAD_BIAS)
+
+
+def family_params(torch, spec, seed=0, lm_head_bias=False):
+    """Layer-stacked bf16 params of any served family's layout, drawn on
+    the card from a seeded generator (the JAX package's init rule: scale
+    1/sqrt(fan_in), embeddings 0.02; norm scales 1, biases 0.02): the GLU
+    gate, the q/k/v, out and MLP biases, LayerNorm biases, lm_head and its
+    bias exactly where the spec (and the family's loader) has them."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50 + seed)
+    L, D, F = spec.num_layers, spec.hidden_size, spec.intermediate_size
+    Q, KV = spec.q_size, spec.kv_size
+
+    def dense(*shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        return (torch.randn(*shape, generator=gen, device=DEVICE) * scale
+                ).to(DTYPE)
+
+    def norm(*lead):
+        p = {"scale": torch.ones(*lead, D, dtype=DTYPE, device=DEVICE)}
+        if spec.norm == "layernorm":
+            p["bias"] = dense(*lead, D, scale=0.02)
+        return p
+
+    layers = {"ln1": norm(L), "ln2": norm(L), "wq": dense(L, D, Q),
+              "wk": dense(L, D, KV), "wv": dense(L, D, KV),
+              "wo": dense(L, Q, D), "w_up": dense(L, D, F),
+              "w_down": dense(L, F, D)}
+    if spec.activation.endswith("_glu"):
+        layers["w_gate"] = dense(L, D, F)
+    if spec.qkv_bias:
+        layers.update(bq=dense(L, Q, scale=0.02), bk=dense(L, KV, scale=0.02),
+                      bv=dense(L, KV, scale=0.02))
+    if spec.attn_out_bias:
+        layers["bo"] = dense(L, D, scale=0.02)
+    if spec.mlp_bias:
+        layers.update(b_up=dense(L, F, scale=0.02),
+                      b_down=dense(L, D, scale=0.02))
+    params = {"embed_tokens": dense(spec.vocab_size, D, scale=0.02),
+              "layers": layers, "final_norm": norm()}
+    if not spec.tie_word_embeddings:
+        params["lm_head"] = dense(D, spec.vocab_size)
+    if lm_head_bias:
+        params["lm_head_bias"] = dense(spec.vocab_size, scale=0.02)
+    return params
+
+
 def compare_logits(torch, pairs, vocab, tol, what):
     """Kernel vs plain logits: finite, shaped, within tol, and the same
     greedy token wherever the plain top-2 margin exceeds twice the error.
@@ -985,7 +1203,7 @@ def compare_logits(torch, pairs, vocab, tol, what):
     return max_err, agree, decided
 
 
-def model_parity(torch, spec, params):
+def model_parity(torch, spec, params, what="parity"):
     """prefill_paged + 4 decode_paged steps with the kernels and with the
     plain attention functions; both fed the same (plain) greedy tokens."""
     from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
@@ -1027,13 +1245,14 @@ def model_parity(torch, spec, params):
     tol = 0.25
     max_err, agree, decided = compare_logits(
         torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
-        tol, "parity")
-    log(f"parity: prefill (N={n}, bucket {t}, lengths 700/300) + 4 decode "
+        tol, what)
+    log(f"{what}: prefill (N={n}, bucket {t}, lengths 700/300) + 4 decode "
         f"steps, {spec.num_layers} layers: logits max abs err {max_err:.4f} (tol {tol}), "
         f"greedy tokens equal {agree}/{decided}")
 
 
-def slot_parity(torch, spec, params, steps: int = 4):
+def slot_parity(torch, spec, params, steps: int = 4, t=1024, max_seq=2048,
+                lens=(700, 300), what="slot parity"):
     """The slot cache at max_seq 2048: `core.prefill` + `steps` scan-mode
     `core.decode` steps (every layer attends through S1) with the kernels
     and with their plain versions, both fed the same (plain) greedy
@@ -1043,8 +1262,8 @@ def slot_parity(torch, spec, params, steps: int = 4):
     from text_generation_inference_tpu_torch.ops.attention import KERNELS, PLAIN
 
     params = fuse_params(spec, params)
-    t, n, max_seq = 1024, 2, 2048
-    lengths = torch.tensor([700, 300], dtype=torch.int32, device=DEVICE)
+    n = 2
+    lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     slots = torch.tensor([1, 0], dtype=torch.int32, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
@@ -1056,7 +1275,7 @@ def slot_parity(torch, spec, params, steps: int = 4):
         lg, caches[name] = core.prefill(spec, params, ids, lengths, slots, c,
                                         attn=attn)
         logits[name] = [lg[torch.arange(n), lengths.long() - 1]]
-    # decode rows are slots: slot 1 holds the 700-token prompt
+    # decode rows are slots: slot 1 holds the first prompt
     pos = lengths.flip(0).clone()
     next_ids = logits["plain"][0].argmax(-1).to(torch.int32).flip(0)
     for _ in range(steps):
@@ -1070,8 +1289,9 @@ def slot_parity(torch, spec, params, steps: int = 4):
     tol = 0.25
     max_err, agree, decided = compare_logits(
         torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
-        tol, "slot parity")
-    log(f"slot parity: core.prefill (N={n}, bucket {t}, lengths 700/300) + "
+        tol, what)
+    log(f"{what}: core.prefill (N={n}, bucket {t}, lengths "
+        f"{lens[0]}/{lens[1]}) + "
         f"{steps} scan-mode decode steps at max_seq {max_seq} through "
         f"decode_attention, {spec.num_layers} layers: logits max abs err "
         f"{max_err:.4f} (tol {tol}), greedy tokens equal {agree}/{decided}")
@@ -1276,6 +1496,40 @@ def fp32_parity(torch, counters, steps: int = 4):
     return kernel_counts
 
 
+def family_parity(torch, counters):
+    """The families beyond Llama (FAMILY_CONFIGS) at their published widths
+    and 2 layers, random bf16 weights: `model_parity` (paged prefill at a
+    bucket of 1024, 4 per-step paged decode steps), or for a windowed model
+    `slot_parity` on a slot cache of 8192 rows with prompts of 4600 and
+    1000 tokens (flash prefill and S1 cut at the window), kernels against
+    `PLAIN`. Returns each family's launches."""
+    out = {}
+    for i, name in enumerate(FAMILY_CONFIGS):
+        spec, params = family_model(torch, name, i, num_layers=2)
+        for c in counters.values():
+            c.reset()
+        what = (f"family parity [{name}: D={spec.head_dim}, "
+                f"H={spec.num_heads}, KV={spec.num_kv_heads}]")
+        if spec.sliding_window:
+            slot_parity(torch, spec, params, t=5120, max_seq=8192,
+                        lens=(4600, 1000), what=what)
+        else:
+            model_parity(torch, spec, params, what=what)
+        counts = {k: c.read() for k, c in counters.items()}
+        out[name] = counts
+        del params
+        need = ["decode_attention", "decode_attention_windowed",
+                "flash_prefill_windowed"] if spec.sliding_window else [
+                    "paged_decode_attention"]
+        if spec.head_dim % 64 == 0:
+            need.append("flash_prefill")
+        missed = [k for k in need if counts[k] <= 0]
+        if DEVICE == "cuda" and missed:
+            raise AssertionError(f"{what}: {missed} never launched: {counts}")
+        log(f"{what} launches {({k: v for k, v in counts.items() if v})}")
+    return out
+
+
 # --- phase 4: serving -------------------------------------------------------
 
 
@@ -1309,6 +1563,21 @@ TRAFFIC_SLOT = (([100, 300, 600, 900, 1300, 1800], 0),      # unary
 PREFIXES_7B = (["pt-short", "pt-long", None, "pt-short", None],
                ["pt-long", None, None])
 SOFT_PROMPTS = {"pt-short": 16, "pt-long": 128}      # vectors
+# run 7 (Mistral-7B, window 4096, max_seq 8192): four of the eight prompts
+# past the window
+TRAFFIC_MISTRAL = (([300, 1800, 4500, 6000], 0),
+                   ([5000, 2600, 900, 4200], 2)), 32
+# S1's windowed check: eight slots at run 7's decode contexts (its prompts
+# a few steps in, one slot full); the lower bounds ctx - 4096 are 421,
+# 1921, 921, 121, 4, 0, 0 and 4096: inside 256-row splits and 64-key tiles,
+# one on their edges, two slots within the window
+RUN7_CTX = [4517, 6017, 5017, 4217, 4100, 317, 1817, 8192]
+# run 8 (Gemma-7B, paged, max_seq 2048): two streaming requests, then eight
+# prompts near max_seq at once: one prefill batch of 8 (the default
+# max_prefill_batch) at the bucket of 2048, whose all-position f32 logits
+# are 16.8 GB
+TRAFFIC_GEMMA = (([300, 900, 1500, 1900], 0), ([1200, 600, 1700], 2),
+                 ([1950, 1960, 1970, 1980, 1990, 2000, 2010, 2020], 0)), 24
 
 
 def write_prefix_store(root: str, hidden: int) -> None:
@@ -1385,7 +1654,8 @@ async def run_wave(batcher, reqs):
             raise AssertionError(f"request {r.id} ended {r.stop_reason!r}: "
                                  f"{r.error}")
         toks = [rec.token_id for rec in r.generated]
-        if not toks or not all(0 <= x < TINYLLAMA["vocab_size"] for x in toks):
+        vocab = batcher.engine.spec.vocab_size
+        if not toks or not all(0 <= x < vocab for x in toks):
             raise AssertionError(f"request {r.id}: bad tokens")
         if r.stop_reason == StopReason.MAX_TOKENS and \
                 len(toks) != r.stopping.max_new_tokens:
@@ -1461,11 +1731,11 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
 
 
 def make_engine(torch, spec, params, max_seq, overrides, slot=False,
-                fused=False, eager=False, num_pages=None):
-    """A PagedInferenceEngine with 16 slots and 128-token pages (the pool
-    is sized from the card's memory unless `num_pages` is given, so the
+                fused=False, eager=False, num_pages=None, slots=16):
+    """A PagedInferenceEngine with `slots` slots and 128-token pages (the
+    pool is sized from the card's memory unless `num_pages` is given, so the
     engines of earlier phases are collected first), or with `slot` the slot
-    engine (InferenceEngine, the server's PAGED_ATTENTION=0) with 16 slots.
+    engine (InferenceEngine, the server's PAGED_ATTENTION=0).
     `fused` builds it under INT4_FUSED_MLP=1, which the engine reads when it
     is built. Its decode dispatches replay captured CUDA graphs, or with
     `eager` run the step functions eagerly (the reference)."""
@@ -1480,7 +1750,8 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     config = ServingConfig(max_sequence_length=max_seq, max_new_tokens=256,
-                           max_batch_slots=16, kv_page_size=128, **overrides)
+                           max_batch_slots=slots, kv_page_size=128,
+                           **overrides)
     config.validate()
     kw = dict(eager_decode=eager)
     if slot:
@@ -1671,7 +1942,7 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
 
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
               traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False,
-              fused=False, prefixes=None):
+              fused=False, prefixes=None, slots=16):
     """One serving run through the Batcher (+ gRPC). With `prefixes` (a
     prefix id or None per request, wave by wave), the config's
     prefix_store_path is served as the server serves it, and an unknown
@@ -1683,7 +1954,7 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         Validation, ValidationError)
 
     engine, config = make_engine(torch, spec, params, max_seq, overrides,
-                                 slot=slot, fused=fused)
+                                 slot=slot, fused=fused, slots=slots)
     t0 = time.monotonic()
     engine.warmup(batch_sizes=(1,))
     warmup_s = time.monotonic() - t0
@@ -1698,6 +1969,18 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
 
     counted_begin.calls = 0
     engine.decode_steps_begin = counted_begin
+    # the rows of every prefill dispatch, and the run's peak of allocated
+    # device memory
+    prefill = engine.prefill
+    prefill_rows = []
+
+    def counted_prefill(slots, *args, **kw):
+        prefill_rows.append(len(slots))
+        return prefill(slots, *args, **kw)
+
+    engine.prefill = counted_prefill
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     replays0 = sum(p.replays for p in progs.programs.values())
     tokenizer = ByteTokenizer()
     waves, new = traffic
@@ -1736,6 +2019,8 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         c.reset()
     reqs, wall, ttft = asyncio.run(drive())
     counts = {k: c.read() for k, c in counters.items()}
+    counts["max_prefill_rows"] = max(prefill_rows)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
     replays = sum(p.replays for p in progs.programs.values()) - replays0
     if DEVICE == "cuda" and (
             replays != counted_begin.calls or counted_begin.calls == 0
@@ -1756,8 +2041,19 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         f"{counted_begin.calls} decode dispatches, each a graph replay "
         f"({captured[0]} programs captured at warmup in {captured[1]:.1f}s of "
         f"{warmup_s:.1f}s, graph pool {captured[2]:.1f} MiB; "
-        f"{len(progs)} programs at the end); launches {counts}")
+        f"{len(progs)} programs at the end); prefill batches of "
+        f"{prefill_rows} rows; peak allocated {peak / 2 ** 30:.2f} GiB of "
+        f"{torch.cuda.mem_get_info()[1] / 2 ** 30 if DEVICE == 'cuda' else 0:.2f}"
+        f" GiB, KV {kv_bytes(engine) / 2 ** 30:.2f} GiB of it; launches "
+        f"{counts}")
     return counts
+
+
+def kv_bytes(engine) -> int:
+    """Bytes of an engine's KV cache or page pool (scale pools and the
+    block table included)."""
+    return sum(x.numel() * x.element_size() for x in engine.cache
+               if x is not None)
 
 
 class Counter:
@@ -1886,6 +2182,22 @@ def main() -> int:
     s1 = check_slot_decode(torch, timer, s=16, kh=4, g=8, d=64)
     s1_7b = check_slot_decode(torch, timer, s=16, kh=32, g=1, d=128)
     s2 = {step: check_ring_decode(torch, timer, step) for step in (0, 32, 63)}
+    # sliding windows at run 7's shapes: flash prefill at Mistral-7B's
+    # heads (32 over 8, D 128) and window (4096) in run 7's bucket of 6144
+    # with prompts of its lengths past the window; S1 at run 7's decode
+    # widths (8 slots over 8192 rows) and contexts (RUN7_CTX). Extras: a
+    # window of 512 in a 2048 bucket, bf16 and the fp32 body.
+    fp_win = check_flash_prefill(torch, timer, d=128, kh=8, g=4,
+                                 window=4096, t=6144, lens=(6000, 4500))
+    fp_win512 = check_flash_prefill(torch, timer, d=128, kh=8, g=4,
+                                    window=512)
+    fp_win_f32 = check_flash_prefill(torch, timer, d=64, kh=4, g=8,
+                                     dtype=fp32, window=512)
+    s1_win = check_slot_decode(torch, timer, s=8, kh=8, g=4, d=128, t=8192,
+                               window=4096, ctx=RUN7_CTX)
+    # the split body at head dim 96 (gpt-neox-20b: 64 heads, no GQA)
+    pn96 = check_paged(torch, timer, stats=False, kh=64, g=1, d=96)
+    ps96 = check_paged(torch, timer, stats=True, kh=64, g=1, d=96)
     # M1 at a 7B layer's MLP: decode rows of run 6 (16 slots) and the
     # kernel's largest row tile, both activations; fp16 / fp32 x (F3)
     m1 = {(m, act): check_int4_mlp(torch, timer, m, act)
@@ -1921,6 +2233,10 @@ def main() -> int:
     for fn_name in ("decode_paged", "decode_paged_ring_step"):
         setattr(paged_core, fn_name, counting(getattr(paged_core, fn_name)))
     counters = {"flash_prefill": Counter(fp.flash_prefill),
+                "flash_prefill_windowed": Counter(fp.flash_prefill,
+                                                  "windowed"),
+                "decode_attention_windowed": Counter(da.decode_attention,
+                                                     "windowed"),
                 "paged_decode_attention": Counter(pa.paged_decode_attention),
                 "paged_decode_attention_stats":
                     Counter(pa.paged_decode_attention_partial),
@@ -1937,6 +2253,8 @@ def main() -> int:
     paged_kernels = ("paged_decode_attention", "paged_decode_attention_stats",
                      "paged_decode_attention_partial_i8")
     fp32_counts = fp32_parity(torch, counters)
+    fam_counts = family_parity(torch, counters)
+    mark("family parity")
     try:
         import grpc  # noqa: F401
         import google.protobuf  # noqa: F401
@@ -2055,8 +2373,51 @@ def main() -> int:
     mark("graphs: 7b gptq int8kv fused")
     log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
         f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
+    del params7b
 
-    runs = (run1, run2, run3, run4, run5, run6, probe_counts)
+    # run 7: Mistral-7B-v0.1 at full width and depth on the slot engine in
+    # scan mode, max_seq 8192, 8 slots; prompts past its window of 4096 cut
+    # flash prefill and S1 at the window
+    spec_m, params_m = family_model(torch, "mistral", 7)
+    run7 = serve_run(torch, spec_m, params_m, "mistral-7b-slot-scan",
+                     dict(decode_write_mode="scan",
+                          prefill_buckets=[128, 256, 512, 1024, 2048, 4096,
+                                           6144, 8192]),
+                     counters, with_grpc=with_grpc, traffic=TRAFFIC_MISTRAL,
+                     max_seq=8192, slot=True, slots=8)
+    past = [n for wave, _ in TRAFFIC_MISTRAL[0] for n in wave
+            if n > spec_m.sliding_window]
+    for key in ("flash_prefill", "flash_prefill_windowed", "decode_attention",
+                "decode_attention_windowed"):
+        if run7[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 7: {run7}")
+    if any(run7[key] for key in paged_kernels):
+        raise AssertionError(f"a paged kernel ran on the slot engine: {run7}")
+    log(f"run 7: {len(past)} prompts past the window of "
+        f"{spec_m.sliding_window} ({past}); flash prefill cut at the window "
+        f"{run7['flash_prefill_windowed']} of {run7['flash_prefill']} "
+        f"launches, S1 with lower bounds {run7['decode_attention_windowed']}"
+        f" of {run7['decode_attention']}")
+    mark("serving run 7")
+    # run 8: Gemma-7B at full width and depth on the default paged engine,
+    # max_seq 2048 (D = 256: the wgmma flash kernel's 64-key tiles and the
+    # split body at 256 on a served path), the default prefill batch of 8
+    # (its last wave one batch of 8 rows at the bucket of 2048)
+    del params_m
+    spec_g, params_g = family_model(torch, "gemma", 8)
+    run8 = serve_run(torch, spec_g, params_g, "gemma-7b-paged",
+                     dict(paged_gather_ctx_max=0), counters,
+                     with_grpc=with_grpc, traffic=TRAFFIC_GEMMA)
+    for key in ("flash_prefill", "paged_decode_attention",
+                "paged_decode_attention_stats"):
+        if run8[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 8: {run8}")
+    if run8["max_prefill_rows"] != 8:
+        raise AssertionError(f"run 8 never prefilled a batch of 8: {run8}")
+    del params_g
+    mark("serving run 8")
+
+    runs = (run1, run2, run3, run4, run5, run6, run7, run8, probe_counts)
 
     def record(name, source, replaces, res, shapes):
         out = {"name": name, "route": "cuda",
@@ -2111,6 +2472,33 @@ def main() -> int:
                     "fp32, N=2, T=2048, lengths 1500/900, H=32, KV=4, D=64"),
              name="flash_prefill_f32",
              launches=fp32_counts["flash_prefill"]),
+        # the wgmma body at D = 256: run 8's prefills (Gemma-7B)
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp256,
+                    "bf16, N=2, T=2048, lengths 1500/900, H=16, KV=16, "
+                    "D=256 (gemma-7b)"),
+             name="flash_prefill_d256", launches=run8["flash_prefill"]),
+        # the window: run 7's prefills past Mistral's window, its decode
+        # steps (S1 with lower bounds)
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp_win,
+                    "bf16, N=2, T=6144, lengths 6000/4500, H=32, KV=8, D=128, "
+                    "window 4096, q x 4 (Mistral-7B, run 7's bucket)"),
+             name="flash_prefill_window",
+             launches=run7["flash_prefill_windowed"]),
+        dict(record("decode_attention", "slot_attention.cu",
+                    "decode_attention.py:142", s1_win,
+                    "bf16, S=8, KV=8, G=4, D=128, T=8192, window 4096, ctx "
+                    "RUN7_CTX (lower bounds 0-4096, six slots cut)"),
+             name="decode_attention_window",
+             launches=run7["decode_attention_windowed"]),
+        # the split body at D = 96: gpt-neox-20b's decode steps in the
+        # family parity phase
+        dict(record("paged_decode_attention", "paged_attention.cu",
+                    "paged_attention.py:261", pn96,
+                    "bf16, S=16, KV=64, G=1, D=96, page 128, ctx up to 2048"),
+             name="paged_decode_attention_d96",
+             launches=fam_counts["gpt_neox"]["paged_decode_attention"]),
     ]
     for (m, act), res in m1.items():
         log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
@@ -2135,9 +2523,15 @@ def main() -> int:
         f"{json.dumps(pi8_64)}")
     for step in (0, 63):
         log(f"ring_decode_attention at step {step}: {json.dumps(s2[step])}")
+    log(f"flash_prefill window 512 (T=2048, H=32, KV=8, D=128): "
+        f"{json.dumps(fp_win512)}")
+    log(f"flash_prefill fp32 window 512: {json.dumps(fp_win_f32)}")
+    log(f"paged_decode_attention_stats at D=96: {json.dumps(ps96)}")
     log("launches: decode_attention in the serving runs, "
         "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6, "
-        "flash_prefill_f32 in the fp32 parity phase")
+        "flash_prefill_f32 in the fp32 parity phase, flash_prefill_d256 in "
+        "run 8, flash_prefill_window and decode_attention_window in run 7, "
+        "paged_decode_attention_d96 in the family parity phase (gpt_neox)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

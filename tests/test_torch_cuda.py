@@ -850,14 +850,16 @@ def _dtype_case(rng, shape, dtype, device):
 
 
 # (head dim, group, dtype): the head dims the split body is built for
-# beyond 64 / 128, groups past one block of 16 query heads, and fp16
+# beyond 64 / 128 (96: gpt-neox-20b), groups past one block of 16 query
+# heads, and fp16
 SHAPE_CASES = [(16, 4, torch.bfloat16), (80, 1, torch.bfloat16),
                (80, 16, torch.float16), (256, 8, torch.bfloat16),
                (64, 20, torch.bfloat16), (128, 16, torch.float16),
                (64, 8, torch.float16), (192, 8, torch.bfloat16),
                (192, 16, torch.float16), (64, 8, torch.float32),
                (128, 1, torch.float32), (192, 20, torch.float32),
-               (16, 4, torch.float32)]
+               (16, 4, torch.float32), (96, 1, torch.bfloat16),
+               (96, 4, torch.float16), (96, 1, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -1234,3 +1236,93 @@ def test_reset_after_a_device_error_recaptures(cuda_device, monkeypatch):
     decode_replay.lockstep(engine, graph_engine(case, cuda_device,
                                                 monkeypatch, eager=True),
                            vocab=512)
+
+
+# --- sliding windows: flash prefill and S1 ----------------------------------
+
+
+# (head dim, group, dtype): both flash bodies at every head dim they are
+# built for, falcon-7b's 71 query heads on one kv head
+WINDOW_FLASH_CASES = [(64, 4, torch.bfloat16), (128, 1, torch.bfloat16),
+                      (128, 4, torch.float16), (192, 8, torch.bfloat16),
+                      (256, 1, torch.bfloat16), (256, 2, torch.float16),
+                      (64, 71, torch.bfloat16), (64, 4, torch.float32),
+                      (128, 2, torch.float32), (192, 1, torch.float32),
+                      (256, 4, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 37, 128, 1000])
+@pytest.mark.parametrize("d,g,dtype", WINDOW_FLASH_CASES)
+def test_flash_prefill_window(cuda_device, d, g, dtype, window):
+    """Flash prefill with a sliding window against its plain version (and
+    the fp32 kernel against its 3xTF32 twin at 1e-5): windows of one key,
+    one that starts inside a key tile, one a tile long, one past the
+    bucket; lengths on and off the tile edges, a length-0 row; NaN past
+    the lengths and in the keys below every row's window are never read
+    into the output (the padded rows, which keep the causal mask, read
+    only live keys)."""
+    rng = np.random.default_rng(1300 + d + g + window)
+    n, t, kh = 4, 300, 2 if g < 64 else 1
+    q = bf16(rng, n, t, kh, g, d, device=cuda_device).to(dtype)
+    k = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    v = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    lengths = torch.tensor([300, 0, 129, 64], dtype=torch.int32,
+                           device=cuda_device)
+    want = fp.flash_prefill_reference(q, k, v, lengths, window)
+    twin = (fp.flash_prefill_tf32x3_reference(q, k, v, lengths, window)
+            if dtype == torch.float32 else None)
+    for i, ln in enumerate(lengths.tolist()):
+        k[i, ln:] = float("nan")
+        v[i, ln:] = float("nan")
+    before = fp.flash_prefill.launches
+    got = fp.flash_prefill(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert fp.flash_prefill.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.all(got[1] == 0)
+    close(got, want, 1e-4 if dtype == torch.float32 else 2e-2)
+    if twin is not None:
+        close(got, twin, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [1, 100, 300, 5000])
+@pytest.mark.parametrize("d,g,dtype", [(64, 8, torch.bfloat16),
+                                       (128, 4, torch.float16),
+                                       (96, 1, torch.bfloat16),
+                                       (128, 1, torch.float32)])
+def test_slot_decode_window(cuda_device, d, g, dtype, window):
+    """S1 with the lower bound lo = ctx - W against its plain version and
+    its split twin over a narrowed 2048-row slot cache: bounds inside a
+    64-key tile and a 256-row split, on a split edge, at 0 (ctx <= W); NaN
+    below every bound and past every context is never read."""
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(1400 + d + g + window)
+    s, kh, t = 7, 2, 2048
+    ctx = np.asarray([0, 1, 257, 300, 1000, 1537, t], np.int32)
+    lo = np.maximum(ctx - window, 0).astype(np.int32)
+    big = _dtype_case(rng, (2, s, kh, t + 64, d), dtype, cuda_device)
+    for i in range(s):
+        big[:, i, :, :lo[i]] = float("nan")
+        big[:, i, :, ctx[i]:] = float("nan")
+    k, v = big[0].narrow(2, 0, t), big[1].narrow(2, 0, t)
+    q = _dtype_case(rng, (s, kh, g, d), dtype, cuda_device)
+    ctx_t = torch.from_numpy(ctx).to(cuda_device)
+    lo_t = torch.from_numpy(lo).to(cuda_device)
+    kz, vz = torch.nan_to_num(k), torch.nan_to_num(v)
+    before = da.decode_attention.launches
+    got = da.decode_attention(q, k, v, ctx_t, lo_t)
+    torch.cuda.synchronize()
+    assert da.decode_attention.launches == before + 1
+    assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    close(got, da.decode_attention_reference(q, kz, vz, ctx_t, lo_t), tol)
+    close(got, da.decode_attention_split_reference(q, kz, vz, ctx_t,
+                                                   lo=lo_t), tol)
+    # a slot alone and in a batch: bit-identical
+    idx = torch.tensor([4, 2, 4, 6], device=cuda_device)
+    batch = da.decode_attention(q[idx].contiguous(), k[idx], v[idx],
+                                ctx_t[idx].contiguous(), lo_t[idx].contiguous())
+    assert torch.equal(batch[0], got[4]) and torch.equal(batch[2], got[4])

@@ -9,7 +9,7 @@ package: it keeps its own copies of the host-side modules.
   server/     gRPC + HTTP front-end, request validation
   scheduler/  continuous-batching queue and batcher loop
   engine/     paged inference engine, paged KV pool, sampling
-  models/     the Llama decoder (`core.py`, `paged_core.py`), loader
+  models/     the RoPE decoders (`core.py`, `paged_core.py`), loader
   ops/        attention dispatch, linear layers, CUDA kernel wrappers
   csrc/       hand-written CUDA C++ kernels for sm_90a
   utils/      detokenizer, tokenizer, metrics, tracing, weights loader

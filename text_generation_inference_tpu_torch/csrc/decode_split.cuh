@@ -15,13 +15,16 @@
 //                        outside [0, num_pages) (the sentinel) is skipped
 //               !kPaged: the slot cache [S, KH, T, D] with any strides over
 //                        S, KH and T and a contiguous head dim; rows >= ctx
-//                        are never read
+//                        are never read, nor rows below lo[s] when the
+//                        caller gives per-slot lower bounds (S1 under a
+//                        sliding window: lo = ctx - W)
 //   element     T:       q, and the rows when not int8: bf16 or fp16
 //               kInt8:   int8 rows with one f32 dequant factor per (kv head,
 //                        pool row) in k_scale / v_scale [KH, R] (paged only)
 //   shapes               any head dim D that is a multiple of 16 and is
-//                        instantiated by `dispatch` (16, 64, 80, 128, 256:
-//                        the JAX package's families and the test fixtures);
+//                        instantiated by `dispatch` (16, 64, 80, 96, 128,
+//                        192, 256: the JAX package's families and the test
+//                        fixtures);
 //                        any group G: the grid takes the query heads of
 //                        a kv head 16 at a time (the 16 rows of the mma's A)
 //
@@ -47,7 +50,9 @@
 //     the page size alone) or `rows_per_split` cache rows (from T alone), so
 //     split boundaries sit at fixed positions and a slot's result never
 //     depends on S or on the other slots (bit-identical whatever the batch).
-//     A split past the slot's live keys exits at once.
+//     A split past the slot's live keys exits at once. With lower bounds,
+//     a slot's splits are numbered from the one that holds row lo[s], whose
+//     first tile starts at lo[s]: the rows below it are never read.
 //   - A paged block reads its split's block-table entries into shared memory
 //     first, then every block keeps tiles of 64 keys in flight in a ring of
 //     kStages stages: 16-byte cp.async copies of raw rows (T rows padded to
@@ -112,6 +117,7 @@ struct Args {
   const float* v_scale;          // int8: [KH, R]
   const int32_t* block_table;    // paged: [S, max_pages]
   const int32_t* ctx;            // [S] live keys
+  const int32_t* lo;             // slot: [S] first live row, or null for 0
   void* out;                     // T [S, KH, G, D], or f32 acc (stats)
   float* m_out;                  // stats: [S, KH, G]
   float* l_out;                  // stats: [S, KH, G]
@@ -425,10 +431,14 @@ __device__ __forceinline__ bool split_range(const Args& a, int D, int elem,
     __syncthreads();
   } else {
     const int ctx = min(max(a.ctx[s], 0), a.T);
-    n_splits = max(1, (ctx + a.rows_per_split - 1) / a.rows_per_split);
+    const int lo = a.lo != nullptr ? min(max(a.lo[s], 0), ctx) : 0;
+    const int first = lo / a.rows_per_split;     // the split that holds lo
+    n_splits =
+        max(1, (ctx + a.rows_per_split - 1) / a.rows_per_split - first);
     if (split >= n_splits) return false;
-    p0 = split * a.rows_per_split;
+    p0 = (first + split) * a.rows_per_split;
     p1 = min(p0 + a.rows_per_split, ctx);
+    p0 = max(p0, lo);
     const size_t head = ((size_t)s * a.st_s + (size_t)kh * a.st_k) * elem;
     kbase = static_cast<const unsigned char*>(a.k) + head;
     vbase = static_cast<const unsigned char*>(a.v) + head;
@@ -922,6 +932,7 @@ cudaError_t launch_d(const Args& a, int S, int D, int splits,
     case 16: return launch<T, 16, kPaged, kInt8, M>(a, S, splits, st);
     case 64: return launch<T, 64, kPaged, kInt8, M>(a, S, splits, st);
     case 80: return launch<T, 80, kPaged, kInt8, M>(a, S, splits, st);
+    case 96: return launch<T, 96, kPaged, kInt8, M>(a, S, splits, st);
     case 128: return launch<T, 128, kPaged, kInt8, M>(a, S, splits, st);
     case 192: return launch<T, 192, kPaged, kInt8, M>(a, S, splits, st);
     case 256: return launch<T, 256, kPaged, kInt8, M>(a, S, splits, st);
@@ -934,7 +945,7 @@ cudaError_t launch_d(const Args& a, int S, int D, int splits,
 enum DType { kBf16 = 0, kFp16 = 1, kFp32 = 2 };
 
 // Checks what every entry shares and launches at the head dim D (16, 64, 80,
-// 128, 192 or 256 for bf16 / fp16; any multiple of 16 up to 256 for fp32)
+// 96, 128, 192 or 256 for bf16 / fp16; any multiple of 16 up to 256 for fp32)
 // with q (and rows that are not int8) of element type `dtype`.
 template <bool kPaged, bool kInt8, Mode M>
 int dispatch(const Args& a, int S, int D, int dtype, int splits, void* stream) {

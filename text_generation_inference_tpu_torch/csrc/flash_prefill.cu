@@ -11,9 +11,12 @@
 //
 // Computes, per (sequence n, kv head kh, query head g of the kv group):
 //   out[n, i, kh, g] = softmax_j(q[n, i, kh, g] . k[n, j, kh] * scale) v[n, j, kh]
-// over keys j <= i and j < lengths[n]. Padded query rows (i >= lengths[n])
-// still attend over every live key; rows of a sequence with lengths[n] == 0
-// give 0; value rows at or past the length are zeroed before the product
+// over keys j <= i and j < lengths[n], and with a sliding window W > 0 (the
+// entry's `window`; 0 is none) only over keys j > i - W for the real query
+// rows (i < lengths[n]), as the JAX model's mask (models/core.py prefill; the
+// Pallas kernel takes no window). Padded query rows (i >= lengths[n]) still
+// attend over every live key (causally); rows of a sequence with lengths[n]
+// == 0 give 0; value rows at or past the length are zeroed before the product
 // (as the Pallas kernel does at flash_prefill.py:79-83: the padding may hold
 // NaN, and P = 0 does not cancel it).
 //
@@ -55,10 +58,12 @@
 //     barriers) to start their products, so one warpgroup's softmax runs
 //     while the other's products hold the tensor cores.
 //   - Masks only where needed. A block walks key tiles up to its causal and
-//     length limit; a warpgroup masks a tile only when the tile crosses its
-//     diagonal or the length, releases unread the tiles that lie wholly
-//     above its diagonal, and on the length-edge tile zeroes the dead V
-//     rows in shared memory before its value product.
+//     length limit, from the tile of its first visible key (`window_floor`:
+//     0 without a window); a warpgroup masks a tile only when the tile
+//     crosses its diagonal, the length or its window's lower edge, releases
+//     unread the tiles that lie wholly above its diagonal or wholly below
+//     its window, and on the length-edge tile zeroes the dead V rows in
+//     shared memory before its value product.
 //   - Softmax. Online, in fp32: the row max on the raw scores, then one
 //     FFMA and one ex2.approx a score with the scale folded in; row max and
 //     sum reduced within the quad; the output is written once in T.
@@ -68,6 +73,7 @@
 // persistent grid would overlap it with the previous tile's epilogue; the
 // output leaves through 4-byte stores rather than a TMA store.
 
+#include <limits.h>
 #include <math.h>
 
 #include "hopper.cuh"
@@ -95,6 +101,21 @@ struct Config {
   // 225 KB at D = 128, 193 KB at D = 192 and 256
   static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
 };
+
+// The first key any row of tokens first_tok..last_tok sees: 0 without a
+// window or when a row lies past the length (a padded row's mask has no lower
+// edge), else first_tok - window + 1.
+__device__ __forceinline__ int window_floor(int first_tok, int last_tok,
+                                            int len, int window) {
+  return window > 0 && last_tok < len ? max(0, first_tok - window + 1) : 0;
+}
+
+// The largest first visible key among the real rows of tokens up to
+// last_tok: a key tile that starts below it crosses some row's window edge.
+// INT_MIN without a window.
+__device__ __forceinline__ int window_edge(int last_tok, int len, int window) {
+  return window > 0 ? min(last_tok, len - 1) - window + 1 : INT_MIN;
+}
 
 // MN-major operand (V): the 64-column blocks `box` bytes apart, 8-key groups
 // 1024 bytes apart
@@ -128,7 +149,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_v,
                      const int32_t* __restrict__ lengths,   // [N]
                      T* __restrict__ out,                   // [N, T, KH, G, D]
-                     int T_len, int KH, int G, float scale_log2) {
+                     int T_len, int KH, int G, int window, float scale_log2) {
   using C = Config<D>;
   constexpr int kBlockN = C::kBlockN;
   extern __shared__ unsigned char smem_raw[];
@@ -152,6 +173,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   // -1 when len == 0: no key tile
   const int last_tile =
       min(tok_last / kBlockN, (len + kBlockN - 1) / kBlockN - 1);
+  // the block's first key tile: the lower of its warpgroups' (the last
+  // token of warpgroup 1 is the block's last)
+  const int first_tile =
+      window_floor(tok0, tok0 + tpb - 1, len, window) / kBlockN;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -177,9 +202,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int cb = 0; cb < C::kCols; ++cb)
         tma_load_5d(qs + cb * kQBox, &tm_q, &q_bar, cb * 64, 0, kh, tok0,
                     n);
-      for (int kt = 0; kt <= last_tile; ++kt) {
-        const int st = kt % C::kStages;
-        const int use = kt / C::kStages;
+      for (int kt = first_tile; kt <= last_tile; ++kt) {
+        const int st = (kt - first_tile) % C::kStages;
+        const int use = (kt - first_tile) / C::kStages;
         if (use > 0) mbar_wait(&empty_bar[st], (use - 1) & 1);
         mbar_expect_tx(&full_bar[st], 2 * C::kTileBytes);
 #pragma unroll
@@ -203,9 +228,15 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int r_wg = wg * 64;                     // first row of the warpgroup
     const int wg_first_tok = tok0 + r_wg / G;
     const int wg_last_tok = tok0 + min(r_wg + 63, rows - 1) / G;
-    // the last tile this warpgroup computes: later ones lie wholly above
-    // its diagonal
+    // the tiles this warpgroup computes: later ones lie wholly above its
+    // diagonal, earlier ones wholly below its window
     const int my_last = min(last_tile, wg_last_tok / kBlockN);
+    const int my_first =
+        window_floor(wg_first_tok, wg_last_tok, len, window) / kBlockN;
+    const int edge = window_edge(wg_last_tok, len, window);
+    // the ring stage and the phase of tile kt's use of it
+    auto stage = [&](int kt) { return (kt - first_tile) % C::kStages; };
+    auto phase = [&](int kt) { return ((kt - first_tile) / C::kStages) & 1; };
     int row[2], tok[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -226,9 +257,9 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Tile kt: wait for its stage, zero its dead V rows on the length-edge
     // tile, start S_kt = Q K_kt^T (uncommitted groups stay in flight).
     auto start_scores = [&](int kt) {
-      const int st = kt % C::kStages;
+      const int st = stage(kt);
       const int key0 = kt * kBlockN;
-      mbar_wait(&full_bar[st], (kt / C::kStages) & 1);
+      mbar_wait(&full_bar[st], phase(kt));
       if (key0 + kBlockN > len) {
         // 16 bytes a store; the swizzle only permutes chunks within a row
         unsigned char* v_tile = vs + st * C::kTileBytes;
@@ -258,8 +289,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
     // O += P_kt V_kt from the P registers (left in flight)
     auto start_values = [&](int kt) {
-      const uint32_t v_addr =
-          smem_u32(vs + (kt % C::kStages) * C::kTileBytes);
+      const uint32_t v_addr = smem_u32(vs + stage(kt) * C::kTileBytes);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
@@ -268,15 +298,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_commit();
       fence_regs(o);
     };
-    // online softmax of tile kt's scores: masks only across the diagonal or
-    // the length; returns the rescale factors of O and leaves P in s
+    // online softmax of tile kt's scores: masks only across the diagonal,
+    // the length or the window's lower edge; returns the rescale factors of
+    // O and leaves P in s
     auto softmax = [&](int kt, float (&alpha)[2]) {
       const int key0 = kt * kBlockN;
-      if (key0 + kBlockN > min(wg_first_tok + 1, len)) {
+      if (key0 + kBlockN > min(wg_first_tok + 1, len) || key0 < edge) {
 #pragma unroll
         for (int i = 0; i < kBlockN / 2; ++i) {
           const int key = key0 + (i / 4) * 8 + quad * 2 + (i % 2);
-          if (key > tok[(i / 2) % 2] || key >= len) s[i] = -INFINITY;
+          const int tk = tok[(i / 2) % 2];
+          if (key > tk || key >= len || (window > 0 && tk < len && key <= tk - window))
+            s[i] = -INFINITY;
         }
       }
       float tmax[2] = {-INFINITY, -INFINITY};
@@ -312,11 +345,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // Ping-pong: the two warpgroups take turns to start their products
     // (named barriers 3 and 4), so one warpgroup's softmax runs while the
-    // other's products hold the tensor cores. Both run last_tile + 2 turns
-    // (tile 0's S; S_kt with P_{kt-1} V_{kt-1}; the last value product; one
-    // empty turn a tile wholly above the diagonal), so every wait is met;
-    // warpgroup 1 lets warpgroup 0 go first and skips its very last signal.
-    const int turns = last_tile + 2;
+    // other's products hold the tensor cores. Both run last_tile -
+    // first_tile + 2 turns (one empty turn a tile wholly below the window;
+    // the first tile's S; S_kt with P_{kt-1} V_{kt-1}; the last value
+    // product; one empty turn a tile wholly above the diagonal), so every
+    // wait is met; warpgroup 1 lets warpgroup 0 go first and skips its very
+    // last signal.
+    const int turns = last_tile - first_tile + 2;
     int turn = 0;
     auto take_turn = [&]() {
       asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
@@ -328,20 +363,27 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (wg == 1 && last_tile >= 0)
       asm volatile("bar.arrive 3, 256;\n" ::: "memory");
 
-    // Tile 0 alone; then each tile starts S_kt together with the value
-    // product of tile kt - 1, and its softmax runs while that product is
-    // in flight.
+    for (int kt = first_tile; kt < my_first; ++kt) {
+      // wholly below this warpgroup's window: release the stage unread
+      take_turn();
+      pass_turn();
+      mbar_wait(&full_bar[stage(kt)], phase(kt));
+      if (lane == 0) mbar_arrive(&empty_bar[stage(kt)]);
+    }
+    // The first tile alone; then each tile starts S_kt together with the
+    // value product of tile kt - 1, and its softmax runs while that product
+    // is in flight.
     if (my_last >= 0) {
       float alpha[2];
       take_turn();
-      start_scores(0);
+      start_scores(my_first);
       pass_turn();
       wgmma_wait<0>();
       fence_regs(s);
-      softmax(0, alpha);
+      softmax(my_first, alpha);
       pack_p();
     }
-    for (int kt = 1; kt <= my_last; ++kt) {
+    for (int kt = my_first + 1; kt <= my_last; ++kt) {
       float alpha[2];
       take_turn();
       start_scores(kt);
@@ -352,7 +394,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       softmax(kt, alpha);
       wgmma_wait<0>();                            // P_{kt-1} V_{kt-1} is in O
       fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty_bar[(kt - 1) % C::kStages]);
+      if (lane == 0) mbar_arrive(&empty_bar[stage(kt - 1)]);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
       pack_p();
@@ -363,15 +405,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       pass_turn();
       wgmma_wait<0>();
       fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty_bar[my_last % C::kStages]);
+      if (lane == 0) mbar_arrive(&empty_bar[stage(my_last)]);
     }
     for (int kt = my_last + 1; kt <= last_tile; ++kt) {
       // wholly above this warpgroup's diagonal: release the stage unread
       take_turn();
       pass_turn();
-      const int st = kt % C::kStages;
-      mbar_wait(&full_bar[st], (kt / C::kStages) & 1);
-      if (lane == 0) mbar_arrive(&empty_bar[st]);
+      mbar_wait(&full_bar[stage(kt)], phase(kt));
+      if (lane == 0) mbar_arrive(&empty_bar[stage(kt)]);
     }
 
     // full row sums across the quad, normalize, store pairs of T
@@ -419,7 +460,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int32_t* lengths, void* out, int N, int T_len, int KH,
-                   int G, float scale, cudaStream_t stream) {
+                   int G, int window, float scale, cudaStream_t stream) {
   using C = Config<D>;
   const int tpb = kBlockM / G;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -449,7 +490,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const dim3 grid((T_len + tpb - 1) / tpb, KH, N);
   flash_prefill_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, lengths, static_cast<T*>(out), T_len, KH, G,
+      tm_q, tm_k, tm_v, lengths, static_cast<T*>(out), T_len, KH, G, window,
       scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
@@ -480,9 +521,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 //     stages; keys at or past the length are zero-filled (the padding may
 //     hold NaN), so the length-edge tile's dead value rows are 0.
 //   - The online softmax in exp2 units as the wgmma kernel's; masks only on
-//     the tiles that cross a warp's diagonal or the length; a warp skips the
-//     tiles wholly above its diagonal; the longest row tiles start first;
-//     lengths[n] == 0 gives 0.
+//     the tiles that cross a warp's diagonal, the length or its window's
+//     lower edge; a block loads from the tile of its first visible key, and
+//     a warp skips the tiles wholly above its diagonal or wholly below its
+//     window; the longest row tiles start first; lengths[n] == 0 gives 0.
 // Bound by its tensor-core products (three a product) and the splits.
 template <int D>
 struct F32Config {
@@ -559,7 +601,8 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
                          const float* __restrict__ v,
                          const int32_t* __restrict__ lengths,
                          float* __restrict__ out,       // [N, T, KH, G, D]
-                         int T_len, int KH, int G, float scale_log2) {
+                         int T_len, int KH, int G, int window,
+                         float scale_log2) {
   using C = F32Config<D>;
   constexpr int kKeys = C::kKeys;
   extern __shared__ __align__(16) float smf[];
@@ -576,6 +619,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
   const int tok_last = (min(r0 + C::kRows, rows_total) - 1) / G;
   // -1 when len == 0: no key tile
   const int last_tile = min(tok_last / kKeys, (len + kKeys - 1) / kKeys - 1);
+  const int first_tile = window_floor(r0 / G, tok_last, len, window) / kKeys;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -604,18 +648,19 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
                   ok ? 16 : 0);
     }
   };
-  if (last_tile >= 0) load_kv(0, 0);
+  if (last_tile >= 0) load_kv(first_tile, first_tile % 2);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
   // this warp's rows: g and g + 8 of the 16 from wr
   const int wr = r0 + warp * 16;
   const int tok[2] = {(wr + g) / G, (wr + g + 8) / G};
   const int w_first_tok = wr / G;
-  // the last tile this warp computes: later ones lie wholly above its
-  // diagonal (-1 for a warp past the rows)
-  const int my_last =
-      wr < rows_total ? min(last_tile, (min(wr + 15, rows_total - 1) / G) / kKeys)
-                      : -1;
+  const int w_last_tok = min(wr + 15, rows_total - 1) / G;
+  // the tiles this warp computes: later ones lie wholly above its diagonal
+  // (-1 for a warp past the rows), earlier ones wholly below its window
+  const int my_last = wr < rows_total ? min(last_tile, w_last_tok / kKeys) : -1;
+  const int my_first = window_floor(w_first_tok, w_last_tok, len, window) / kKeys;
+  const int edge = window_edge(w_last_tok, len, window);
   const float* q_a = qs + (warp * 16 + g) * C::kLdK + 2 * qd;
 
   float o[D / 8][4];
@@ -624,12 +669,12 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
   float m[2] = {-INFINITY, -INFINITY};      // row max, scaled log2 units
   float l[2] = {0.f, 0.f};                  // this lane's partial sums
 
-  for (int kt = 0; kt <= last_tile; ++kt) {
+  for (int kt = first_tile; kt <= last_tile; ++kt) {
     if (kt < last_tile) load_kv(kt + 1, (kt + 1) % 2);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();                        // tile kt (and Q) landed
-    if (kt <= my_last) {
+    if (kt >= my_first && kt <= my_last) {
       const float* kt_s = ks + (kt % 2) * kKeys * C::kLdK;
       const float* vt_s = vs + (kt % 2) * kKeys * C::kLdV;
       // S = Q K^T
@@ -656,15 +701,18 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
         }
         mma_3xtf32<kKeys / 8>(s, ah, al, kb);
       }
-      // masks only on a tile that crosses this warp's diagonal or the length
+      // masks only on a tile that crosses this warp's diagonal, the length
+      // or its window's lower edge
       const int key0 = kt * kKeys;
-      if (key0 + kKeys > min(w_first_tok + 1, len)) {
+      if (key0 + kKeys > min(w_first_tok + 1, len) || key0 < edge) {
 #pragma unroll
         for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int key = key0 + 8 * j + 2 * qd + (e & 1);
-            if (key > tok[e / 2] || key >= len) s[j][e] = -INFINITY;
+            const int tk = tok[e / 2];
+            if (key > tk || key >= len || (window > 0 && tk < len && key <= tk - window))
+              s[j][e] = -INFINITY;
           }
       }
       // online softmax in exp2 units; row h is accumulators 2h, 2h + 1
@@ -745,7 +793,8 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
 template <int D>
 cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
                          const int32_t* lengths, void* out, int N, int T_len,
-                         int KH, int G, float scale, cudaStream_t stream) {
+                         int KH, int G, int window, float scale,
+                         cudaStream_t stream) {
   using C = F32Config<D>;
   static bool attr_set[64] = {};
   int dev = 0;
@@ -764,18 +813,21 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
   flash_prefill_f32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), lengths, static_cast<float*>(out), T_len,
-      KH, G, scale * 1.4426950408889634f);
+      KH, G, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        const int32_t* lengths, void* out, int N, int T_len,
-                       int KH, int G, int D, float scale, cudaStream_t stream) {
+                       int KH, int G, int D, int window, float scale,
+                       cudaStream_t stream) {
+#define TGI_FLASH_F32(DV)                                                      \
+    case DV:                                                                 \
+      return launch_f32_d<DV>(q, k, v, lengths, out, N, T_len, KH, G, window, \
+                              scale, stream);
   switch (D) {
-    case 64: return launch_f32_d<64>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
-    case 128: return launch_f32_d<128>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
-    case 192: return launch_f32_d<192>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
-    case 256: return launch_f32_d<256>(q, k, v, lengths, out, N, T_len, KH, G, scale, stream);
+    TGI_FLASH_F32(64) TGI_FLASH_F32(128) TGI_FLASH_F32(192) TGI_FLASH_F32(256)
+#undef TGI_FLASH_F32
     default: return cudaErrorInvalidValue;
   }
 }
@@ -783,29 +835,30 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the 3xTF32
-// mma.sync kernel); D 64, 128, 192 or 256
+// mma.sync kernel); D 64, 128, 192 or 256; window: the sliding window in
+// keys, 0 for none
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
                                  const int32_t* lengths, void* out, int N,
-                                 int T, int KH, int G, int D, int dtype,
-                                 float scale, void* stream) {
+                                 int T, int KH, int G, int D, int window,
+                                 int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte aligned bases; a block holds at least one token
   if (N <= 0 || T <= 0 || KH <= 0 || G <= 0 || G > kBlockM || KH > 65535 ||
-      N > 65535 ||
+      N > 65535 || window < 0 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
 #define TGI_FLASH_D(TY)                                                        \
   switch (D) {                                                                 \
-    case 64: return (int)launch<TY, 64>(q, k, v, lengths, out, N, T, KH, G, scale, s);   \
-    case 128: return (int)launch<TY, 128>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
-    case 192: return (int)launch<TY, 192>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
-    case 256: return (int)launch<TY, 256>(q, k, v, lengths, out, N, T, KH, G, scale, s); \
+    case 64: return (int)launch<TY, 64>(q, k, v, lengths, out, N, T, KH, G, window, scale, s);   \
+    case 128: return (int)launch<TY, 128>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
+    case 192: return (int)launch<TY, 192>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
+    case 256: return (int)launch<TY, 256>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
     default: return (int)cudaErrorInvalidValue;                                \
   }
   switch (dtype) {
     case 0: TGI_FLASH_D(__nv_bfloat16)
     case 1: TGI_FLASH_D(__half)
-    case 2: return (int)launch_f32(q, k, v, lengths, out, N, T, KH, G, D, scale, s);
+    case 2: return (int)launch_f32(q, k, v, lengths, out, N, T, KH, G, D, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TGI_FLASH_D

@@ -1,7 +1,10 @@
 // One-query decode attention over the slot KV cache, for sm_90a. Two entry
 // points:
 //   tgi_slot_decode  S1: out[s, kh, g] = softmax(q . k) v over cache rows
-//                    < ctx[s]; the split body of csrc/decode_split.cuh (its
+//                    in [lo[s], ctx[s]) (lo null: from row 0; a sliding
+//                    window W gives lo = ctx - W, as the JAX model's decode
+//                    mask; the Pallas kernel takes no window); the split
+//                    body of csrc/decode_split.cuh (its
 //                    design, the shapes it takes and what bounds it are
 //                    written there) with the slot cache as its row source:
 //                    fixed 256-row splits of T, cp.async stages, mma.sync,
@@ -186,15 +189,16 @@ cudaError_t launch_merge_d(const decode_split::Args& a, int S, int D,
     case DV:                                                                \
       return launch_merge<T, DV>(a, S, D, kbuf, vbuf, k_new, v_new, splits, \
                                  C, step, st);
-    TGI_RING_CASE(16) TGI_RING_CASE(64) TGI_RING_CASE(80) TGI_RING_CASE(128)
-    TGI_RING_CASE(192) TGI_RING_CASE(256)
+    TGI_RING_CASE(16) TGI_RING_CASE(64) TGI_RING_CASE(80) TGI_RING_CASE(96)
+    TGI_RING_CASE(128) TGI_RING_CASE(192) TGI_RING_CASE(256)
 #undef TGI_RING_CASE
     default: return cudaErrorInvalidValue;
   }
 }
 
 bool slot_args(decode_split::Args& a, const void* q, const void* k,
-               const void* v, const int32_t* ctx, void* out, float* part,
+               const void* v, const int32_t* ctx, const int32_t* lo,
+               void* out, float* part,
                unsigned int* arrivals, int KH, int G, int T, long long st_s,
                long long st_k, long long st_t, int rows_per_split, int splits,
                float scale) {
@@ -207,6 +211,7 @@ bool slot_args(decode_split::Args& a, const void* q, const void* k,
   a.k = k;
   a.v = v;
   a.ctx = ctx;
+  a.lo = lo;
   a.out = out;
   a.part = part;
   a.arrivals = arrivals;
@@ -223,20 +228,23 @@ bool slot_args(decode_split::Args& a, const void* q, const void* k,
 
 }  // namespace
 
-// S1: the split body of csrc/decode_split.cuh over the slot cache. part:
+// S1: the split body of csrc/decode_split.cuh over the slot cache. lo:
+// [S] int32 first live row of each slot, or null for 0 (a row below it is
+// never read; the splits are numbered from the one that holds it). part:
 // [S, KH * chunks, splits, min(G, 16), D + 2] f32 scratch, chunks =
 // ceil(G / 16); arrivals: [S * KH * chunks] uint32, all zero (the kernel
 // leaves them zero); both may be null when splits == 1. Strides are in
 // elements.
 extern "C" int tgi_slot_decode(const void* q, const void* k, const void* v,
-                               const int32_t* ctx, void* out, float* part,
+                               const int32_t* ctx, const int32_t* lo,
+                               void* out, float* part,
                                unsigned int* arrivals, int S, int KH, int G,
                                int D, int T, long long st_s, long long st_k,
                                long long st_t, int rows_per_split, int splits,
                                int dtype, float scale, void* stream) {
   decode_split::Args a;
-  if (!slot_args(a, q, k, v, ctx, out, part, arrivals, KH, G, T, st_s, st_k,
-                 st_t, rows_per_split, splits, scale))
+  if (!slot_args(a, q, k, v, ctx, lo, out, part, arrivals, KH, G, T, st_s,
+                 st_k, st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<false, false, decode_split::kOut>(
       a, S, D, dtype, splits, stream);
@@ -255,8 +263,8 @@ extern "C" int tgi_ring_decode(const void* q, const void* k, const void* v,
                                int dtype, float scale, void* stream) {
   decode_split::Args a;
   if (C <= 0 || C > kMaxRing || step < 0 || step > C ||
-      !slot_args(a, q, k, v, ctx, out, part, nullptr, KH, G, T, st_s, st_k,
-                 st_t, rows_per_split, splits, scale))
+      !slot_args(a, q, k, v, ctx, nullptr, out, part, nullptr, KH, G, T,
+                 st_s, st_k, st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   int code = decode_split::dispatch<false, false, decode_split::kParts>(
       a, S, D, dtype, splits, stream);

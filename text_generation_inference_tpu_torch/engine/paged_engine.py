@@ -155,6 +155,16 @@ class PagedInferenceEngine(SlotBatchEngine):
         self.device = resolve_device(device)
         check_supported(spec)
         check_decode_config(config)
+        if spec.sliding_window is not None \
+                and config.max_sequence_length > spec.sliding_window:
+            # as the JAX engine: the paged passes take no window mask;
+            # within the window the full-attention math is identical, so a
+            # max_seq up to the window is exact
+            raise ValueError(
+                f"sliding-window attention (window={spec.sliding_window}) "
+                f"with max_sequence_length={config.max_sequence_length} > "
+                "window is only supported on the slot engine "
+                "(PAGED_ATTENTION=0)")
         self.spec = spec
         if config.fuse_matmuls:
             from ..models.fuse import fuse_params

@@ -7,10 +7,16 @@ The building blocks (`_norm`, `_rope_freqs`, `_apply_rope`, `_qkv`,
 and "scan" write modes, `decode_ring_step`, `ring_flush`) write the
 `KVCache` in place, where the JAX package donated it to each jitted step.
 `DecoderSpec` is the same static architecture description as in the JAX
-package; the port runs the Llama family (RoPE, RMSNorm, SiLU-GLU), and the
-forward passes raise NotImplementedError for the position encodings and
-attention windows that later slices port (ALiBi, learned positions,
-sliding windows).
+package; the port runs the RoPE families (`models/families.py`), sliding
+windows included, and the forward passes raise NotImplementedError for the
+position encodings a later slice ports (ALiBi, learned positions, the
+embedding LayerNorm).
+
+A sliding window of W keys masks what the JAX package's forward passes
+mask: in prefill, key j is visible to a real query row i when
+i - W < j <= i (rows past a prompt's length keep the causal mask), and in
+decode the keys at or past context_len - W. The kernels that the JAX rule
+routes a windowed model to take the window too (`ops/attention.py`).
 
 Parameters are a plain dict of tensors with the JAX package's layout:
 layer weights stacked along a leading layer axis, linear weights [in, out]
@@ -87,13 +93,11 @@ class DecoderSpec:
 
 
 def check_supported(spec: DecoderSpec) -> None:
-    """Raise NotImplementedError for architecture features this slice of
-    the port does not run yet."""
+    """Raise NotImplementedError for architecture features the port does not
+    run yet."""
     if spec.pos != "rope":
         raise NotImplementedError(
             f"position encoding {spec.pos!r} is not ported yet (rope only)")
-    if spec.sliding_window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
     if spec.embed_norm:
         raise NotImplementedError("embedding LayerNorm is not ported yet")
 
@@ -254,7 +258,10 @@ def _unembed(spec: DecoderSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
         logits = torch.matmul(x, params["embed_tokens"].t())
     else:
         logits = linops.matmul(x, params["lm_head"])
-    return logits.to(torch.float32)
+    logits = logits.to(torch.float32)
+    if "lm_head_bias" in params:
+        logits = logits + params["lm_head_bias"].to(torch.float32)
+    return logits
 
 
 def _qkv(spec: DecoderSpec, lp: dict, x: torch.Tensor):
@@ -342,8 +349,8 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
                     lengths: torch.Tensor, attn: AttentionOps,
                     write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
                     prefix_embeds: Optional[torch.Tensor] = None,
-                    prefix_len: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    prefix_len: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """The causal forward over a right-padded bucket ids [N, T]: attention
     within the bucket only, masked by `lengths`. Hands each layer's k/v
     ([N, T, K, D]) to `write_kv(layer, k, v)`, which stores them in the
@@ -352,7 +359,14 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
     Soft prompts (prompt tuning): with `prefix_embeds` [N, T, D], row n
     takes its first `prefix_len[n]` input vectors from `prefix_embeds`
     (cast to the activation dtype) instead of the token embeddings; the
-    token ids there are placeholders."""
+    token ids there are placeholders.
+
+    `window` (the spec's sliding window, or None): a real query row i sees
+    keys i - window < j <= i; rows past a prompt's length keep the causal
+    mask, as in the JAX package (an all-masked padded row would mint NaNs
+    that reach later layers through 0 * NaN). The JAX slot-cache prefill
+    applies the window, its paged prefill does not (the paged engine
+    refuses max_seq > window, where the window masks nothing)."""
     check_supported(spec)
     n, t = ids.shape
     dev = ids.device
@@ -367,6 +381,10 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     key_valid = positions < lengths[:, None]
     mask = causal[None, :, :] & key_valid[:, None, :]
+    if window is not None:
+        qi = torch.arange(t, device=dev)
+        in_window = (qi[:, None] - qi[None, :]) < window
+        mask = mask & (in_window[None, :, :] | ~key_valid[:, :, None])
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
     for li in range(spec.num_layers):
@@ -376,7 +394,7 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
         q = _apply_rope(spec, q, cos, sin)
         k = _apply_rope(spec, k, cos, sin)
         qg = q.reshape(n, t, spec.num_kv_heads, group, spec.head_dim)
-        a = attn.prefill(qg, k, v, lengths, None, mask, scale)
+        a = attn.prefill(qg, k, v, lengths, None, mask, scale, window or 0)
         a = _attn_out(spec, lp, a.reshape(n, t, spec.num_heads, spec.head_dim))
         x = _residual(spec, lp, x, a)
         write_kv(li, k, v)
@@ -417,7 +435,8 @@ def prefill(
         cache.v[li][sl, :, :rows] = v_t.to(cache.v.dtype)
 
     return prefill_forward(spec, params, ids, lengths, attn, write_kv,
-                           prefix_embeds, prefix_len), cache
+                           prefix_embeds, prefix_len,
+                           spec.sliding_window), cache
 
 
 # ---------------------------------------------------------------------------
@@ -466,11 +485,18 @@ def decode_ring_step(
     key_pos = torch.arange(t_max, device=dev)
     cache_mask = key_pos[None, :] < chunk_start[:, None]           # [S, Tmax]
     buf_mask = torch.arange(n_buf, device=dev)[None, :] < step_idx  # [1, C]
+    if spec.sliding_window is not None:
+        lo = positions[:, None] - spec.sliding_window              # exclusive
+        cache_mask = cache_mask & (key_pos[None, :] > lo)
+        buf_pos = chunk_start[:, None] + torch.arange(n_buf, device=dev)[None, :]
+        buf_mask = buf_mask & (buf_pos > lo)                       # [S, C]
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
     if ring_attention is not None:
         if cache.quantized:
             raise ValueError("ring_attention reads a float cache")
+        if spec.sliding_window is not None:
+            raise ValueError("ring_attention takes no sliding window")
         ctx = chunk_start.to(torch.int32).contiguous()
 
     k_all, v_all = [], []
@@ -598,7 +624,13 @@ def decode(
     pos = positions.long()
     old_mask = key_pos[None, :] < positions[:, None]        # current excluded
     mask = key_pos[None, :] < context_len[:, None]
+    window = spec.sliding_window
+    if window is not None:
+        old_mask = old_mask & (key_pos[None, :] > positions[:, None] - window)
+        mask = mask & (key_pos[None, :] >= context_len[:, None] - window)
     ctx = context_len.to(torch.int32).contiguous()
+    # the slot kernel's lower bounds: the first row of each slot's window
+    lo = (ctx - window).clamp(min=0) if window is not None else None
 
     k_all, v_all = [], []
     for li in range(spec.num_layers):
@@ -612,7 +644,7 @@ def decode(
         if write_mode == "scan":
             ck[rows, :, pos] = k.to(ck.dtype)
             cv[rows, :, pos] = v.to(cv.dtype)
-            a = attn.slot_decode(qg, ck, cv, ctx, None, mask, scale)
+            a = attn.slot_decode(qg, ck, cv, ctx, None, mask, scale, lo)
         else:
             qf = qg.to(torch.float32)
             scores = torch.einsum("skgd,sktd->skgt", qf,

@@ -1,17 +1,26 @@
 """HF model-family loader: config.json → DecoderSpec, checkpoint → params
-(port of the Llama part of the JAX package's `models/families.py`).
+(port of the JAX package's `models/families.py`, its RoPE families).
 
 Layout conventions match the JAX package: linear weights are [in, out]
 (activations are row vectors, `x @ W`); HF torch Linear stores [out, in]
 and is transposed on load. Layer weights are stacked along a leading layer
 axis. GPTQ checkpoints (AutoGPTQ `qweight/qzeros/scales/g_idx`, already
-in x @ W orientation) load as layer-stacked `Int4Weight`s. This slice loads
-the `llama` family; other families and the other `quantize` modes raise
-NotImplementedError.
+in x @ W orientation) load as layer-stacked `Int4Weight`s wherever the JAX
+loader reads a linear through `_stack_linear`; the fused projections it
+splits at load (CodeGen's and NeoX's / Falcon's qkv, Falcon's and NeoX's
+dense layers) are read as dense weights there, and so here.
+
+Served: the RoPE decoders `llama`, `mistral`, `qwen2`, `gemma`, `gpt_neox`,
+`gptj`, `codegen`, `phi` and `falcon` (`RefinedWeb`, `RefinedWebModel`)
+without ALiBi. The learned-position families (`gpt2`, `opt`,
+`gpt_bigcode`), the ALiBi ones (`bloom`, `mpt`, Falcon with `alibi: true`)
+and the structural fallback for other model types are a later slice and
+raise NotImplementedError; so do the `quantize` modes other than gptq.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Callable
@@ -23,9 +32,17 @@ from ..ops.quant.int4 import Int4Weight, normalize_act_order
 from ..utils.weights import Weights
 from .core import DecoderSpec
 
+# model types of the JAX package that a later slice of the port serves
+LATER_FAMILIES = ("gpt2", "opt", "gpt_bigcode", "bloom", "mpt")
+
 
 def load_hf_config(model_dir: str) -> dict:
     return json.loads((Path(model_dir) / "config.json").read_text())
+
+
+# ---------------------------------------------------------------------------
+# spec builders
+# ---------------------------------------------------------------------------
 
 
 def _llama_spec(c: dict) -> DecoderSpec:
@@ -49,8 +66,189 @@ def _llama_spec(c: dict) -> DecoderSpec:
     )
 
 
+def _neox_spec(c: dict) -> DecoderSpec:
+    d = c["hidden_size"]
+    h = c["num_attention_heads"]
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["num_hidden_layers"],
+        num_heads=h,
+        num_kv_heads=h,
+        head_dim=d // h,
+        intermediate_size=c["intermediate_size"],
+        pos="rope",
+        rope_theta=c.get("rotary_emb_base", 10000.0),
+        rotary_pct=c.get("rotary_pct", 1.0),
+        max_position_embeddings=c.get("max_position_embeddings", 2048),
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_eps", 1e-5),
+        activation=("gelu_tanh"
+                    if c.get("hidden_act", "gelu") in ("gelu_new", "gelu_fast")
+                    else "gelu"),
+        parallel_residual=c.get("use_parallel_residual", True),
+        qkv_bias=c.get("attention_bias", True),
+        attn_out_bias=c.get("attention_bias", True),
+        mlp_bias=True,
+        tie_word_embeddings=False,
+    )
+
+
+def _falcon_spec(c: dict) -> DecoderSpec:
+    if c.get("alibi"):
+        raise NotImplementedError(
+            "Falcon with alibi: true is not ported yet (the ALiBi families "
+            "are a later slice)")
+    d = c["hidden_size"]
+    h = c["num_attention_heads"]
+    if c.get("new_decoder_architecture"):
+        kv = c.get("num_kv_heads", 8)
+    elif c.get("multi_query", True):
+        kv = 1
+    else:
+        kv = h
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["num_hidden_layers"],
+        num_heads=h,
+        num_kv_heads=kv,
+        head_dim=d // h,
+        intermediate_size=4 * d,
+        pos="rope",
+        rope_theta=c.get("rope_theta", 10000.0),
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        activation="gelu",
+        parallel_residual=c.get("parallel_attn", True),
+        qkv_bias=c.get("bias", False),
+        attn_out_bias=c.get("bias", False),
+        mlp_bias=c.get("bias", False),
+        tie_word_embeddings=True,
+    )
+
+
+def _gptj_spec(c: dict) -> DecoderSpec:
+    d = c["n_embd"]
+    h = c["n_head"]
+    dh = d // h
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["n_layer"],
+        num_heads=h,
+        num_kv_heads=h,
+        head_dim=dh,
+        intermediate_size=c.get("n_inner") or 4 * d,
+        pos="rope",
+        rotary_pct=(c.get("rotary_dim") or dh) / dh,
+        rope_interleaved=True,
+        max_position_embeddings=c["n_positions"],
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        activation="gelu_tanh",
+        parallel_residual=True,      # single shared ln_1 (duplicated at load)
+        mlp_bias=True,
+        attn_out_bias=False,
+        tie_word_embeddings=False,
+    )
+
+
+def _codegen_spec(c: dict) -> DecoderSpec:
+    # CodeGen is GPT-J with a fused, mp_num-interleaved qkv projection
+    s = _gptj_spec(c)
+    return dataclasses.replace(
+        s, rotary_pct=(c.get("rotary_dim") or s.head_dim) / s.head_dim)
+
+
+def _phi_spec(c: dict) -> DecoderSpec:
+    if c.get("qk_layernorm"):
+        raise ValueError("phi qk_layernorm is not supported")
+    d = c["hidden_size"]
+    h = c["num_attention_heads"]
+    dh = d // h
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["num_hidden_layers"],
+        num_heads=h,
+        num_kv_heads=c.get("num_key_value_heads") or h,
+        head_dim=dh,
+        intermediate_size=c["intermediate_size"],
+        pos="rope",
+        rope_theta=c.get("rope_theta", 10000.0),
+        rotary_pct=c.get("partial_rotary_factor", 0.5),
+        max_position_embeddings=c.get("max_position_embeddings", 2048),
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_eps", 1e-5),
+        activation=("gelu_tanh"
+                    if c.get("hidden_act", "gelu_new")
+                    in ("gelu_new", "gelu_fast", "gelu_pytorch_tanh")
+                    else "gelu"),
+        parallel_residual=True,      # shared input_layernorm (duplicated at load)
+        qkv_bias=True,
+        attn_out_bias=True,
+        mlp_bias=True,
+        tie_word_embeddings=False,
+    )
+
+
+def _mistral_spec(c: dict) -> DecoderSpec:
+    s = _llama_spec(c)
+    return dataclasses.replace(
+        s,
+        sliding_window=c.get("sliding_window"),
+        norm_eps=c.get("rms_norm_eps", 1e-6),
+    )
+
+
+def _qwen2_spec(c: dict) -> DecoderSpec:
+    s = _llama_spec(c)
+    return dataclasses.replace(
+        s,
+        qkv_bias=True,               # Qwen2Attention: q/k/v have bias, o does not
+        sliding_window=(c.get("sliding_window")
+                        if c.get("use_sliding_window") else None),
+    )
+
+
+def _gemma_spec(c: dict) -> DecoderSpec:
+    d = c["hidden_size"]
+    heads = c["num_attention_heads"]
+    act = (c.get("hidden_activation") or c.get("hidden_act")
+           or "gelu_pytorch_tanh")
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=c.get("num_key_value_heads") or heads,
+        head_dim=c.get("head_dim") or d // heads,
+        intermediate_size=c["intermediate_size"],
+        pos="rope",
+        rope_theta=c.get("rope_theta", 10000.0),
+        max_position_embeddings=c.get("max_position_embeddings", 8192),
+        norm="rmsnorm",
+        norm_eps=c.get("rms_norm_eps", 1e-6),
+        activation=("gelu_tanh_glu"
+                    if act in ("gelu_pytorch_tanh", "gelu_new", "gelu_fast")
+                    else "gelu_glu"),
+        embed_scale=d ** 0.5,
+        tie_word_embeddings=True,
+    )
+
+
+# ---------------------------------------------------------------------------
+# checkpoint loaders
+# ---------------------------------------------------------------------------
+
+
 def _stack(ts: list[torch.Tensor], dtype, device) -> torch.Tensor:
-    return torch.stack(ts).to(device=device, dtype=dtype)
+    return torch.stack(ts).to(device=device, dtype=dtype).contiguous()
+
+
+def _one(t: torch.Tensor, dtype, device) -> torch.Tensor:
+    return t.to(device=device, dtype=dtype).contiguous()
 
 
 def _stack_linear(w: Weights, fmt: str, n_layers: int, dtype, device):
@@ -79,18 +277,39 @@ def _stack_linear(w: Weights, fmt: str, n_layers: int, dtype, device):
                    for i in range(n_layers)], dtype, device)
 
 
+def _stack_bias(w: Weights, fmt: str, n_layers: int, dtype, device):
+    return _stack([w.get(fmt.format(i=i) + ".bias") for i in range(n_layers)],
+                  dtype, device)
+
+
 def _norm_stack(w: Weights, fmt: str, n_layers: int, dtype, device,
                 bias: bool, offset: float = 0.0) -> dict:
-    p = {"scale": _stack([w.get(fmt.format(i=i) + ".weight") + offset
+    """`offset` is added to the stored weight in f32 (gemma's RMSNorm
+    computes x * (1 + weight); folding the +1 at load keeps `core._norm`
+    generic)."""
+    p = {"scale": _stack([w.get(fmt.format(i=i) + ".weight").float() + offset
                           for i in range(n_layers)], dtype, device)}
     if bias:
-        p["bias"] = _stack([w.get(fmt.format(i=i) + ".bias")
-                            for i in range(n_layers)], dtype, device)
+        p["bias"] = _stack_bias(w, fmt, n_layers, dtype, device)
     return p
 
 
-def _load_llama(w: Weights, s: DecoderSpec, dtype, device) -> dict:
-    """Llama tensor-name map."""
+def _shared_norm(ln1: dict) -> dict:
+    """The parallel blocks that share one layernorm between attention and
+    the MLP (GPT-J, CodeGen, Phi, Falcon): ln2 is a copy of ln1."""
+    return {k: v.clone() for k, v in ln1.items()}
+
+
+def _final_layernorm(w: Weights, name: str, dtype, device) -> dict:
+    return {"scale": _one(w.get(name + ".weight"), dtype, device),
+            "bias": _one(w.get(name + ".bias"), dtype, device)}
+
+
+def _load_llama(w: Weights, s: DecoderSpec, dtype, device,
+                norm_offset: float = 0.0) -> dict:
+    """Llama tensor-name map; also loads mistral / qwen2 (identical names:
+    qwen2 adds q/k/v biases, keyed off spec.qkv_bias) and, with
+    norm_offset=1, gemma (the final norm takes the offset too)."""
     L = s.num_layers
     pre = "model.layers.{i}"
 
@@ -99,9 +318,9 @@ def _load_llama(w: Weights, s: DecoderSpec, dtype, device) -> dict:
 
     layers = {
         "ln1": _norm_stack(w, pre + ".input_layernorm", L, dtype, device,
-                           False),
+                           False, offset=norm_offset),
         "ln2": _norm_stack(w, pre + ".post_attention_layernorm", L, dtype,
-                           device, False),
+                           device, False, offset=norm_offset),
         "wq": lin(".self_attn.q_proj"),
         "wk": lin(".self_attn.k_proj"),
         "wv": lin(".self_attn.v_proj"),
@@ -110,29 +329,235 @@ def _load_llama(w: Weights, s: DecoderSpec, dtype, device) -> dict:
         "w_up": lin(".mlp.up_proj"),
         "w_down": lin(".mlp.down_proj"),
     }
+    if s.qkv_bias:
+        for name, key in (("q_proj", "bq"), ("k_proj", "bk"), ("v_proj", "bv")):
+            layers[key] = _stack_bias(w, pre + f".self_attn.{name}", L, dtype,
+                                      device)
     params = {
-        "embed_tokens": w.get("model.embed_tokens.weight").to(device=device,
-                                                             dtype=dtype),
+        "embed_tokens": _one(w.get("model.embed_tokens.weight"), dtype, device),
         "layers": layers,
-        "final_norm": {"scale": w.get("model.norm.weight").to(device=device,
-                                                             dtype=dtype)},
+        "final_norm": {"scale": _one(
+            w.get("model.norm.weight").float() + norm_offset, dtype, device)},
     }
     if not s.tie_word_embeddings:
-        params["lm_head"] = w.get("lm_head.weight").t().to(
-            device=device, dtype=dtype).contiguous()
+        params["lm_head"] = _one(w.get("lm_head.weight").t(), dtype, device)
     return params
+
+
+def _load_gemma(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    return _load_llama(w, s, dtype, device, norm_offset=1.0)
+
+
+def _gptj_layers(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    """What GPT-J and CodeGen share: the one ln_1, the out projection and
+    the MLP with its biases."""
+    L = s.num_layers
+    pre = "transformer.h.{i}"
+    ln1 = _norm_stack(w, pre + ".ln_1", L, dtype, device, True)
+    return {
+        "ln1": ln1,
+        "ln2": _shared_norm(ln1),
+        "wo": _stack_linear(w, pre + ".attn.out_proj", L, dtype, device),
+        "w_up": _stack_linear(w, pre + ".mlp.fc_in", L, dtype, device),
+        "b_up": _stack_bias(w, pre + ".mlp.fc_in", L, dtype, device),
+        "w_down": _stack_linear(w, pre + ".mlp.fc_out", L, dtype, device),
+        "b_down": _stack_bias(w, pre + ".mlp.fc_out", L, dtype, device),
+    }
+
+
+def _gptj_params(w: Weights, layers: dict, dtype, device) -> dict:
+    return {
+        "embed_tokens": _one(w.get("transformer.wte.weight"), dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "transformer.ln_f", dtype, device),
+        "lm_head": _one(w.get("lm_head.weight").t(), dtype, device),
+        "lm_head_bias": _one(w.get("lm_head.bias"), dtype, device),
+    }
+
+
+def _load_gptj(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L = s.num_layers
+    pre = "transformer.h.{i}"
+    layers = _gptj_layers(w, s, dtype, device)
+    for name, key in (("q_proj", "wq"), ("k_proj", "wk"), ("v_proj", "wv")):
+        layers[key] = _stack_linear(w, pre + f".attn.{name}", L, dtype, device)
+    return _gptj_params(w, layers, dtype, device)
+
+
+def _load_codegen(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    """CodeGen = GPT-J with a fused qkv_proj whose out axis is mp_num=4
+    blocks of [q_local | v_local | k_local] (HF CodeGenAttention mp_num
+    sharding; heads are block-major, so concatenating the blocks restores
+    natural head order)."""
+    L, D = s.num_layers, s.hidden_size
+    mp_num = 4
+    local = D // mp_num
+    qs, ks, vs = [], [], []
+    for i in range(L):
+        qkv = w.get(f"transformer.h.{i}.attn.qkv_proj.weight")   # [3D, D_in]
+        blocks = qkv.reshape(mp_num, 3 * local, -1)
+        qs.append(blocks[:, :local].reshape(D, -1).t())
+        vs.append(blocks[:, local:2 * local].reshape(D, -1).t())
+        ks.append(blocks[:, 2 * local:].reshape(D, -1).t())
+    layers = _gptj_layers(w, s, dtype, device)
+    layers.update(wq=_stack(qs, dtype, device), wk=_stack(ks, dtype, device),
+                  wv=_stack(vs, dtype, device))
+    return _gptj_params(w, layers, dtype, device)
+
+
+def _load_phi(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L = s.num_layers
+    pre = "model.layers.{i}"
+    ln1 = _norm_stack(w, pre + ".input_layernorm", L, dtype, device, True)
+    layers = {
+        "ln1": ln1,
+        # phi's parallel block shares input_layernorm between attn and mlp
+        "ln2": _shared_norm(ln1),
+        "w_up": _stack_linear(w, pre + ".mlp.fc1", L, dtype, device),
+        "b_up": _stack_bias(w, pre + ".mlp.fc1", L, dtype, device),
+        "w_down": _stack_linear(w, pre + ".mlp.fc2", L, dtype, device),
+        "b_down": _stack_bias(w, pre + ".mlp.fc2", L, dtype, device),
+    }
+    for name, wkey, bkey in (("q_proj", "wq", "bq"), ("k_proj", "wk", "bk"),
+                             ("v_proj", "wv", "bv"), ("dense", "wo", "bo")):
+        layers[wkey] = _stack_linear(w, pre + f".self_attn.{name}", L, dtype,
+                                     device)
+        layers[bkey] = _stack_bias(w, pre + f".self_attn.{name}", L, dtype,
+                                   device)
+    return {
+        "embed_tokens": _one(w.get("model.embed_tokens.weight"), dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "model.final_layernorm", dtype,
+                                       device),
+        "lm_head": _one(w.get("lm_head.weight").t(), dtype, device),
+        "lm_head_bias": _one(w.get("lm_head.bias"), dtype, device),
+    }
+
+
+def _split_fused_headmajor(qkv: torch.Tensor, h: int, dh: int
+                           ) -> tuple[torch.Tensor, ...]:
+    """NeoX (and BLOOM, multi-head Falcon) fused qkv layout: [(h, 3, dh),
+    d_in] rows. Returns q / k / v as [d_in, h * dh]."""
+    d_in = qkv.shape[-1]
+    grouped = qkv.reshape(h, 3, dh, d_in)
+    return tuple(grouped[:, j].reshape(h * dh, d_in).t() for j in range(3))
+
+
+def _split_fused_bias_headmajor(b: torch.Tensor, h: int, dh: int
+                                ) -> tuple[torch.Tensor, ...]:
+    grouped = b.reshape(h, 3, dh)
+    return tuple(grouped[:, j].reshape(h * dh) for j in range(3))
+
+
+def _dense_t(w: Weights, fmt: str, n_layers: int, dtype, device):
+    """A layer-stacked dense weight, transposed to [in, out] (the layers the
+    JAX loader reads as dense weights)."""
+    return _stack([w.get(fmt.format(i=i) + ".weight").t()
+                   for i in range(n_layers)], dtype, device)
+
+
+def _load_neox(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L, H, Dh = s.num_layers, s.num_heads, s.head_dim
+    pre = "gpt_neox.layers.{i}"
+    qs, ks, vs, bqs, bks, bvs = [], [], [], [], [], []
+    for i in range(L):
+        q, k, v = _split_fused_headmajor(
+            w.get(f"gpt_neox.layers.{i}.attention.query_key_value.weight"),
+            H, Dh)
+        bq, bk, bv = _split_fused_bias_headmajor(
+            w.get(f"gpt_neox.layers.{i}.attention.query_key_value.bias"),
+            H, Dh)
+        qs.append(q); ks.append(k); vs.append(v)
+        bqs.append(bq); bks.append(bk); bvs.append(bv)
+    layers = {
+        "ln1": _norm_stack(w, pre + ".input_layernorm", L, dtype, device,
+                           True),
+        "ln2": _norm_stack(w, pre + ".post_attention_layernorm", L, dtype,
+                           device, True),
+        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
+        "wv": _stack(vs, dtype, device),
+        "bq": _stack(bqs, dtype, device), "bk": _stack(bks, dtype, device),
+        "bv": _stack(bvs, dtype, device),
+        "wo": _dense_t(w, pre + ".attention.dense", L, dtype, device),
+        "bo": _stack_bias(w, pre + ".attention.dense", L, dtype, device),
+        "w_up": _dense_t(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
+        "b_up": _stack_bias(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
+        "w_down": _dense_t(w, pre + ".mlp.dense_4h_to_h", L, dtype, device),
+        "b_down": _stack_bias(w, pre + ".mlp.dense_4h_to_h", L, dtype,
+                              device),
+    }
+    return {
+        "embed_tokens": _one(w.get("gpt_neox.embed_in.weight"), dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "gpt_neox.final_layer_norm", dtype,
+                                       device),
+        "lm_head": _one(w.get("embed_out.weight").t(), dtype, device),
+    }
+
+
+def _load_falcon(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    """Falcon's fused qkv in its three layouts: multi-query ([q | k | v]
+    rows), multi-head (head-major, as NeoX) and the new decoder
+    architecture (K groups of H / K query heads, one k and one v)."""
+    L, H, K, Dh = s.num_layers, s.num_heads, s.num_kv_heads, s.head_dim
+    qs, ks, vs = [], [], []
+    for i in range(L):
+        qkv = w.get(f"transformer.h.{i}.self_attention.query_key_value.weight")
+        d_in = qkv.shape[-1]
+        if K == 1:
+            # multi_query: rows are [q (H*Dh) | k (Dh) | v (Dh)]
+            qs.append(qkv[: H * Dh].t())
+            ks.append(qkv[H * Dh: (H + 1) * Dh].t())
+            vs.append(qkv[(H + 1) * Dh:].t())
+        elif K == H:
+            q, k, v = _split_fused_headmajor(qkv, H, Dh)
+            qs.append(q); ks.append(k); vs.append(v)
+        else:
+            # new_decoder_architecture: [K groups of (H/K q heads + 1 k + 1 v)]
+            grouped = qkv.reshape(K, H // K + 2, Dh, d_in)
+            qs.append(grouped[:, :-2].reshape(H * Dh, d_in).t())
+            ks.append(grouped[:, -2].reshape(K * Dh, d_in).t())
+            vs.append(grouped[:, -1].reshape(K * Dh, d_in).t())
+    pre = "transformer.h.{i}"
+    # falcon's parallel_attn shares one layernorm between attn and mlp
+    ln1 = _norm_stack(w, pre + ".input_layernorm", L, dtype, device, True)
+    layers = {
+        "ln1": ln1,
+        "ln2": _shared_norm(ln1),
+        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
+        "wv": _stack(vs, dtype, device),
+        "wo": _dense_t(w, pre + ".self_attention.dense", L, dtype, device),
+        "w_up": _dense_t(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
+        "w_down": _dense_t(w, pre + ".mlp.dense_4h_to_h", L, dtype, device),
+    }
+    return {
+        "embed_tokens": _one(w.get("transformer.word_embeddings.weight"),
+                             dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "transformer.ln_f", dtype, device),
+    }
 
 
 FAMILIES: dict[str, tuple[Callable[[dict], DecoderSpec], Callable]] = {
     "llama": (_llama_spec, _load_llama),
+    "gpt_neox": (_neox_spec, _load_neox),
+    "falcon": (_falcon_spec, _load_falcon),
+    "RefinedWeb": (_falcon_spec, _load_falcon),
+    "RefinedWebModel": (_falcon_spec, _load_falcon),
+    "gptj": (_gptj_spec, _load_gptj),
+    "codegen": (_codegen_spec, _load_codegen),
+    "phi": (_phi_spec, _load_phi),
+    "mistral": (_mistral_spec, _load_llama),
+    "qwen2": (_qwen2_spec, _load_llama),
+    "gemma": (_gemma_spec, _load_gemma),
 }
 
 
 def load_model(model_dir: str, dtype=torch.bfloat16,
                quantize: str | None = None,
                device=None) -> tuple[DecoderSpec, dict]:
-    """Load (spec, params) for a Llama-family HF checkpoint onto `device`
-    (CUDA unless the caller asks for the CPU). GPTQ tensors load as
+    """Load (spec, params) for a checkpoint of a served family onto
+    `device` (CUDA unless the caller asks for the CPU). GPTQ tensors load as
     Int4Weight whatever `quantize` says; quantize="gptq" is a requirement
     that the checkpoint carries them (GPTQ needs offline calibration, so
     it has no load-time path)."""
@@ -143,8 +568,11 @@ def load_model(model_dir: str, dtype=torch.bfloat16,
     config = load_hf_config(model_dir)
     model_type = config.get("model_type")
     if model_type not in FAMILIES:
+        later = (f"the {model_type!r} family is" if model_type in LATER_FAMILIES
+                 else f"model_type {model_type!r} (the structural fallback) is")
         raise NotImplementedError(
-            f"model_type {model_type!r} is not ported yet (llama only)")
+            f"{later} not ported yet: a later slice ports the learned-position "
+            f"and ALiBi families and the fallback; served: {sorted(FAMILIES)}")
     spec_fn, load_fn = FAMILIES[model_type]
     spec = spec_fn(config)
     params = load_fn(Weights(model_dir), spec, dtype, device)

@@ -14,6 +14,16 @@ alone before any launch:
 - the paged routes: the paged kernel at every shape, as the JAX paged
   forward passes call it (`models/paged_core.py:152,174-183`).
 
+A sliding window reaches the kernels the rule takes: flash prefill takes
+`window` (0 is none) and masks key j for a real query row i unless
+i - window < j <= i; S1 takes the lower bounds `lo` = max(ctx - window, 0),
+which the decode step computes once for every layer, and reads only the
+rows in [lo, ctx).
+The JAX dispatch hands neither kernel the window (`ops/attention.py:40,67`),
+so on a TPU a windowed model attends past its window there; the port
+follows the JAX einsum path, which applies it. The einsum paths take the
+window through `mask`, which the forward passes build.
+
 Where the rule takes a kernel, the port calls the kernel's wrapper: on a
 CUDA tensor it launches the kernel, which is built for bf16 and fp16, every
 head dim the port's models use and any group (`HEAD_DIMS` and `DTYPES` of
@@ -47,10 +57,12 @@ from .cuda.ring_decode_attention import (
 SLOT_KERNEL_MIN_ROWS = 2048
 
 
-def prefill_attention_einsum(q, k, v, lengths, bias, mask, scale: float):
-    """q [N, T, K, G, D]; k/v [N, T, K, D]; mask [N, T, T] bool; returns
-    [N, T, K, G, D]. Scores and softmax in fp32, probabilities cast to v's
-    dtype for the value product (as the JAX package's XLA path)."""
+def prefill_attention_einsum(q, k, v, lengths, bias, mask, scale: float,
+                             window: int = 0):
+    """q [N, T, K, G, D]; k/v [N, T, K, D]; mask [N, T, T] bool (the
+    window, if any, already in it); returns [N, T, K, G, D]. Scores and
+    softmax in fp32, probabilities cast to v's dtype for the value product
+    (as the JAX package's XLA path)."""
     scores = torch.einsum("nqkgd,nvkd->nkgqv", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     if bias is not None:
@@ -60,22 +72,25 @@ def prefill_attention_einsum(q, k, v, lengths, bias, mask, scale: float):
     return torch.einsum("nkgqv,nvkd->nqkgd", probs, v)
 
 
-def prefill_attention(q, k, v, lengths, bias, mask, scale: float):
+def prefill_attention(q, k, v, lengths, bias, mask, scale: float,
+                      window: int = 0):
     """q [N, T, K, G, D]; k/v [N, T, K, D]; returns [N, T, K, G, D].
 
-    `bias`/`mask` drive the einsum path; the kernel derives the causal and
-    length mask itself and has no bias."""
+    `bias`/`mask` drive the einsum path; the kernel derives the causal,
+    length and window mask itself and has no bias."""
     n, t, kh, g, d = q.shape
     if bias is None and t >= 128 and d % 64 == 0:       # the JAX rule
         return fp.flash_prefill(q.contiguous(), k.contiguous(),
                                 v.contiguous(),
-                                lengths.to(torch.int32).contiguous())
+                                lengths.to(torch.int32).contiguous(),
+                                window=window)
     return prefill_attention_einsum(q, k, v, lengths, bias, mask, scale)
 
 
 def decode_attention_einsum(q, k_cache, v_cache, context_len, bias, mask,
-                            scale: float):
-    """q [S, K, G, D]; caches [S, K, T, D]; mask [S, T] bool; returns
+                            scale: float, lo=None):
+    """q [S, K, G, D]; caches [S, K, T, D]; mask [S, T] bool (the window,
+    if any, already in it, so `lo` is not read); returns
     [S, K, G, D]. Scores and softmax in fp32, probabilities cast to the
     cache's dtype for the value product (as the JAX package's XLA path)."""
     scores = torch.einsum("skgd,sktd->skgt", q.to(torch.float32),
@@ -88,16 +103,18 @@ def decode_attention_einsum(q, k_cache, v_cache, context_len, bias, mask,
 
 
 def decode_attention(q, k_cache, v_cache, context_len, bias, mask,
-                     scale: float):
+                     scale: float, lo=None):
     """q [S, K, G, D]; caches [S, K, T, D] (one layer of the slot cache);
     returns [S, K, G, D]. `bias`/`mask` drive the einsum path; the kernel
-    reads rows below `context_len` itself and has no bias."""
+    reads the rows in [lo, context_len) itself (`lo`, a contiguous int32
+    [S] tensor, is max(context_len - window, 0) under a sliding window;
+    None reads from row 0) and has no bias."""
     d = q.shape[-1]
     if (bias is None and k_cache.shape[2] >= SLOT_KERNEL_MIN_ROWS
             and d % 64 == 0):                             # the JAX rule
         return slot_decode.decode_attention(
             q.contiguous(), k_cache, v_cache,
-            context_len.to(torch.int32).contiguous())
+            context_len.to(torch.int32).contiguous(), lo)
     return decode_attention_einsum(q, k_cache, v_cache, context_len, bias,
                                    mask, scale)
 
@@ -112,9 +129,9 @@ def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
 class AttentionOps(NamedTuple):
     """The kernel functions a forward pass calls."""
 
-    prefill: Callable          # (q, k, v, lengths, bias, mask, scale)
+    prefill: Callable          # (q, k, v, lengths, bias, mask, scale, window)
     # slot cache, "scan" write mode: (q, k_cache, v_cache, ctx, bias, mask,
-    # scale)
+    # scale, lo)
     slot_decode: Callable
     # the ring scheme's three sources in one softmax: (q, k_cache, v_cache,
     # kbuf, vbuf, k_new, v_new, ctx, step_idx)

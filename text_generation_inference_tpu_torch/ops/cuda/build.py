@@ -41,7 +41,7 @@ _i64 = ctypes.c_longlong
 # argument types of each library's C entry points
 _SIGNATURES = {
     "flash_prefill": {
-        "tgi_flash_prefill": [_vp] * 5 + [_i32] * 6 + [_f32, _vp],
+        "tgi_flash_prefill": [_vp] * 5 + [_i32] * 7 + [_f32, _vp],
     },
     # q, pools (int8: and their scale pools), table, ctx, outputs, split
     # scratch, arrival counters; then S, KH, G, D, R, page, max_pages,
@@ -62,12 +62,13 @@ _SIGNATURES = {
     "int4_mlp": {
         "tgi_int4_mlp": [_vp] * 10 + [_i32] * 9 + [_vp],
     },
-    # cache strides over S, K, T are int64; S1: q, k, v, ctx, out, split
-    # scratch, arrival counters, then rows per split, splits and half; S2:
+    # cache strides over S, K, T are int64; S1: q, k, v, ctx, the first
+    # live rows, out, split scratch, arrival counters, then rows per split,
+    # splits and half; S2:
     # q, k, v, ctx, the ring's four sources, split scratch, out, then rows
     # per split, splits, the ring's columns and step, and half
     "slot_attention": {
-        "tgi_slot_decode": [_vp] * 7 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
+        "tgi_slot_decode": [_vp] * 8 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
                            + [_f32, _vp],
         "tgi_ring_decode": [_vp] * 10 + [_i32] * 5 + [_i64] * 3 + [_i32] * 5
                            + [_f32, _vp],

@@ -8,6 +8,9 @@ Counterpart of the JAX package's `ops/pallas/decode_attention.py`
   k, v: [S, K, T, D]   (one layer of the slot cache; any strides over S, K
                         and T, the head dim contiguous)
   ctx:  [S] int32      live cache rows per slot, the current token included
+  lo:   [S] int32      optional: the first live row of each slot (a sliding
+                       window W gives lo = ctx - W, the JAX model's decode
+                       mask); rows below it are neither read nor counted
   out:  [S, K, G, D]   in q's dtype
 
 q and the cache are bf16, fp16 or fp32 (`DTYPES`, fp32 on the split
@@ -16,19 +19,21 @@ body's fp32 CUDA-core kernel); the kernel takes every head dim in
 
 A slot with ctx == 0 gives 0, as the JAX kernel does (it clamps the softmax
 denominator at 1e-30); the JAX reference gives NaN there. Rows at or past
-ctx are never read: the plain version zeroes their values before the value
-product, the kernel does not load them.
+ctx, and rows below lo, are never read: the plain version zeroes their
+values before the value product, the kernel does not load them.
 
 The kernel is the split body of `csrc/decode_split.cuh` over the slot
 cache: fixed splits of SPLIT_ROWS cache rows (`split_plan`, from T alone,
 so a slot's result does not depend on the batch), merged in split order in
 the same launch by the last block to arrive at a per-(slot, kv head)
-counter (the device's `paged_attention.arrivals`).
+counter (the device's `paged_attention.arrivals`). With `lo`, a slot's
+splits start at the one that holds row lo[s], and that split starts at
+lo[s]: its plan covers only the live rows [lo, ctx).
 `decode_attention_split_reference` is the plain twin of that schedule.
 
 `decode_attention` takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `decode_attention.launches` counts
-launches. `check_cache` and `_masked_scores` are shared with
+launches, `decode_attention.windowed` those given lower bounds. `check_cache` and `_masked_scores` are shared with
 `ring_decode_attention.py`.
 """
 
@@ -56,12 +61,15 @@ def split_plan(t: int) -> tuple[int, int]:
     return SPLIT_ROWS, max(1, -(-t // SPLIT_ROWS))
 
 
-def _masked_scores(q, k, v, ctx):
-    """Scores [S, K, G, T] f32 (rows >= ctx at -inf) and values [S, K, T, D]
-    f32 (rows >= ctx zeroed)."""
+def _masked_scores(q, k, v, ctx, lo=None):
+    """Scores [S, K, G, T] f32 (rows >= ctx, and rows < lo, at -inf) and
+    values [S, K, T, D] f32 (those rows zeroed)."""
     d = q.shape[-1]
     t = k.shape[2]
-    live = torch.arange(t, device=q.device)[None, :] < ctx.to(q.device)[:, None]
+    rows = torch.arange(t, device=q.device)[None, :]
+    live = rows < ctx.to(q.device)[:, None]
+    if lo is not None:
+        live = live & (rows >= lo.to(q.device)[:, None])
     scores = torch.einsum("skgd,sktd->skgt", q.to(torch.float32),
                           k.to(torch.float32)) * (1.0 / math.sqrt(d))
     scores = scores.masked_fill(~live[:, None, None, :], -math.inf)
@@ -70,10 +78,11 @@ def _masked_scores(q, k, v, ctx):
 
 
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor,
-                               ctx: torch.Tensor) -> torch.Tensor:
-    """Plain version: fp32 softmax over rows < ctx, acc / max(l, 1e-30)."""
-    scores, vf = _masked_scores(q, k, v, ctx)
+                               v: torch.Tensor, ctx: torch.Tensor,
+                               lo: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version: fp32 softmax over rows [lo, ctx), acc / max(l,
+    1e-30)."""
+    scores, vf = _masked_scores(q, k, v, ctx, lo)
     m = torch.max(scores, dim=-1, keepdim=True).values
     m = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(scores - m)                        # exp(-inf) = 0
@@ -84,25 +93,34 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
                                      v: torch.Tensor, ctx: torch.Tensor,
-                                     rows_per_split=None) -> torch.Tensor:
+                                     rows_per_split=None,
+                                     lo: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
     """Plain twin of the kernel's schedule: (acc, m, l) of every split of
-    `rows_per_split` cache rows (default: `split_plan`'s), the splits past
-    a slot's rows left out, merged in split order, then normalized."""
+    `rows_per_split` cache rows (default: `split_plan`'s), from the split
+    that holds a slot's first live row (the rows below `lo` masked), the
+    splits past a slot's rows left out, merged in split order, then
+    normalized."""
     t = k.shape[2]
     if rows_per_split is None:
         rows_per_split = split_plan(t)[0]
     ctx = ctx.to(torch.int64).clamp(0, t)
-    n_splits = torch.clamp(-(-ctx // rows_per_split), min=1)
+    lo = (torch.zeros_like(ctx) if lo is None
+          else torch.minimum(lo.to(torch.int64).clamp(min=0), ctx))
+    first = lo // rows_per_split
+    n_splits = torch.clamp(-(-ctx // rows_per_split) - first, min=1)
     parts = []
     for sp, r0 in enumerate(range(0, t, rows_per_split)):
         r1 = min(r0 + rows_per_split, t)
         scores, vf = _masked_scores(q, k[:, :, r0:r1], v[:, :, r0:r1],
-                                    torch.clamp(ctx - r0, min=0))
+                                    torch.clamp(ctx - r0, min=0),
+                                    torch.clamp(lo - r0, min=0))
         m = torch.max(scores, dim=-1).values                     # [S, K, G]
         m_safe = torch.where(torch.isneginf(m), 0.0, m)
         p = torch.exp(scores - m_safe[..., None])               # exp(-inf) = 0
         acc = torch.einsum("skgt,sktd->skgd", p, vf)
-        parts.append((acc, m, p.sum(dim=-1), sp < n_splits))
+        parts.append((acc, m, p.sum(dim=-1),
+                      (sp >= first) & (sp < first + n_splits)))
     acc, _, l = merge_splits(parts, q.shape, q.device)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
@@ -138,11 +156,17 @@ def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     ctx: torch.Tensor) -> torch.Tensor:
+                     ctx: torch.Tensor,
+                     lo: torch.Tensor | None = None) -> torch.Tensor:
     """See module docstring. Returns [S, K, G, D] in q's dtype."""
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, ctx)
+        return decode_attention_reference(q, k, v, ctx, lo)
     check_cache("decode_attention", q, k, v, ctx)
+    if lo is not None and (lo.device != q.device or lo.dtype != torch.int32
+                           or lo.shape != ctx.shape
+                           or not lo.is_contiguous()):
+        raise ValueError("decode_attention: lo must be a contiguous int32 "
+                         "[S] tensor on q's device")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -159,12 +183,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_slot_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-            out.data_ptr(), None if part is None else part.data_ptr(),
+            None if lo is None else lo.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
             counters.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows,
             splits, build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("slot_attention", code)
     decode_attention.launches += 1
+    if lo is not None:
+        decode_attention.windowed += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.windowed = 0

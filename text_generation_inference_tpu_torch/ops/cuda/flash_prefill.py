@@ -4,14 +4,20 @@
 Counterpart of the JAX package's `ops/pallas/flash_prefill.py`
 (`flash_prefill`, `flash_prefill_reference`). Shapes: q [N, T, K, G, D],
 k/v [N, T, K, D], lengths [N] → out like q. Keys j are visible to query i
-when j <= i and j < lengths[n]; rows with lengths[n] == 0 give 0.
+when j <= i and j < lengths[n]; rows with lengths[n] == 0 give 0. With a
+sliding window W (`window` > 0; 0 is none) a query row i < lengths[n] sees
+only the keys i - W < j <= i; rows past the length keep the causal mask,
+as the JAX model's mask does (`models/core.py` prefill: a padded row could
+otherwise see no key at all).
 
 `flash_prefill_tiled_reference` is the plain twin of the kernel's schedule:
 row tiles of BLOCK_M rows (row = token * G + g) in two halves of 64 (the
 kernel's consumer warpgroups), key tiles of `key_tile(d)` keys (128, or 64
 at head dims 192 and 256), each half walking key tiles up to its causal and
 length limit and masking only the tiles that cross its diagonal or the
-length.
+length; with a window, each half starts at the tile that holds its first
+visible key (the tiles wholly below its window are released unread) and
+also masks the tiles that cross the window's lower edge.
 
 bf16 and fp16 run on the wgmma kernel; fp32 runs on the source's fp32
 kernel, mma.sync on the tensor cores in 3xTF32 (the JAX kernel computes in
@@ -19,10 +25,12 @@ f32): every operand is split into two TF32 terms, hi = rna(x) and lo =
 rna(x - hi), and each product is lo.hi + hi.lo + hi.hi with fp32 sums.
 `flash_prefill_tf32x3_reference` is the plain twin of that arithmetic over
 its key tiles (`f32_key_tile(d)`: 64 keys, 32 at head dims 192 and 256).
+`visible` is the one mask every plain version applies.
 
 `flash_prefill` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `flash_prefill.launches`
-counts kernel launches.
+counts kernel launches, `flash_prefill.windowed` those whose window is
+shorter than the bucket.
 """
 
 from __future__ import annotations
@@ -58,6 +66,19 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def visible(q_tok: torch.Tensor, keys: torch.Tensor, length,
+            window: int) -> torch.Tensor:
+    """Which keys a query token sees: q_tok [..., R] and keys [J] give
+    [..., R, J]; `length` is an int or a tensor that broadcasts against
+    q_tok (a batch's lengths as [N, 1])."""
+    qt = q_tok[..., :, None]
+    ln = length[..., None] if torch.is_tensor(length) else length
+    vis = (keys <= qt) & (keys < ln)
+    if window:
+        vis = vis & ((keys > qt - window) | (qt >= ln))
+    return vis
+
+
 def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """einsum(eq, a, b) as the fp32 kernel computes it: a and b split into
     TF32 hi and lo terms, lo.hi + hi.lo + hi.hi."""
@@ -68,14 +89,14 @@ def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
-                                   v: torch.Tensor,
-                                   lengths: torch.Tensor) -> torch.Tensor:
+                                   v: torch.Tensor, lengths: torch.Tensor,
+                                   window: int = 0) -> torch.Tensor:
     """Plain twin of the fp32 kernel's arithmetic (f32 inputs and output):
     rows token * G + g, key tiles of `f32_key_tile(d)` keys in order, both
     products in 3xTF32, the online softmax in exp2 units, keys at or past
     the length read as 0. A tile the kernel skips for a row (wholly above
-    its diagonal or past the length) is fully masked here, which leaves the
-    row's state as it was."""
+    its diagonal, past the length or wholly below its window) is fully
+    masked here, which leaves the row's state as it was."""
     n, t, kh, g, d = q.shape
     tile = f32_key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
@@ -95,8 +116,7 @@ def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
         keys = torch.arange(key0, key0 + tile, device=q.device)
         sc = _product_3xtf32("nkrd,nkjd->nkrj", qf,
                              kf[:, :, key0:key0 + tile])
-        vis = ((keys[None, :] <= tok[:, None])[None]
-               & (keys[None, None, :] < ln[:, None, None]))     # [N, R, J]
+        vis = visible(tok[None, :], keys, ln[:, None], window)  # [N, R, J]
         sc = torch.where(vis[:, None], sc, -math.inf)
         m_new = torch.maximum(m, sc.max(dim=-1).values * scale_log2)
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -111,17 +131,17 @@ def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor,
-                            lengths: torch.Tensor) -> torch.Tensor:
+                            v: torch.Tensor, lengths: torch.Tensor,
+                            window: int = 0) -> torch.Tensor:
     """Plain PyTorch version (fp32 math, output in q's dtype)."""
     n, t, kh, g, d = q.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("nqkgd,nvkd->nkgqv", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     pos = torch.arange(t, device=q.device)
-    causal = pos[None, :] <= pos[:, None]                       # [Tq, Tk]
     key_valid = pos[None, :] < lengths.to(q.device)[:, None]    # [N, Tk]
-    mask = causal[None] & key_valid[:, None, :]                 # [N, Tq, Tk]
+    mask = visible(pos[None, :], pos,
+                   lengths.to(q.device)[:, None], window)       # [N, Tq, Tk]
     scores = scores.masked_fill(~mask[:, None, None], -math.inf)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)    # rows with no visible key
@@ -130,14 +150,27 @@ def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def window_floor(first_tok: int, last_tok: int, length: int,
+                 window: int) -> int:
+    """The first key any row of tokens first_tok..last_tok sees: 0 without
+    a window or when a row lies past the length (its causal mask has no
+    lower edge), else first_tok - window + 1 (at least 0)."""
+    if not window or last_tok >= length:
+        return 0
+    return max(0, first_tok - window + 1)
+
+
 def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, lengths: torch.Tensor,
                                   block_m: int = BLOCK_M,
-                                  block_n: int | None = None) -> torch.Tensor:
+                                  block_n: int | None = None,
+                                  window: int = 0) -> torch.Tensor:
     """Plain twin of the kernel's schedule (fp32 math, output in q's dtype):
-    online softmax in exp2 units over the key tiles a half row tile walks,
-    masks only on the tiles that cross the half's diagonal or the length,
-    dead value rows zeroed on the length-edge tile."""
+    online softmax in exp2 units over the key tiles a half row tile walks
+    (from the tile of its `window_floor` to its diagonal and the length),
+    masks only on the tiles that cross the half's diagonal, the length or
+    its window's lower edge, dead value rows zeroed on the length-edge
+    tile."""
     n, t, kh, g, d = q.shape
     block_n = block_n or key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
@@ -165,11 +198,15 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                 tok = tok0 + r // g
                 keep = tok < t
                 r, tok = r[keep], tok[keep]
+                first_kt = window_floor(first_tok, last_tok, ln,
+                                        window) // block_n
+                # the largest first visible key of the half's real rows
+                edge = min(last_tok, ln - 1) - window + 1 if window else 0
                 qs = rows_q[b, :, tok0 * g + r]                 # [K, R, D]
                 m = torch.full((kh, r.numel()), -math.inf)
                 l = torch.zeros((kh, r.numel()))
                 o = torch.zeros((kh, r.numel(), d))
-                for kt in range(last_tile + 1):
+                for kt in range(first_kt, last_tile + 1):
                     key0 = kt * block_n
                     if key0 > last_tok:      # wholly above the diagonal
                         continue
@@ -179,8 +216,8 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                     if key0 + block_n > ln:  # the length-edge tile
                         kt_v = torch.where((keys < ln)[:, None], kt_v, 0.0)
                     sc = torch.einsum("krd,kjd->krj", qs, kt_k) * scale_log2
-                    if key0 + block_n > min(first_tok + 1, ln):
-                        vis = (keys[None, :] <= tok[:, None]) & (keys < ln)
+                    if key0 + block_n > min(first_tok + 1, ln) or key0 < edge:
+                        vis = visible(tok, keys, ln, window)
                         sc = torch.where(vis, sc, -math.inf)
                     m_new = torch.maximum(m, sc.max(dim=-1).values)
                     m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -197,10 +234,12 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
+                  lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
     """See module docstring. Returns [N, T, K, G, D] in q's dtype."""
+    if window < 0:
+        raise ValueError(f"flash_prefill: window {window} < 0")
     if q.device.type == "cpu":
-        return flash_prefill_reference(q, k, v, lengths)
+        return flash_prefill_reference(q, k, v, lengths, window)
     n, t, kh, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
@@ -234,11 +273,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), n, t, kh, g, d, build.dtype_code(q.dtype),
-            1.0 / math.sqrt(d), stream)
+            out.data_ptr(), n, t, kh, g, d, min(window, t),
+            build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("flash_prefill", code)
     flash_prefill.launches += 1
+    if 0 < window < t:
+        flash_prefill.windowed += 1
     return out
 
 
 flash_prefill.launches = 0
+flash_prefill.windowed = 0

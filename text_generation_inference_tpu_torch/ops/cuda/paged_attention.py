@@ -54,9 +54,10 @@ import torch
 
 from . import build
 
-# head dims the kernel is built for: the JAX package's families (64, 80,
-# 128, 192, 256) and the test fixtures' 16
-HEAD_DIMS = (16, 64, 80, 128, 192, 256)
+# head dims the kernel is built for: the JAX package's families (64, 80 for
+# phi-2, 96 for gpt-neox-20b, 128, 192, 256 for gemma) and the test
+# fixtures' 16
+HEAD_DIMS = (16, 64, 80, 96, 128, 192, 256)
 # element types it is built for
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 GROUP_BLOCK = 16  # query heads a block of the split kernel takes
