@@ -41,7 +41,13 @@ Phases (any failure exits non-zero; nothing is caught):
              over 8192 rows (and against its split twin); each check must
              also reject the plain version with the window's edge moved by
              one key. The split body at head dim 96 (gpt-neox-20b) in both
-             paged modes.
+             paged modes. ALiBi: flash prefill at BLOOM-7b1's heads in a
+             2048 bucket (and its fp32 body at falcon-rw-1b's), the split
+             body at BLOOM-7b1's decode widths in both paged modes, K2
+             over int8 pools and S1, each also timed without slopes and
+             each rejecting the plain version without slopes and with the
+             next head's slopes; multi-query flash prefill and paged decode
+             at StarCoder's heads (48 over 1).
   3. parity  one prefill and a few decode steps with the kernels and with
              their plain versions (`ops.attention.PLAIN`); logits and
              greedy tokens are compared: the full-width bf16 TinyLlama
@@ -56,11 +62,14 @@ Phases (any failure exits non-zero; nothing is caught):
              steps and a flush), with K1 for every product and with the MLP
              through M1, in bf16 and again in fp16; then the families
              beyond Llama (FAMILY_CONFIGS: Mistral-7B, Qwen2-7B, Gemma-7B,
-             gpt-neox-20b, gpt-j-6b, codegen-6B-mono, phi-2, falcon-7b) at
-             their published widths and 2 layers, random weights, the
-             paged prefill and 4 decode steps (Mistral: the slot cache at
-             8192 rows, prompts of 4600 and 1000 tokens past its window),
-             each family's launches counted.
+             gpt-neox-20b, gpt-j-6b, codegen-6B-mono, phi-2, falcon-7b,
+             gpt2-xl, opt-6.7b, StarCoder, BLOOM-7b1, mpt-7b,
+             falcon-rw-1b) at their published widths and 2 layers, random
+             weights, the paged prefill and 4 decode steps (Mistral: the
+             slot cache at 8192 rows, prompts of 4600 and 1000 tokens past
+             its window; BLOOM-7b1 also on a 2048-row slot cache, S1 with
+             slopes), each family's launches counted (an ALiBi family's
+             kernels must have taken its slopes).
   4. serve   a PagedInferenceEngine behind the port's Batcher. Runs 1 and 2:
              full TinyLlama-1.1B width (22 layers, random bf16 weights from
              a seeded generator on the card), decode chunks of 8 with the
@@ -88,11 +97,18 @@ Phases (any failure exits non-zero; nothing is caught):
              300-6000 tokens (four past its window of 4096): flash prefill
              and S1 must both run cut at the window. Run 8: Gemma-7B at full
              width and depth on the default paged engine, max_seq 2048,
-             two requests streaming, then eight prompts near max_seq in one
-             prefill batch of 8 (the default max_prefill_batch): flash
-             prefill's D = 256 body and the split body at D = 256. Both
-             with gRPC. Every run logs its prefill batches and its peak of
-             allocated device memory.
+             two requests streaming, then eight prompts near max_seq at
+             once, which the prefill cap (2048 padded tokens) takes a row
+             at a time, one asking for its input tokens' details: flash
+             prefill's D = 256 body and the split body at D = 256; its peak
+             of allocated memory less params, pool and the graphs' pool
+             must stay within the plan's activation_bytes (F4). Run 9:
+             StarCoder-15.5B at full width and depth (multi-query), paged,
+             max_seq 8192, prompts of 500-7500 tokens. Run 10: BLOOM-7b1
+             at full width and depth (ALiBi), paged, run 8's traffic and
+             memory check. All with gRPC. Every run logs its prefill
+             batches and its peak of allocated device memory, and holds
+             every prefill dispatch within the cap.
   5. probe   the port's ring-decode probe (`tools/probe_decode.py`): one
              chunk of 64 ring-decode steps over 48 slots at full TinyLlama
              width, attention inline (the engine's formulation) or through
@@ -102,8 +118,9 @@ Phases (any failure exits non-zero; nothing is caught):
              `engine/programs.py`) in four configs, after run 2 (TinyLlama
              bf16 paged, per-step decode, 8 live requests), after run 4
              (the slot engine in scan mode, 8 live), after run 3 (7B GPTQ
-             + int8 KV, ring chunks of 8, 16 live) and after run 6 (as run
-             3, INT4_FUSED_MLP=1): (1) a graph engine and an eager one
+             + int8 KV, ring chunks of 8, 16 live; the first 16 of its 32
+             layers, to keep the script near half its time limit) and
+             after run 6 (as run 3, INT4_FUSED_MLP=1): (1) a graph engine and an eager one
              (`eager_decode=True`) built alike, in lockstep through a
              staggered schedule (`tools/decode_replay.py`): outputs, state
              and KV equal bit for bit, keys replayed out of their capture
@@ -117,7 +134,7 @@ Phases (any failure exits non-zero; nothing is caught):
              paged kernel, S1, K1 and K2, M1 and K1; no `sum_splits` kernel
              may run).
 
-Serving runs 1-8 serve through the captured programs: every decode
+Serving runs 1-10 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
 replay of a graph times the launches its capture recorded.
 
@@ -217,7 +234,42 @@ FAMILY_CONFIGS = {
                    multi_query=True, parallel_attn=True,
                    new_decoder_architecture=False, alibi=False, bias=False,
                    layer_norm_epsilon=1e-5),
+    # the learned-position families
+    # openai-community/gpt2-xl
+    "gpt2": dict(model_type="gpt2", vocab_size=50257, n_embd=1600,
+                 n_layer=48, n_head=25, n_positions=1024, n_inner=None,
+                 layer_norm_epsilon=1e-5, activation_function="gelu_new"),
+    # facebook/opt-6.7b
+    "opt": dict(model_type="opt", vocab_size=50272, hidden_size=4096,
+                num_hidden_layers=32, num_attention_heads=32, ffn_dim=16384,
+                max_position_embeddings=2048, do_layer_norm_before=True,
+                word_embed_proj_dim=4096, activation_function="relu",
+                enable_bias=True),
+    # bigcode/starcoder
+    "gpt_bigcode": dict(model_type="gpt_bigcode", vocab_size=49152,
+                        n_embd=6144, n_layer=40, n_head=48,
+                        n_positions=8192, n_inner=24576, multi_query=True,
+                        layer_norm_epsilon=1e-5,
+                        activation_function="gelu_pytorch_tanh"),
+    # the ALiBi families
+    # bigscience/bloom-7b1
+    "bloom": dict(model_type="bloom", vocab_size=250880, hidden_size=4096,
+                  n_layer=30, n_head=32, layer_norm_epsilon=1e-5),
+    # mosaicml/mpt-7b
+    "mpt": dict(model_type="mpt", vocab_size=50432, d_model=4096,
+                n_layers=32, n_heads=32, expansion_ratio=4, max_seq_len=2048,
+                attn_config=dict(alibi=True, clip_qkv=None,
+                                 softmax_scale=None),
+                no_bias=True),
+    # tiiuae/falcon-rw-1b
+    "falcon_rw": dict(model_type="falcon", vocab_size=50304,
+                      hidden_size=2048, num_hidden_layers=24,
+                      num_attention_heads=32, multi_query=False,
+                      parallel_attn=False, new_decoder_architecture=False,
+                      alibi=True, bias=True, layer_norm_epsilon=1e-5),
 }
+# the families whose LayerNorms have no bias (mpt-7b's no_bias)
+NO_NORM_BIAS = ("mpt",)
 
 
 def log(msg: str) -> None:
@@ -293,8 +345,23 @@ def nbytes(*tensors) -> int:
 # --- phase 2: kernels -------------------------------------------------------
 
 
+def alibi_slopes(torch, kh: int, g: int):
+    """The bloom-formula ALiBi slopes of kh * g heads as [KV, G] on the card
+    (the port's own `alibi_slopes`)."""
+    from text_generation_inference_tpu_torch.models.core import alibi_slopes as fn
+
+    return torch.from_numpy(fn(kh * g)).reshape(kh, g).to(DEVICE)
+
+
+def next_head(slopes):
+    """Each head given the next head's slope: a kernel that misplaces the
+    head of a row must be told from the right one."""
+    return slopes.flatten().roll(-1).reshape(slopes.shape).contiguous()
+
+
 def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
-                        window: int = 0, t: int = 2048, lens=(1500, 900)):
+                        window: int = 0, t: int = 2048, lens=(1500, 900),
+                        alibi: bool = False):
     """Flash prefill over right-padded sequences of `lens` tokens in a
     bucket of t at (D, KV heads, group), bf16 by default; fp32 runs the
     3xTF32 tensor-core kernel, held to 1e-4 of the plain version (and its
@@ -303,7 +370,12 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
     SDPA with the band as a boolean mask), q scaled by 4 (exact in bf16) so
     that a few keys carry each row, and the tolerance must reject the plain
     version at window - 1, window + 1 and without a window: the check
-    tells a kernel that misplaces the window's edge by one key."""
+    tells a kernel that misplaces the window's edge by one key. With
+    `alibi`, the bloom slopes of H heads: the tolerance must reject the
+    plain version without slopes and with each head given the next head's
+    slope; the kernel is also timed without slopes on the same inputs
+    (`ms_no_slopes`), and its library call is SDPA with the causal ALiBi
+    bias as a float mask."""
     from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
 
     dtype = dtype or torch.bfloat16
@@ -317,8 +389,9 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
     q, k, v = rnd(n, t, kh, g, d), rnd(n, t, kh, d), rnd(n, t, kh, d)
     if window:
         q = q * 4
-    got = fp.flash_prefill(q, k, v, lengths, window=window)
-    want = fp.flash_prefill_reference(q, k, v, lengths, window)
+    slopes = alibi_slopes(torch, kh, g) if alibi else None
+    got = fp.flash_prefill(q, k, v, lengths, window=window, slopes=slopes)
+    want = fp.flash_prefill_reference(q, k, v, lengths, window, slopes)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
@@ -342,14 +415,32 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
             tol += (f"; rejects window {other} (max gap "
                     f"{gap.max().item():.3e})")
             del wrong, gap
+    if alibi:
+        live = (torch.arange(t, device="cuda")[None, :]
+                < lengths[:, None].long())
+
+        def close(a, b):
+            if not bool(((a.float() - b.float()).abs()
+                         <= atol + rtol * b.float().abs()).all()):
+                raise AssertionError(f"flash_prefill D={d}: outside {tol}")
+
+        tol += alibi_rejections(
+            torch, got[live], lambda sl: fp.flash_prefill_reference(
+                q, k, v, lengths, window, sl)[live], slopes, close,
+            f"flash_prefill D={d}")
     if dtype == torch.float32:
-        twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths, window)
+        twin = fp.flash_prefill_tf32x3_reference(q, k, v, lengths, window,
+                                                 slopes)
         tol += (f"; against the 3xTF32 twin "
                 f"{(got - twin).abs().max().item():.3e}")
         del twin
-    ms = timer(lambda: fp.flash_prefill(q, k, v, lengths, window=window))
+    ms = timer(lambda: fp.flash_prefill(q, k, v, lengths, window=window,
+                                        slopes=slopes))
+    ms_no_slopes = (timer(lambda: fp.flash_prefill(q, k, v, lengths,
+                                                   window=window))
+                    if alibi else None)
     plain_ms = timer(lambda: fp.flash_prefill_reference(q, k, v, lengths,
-                                                        window),
+                                                        window, slopes),
                      iters=3, warmup=1)
     # yardstick: one causal SDPA call over the full bucket (no lengths;
     # with a window, its band as a boolean mask)
@@ -362,6 +453,13 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
         band = ((pos[None, :] <= pos[:, None])
                 & (pos[None, :] > pos[:, None] - window))
         library_ms = timer(lambda: sdpa(qh, kx, vx, attn_mask=band))
+    elif alibi:
+        pos = torch.arange(t, device="cuda")
+        rel = (pos[None, :] - pos[:, None]).float()
+        bias = torch.where(rel <= 0, slopes.reshape(-1, 1, 1) * rel,
+                           float("-inf")).to(q.dtype)[None]
+        library_ms = timer(lambda: sdpa(qh, kx, vx, attn_mask=bias))
+        del bias
     else:
         library_ms = timer(lambda: sdpa(qh, kx, vx, is_causal=True))
     # work this run's data needs: query row i < len sees min(i+1, window)
@@ -376,14 +474,18 @@ def check_flash_prefill(torch, timer, d: int, kh: int, g: int, dtype=None,
     tflops = flops / (ms * 1e-3) / 1e12
     log(f"kernel flash_prefill {str(dtype).split('.')[-1]} D={d} N={n} T={t} "
         f"lengths {list(lens)} H={kh * g} KV={kh}"
-        f"{f' window {window}' if window else ''}: "
-        f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
+        f"{f' window {window}' if window else ''}"
+        f"{f' ALiBi (without slopes {ms_no_slopes:.4f} ms)' if alibi else ''}"
+        f": max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
         f"({b_by}); {flops / 1e9:.1f} GFLOP at {tflops:.1f} TFLOP/s "
         f"({100 * tflops / (peak_flops(dtype) / 1e12):.1f}% of the "
         f"{'3xTF32' if dtype == torch.float32 else 'bf16'} peak)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, tflops=tflops)
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library_ms, tflops=tflops)
+    if alibi:
+        out["ms_no_slopes"] = ms_no_slopes
+    return out
 
 
 def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
@@ -417,9 +519,10 @@ def paged_inputs(torch, s=16, kh=4, g=8, d=64, page=128, max_pages=16,
             page)
 
 
-def paged_library_call(torch, q, kp, vp, bt, ctx, page):
+def paged_library_call(torch, q, kp, vp, bt, ctx, page, slopes=None):
     """One SDPA call on the same work: the live pages gathered (outside the
-    timing) into a dense [S, H, T, D] view with a length mask."""
+    timing) into a dense [S, H, T, D] view with a length mask (with
+    `slopes`, a float mask carrying the ALiBi bias)."""
     s, kh, g, d = q.shape
     t = int(ctx.max())
     rows = (bt.long()[:, :, None] * page
@@ -428,56 +531,102 @@ def paged_library_call(torch, q, kp, vp, bt, ctx, page):
     kd = kp[:, rows].permute(1, 0, 2, 3).repeat_interleave(g, dim=1)
     vd = vp[:, rows].permute(1, 0, 2, 3).repeat_interleave(g, dim=1)
     mask = (torch.arange(t, device="cuda")[None, :] < ctx[:, None])[:, None, None]
+    if slopes is not None:
+        pos = torch.arange(t, device="cuda").float()
+        mask = torch.where(mask, slopes.reshape(1, -1, 1, 1) * pos,
+                           float("-inf")).to(q.dtype)
     qh = q.reshape(s, kh * g, 1, d)
     kd, vd = kd.contiguous(), vd.contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qh, kd, vd, attn_mask=mask)
 
 
-def check_paged(torch, timer, stats: bool, dtype=None, kh=4, g=8, d=64):
+def alibi_rejections(torch, got, ref, slopes, check, what) -> str:
+    """The plain version `ref(slopes)` without slopes and with each head
+    given the next head's slope must fail `check(got, wrong)` (which raises
+    AssertionError outside its tolerance); returns the largest gaps over
+    finite entries, for the log."""
+    out = ""
+    for label, other in (("no slopes", None),
+                         ("the next head's slopes", next_head(slopes))):
+        wrong = ref(other)
+        pairs = list(zip(*(x if isinstance(x, tuple) else (x,)
+                           for x in (got, wrong))))
+        try:
+            check(got, wrong)
+        except AssertionError:
+            gap = max(torch.where(torch.isfinite(b), (a.float() - b.float())
+                                  .abs(), 0.0).max().item() for a, b in pairs)
+            out += f"; rejects {label} (max gap {gap:.3e})"
+            continue
+        raise AssertionError(f"{what} ALiBi: the tolerance does not reject "
+                             f"the plain version with {label}")
+    return out
+
+
+def check_paged(torch, timer, stats: bool, dtype=None, kh=4, g=8, d=64,
+                alibi: bool = False):
     """The paged kernel (normalized, or its stats mode) at TinyLlama decode
-    widths by default."""
+    widths by default. With `alibi`, the bloom slopes of its heads: the
+    tolerances must reject the plain version without slopes and with the
+    next head's slopes, and the kernel is also timed without slopes."""
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
     q, kp, vp, bt, ctx, page = paged_inputs(torch, kh=kh, g=g, d=d,
                                             dtype=dtype)
     fp32 = q.dtype == torch.float32
     s, kh, g, d = q.shape
+    slopes = alibi_slopes(torch, kh, g) if alibi else None
+    name = "paged_decode_attention_stats" if stats else "paged_decode_attention"
     if stats:
-        fn = lambda: pa.paged_decode_attention_partial(q, kp, vp, bt, ctx, page)
-        ref = lambda: pa.paged_decode_attention_partial_reference(
-            q, kp, vp, bt, ctx, page)
+        fn = lambda sl=slopes: pa.paged_decode_attention_partial(
+            q, kp, vp, bt, ctx, page, sl)
+        ref = lambda sl=slopes: pa.paged_decode_attention_partial_reference(
+            q, kp, vp, bt, ctx, page, sl)
         got, want = fn(), ref()
         acc_abs = pa.paged_decode_attention_partial_reference(
-            q, kp, vp.abs(), bt, ctx, page)[0]
+            q, kp, vp.abs(), bt, ctx, page, slopes)[0]
         torch.cuda.synchronize()
         err, tol = stats_error(torch, got, want, acc_abs, "paged stats", fp32)
         out_bytes = nbytes(*got)
     else:
-        fn = lambda: pa.paged_decode_attention(q, kp, vp, bt, ctx, page)
-        ref = lambda: pa.paged_decode_attention_reference(
-            q, kp, vp, bt, ctx, page)
+        fn = lambda sl=slopes: pa.paged_decode_attention(q, kp, vp, bt, ctx,
+                                                         page, sl)
+        ref = lambda sl=slopes: pa.paged_decode_attention_reference(
+            q, kp, vp, bt, ctx, page, sl)
         got, want = fn(), ref()
         torch.cuda.synchronize()
         err, tol = bf16_close(torch, got, want, "paged decode", fp32)
         out_bytes = nbytes(got)
+    if alibi:
+        tol += alibi_rejections(
+            torch, got, ref, slopes,
+            (lambda a, b: stats_error(torch, a, b, acc_abs, name, fp32))
+            if stats else (lambda a, b: bf16_close(torch, a, b, name, fp32)),
+            name)
     ms = timer(fn, iters=20)
+    ms_no_slopes = timer(lambda: fn(None), iters=20) if alibi else None
     plain_ms = timer(ref, iters=3, warmup=1)
-    library_ms = timer(paged_library_call(torch, q, kp, vp, bt, ctx, page))
+    library_ms = timer(paged_library_call(torch, q, kp, vp, bt, ctx, page,
+                                          slopes))
     live = int(ctx.sum())
     kv_bytes = 2 * live * kh * d * kp.element_size()
     flops = 4.0 * live * kh * g * d
     moved = nbytes(q, bt, ctx) + kv_bytes + out_bytes
     b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
-    name = "paged_decode_attention_stats" if stats else "paged_decode_attention"
     log(f"kernel {name} {str(q.dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} page={page} ctx_max="
-        f"{int(ctx.max())} live_tokens={live}: max_abs_err {err:.3e} (tol "
+        f"{int(ctx.max())} live_tokens={live}"
+        f"{f' ALiBi (without slopes {ms_no_slopes:.4f} ms)' if alibi else ''}"
+        f": max_abs_err {err:.3e} (tol "
         f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
         f"MB at {gbps:.1f} GB/s, {100 * b_ms / ms:.1f}% of the bound")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    if alibi:
+        out["ms_no_slopes"] = ms_no_slopes
+    return out
 
 
 def stats_error(torch, got, want, acc_abs, what, fp32=False):
@@ -515,18 +664,21 @@ def stats_error(torch, got, want, acc_abs, what, fp32=False):
                  "1e-3 of max(1, max l)")
 
 
-def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None):
+def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None,
+                     alibi: bool = False, max_pages: int = 8):
     """K2, the stats mode over int8 pools: at Llama-2-7B decode widths (16
     slots, 32 kv heads, G = 1, D = 128) or TinyLlama's (4 kv heads, G = 8,
-    D = 64); page 128 (two pages a split), contexts up to 1024, a ctx == 0
-    slot and a sentinel page inside slot 4's first split."""
+    D = 64); page 128 (two pages a split), contexts up to 1024 (max_pages
+    8), a ctx == 0 slot and a sentinel page inside slot 4's first split.
+    With `alibi`, as `check_paged`."""
     from text_generation_inference_tpu_torch.models.core import quantize_kv
     from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
 
     q, kp, vp, bt, ctx, page = paged_inputs(torch, s=16, kh=kh, g=g, d=d,
-                                            max_pages=8, first_ctx=0,
+                                            max_pages=max_pages, first_ctx=0,
                                             dtype=dtype)
     fp32 = q.dtype == torch.float32
+    slopes = alibi_slopes(torch, kh, g) if alibi else None
     bt[4, 1] = kp.shape[1] // page              # the sentinel, in split 0
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
@@ -535,16 +687,21 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None):
     vd = (vq.float() * vs[..., None]).to(q.dtype)
     del kp, vp
     s = q.shape[0]
-    fn = lambda: pa.paged_decode_attention_partial_i8(q, kq, vq, ks, vs, bt,
-                                                      ctx, page)
-    ref = lambda: pa.paged_decode_attention_partial_reference(
-        q, kq, vq, bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)
+    fn = lambda sl=slopes: pa.paged_decode_attention_partial_i8(
+        q, kq, vq, ks, vs, bt, ctx, page, sl)
+    ref = lambda sl=slopes: pa.paged_decode_attention_partial_reference(
+        q, kq, vq, bt, ctx, page, sl, k_scale_pool=ks, v_scale_pool=vs)
     got, want = fn(), ref()
     acc_abs = pa.paged_decode_attention_partial_reference(
-        q, kq, vq.abs(), bt, ctx, page, k_scale_pool=ks, v_scale_pool=vs)[0]
+        q, kq, vq.abs(), bt, ctx, page, slopes, k_scale_pool=ks,
+        v_scale_pool=vs)[0]
     torch.cuda.synchronize()
     err, tol = stats_error(torch, got, want, acc_abs, "paged int8 stats",
                            fp32)
+    if alibi:
+        tol += alibi_rejections(
+            torch, got, ref, slopes,
+            lambda a, b: stats_error(torch, a, b, acc_abs, "K2", fp32), "K2")
     if not (torch.isneginf(got[1][0]).all() and (got[2][0] == 0).all()
             and (got[0][0] == 0).all()):
         raise AssertionError("paged decode int8: ctx == 0 slot not empty")
@@ -552,10 +709,12 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None):
         torch, f"paged_decode_attention_partial_i8 D={d}",
         lambda idx: pa.paged_decode_attention_partial_i8(
             q[idx].contiguous(), kq, vq, ks, vs, bt[idx].contiguous(),
-            ctx[idx].contiguous(), page)[0], s)
+            ctx[idx].contiguous(), page, slopes)[0], s)
     ms = timer(fn, iters=20)
+    ms_no_slopes = timer(lambda: fn(None), iters=20) if alibi else None
     plain_ms = timer(ref, iters=3, warmup=1)
-    library_ms = timer(paged_library_call(torch, q, kd, vd, bt, ctx, page))
+    library_ms = timer(paged_library_call(torch, q, kd, vd, bt, ctx, page,
+                                          slopes))
     # live keys: below ctx and not on the sentinel page
     live = int(ctx.sum()) - page
     # int8 k and v rows plus one f32 scale each per (row, kv head)
@@ -565,14 +724,18 @@ def check_paged_int8(torch, timer, kh=32, g=1, d=128, dtype=None):
     b_ms, b_by = bound(moved, flops, fp32)
     gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel paged_decode_attention_partial_i8 q {str(q.dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} "
-        f"page={page} ctx_max={int(ctx.max())} live_tokens={live}: "
-        f"max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
+        f"page={page} ctx_max={int(ctx.max())} live_tokens={live}"
+        f"{f' ALiBi (without slopes {ms_no_slopes:.4f} ms)' if alibi else ''}"
+        f": max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} (SDPA on the gathered, "
         f"dequantized pages) bound_ms {b_ms:.4f} ({b_by}); "
         f"{moved / 1e6:.2f} MB at {gbps:.1f} GB/s, "
         f"{100 * b_ms / ms:.1f}% of the bound")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    if alibi:
+        out["ms_no_slopes"] = ms_no_slopes
+    return out
 
 
 def same_slot_in_a_batch(torch, what, fn_at, s):
@@ -618,27 +781,32 @@ def bf16_close(torch, got, want, what, fp32=False):
     return err, f"atol {atol} + rtol {rtol}"
 
 
-def sdpa_call(torch, q, keys, values, live):
+def sdpa_call(torch, q, keys, values, live, slopes=None):
     """The yardstick: one SDPA call over [S, H, N, D] keys / values (the
-    GQA heads repeated beforehand) with a boolean mask of the live ones."""
+    GQA heads repeated beforehand) with a boolean mask of the live ones
+    (with `slopes`, a float mask carrying the ALiBi bias of each row)."""
     s, kh, g, d = q.shape
     qh = q.reshape(s, kh * g, 1, d)
     kx = keys.repeat_interleave(g, dim=1).contiguous()
     vx = values.repeat_interleave(g, dim=1).contiguous()
     mask = live[:, None, None, :]
+    if slopes is not None:
+        pos = torch.arange(live.shape[1], device="cuda").float()
+        mask = torch.where(mask, slopes.reshape(1, -1, 1, 1) * pos,
+                           float("-inf")).to(q.dtype)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qh, kx, vx, attn_mask=mask)
 
 
 def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None,
-                      window=0, ctx=None):
+                      window=0, ctx=None, alibi: bool = False):
     """S1 over one layer's slot cache [S, KV, T, D], ctx spread over 0..T
     unless given; with `window`, the lower bounds lo = ctx - window (a
     sliding window). There the keys at lo - 1 (just outside) and lo (the
     first one inside) of every cut slot point along the slot's queries, the
     outer one harder, and the tolerance must reject the plain version at
     the bounds lo - 1 and lo + 1: the check tells a kernel that misplaces
-    the bound by one row."""
+    the bound by one row. With `alibi`, as `check_paged`."""
     from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
 
     dtype = dtype or torch.bfloat16
@@ -659,13 +827,23 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None,
             b = int(lo[slot])
             k[slot, :, b - 1] = (60 * u[slot]).to(dtype)
             k[slot, :, b] = (40 * u[slot]).to(dtype)
-    fn = lambda: da.decode_attention(q, k, v, ctx, lo)
-    ref = lambda: da.decode_attention_reference(q, k, v, ctx, lo)
+    slopes = alibi_slopes(torch, kh, g) if alibi else None
+    fn = lambda sl=slopes: da.decode_attention(q, k, v, ctx, lo, sl)
+    ref = lambda sl=slopes: da.decode_attention_reference(q, k, v, ctx, lo,
+                                                          sl)
     got, want = fn(), ref()
     torch.cuda.synchronize()
     err, tol = bf16_close(torch, got, want, f"decode_attention D={d}", fp32)
     if not bool((got[ctx == 0] == 0).all()):
         raise AssertionError("decode_attention: a ctx == 0 slot is not 0")
+    if alibi:
+        twin = da.decode_attention_split_reference(q, k, v, ctx, lo=lo,
+                                                   slopes=slopes)
+        bf16_close(torch, got, twin, f"decode_attention D={d} ALiBi against "
+                   "its split twin", fp32)
+        tol += alibi_rejections(
+            torch, got, ref, slopes,
+            lambda a, b: bf16_close(torch, a, b, "S1", fp32), "S1")
     if window:
         twin = da.decode_attention_split_reference(q, k, v, ctx, lo=lo)
         bf16_close(torch, got, twin, f"decode_attention D={d} window "
@@ -685,14 +863,15 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None,
         torch, f"decode_attention D={d}",
         lambda idx: da.decode_attention(
             q[idx].contiguous(), k[idx], v[idx], ctx[idx].contiguous(),
-            None if lo is None else lo[idx].contiguous()), s)
+            None if lo is None else lo[idx].contiguous(), slopes), s)
     ms = timer(fn, iters=20)
+    ms_no_slopes = timer(lambda: fn(None), iters=20) if alibi else None
     plain_ms = timer(ref, iters=3, warmup=1)
     rows = torch.arange(t, device="cuda")[None, :]
     live_rows = rows < ctx[:, None]
     if window:
         live_rows = live_rows & (rows >= lo[:, None])
-    library_ms = timer(sdpa_call(torch, q, k, v, live_rows))
+    library_ms = timer(sdpa_call(torch, q, k, v, live_rows, slopes))
     live = int(live_rows.sum())
     flops = 4.0 * live * kh * g * d
     moved = nbytes(q, ctx, got) + 2 * live * kh * d * q.element_size()
@@ -700,12 +879,16 @@ def check_slot_decode(torch, timer, s, kh, g, d, t=2048, dtype=None,
     gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel decode_attention {str(dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} T={t} "
         f"{f'window {window} ctx {ctx.tolist()} ' if window else ''}"
+        f"{f'ALiBi (without slopes {ms_no_slopes:.4f} ms) ' if alibi else ''}"
         f"live_tokens={live}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
         f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} (SDPA, mask "
         f"over the whole T) bound_ms {b_ms:.4f} ({b_by}); {moved / 1e6:.2f} "
         f"MB at {gbps:.1f} GB/s, {100 * b_ms / ms:.1f}% of the bound")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    out = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=library_ms, gbps=gbps)
+    if alibi:
+        out["ms_no_slopes"] = ms_no_slopes
+    return out
 
 
 def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
@@ -1132,29 +1315,47 @@ LM_HEAD_BIAS = ("gptj", "codegen", "phi")
 
 
 def family_model(torch, name, seed, **overrides):
-    """(spec, random params) of a family at its published widths."""
+    """(spec, random params) of a family at its published widths, fused as
+    an engine fuses them (`fuse_params`), so that a serving run's engine
+    shares the caller's weights instead of holding fused copies beside
+    them (the memory checks count the weights once)."""
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+
     spec = family_spec(name, **overrides)
-    return spec, family_params(torch, spec, seed, name in LM_HEAD_BIAS)
+    return spec, fuse_params(spec, family_params(
+        torch, spec, seed, name in LM_HEAD_BIAS,
+        norm_bias=name not in NO_NORM_BIAS))
 
 
-def family_params(torch, spec, seed=0, lm_head_bias=False):
+def family_params(torch, spec, seed=0, lm_head_bias=False, norm_bias=True):
     """Layer-stacked bf16 params of any served family's layout, drawn on
     the card from a seeded generator (the JAX package's init rule: scale
     1/sqrt(fan_in), embeddings 0.02; norm scales 1, biases 0.02): the GLU
-    gate, the q/k/v, out and MLP biases, LayerNorm biases, lm_head and its
-    bias exactly where the spec (and the family's loader) has them."""
+    gate, the q/k/v, out and MLP biases, LayerNorm biases (unless
+    `norm_bias` is False), learned positions, the embedding LayerNorm,
+    lm_head and its bias exactly where the spec (and the family's loader)
+    has them. Layer-stacked weights are drawn a layer at a time, so a
+    15B model's fp32 draws never hold more than a layer."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50 + seed)
     L, D, F = spec.num_layers, spec.hidden_size, spec.intermediate_size
     Q, KV = spec.q_size, spec.kv_size
 
-    def dense(*shape, scale=None):
-        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+    def draw(shape, scale):
         return (torch.randn(*shape, generator=gen, device=DEVICE) * scale
                 ).to(DTYPE)
 
+    def dense(*shape, scale=None):
+        scale = scale if scale is not None else 1.0 / math.sqrt(shape[-2])
+        if len(shape) < 3:
+            return draw(shape, scale)
+        out = torch.empty(*shape, dtype=DTYPE, device=DEVICE)
+        for i in range(shape[0]):
+            out[i] = draw(shape[1:], scale)
+        return out
+
     def norm(*lead):
         p = {"scale": torch.ones(*lead, D, dtype=DTYPE, device=DEVICE)}
-        if spec.norm == "layernorm":
+        if spec.norm == "layernorm" and norm_bias:
             p["bias"] = dense(*lead, D, scale=0.02)
         return p
 
@@ -1174,11 +1375,45 @@ def family_params(torch, spec, seed=0, lm_head_bias=False):
                       b_down=dense(L, D, scale=0.02))
     params = {"embed_tokens": dense(spec.vocab_size, D, scale=0.02),
               "layers": layers, "final_norm": norm()}
+    if spec.pos == "learned":
+        params["embed_positions"] = dense(
+            spec.max_position_embeddings + spec.pos_offset, D, scale=0.02)
+    if spec.embed_norm:
+        params["embed_ln"] = {"scale": torch.ones(D, dtype=DTYPE,
+                                                  device=DEVICE),
+                              "bias": dense(D, scale=0.02)}
     if not spec.tie_word_embeddings:
         params["lm_head"] = dense(D, spec.vocab_size)
     if lm_head_bias:
         params["lm_head_bias"] = dense(spec.vocab_size, scale=0.02)
     return params
+
+
+# family parity holds the kernels' logits to their plain versions' within
+# this many bf16 ulps of the case's largest plain |logit| (one ulp of the
+# logits' own rounding at their peak; the readings it was set from are in
+# PERF.md, section 6)
+FAMILY_ULPS = 4
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude x (8 significant bits)."""
+    return math.ldexp(1.0, math.frexp(x)[1] - 8)
+
+
+def logit_tolerance(pairs, ulps):
+    """(tol, largest plain |logit|): `ulps` bf16 ulps of that peak, or the
+    absolute 0.25 without `ulps`."""
+    peak = max(b.abs().max().item() for _, b in pairs)
+    return (0.25 if ulps is None else ulps * bf16_ulp(peak)), peak
+
+
+def describe_error(max_err, tol, peak, ulps):
+    """The log's account of a logits comparison, in ulps of the peak."""
+    return (f"logits max abs err {max_err:.4f} = "
+            f"{max_err / bf16_ulp(peak):.2f} bf16 ulps of the largest "
+            f"|logit| {peak:.2f} (tol {tol}"
+            f"{f' = {ulps} ulps' if ulps is not None else ''})")
 
 
 def compare_logits(torch, pairs, vocab, tol, what):
@@ -1203,9 +1438,11 @@ def compare_logits(torch, pairs, vocab, tol, what):
     return max_err, agree, decided
 
 
-def model_parity(torch, spec, params, what="parity"):
+def model_parity(torch, spec, params, what="parity", ulps=None):
     """prefill_paged + 4 decode_paged steps with the kernels and with the
-    plain attention functions; both fed the same (plain) greedy tokens."""
+    plain attention functions; both fed the same (plain) greedy tokens.
+    The logits agree within 0.25, or within `ulps` bf16 ulps of the
+    largest plain |logit|."""
     from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
     from text_generation_inference_tpu_torch.models import paged_core
     from text_generation_inference_tpu_torch.models.fuse import fuse_params
@@ -1242,17 +1479,18 @@ def model_parity(torch, spec, params, what="parity"):
         next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
         pos = pos + 1
     sync(torch)
-    tol = 0.25
-    max_err, agree, decided = compare_logits(
-        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
-        tol, what)
+    pairs = list(zip(logits["kernels"], logits["plain"]))
+    tol, peak = logit_tolerance(pairs, ulps)
+    max_err, agree, decided = compare_logits(torch, pairs, spec.vocab_size,
+                                             tol, what)
     log(f"{what}: prefill (N={n}, bucket {t}, lengths 700/300) + 4 decode "
-        f"steps, {spec.num_layers} layers: logits max abs err {max_err:.4f} (tol {tol}), "
+        f"steps, {spec.num_layers} layers: "
+        f"{describe_error(max_err, tol, peak, ulps)}, "
         f"greedy tokens equal {agree}/{decided}")
 
 
 def slot_parity(torch, spec, params, steps: int = 4, t=1024, max_seq=2048,
-                lens=(700, 300), what="slot parity"):
+                lens=(700, 300), what="slot parity", ulps=None):
     """The slot cache at max_seq 2048: `core.prefill` + `steps` scan-mode
     `core.decode` steps (every layer attends through S1) with the kernels
     and with their plain versions, both fed the same (plain) greedy
@@ -1286,15 +1524,16 @@ def slot_parity(torch, spec, params, steps: int = 4, t=1024, max_seq=2048,
         next_ids = logits["plain"][-1].argmax(-1).to(torch.int32)
         pos = pos + 1
     sync(torch)
-    tol = 0.25
-    max_err, agree, decided = compare_logits(
-        torch, list(zip(logits["kernels"], logits["plain"])), spec.vocab_size,
-        tol, what)
+    pairs = list(zip(logits["kernels"], logits["plain"]))
+    tol, peak = logit_tolerance(pairs, ulps)
+    max_err, agree, decided = compare_logits(torch, pairs, spec.vocab_size,
+                                             tol, what)
     log(f"{what}: core.prefill (N={n}, bucket {t}, lengths "
         f"{lens[0]}/{lens[1]}) + "
         f"{steps} scan-mode decode steps at max_seq {max_seq} through "
-        f"decode_attention, {spec.num_layers} layers: logits max abs err "
-        f"{max_err:.4f} (tol {tol}), greedy tokens equal {agree}/{decided}")
+        f"decode_attention, {spec.num_layers} layers: "
+        f"{describe_error(max_err, tol, peak, ulps)}, greedy tokens equal "
+        f"{agree}/{decided}")
 
 
 def quant_parity(torch, spec, params, steps: int = 4):
@@ -1502,27 +1741,45 @@ def family_parity(torch, counters):
     bucket of 1024, 4 per-step paged decode steps), or for a windowed model
     `slot_parity` on a slot cache of 8192 rows with prompts of 4600 and
     1000 tokens (flash prefill and S1 cut at the window), kernels against
-    `PLAIN`. Returns each family's launches."""
+    `PLAIN`; then BLOOM-7b1 again on a slot cache of 2048 rows, so that S1
+    takes ALiBi slopes. The logits agree within FAMILY_ULPS bf16 ulps of
+    the case's largest plain |logit|. An ALiBi family's flash prefill and
+    paged decode must have taken its slopes. Returns each case's
+    launches."""
     out = {}
-    for i, name in enumerate(FAMILY_CONFIGS):
+    cases = [(name, "slot" if family_spec(name).sliding_window else "paged")
+             for name in FAMILY_CONFIGS] + [("bloom", "slot")]
+    for i, (name, cache) in enumerate(cases):
         spec, params = family_model(torch, name, i, num_layers=2)
         for c in counters.values():
             c.reset()
         what = (f"family parity [{name}: D={spec.head_dim}, "
-                f"H={spec.num_heads}, KV={spec.num_kv_heads}]")
+                f"H={spec.num_heads}, KV={spec.num_kv_heads}, {spec.pos}"
+                f"{', slot cache' if cache == 'slot' else ''}]")
         if spec.sliding_window:
             slot_parity(torch, spec, params, t=5120, max_seq=8192,
-                        lens=(4600, 1000), what=what)
+                        lens=(4600, 1000), what=what, ulps=FAMILY_ULPS)
+        elif cache == "slot":
+            slot_parity(torch, spec, params, what=what, ulps=FAMILY_ULPS)
         else:
-            model_parity(torch, spec, params, what=what)
+            model_parity(torch, spec, params, what=what, ulps=FAMILY_ULPS)
         counts = {k: c.read() for k, c in counters.items()}
-        out[name] = counts
+        out[name if cache == "paged" or spec.sliding_window
+            else f"{name}_slot"] = counts
         del params
-        need = ["decode_attention", "decode_attention_windowed",
-                "flash_prefill_windowed"] if spec.sliding_window else [
-                    "paged_decode_attention"]
+        if spec.sliding_window:
+            need = ["decode_attention", "decode_attention_windowed",
+                    "flash_prefill_windowed"]
+        elif cache == "slot":
+            need = ["decode_attention", "decode_attention_alibi"]
+        else:
+            need = ["paged_decode_attention"]
+            if spec.pos == "alibi":
+                need.append("paged_decode_attention_alibi")
         if spec.head_dim % 64 == 0:
             need.append("flash_prefill")
+            if spec.pos == "alibi":
+                need.append("flash_prefill_alibi")
         missed = [k for k in need if counts[k] <= 0]
         if DEVICE == "cuda" and missed:
             raise AssertionError(f"{what}: {missed} never launched: {counts}")
@@ -1572,12 +1829,25 @@ TRAFFIC_MISTRAL = (([300, 1800, 4500, 6000], 0),
 # 1921, 921, 121, 4, 0, 0 and 4096: inside 256-row splits and 64-key tiles,
 # one on their edges, two slots within the window
 RUN7_CTX = [4517, 6017, 5017, 4217, 4100, 317, 1817, 8192]
-# run 8 (Gemma-7B, paged, max_seq 2048): two streaming requests, then eight
-# prompts near max_seq at once: one prefill batch of 8 (the default
-# max_prefill_batch) at the bucket of 2048, whose all-position f32 logits
-# are 16.8 GB
+# run 8 (Gemma-7B, paged, max_seq 2048) and run 10 (BLOOM-7b1): two
+# streaming requests, then eight prompts near max_seq at once; the default
+# max_prefill_batch of 8 would take them in one prefill at the bucket of
+# 2048 (Gemma's all-position f32 logits: 16.8 GB), the prefill cap of 2048
+# padded tokens takes them one at a time (F4); then eight prompts at the
+# bucket of 256, which the cap lets through as one prefill of 8 rows
+# (`F4_BATCH_WAVE`)
 TRAFFIC_GEMMA = (([300, 900, 1500, 1900], 0), ([1200, 600, 1700], 2),
-                 ([1950, 1960, 1970, 1980, 1990, 2000, 2010, 2020], 0)), 24
+                 ([1950, 1960, 1970, 1980, 1990, 2000, 2010, 2020], 0),
+                 ([200, 207, 214, 221, 228, 235, 242, 249], 0)), 24
+# the waves of TRAFFIC_GEMMA whose first request asks for its input
+# tokens' details: one near 2048 (a row a dispatch) and one in the batch
+# of 8 rows at 256, whose details take all 8 rows' logits
+F4_DETAILS_WAVES = (2, 3)
+F4_BATCH_WAVE = 3
+# run 9 (StarCoder-15.5B, paged, max_seq 8192): 10 requests, prompts of
+# 500-7500 tokens, 32 new, two streaming
+TRAFFIC_STARCODER = (([500, 1800, 3000, 4500, 6000, 7500], 0),
+                     ([7000, 2500, 5200, 900], 2)), 32
 
 
 def write_prefix_store(root: str, hidden: int) -> None:
@@ -1600,7 +1870,11 @@ def write_prefix_store(root: str, hidden: int) -> None:
 
 
 def make_requests(lens, streaming_every, seed_base, new, prefixes=None,
-                  prompt_cache=None):
+                  prompt_cache=None, details=False):
+    """The wave's requests: greedy and sampled in turn, every
+    `streaming_every`-th streaming; with `details`, the first asks for its
+    input tokens' details (logprobs, ranks, top tokens of every prompt
+    position: the prefill's largest working set)."""
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
     from text_generation_inference_tpu_torch.scheduler.request import (
         GenRequest, ResponseOptions, StoppingCriteria)
@@ -1618,7 +1892,12 @@ def make_requests(lens, streaming_every, seed_base, new, prefixes=None,
         reqs.append(GenRequest(
             input_text="", input_ids=ids, params=rp,
             stopping=StoppingCriteria(max_new_tokens=new),
-            options=ResponseOptions(), prefix_id=pid,
+            options=ResponseOptions(input_tokens=details and i == 0,
+                                    token_logprobs=details and i == 0,
+                                    token_ranks=details and i == 0,
+                                    top_n_tokens=5 if details and i == 0
+                                    else 0),
+            prefix_id=pid,
             prefix_length=prompt_cache.prefix_length(pid) if pid else 0,
             streaming=bool(streaming_every) and i % streaming_every == 0))
     return reqs
@@ -1942,11 +2221,21 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
 
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
               traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False,
-              fused=False, prefixes=None, slots=16):
+              fused=False, prefixes=None, slots=16, details_waves=(),
+              memory_check=False):
     """One serving run through the Batcher (+ gRPC). With `prefixes` (a
     prefix id or None per request, wave by wave), the config's
     prefix_store_path is served as the server serves it, and an unknown
-    prefix id must fail validation."""
+    prefix id must fail validation. With `details_waves`, those waves'
+    first requests ask for their input tokens' details. Every prefill
+    dispatch must hold at most `max_prefill_tokens` padded tokens (rows x
+    bucket). With `memory_check` (F4), the run's peak of allocated memory
+    less the params, the KV pool and the graphs' pool must stay within the
+    plan's `activation_bytes`, the prefill cap must have refused a request,
+    and wave `F4_BATCH_WAVE` must have prefilled as one dispatch of
+    `max_prefill_batch` rows."""
+    from text_generation_inference_tpu_torch.engine.memory import tree_bytes
+    from text_generation_inference_tpu_torch.utils import metrics
     from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
     from text_generation_inference_tpu_torch.server.main import (
         build_prompt_cache)
@@ -1972,15 +2261,18 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     # the rows of every prefill dispatch, and the run's peak of allocated
     # device memory
     prefill = engine.prefill
-    prefill_rows = []
+    prefill_rows, prefill_shapes = [], []
 
-    def counted_prefill(slots, *args, **kw):
+    def counted_prefill(slots, token_ids, *args, **kw):
         prefill_rows.append(len(slots))
-        return prefill(slots, *args, **kw)
+        prefill_shapes.append((len(slots),
+                               config.bucket_for(max(map(len, token_ids)))))
+        return prefill(slots, token_ids, *args, **kw)
 
     engine.prefill = counted_prefill
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
     replays0 = sum(p.replays for p in progs.programs.values())
     tokenizer = ByteTokenizer()
     waves, new = traffic
@@ -2003,7 +2295,8 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
             for i, (lens, streaming_every) in enumerate(waves):
                 wave = make_requests(lens, streaming_every, 100 * (i + 1), new,
                                      prefixes[i] if prefixes else None,
-                                     prompt_cache)
+                                     prompt_cache,
+                                     details=i in details_waves)
                 ttft += await run_wave(batcher, wave)
                 reqs += wave
             sync(torch)
@@ -2017,10 +2310,50 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
 
     for c in counters.values():
         c.reset()
+    refused = ("tgi_prefill_weight_limit_exceeded", ())
+    refused0 = metrics._counters[refused]
     reqs, wall, ttft = asyncio.run(drive())
     counts = {k: c.read() for k, c in counters.items()}
     counts["max_prefill_rows"] = max(prefill_rows)
+    counts["prefill_cap_refusals"] = metrics._counters[refused] - refused0
+    over = [sh for sh in prefill_shapes
+            if sh[0] * sh[1] > config.max_prefill_tokens]
+    if over:
+        raise AssertionError(f"serve[{name}]: prefill dispatches {over} "
+                             f"hold more than {config.max_prefill_tokens} "
+                             "padded tokens")
     peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    if memory_check:
+        plan = engine.memory_plan
+        params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
+        graphs_b = progs.pool_bytes() or 0
+        transient = peak - params_b - pool_b - graphs_b
+        gib = 2 ** 30
+        log(f"serve[{name}] memory (F4): plan {plan.describe()}; peak "
+            f"allocated {peak / gib:.2f} GiB = params {params_b / gib:.2f} + "
+            f"pool {pool_b / gib:.2f} + graphs' pool {graphs_b / gib:.3f} + "
+            f"transient {transient / gib:.2f} GiB (of it, allocated before "
+            f"the traffic: {(resident - params_b - pool_b - graphs_b) / gib:.3f}"
+            f" GiB) against the plan's "
+            f"activation_bytes {plan.activation_bytes / gib:.2f} GiB; the "
+            f"prefill cap ({config.max_prefill_tokens} tokens) refused "
+            f"{counts['prefill_cap_refusals']:.0f} times; prefill "
+            f"(rows, bucket) {sorted(set(prefill_shapes))}")
+        if DEVICE == "cuda" and transient > plan.activation_bytes:
+            raise AssertionError(f"serve[{name}]: the prefill working set "
+                                 f"{transient} exceeds the plan's "
+                                 f"{plan.activation_bytes} bytes")
+        if counts["prefill_cap_refusals"] <= 0:
+            raise AssertionError(f"serve[{name}]: the prefill cap never "
+                                 "refused a request")
+        batch = (config.max_prefill_batch,
+                 config.bucket_for(max(waves[F4_BATCH_WAVE][0])))
+        if batch not in prefill_shapes:
+            raise AssertionError(f"serve[{name}]: wave {F4_BATCH_WAVE} never "
+                                 f"prefilled as one dispatch {batch}: "
+                                 f"{sorted(set(prefill_shapes))}")
+        counts["transient_bytes"] = transient
+        counts["activation_bytes"] = plan.activation_bytes
     replays = sum(p.replays for p in progs.programs.values()) - replays0
     if DEVICE == "cuda" and (
             replays != counted_begin.calls or counted_begin.calls == 0
@@ -2198,6 +2531,29 @@ def main() -> int:
     # the split body at head dim 96 (gpt-neox-20b: 64 heads, no GQA)
     pn96 = check_paged(torch, timer, stats=False, kh=64, g=1, d=96)
     ps96 = check_paged(torch, timer, stats=True, kh=64, g=1, d=96)
+    # ALiBi: flash prefill at BLOOM-7b1's heads (32 over 32, D 128)
+    # in a 2048 bucket with prompts of 2000 and 1500 tokens, and the fp32
+    # body at falcon-rw-1b's (32 over 32, D 64); the split body at
+    # BLOOM-7b1's decode widths (16 slots, 32 kv heads, G 1, D 128, page
+    # 128, contexts up to 2048) in both paged modes, K2 over int8 pools and
+    # S1 over a 2048-row slot cache. Multi-query at StarCoder's heads (48
+    # over 1, D 128): flash prefill and the split body.
+    fp_alibi = check_flash_prefill(torch, timer, d=128, kh=32, g=1,
+                                   lens=(2000, 1500), alibi=True)
+    fp_alibi_f32 = check_flash_prefill(torch, timer, d=64, kh=32, g=1,
+                                       dtype=fp32, lens=(2000, 1500),
+                                       alibi=True)
+    pn_alibi = check_paged(torch, timer, stats=False, kh=32, g=1, d=128,
+                           alibi=True)
+    ps_alibi = check_paged(torch, timer, stats=True, kh=32, g=1, d=128,
+                           alibi=True)
+    pi8_alibi = check_paged_int8(torch, timer, kh=32, g=1, d=128, alibi=True,
+                                 max_pages=16)
+    s1_alibi = check_slot_decode(torch, timer, s=16, kh=32, g=1, d=128,
+                                 alibi=True)
+    fp_mqa = check_flash_prefill(torch, timer, d=128, kh=1, g=48,
+                                 lens=(2000, 1500))
+    pn_mqa = check_paged(torch, timer, stats=False, kh=1, g=48, d=128)
     # M1 at a 7B layer's MLP: decode rows of run 6 (16 slots) and the
     # kernel's largest row tile, both activations; fp16 / fp32 x (F3)
     m1 = {(m, act): check_int4_mlp(torch, timer, m, act)
@@ -2237,6 +2593,16 @@ def main() -> int:
                                                   "windowed"),
                 "decode_attention_windowed": Counter(da.decode_attention,
                                                      "windowed"),
+                # launches given ALiBi slopes
+                "flash_prefill_alibi": Counter(fp.flash_prefill, "alibi"),
+                "paged_decode_attention_alibi":
+                    Counter(pa.paged_decode_attention, "alibi"),
+                "paged_decode_attention_stats_alibi":
+                    Counter(pa.paged_decode_attention_partial, "alibi"),
+                "paged_decode_attention_partial_i8_alibi":
+                    Counter(pa.paged_decode_attention_partial_i8, "alibi"),
+                "decode_attention_alibi": Counter(da.decode_attention,
+                                                  "alibi"),
                 "paged_decode_attention": Counter(pa.paged_decode_attention),
                 "paged_decode_attention_stats":
                     Counter(pa.paged_decode_attention_partial),
@@ -2401,23 +2767,53 @@ def main() -> int:
     mark("serving run 7")
     # run 8: Gemma-7B at full width and depth on the default paged engine,
     # max_seq 2048 (D = 256: the wgmma flash kernel's 64-key tiles and the
-    # split body at 256 on a served path), the default prefill batch of 8
-    # (its last wave one batch of 8 rows at the bucket of 2048)
+    # split body at 256 on a served path), the default prefill batch of 8,
+    # which meets the prefill cap (F4): its third wave prefills a row at a
+    # time, its fourth as one batch of 8 rows at 256, one prompt of each
+    # asks for its input tokens' details, and the peak stays within the
+    # plan
     del params_m
     spec_g, params_g = family_model(torch, "gemma", 8)
     run8 = serve_run(torch, spec_g, params_g, "gemma-7b-paged",
                      dict(paged_gather_ctx_max=0), counters,
-                     with_grpc=with_grpc, traffic=TRAFFIC_GEMMA)
+                     with_grpc=with_grpc, traffic=TRAFFIC_GEMMA,
+                     details_waves=F4_DETAILS_WAVES, memory_check=True)
     for key in ("flash_prefill", "paged_decode_attention",
                 "paged_decode_attention_stats"):
         if run8[key] <= 0:
             raise AssertionError(f"{key} never ran in serving run 8: {run8}")
-    if run8["max_prefill_rows"] != 8:
-        raise AssertionError(f"run 8 never prefilled a batch of 8: {run8}")
     del params_g
     mark("serving run 8")
+    # run 9: StarCoder-15.5B at full width and depth on the default paged
+    # engine, max_seq 8192 (multi-query: 48 query heads on one kv head)
+    spec_sc, params_sc = family_model(torch, "gpt_bigcode", 9)
+    run9 = serve_run(torch, spec_sc, params_sc, "starcoder-15.5b-paged",
+                     dict(paged_gather_ctx_max=0), counters,
+                     with_grpc=with_grpc, traffic=TRAFFIC_STARCODER,
+                     max_seq=8192)
+    for key in ("flash_prefill", "paged_decode_attention",
+                "paged_decode_attention_stats"):
+        if run9[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 9: {run9}")
+    del params_sc
+    mark("serving run 9")
+    # run 10: BLOOM-7b1 at full width and depth on the default paged engine
+    # (ALiBi through flash prefill and both paged modes; a vocabulary of
+    # 250880), max_seq 2048, run 8's traffic and checks
+    spec_bl, params_bl = family_model(torch, "bloom", 10)
+    run10 = serve_run(torch, spec_bl, params_bl, "bloom-7b1-paged",
+                      dict(paged_gather_ctx_max=0), counters,
+                      with_grpc=with_grpc, traffic=TRAFFIC_GEMMA,
+                      details_waves=F4_DETAILS_WAVES, memory_check=True)
+    for key in ("flash_prefill_alibi", "paged_decode_attention_alibi",
+                "paged_decode_attention_stats_alibi"):
+        if run10[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 10: {run10}")
+    del params_bl
+    mark("serving run 10")
 
-    runs = (run1, run2, run3, run4, run5, run6, run7, run8, probe_counts)
+    runs = (run1, run2, run3, run4, run5, run6, run7, run8, run9, run10,
+            probe_counts)
 
     def record(name, source, replaces, res, shapes):
         out = {"name": name, "route": "cuda",
@@ -2499,6 +2895,44 @@ def main() -> int:
                     "bf16, S=16, KV=64, G=1, D=96, page 128, ctx up to 2048"),
              name="paged_decode_attention_d96",
              launches=fam_counts["gpt_neox"]["paged_decode_attention"]),
+        # ALiBi: run 10's prefills and decode steps (BLOOM-7b1); S1 with
+        # slopes in the family parity phase's BLOOM slot case
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp_alibi,
+                    "bf16, N=2, T=2048, lengths 2000/1500, H=32, KV=32, "
+                    "D=128, ALiBi (bloom-7b1)"),
+             name="flash_prefill_alibi",
+             launches=run10["flash_prefill_alibi"]),
+        dict(record("paged_decode_attention", "paged_attention.cu",
+                    "paged_attention.py:261", pn_alibi,
+                    "bf16, S=16, KV=32, G=1, D=128, page 128, ctx up to "
+                    "2048, ALiBi (bloom-7b1)"),
+             name="paged_decode_attention_alibi",
+             launches=run10["paged_decode_attention_alibi"]),
+        dict(record("paged_decode_attention_stats", "paged_attention.cu",
+                    "paged_attention.py:407", ps_alibi,
+                    "bf16, S=16, KV=32, G=1, D=128, page 128, ctx up to "
+                    "2048, ALiBi (bloom-7b1)"),
+             name="paged_decode_attention_stats_alibi",
+             launches=run10["paged_decode_attention_stats_alibi"]),
+        dict(record("decode_attention", "slot_attention.cu",
+                    "decode_attention.py:142", s1_alibi,
+                    "bf16, S=16, KV=32, G=1, D=128, T=2048, ALiBi "
+                    "(bloom-7b1)"),
+             name="decode_attention_alibi",
+             launches=fam_counts["bloom_slot"]["decode_attention_alibi"]),
+        # multi-query: run 9's prefills and decode steps (StarCoder)
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp_mqa,
+                    "bf16, N=2, T=2048, lengths 2000/1500, H=48, KV=1, "
+                    "D=128 (starcoder)"),
+             name="flash_prefill_mqa", launches=run9["flash_prefill"]),
+        dict(record("paged_decode_attention", "paged_attention.cu",
+                    "paged_attention.py:261", pn_mqa,
+                    "bf16, S=16, KV=1, G=48, D=128, page 128, ctx up to "
+                    "2048 (starcoder)"),
+             name="paged_decode_attention_mqa",
+             launches=run9["paged_decode_attention"]),
     ]
     for (m, act), res in m1.items():
         log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
@@ -2527,11 +2961,20 @@ def main() -> int:
         f"{json.dumps(fp_win512)}")
     log(f"flash_prefill fp32 window 512: {json.dumps(fp_win_f32)}")
     log(f"paged_decode_attention_stats at D=96: {json.dumps(ps96)}")
+    log(f"flash_prefill fp32 ALiBi (falcon-rw-1b heads): "
+        f"{json.dumps(fp_alibi_f32)}")
+    log(f"paged_decode_attention_partial_i8 ALiBi (bloom-7b1 widths): "
+        f"{json.dumps(pi8_alibi)}")
+    log(f"F4: run 8 transient {run8['transient_bytes']} of "
+        f"{run8['activation_bytes']} planned bytes; run 10 "
+        f"{run10['transient_bytes']} of {run10['activation_bytes']}")
     log("launches: decode_attention in the serving runs, "
         "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6, "
         "flash_prefill_f32 in the fp32 parity phase, flash_prefill_d256 in "
         "run 8, flash_prefill_window and decode_attention_window in run 7, "
-        "paged_decode_attention_d96 in the family parity phase (gpt_neox)")
+        "paged_decode_attention_d96 in the family parity phase (gpt_neox), "
+        "the _alibi rows in run 10 (decode_attention_alibi: the family "
+        "parity phase's BLOOM slot case), the _mqa rows in run 9")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

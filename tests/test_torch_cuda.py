@@ -1326,3 +1326,175 @@ def test_slot_decode_window(cuda_device, d, g, dtype, window):
     batch = da.decode_attention(q[idx].contiguous(), k[idx], v[idx],
                                 ctx_t[idx].contiguous(), lo_t[idx].contiguous())
     assert torch.equal(batch[0], got[4]) and torch.equal(batch[2], got[4])
+
+
+# --- ALiBi: flash prefill, the split body (paged, K2), S1 ---------------------
+
+
+def _alibi_slopes(kh, g, device, impl="bloom"):
+    from text_generation_inference_tpu_torch.models.core import alibi_slopes
+
+    return torch.from_numpy(alibi_slopes(kh * g, impl)).reshape(kh, g).to(
+        device)
+
+
+def _rejects(got, wrong, tol):
+    """The tolerance `close` holds `got` to does not hold for `wrong`."""
+    diff = (got.float() - wrong.float()).abs()
+    return bool((diff > tol + tol * wrong.float().abs()).any())
+
+
+# (head dim, group, dtype): both flash bodies at head dims 64 / 128, one kv
+# head's group of 1 and StarCoder's 48
+ALIBI_FLASH_CASES = [(64, 1, torch.bfloat16), (128, 1, torch.bfloat16),
+                     (128, 48, torch.bfloat16), (64, 48, torch.float16),
+                     (64, 1, torch.float32), (128, 48, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,dtype", ALIBI_FLASH_CASES)
+def test_flash_prefill_alibi(cuda_device, d, g, dtype):
+    """Flash prefill given ALiBi slopes against its plain version (fp32
+    also against its 3xTF32 twin), with NaN past the lengths and a length-0
+    row; q scaled by 1/4 so that the bias shapes every row. The plain
+    version without slopes, and with the slopes of the next head, falls
+    outside the tolerance. The twin adds the bias in its own order of fp32
+    roundings (the kernel fuses it into FMAs), and the bias reaches ~200 in
+    exp2 units at this bucket: 1e-4, the plain version's tolerance, where
+    the unbiased twin holds 1e-5."""
+    rng = np.random.default_rng(1500 + d + g)
+    n, t, kh = 4, 300, 2 if g < 48 else 1
+    q = (bf16(rng, n, t, kh, g, d, device=cuda_device) * 0.25).to(dtype)
+    k = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    v = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
+    lengths = torch.tensor([300, 0, 129, 64], dtype=torch.int32,
+                           device=cuda_device)
+    slopes = _alibi_slopes(kh, g, cuda_device)
+    want = fp.flash_prefill_reference(q, k, v, lengths, slopes=slopes)
+    plain = fp.flash_prefill_reference(q, k, v, lengths)
+    shifted = fp.flash_prefill_reference(
+        q, k, v, lengths, slopes=slopes.flatten().roll(-1).reshape(kh, g))
+    twin = (fp.flash_prefill_tf32x3_reference(q, k, v, lengths,
+                                              slopes=slopes)
+            if dtype == torch.float32 else None)
+    for i, ln in enumerate(lengths.tolist()):
+        k[i, ln:] = float("nan")
+        v[i, ln:] = float("nan")
+    before = (fp.flash_prefill.launches, fp.flash_prefill.alibi)
+    got = fp.flash_prefill(q, k, v, lengths, slopes=slopes)
+    torch.cuda.synchronize()
+    assert (fp.flash_prefill.launches, fp.flash_prefill.alibi) == tuple(
+        b + 1 for b in before)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert torch.all(got[1] == 0)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    close(got, want, tol)
+    if twin is not None:
+        close(got, twin, 1e-4)
+    live = torch.arange(t, device=cuda_device)[None, :] < lengths[:, None]
+    assert _rejects(got[live], plain[live], tol)
+    assert _rejects(got[live], shifted[live], tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp32"])
+@pytest.mark.parametrize("d,g", [(64, 8), (128, 1), (96, 20)])
+def test_split_body_alibi(cuda_device, d, g, pool):
+    """The split body given ALiBi slopes in both paged modes (bf16 or fp32
+    pools, normalized and stats) and over int8 pools (K2), against the
+    plain versions: the slopes ride the key's sequence position, not its
+    pool row (pages scattered, a sentinel page), and the stats mode's m
+    carries the bias. The plain versions without slopes, or with the next
+    head's slopes, fall outside the tolerances."""
+    from text_generation_inference_tpu_torch.models.core import quantize_kv
+
+    rng = np.random.default_rng(1600 + d + g)
+    q, kp, vp, bt, ctx = paged_case(rng, cuda_device, d, g=g, max_pages=20,
+                                    num_pages=120)
+    bt[4, 7] = 120                                   # a sentinel page
+    kh = q.shape[1]
+    slopes = _alibi_slopes(kh, g, cuda_device, "mpt") * 0.25
+    wrong = slopes.flatten().roll(-1).reshape(kh, g)
+    if pool == "fp32":
+        q, kp, vp = q.float(), kp.float(), vp.float()
+    tol = 1e-4 if pool == "fp32" else 2e-3
+    if pool == "int8":
+        kq, ks = quantize_kv(kp)
+        vq, vs = quantize_kv(vp)
+        fn = lambda sl: pa.paged_decode_attention_partial_i8(
+            q, kq, vq, ks, vs, bt, ctx, PAGE, sl)
+        ref = lambda sl: pa.paged_decode_attention_partial_reference(
+            q, kq, vq, bt, ctx, PAGE, sl, k_scale_pool=ks, v_scale_pool=vs)
+    else:
+        fn = lambda sl: pa.paged_decode_attention_partial(q, kp, vp, bt, ctx,
+                                                          PAGE, sl)
+        ref = lambda sl: pa.paged_decode_attention_partial_reference(
+            q, kp, vp, bt, ctx, PAGE, sl)
+        out = pa.paged_decode_attention(q, kp, vp, bt, ctx, PAGE, slopes)
+        want = pa.paged_decode_attention_reference(q, kp, vp, bt, ctx, PAGE,
+                                                   slopes)
+        otol = 1e-4 if pool == "fp32" else 2e-2
+        close(out, want, otol)
+        assert _rejects(out[1:], pa.paged_decode_attention_reference(
+            q, kp, vp, bt, ctx, PAGE)[1:], otol)
+        assert _rejects(out[1:], pa.paged_decode_attention_reference(
+            q, kp, vp, bt, ctx, PAGE, wrong)[1:], otol)
+    acc, m, l = fn(slopes)
+    racc, rm, rl = ref(slopes)
+    torch.cuda.synchronize()
+    live = ~torch.isneginf(rm)
+    assert torch.equal(live, ~torch.isneginf(m))
+    close(m[live], rm[live], tol)
+    close(l, rl, tol * max(1.0, float(rl.max())))
+    close(acc, racc, tol * max(1.0, float(racc.abs().max())))
+    for other in (None, wrong):
+        m2 = ref(other)[1]
+        assert not torch.allclose(m[live], m2[live], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,g,dtype", [(64, 8, torch.bfloat16),
+                                       (128, 1, torch.float16),
+                                       (128, 48, torch.bfloat16),
+                                       (64, 4, torch.float32)])
+def test_slot_decode_alibi(cuda_device, d, g, dtype):
+    """S1 given ALiBi slopes (and once also lower bounds) over a narrowed
+    2048-row slot cache against its plain version and its split twin;
+    NaN past every context is never read; a slot alone and in a batch are
+    bit-identical. The plain version without slopes, or with the next
+    head's, falls outside the tolerance."""
+    from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
+
+    rng = np.random.default_rng(1700 + d + g)
+    s, t = 6, 2048
+    kh = 1 if g == 48 else 2
+    ctx = np.asarray([0, 1, 300, 1000, 1537, t], np.int32)
+    big = _dtype_case(rng, (2, s, kh, t + 64, d), dtype, cuda_device)
+    for i in range(s):
+        big[:, i, :, ctx[i]:] = float("nan")
+    k, v = big[0].narrow(2, 0, t), big[1].narrow(2, 0, t)
+    q = _dtype_case(rng, (s, kh, g, d), dtype, cuda_device)
+    ctx_t = torch.from_numpy(ctx).to(cuda_device)
+    kz, vz = torch.nan_to_num(k), torch.nan_to_num(v)
+    slopes = _alibi_slopes(kh, g, cuda_device) * 0.25
+    wrong = slopes.flatten().roll(-1).reshape(kh, g)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for lo in (None, torch.clamp(ctx_t - 700, min=0).to(torch.int32)):
+        before = (da.decode_attention.launches, da.decode_attention.alibi)
+        got = da.decode_attention(q, k, v, ctx_t, lo, slopes=slopes)
+        torch.cuda.synchronize()
+        assert (da.decode_attention.launches,
+                da.decode_attention.alibi) == tuple(b + 1 for b in before)
+        assert torch.isfinite(got).all() and torch.all(got[0] == 0)
+        close(got, da.decode_attention_reference(q, kz, vz, ctx_t, lo,
+                                                 slopes), tol)
+        close(got, da.decode_attention_split_reference(
+            q, kz, vz, ctx_t, lo=lo, slopes=slopes), tol)
+        for other in (None, wrong):
+            assert _rejects(got[1:], da.decode_attention_reference(
+                q, kz, vz, ctx_t, lo, other)[1:], tol)
+    idx = torch.tensor([4, 2, 4, 5], device=cuda_device)
+    batch = da.decode_attention(q[idx].contiguous(), k[idx], v[idx],
+                                ctx_t[idx].contiguous(), slopes=slopes)
+    alone = da.decode_attention(q, k, v, ctx_t, slopes=slopes)
+    assert torch.equal(batch[0], alone[4]) and torch.equal(batch[2], alone[4])

@@ -19,7 +19,8 @@ everywhere, shared norm) and falcon (multi-query, RoPE, no biases).
   JAX package runs on the CPU, where it takes its einsum paths.
 * Both port engines serve every family; the paged engine refuses a window
   shorter than max_seq with the JAX engine's message; the server builds
-  every family and refuses the families a later slice ports.
+  every family. The learned-position and ALiBi families are held to the
+  JAX package in `test_torch_families_alibi.py`.
 """
 
 import numpy as np
@@ -357,23 +358,3 @@ def test_server_builds_every_family(monkeypatch, name):
             eng, _, kind = main.build_engine(cfg, device="cpu")
             assert type(eng) is cls and kind == "decoder"
             assert eng.eos_token_id == eos
-
-
-@pytest.mark.parametrize("name", ["gpt2", "bloom", "opt", "mpt",
-                                  "gpt_bigcode", "falcon_alibi"])
-def test_later_families_raise(tmp_path, name):
-    """The learned-position and ALiBi families (and ALiBi Falcon) still
-    raise NotImplementedError naming the later slice."""
-    if name == "falcon_alibi":
-        import json
-        import shutil
-
-        shutil.copytree(fixtures.tiny_falcon(), tmp_path / "m")
-        cfg = json.loads((tmp_path / "m" / "config.json").read_text())
-        cfg["alibi"] = True
-        (tmp_path / "m" / "config.json").write_text(json.dumps(cfg))
-        model_dir = str(tmp_path / "m")
-    else:
-        model_dir = fixtures.ALL_DECODER_FIXTURES[name]()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        families.load_model(model_dir, dtype=torch.float32, device="cpu")

@@ -203,3 +203,41 @@ def test_sampling_follows_the_distribution():
                           torch.zeros(n, dtype=torch.int32))
     freq = np.bincount(ids.numpy(), minlength=3) / n
     close(freq, [0.7, 0.2, 0.1], tol=0.03)
+
+
+@pytest.mark.parametrize("details_rows,n,t", [
+    (4, 3, 7),      # rows longer than a pass: 4 + 3 positions a row
+    (4, 5, 3),      # one row a pass
+    (4, 5, 2),      # two rows a pass, the last pass one row
+    (128, 8, 255),  # a batch of 8 prompts at a bucket of 256
+])
+def test_prompt_details_pass_holds_at_most_details_rows(monkeypatch,
+                                                        details_rows, n, t):
+    """Every pass of `prompt_token_details` takes at most DETAILS_ROWS
+    positions over all rows (what the memory plan counts), as views of the
+    logits, and the details still equal JAX's row by row."""
+    rng = np.random.default_rng(9)
+    lg = torch.from_numpy(rng.normal(size=(n, t + 1, V)).astype(np.float32))
+    ids = rng.integers(0, V, size=(n, t + 1)).astype(np.int32)
+    passes = []
+    rows = T._prompt_rows
+
+    def counted(scores, targets):
+        passes.append(scores.shape[:-1].numel())
+        assert (scores.untyped_storage().data_ptr()
+                == lg.untyped_storage().data_ptr())
+        return rows(scores, targets)
+
+    monkeypatch.setattr(T, "DETAILS_ROWS", details_rows)
+    monkeypatch.setattr(T, "_prompt_rows", counted)
+    tdet = T.prompt_token_details(lg[:, :t], torch.from_numpy(ids))
+    assert max(passes) <= details_rows and sum(passes) == n * t
+    for row in range(n):
+        jdet = J.prompt_token_details(jnp.asarray(lg[row, :t].numpy()),
+                                      jnp.asarray(ids[row]))
+        close(tdet.logprob[row, 1:], jdet.logprob[1:])
+        np.testing.assert_array_equal(tdet.rank[row].numpy(),
+                                      np.asarray(jdet.rank))
+        np.testing.assert_array_equal(tdet.top_ids[row].numpy(),
+                                      np.asarray(jdet.top_ids))
+        close(tdet.top_logprobs[row], jdet.top_logprobs)

@@ -1,8 +1,9 @@
-"""The llama golden cases (tests/golden/test_cases_llama.yaml, regenerated
-from the HF-torch oracle as tests/test_golden.py does) through the PyTorch
-port's gRPC server on the CPU: the port's tokenizer, validation, batcher
-and engine behind `fmaas.GenerationService`, once on the paged engine and
-once on the slot engine (PAGED_ATTENTION=0).
+"""The llama and gpt2 golden cases (tests/golden/test_cases_{llama,gpt2}.yaml,
+regenerated from the HF-torch oracle as tests/test_golden.py does) through
+the PyTorch port's gRPC server on the CPU: the port's tokenizer,
+validation, batcher and engine behind `fmaas.GenerationService`, once on
+the paged engine and once on the slot engine (PAGED_ATTENTION=0), with the
+repo's golden tolerances (`test_golden.assert_approx`).
 
 Each case runs unary, streaming (the concatenated stream text must equal
 the expected text) and concurrently.
@@ -40,17 +41,22 @@ from text_generation_inference_tpu_torch.utils.tokenization import (
 REPO = Path(__file__).parents[1]
 
 
-def llama_cases() -> list:
-    """The oracle's expectations for the golden llama fixture: the cached
-    file tests/test_golden.py writes when it exists, else generated here
-    (and not written, so the two tests never race on the cache)."""
-    model_dir = Path(fixtures.golden_llama_dir())
+GOLDEN_DIRS = {"llama": fixtures.golden_llama_dir,
+               "gpt2": fixtures.golden_gpt2_dir}
+
+
+def golden_cases(family: str) -> list:
+    """The oracle's expectations for a golden fixture: the cached file
+    tests/test_golden.py writes when it exists, else generated here (and
+    not written, so the two tests never race on the cache)."""
+    model_dir = Path(GOLDEN_DIRS[family]())
     gen_src = REPO / "scripts" / "gen_goldens.py"
     h = hashlib.sha256(gen_src.read_bytes())
     for f in sorted(model_dir.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    cache = fixtures.FIXTURE_ROOT / f"golden_cases_llama.{h.hexdigest()[:12]}.yaml"
+    cache = (fixtures.FIXTURE_ROOT
+             / f"golden_cases_{family}.{h.hexdigest()[:12]}.yaml")
     if cache.exists():
         cases = yaml.safe_load(cache.read_text())
         if cases:
@@ -58,18 +64,19 @@ def llama_cases() -> list:
     spec = importlib.util.spec_from_file_location("gen_goldens", gen_src)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.gen_family("llama")
+    return mod.gen_family(family)
 
 
 class PortServer:
     """The port's serving stack on an event loop in a background thread,
     on the paged (`kind="paged"`) or the slot engine (`kind="slot"`), with
-    an optional prompt-prefix store."""
+    an optional prompt-prefix store, serving a golden fixture (`family`)."""
 
     ENGINES = {"paged": PagedInferenceEngine, "slot": InferenceEngine}
 
-    def __init__(self, kind: str, prompt_cache=None):
+    def __init__(self, kind: str, prompt_cache=None, family: str = "llama"):
         self.kind = kind
+        self.family = family
         self.prompt_cache = prompt_cache
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self.loop.run_forever,
@@ -79,7 +86,7 @@ class PortServer:
             timeout=300)
 
     async def _setup(self):
-        model_dir = fixtures.golden_llama_dir()
+        model_dir = GOLDEN_DIRS[self.family]()
         tokenizer = ServingTokenizer.load(model_dir)
         self.config = ServingConfig(
             model_name=model_dir, max_sequence_length=64, max_new_tokens=32,
@@ -112,9 +119,13 @@ class PortServer:
         self.thread.join(timeout=30)
 
 
-@pytest.fixture(scope="module", params=sorted(PortServer.ENGINES))
+@pytest.fixture(scope="module",
+                params=[(family, kind) for family in sorted(GOLDEN_DIRS)
+                        for kind in sorted(PortServer.ENGINES)],
+                ids=lambda p: p[1] if p[0] == "llama" else "-".join(p))
 def golden(request):
-    server = PortServer(request.param)
+    family, kind = request.param
+    server = PortServer(kind, family=family)
     channel = grpc.insecure_channel(f"127.0.0.1:{server.port}")
     generate = channel.unary_unary(
         "/fmaas.GenerationService/Generate",
@@ -124,7 +135,7 @@ def golden(request):
         "/fmaas.GenerationService/GenerateStream",
         request_serializer=pb.SingleGenerationRequest.SerializeToString,
         response_deserializer=pb.GenerationResponse.FromString)
-    yield llama_cases(), generate, stream
+    yield family, golden_cases(family), generate, stream
     channel.close()
     server.close()
 
@@ -134,14 +145,14 @@ def _req(case):
 
 
 def test_unary_cases(golden):
-    cases, generate, _ = golden
+    family, cases, generate, _ = golden
     for case in cases:
         resp = json_format.MessageToDict(generate(_req(case)))
-        assert_approx(case["response"], resp, path=f"llama:{case['name']}")
+        assert_approx(case["response"], resp, path=f"{family}:{case['name']}")
 
 
 def test_streaming_parity(golden):
-    cases, _, stream = golden
+    family, cases, _, stream = golden
     for case in cases:
         breq = _req(case)
         for i, r in enumerate(breq.requests):
@@ -151,7 +162,7 @@ def test_streaming_parity(golden):
             text = "".join(m.text for m in msgs[1:])    # [0] = input msg
             expected = case["response"]["responses"][i]
             assert text == expected.get("text", ""), \
-                f"llama:{case['name']}[{i}] stream text mismatch"
+                f"{family}:{case['name']}[{i}] stream text mismatch"
             assert pb.StopReason.Name(msgs[-1].stop_reason) == \
                 expected["stopReason"]
             assert msgs[-1].generated_token_count == \
@@ -159,11 +170,11 @@ def test_streaming_parity(golden):
 
 
 def test_concurrent_matches_sequential(golden):
-    cases, generate, _ = golden
+    family, cases, generate, _ = golden
     with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
         futures = [(case, ex.submit(generate, _req(case)))
                    for case in cases for _ in range(2)]
         for case, fut in futures:
             assert_approx(case["response"],
                           json_format.MessageToDict(fut.result()),
-                          path=f"llama:{case['name']}:concurrent")
+                          path=f"{family}:{case['name']}:concurrent")

@@ -39,6 +39,7 @@ from text_generation_inference_tpu_torch.engine.engine import (
     InferenceEngine, RequestParams)
 from text_generation_inference_tpu_torch.engine.paged_engine import (
     PagedInferenceEngine)
+from text_generation_inference_tpu_torch.engine.sampling import DETAILS_ROWS
 from text_generation_inference_tpu_torch.models import core, families
 from text_generation_inference_tpu_torch.models.convert import params_from_jax
 from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
@@ -184,7 +185,7 @@ def test_scan_at_max_seq_2048_takes_the_kernel_route(monkeypatch):
     routed = []
     kernel = da.decode_attention
     monkeypatch.setattr(da, "decode_attention",
-                        lambda *a: routed.append(1) or kernel(*a))
+                        lambda *a, **kw: routed.append(1) or kernel(*a, **kw))
     eng = engine((spec, params), **kw)
     assert_same_run(staggered(eng, RequestParams), want)
     assert len(routed) == 24 * spec.num_layers
@@ -297,7 +298,10 @@ def test_ring_flush_matches_jax_and_drops_past_max_seq(dtype):
 
 def test_memory_plan_matches_jax(llama, jax_llama, monkeypatch):
     spec, params = llama
-    hbm = 64 * 1024 ** 2
+    # the port's plan sets aside the einsum's prefill scores at head dim 16
+    # (about 236 MiB at a bucket of 2048), so its budget here is larger
+    # than the 64 MiB at which the JAX plan shrinks too
+    hbm = 400 * 1024 ** 2
     plans = []
     for plan_fn, cfg_cls, kw in ((memory.plan_memory, ServingConfig,
                                   dict(cache_dtype=torch.float32)),
@@ -310,10 +314,24 @@ def test_memory_plan_matches_jax(llama, jax_llama, monkeypatch):
         plans.append((plan_fn(spec, cfg, p, hbm_bytes=hbm, **kw),
                       cfg.max_batch_slots))
     (tp, t_slots), (jp, j_slots) = plans
-    assert (tp.param_bytes, tp.kv_bytes_per_slot, tp.activation_bytes,
-            tp.usable_bytes) == (jp.param_bytes, jp.kv_bytes_per_slot,
-                                 jp.activation_bytes, jp.usable_bytes)
-    assert t_slots == j_slots == tp.max_slots < 64      # shrunk in place
+    assert (tp.param_bytes, tp.kv_bytes_per_slot) == (jp.param_bytes,
+                                                      jp.kv_bytes_per_slot)
+    # by design (F4) the port's prefill working set is what one dispatch of
+    # max_prefill_tokens padded tokens holds: the JAX plan's activations,
+    # f32 logits with one copy beside them, a pass of prompt details (at
+    # most DETAILS_ROWS positions) and, at head dim 16, the einsum's scores
+    # (validate() appends max_seq, 2048, to the buckets [8, 16])
+    t, d, f, v = 2048, spec.hidden_size, spec.intermediate_size, \
+        spec.vocab_size
+    assert jp.activation_bytes == t * (6 * d + 3 * f) * 4 + t * v * 4
+    assert tp.activation_bytes == (
+        t * (6 * d + 3 * f) * 4 + t * v * memory.LOGIT_BYTES
+        + min(t, DETAILS_ROWS) * v * memory.DETAILS_BYTES
+        + t * t * spec.num_heads * 14)
+    assert tp.usable_bytes == jp.usable_bytes - (tp.activation_bytes
+                                                 - jp.activation_bytes)
+    assert t_slots == tp.max_slots == tp.usable_bytes // tp.kv_bytes_per_slot
+    assert t_slots < 64 and j_slots == jp.max_slots   # shrunk in place
     # the engine plans against the CPU budget, and ESTIMATE_MEMORY=off
     # keeps the configured slots
     monkeypatch.setattr(memory, "CPU_BUDGET_BYTES", hbm)
@@ -327,6 +345,51 @@ def test_memory_plan_matches_jax(llama, jax_llama, monkeypatch):
     plan = memory.plan_memory(spec, cfg, params, torch.int8, hbm)
     assert plan.kv_bytes_per_slot == 64 * 2 * spec.num_layers \
         * spec.num_kv_heads * (spec.head_dim + 4)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_prefill_dispatch_is_capped_at_the_planned_tokens(llama, paged):
+    """F4: a prefill dispatch holds at most max_prefill_tokens padded
+    tokens (rows x bucket; the largest bucket, 64 at max_seq 64): eight
+    queued prompts near it go one at a time, each refusal counted under
+    tgi_prefill_weight_limit_exceeded, while eight short ones still form
+    one prefill; warmup runs only the (rows, bucket) pairs within it."""
+    from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
+    from text_generation_inference_tpu_torch.scheduler.request import (
+        GenRequest, ResponseOptions, StoppingCriteria)
+    from text_generation_inference_tpu_torch.utils import metrics
+
+    spec, params = llama
+    cfg = make_config(max_batch_slots=8)
+    eng = (PagedInferenceEngine(spec, params, cfg, eos_token_id=2,
+                                num_pages=64, device="cpu") if paged
+           else InferenceEngine(spec, params, cfg, eos_token_id=2,
+                                device="cpu"))
+    assert cfg.prefill_buckets == [8, 16, 64] and cfg.max_prefill_tokens == 64
+    batcher = Batcher(eng, None, cfg)
+    refused = ("tgi_prefill_weight_limit_exceeded", ())
+
+    def pick(length):
+        batcher.queue.clear()
+        batcher.queue.extend(
+            GenRequest("", [5] * length, RequestParams(max_new_tokens=4),
+                       StoppingCriteria(max_new_tokens=4), ResponseOptions())
+            for _ in range(8))
+        before = metrics._counters[refused]
+        n = len(batcher._pick_prefill_batch())
+        return n, metrics._counters[refused] - before
+
+    assert pick(6) == (8, 0)            # 8 rows x bucket 8
+    assert pick(12) == (4, 4)           # 4 rows x bucket 16
+    assert pick(50) == (1, 7)           # 1 row x bucket 64
+    shapes = []
+    run = eng.prefill
+    eng.prefill = lambda slots, ids, *a, **kw: (
+        shapes.append((len(slots), cfg.bucket_for(max(map(len, ids)))))
+        or run(slots, ids, *a, **kw))
+    eng.warmup(batch_sizes=(1, 2, 4, 8))
+    assert sorted(shapes) == [(1, 8), (1, 16), (1, 64), (2, 8), (2, 16),
+                              (4, 8), (4, 16), (8, 8)]
 
 
 def test_guards(llama):

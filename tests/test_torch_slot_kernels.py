@@ -196,7 +196,7 @@ def test_decode_dispatch_matches_jax(t, monkeypatch):
     routed = []
     kernel = da.decode_attention
     monkeypatch.setattr(da, "decode_attention",
-                        lambda *a: routed.append(1) or kernel(*a))
+                        lambda *a, **kw: routed.append(1) or kernel(*a, **kw))
     for dtype in ("float32", "bfloat16"):
         routed.clear()
         got = attention.decode_attention(

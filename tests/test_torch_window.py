@@ -68,10 +68,11 @@ def test_windowed_model_takes_the_kernel_routes(monkeypatch):
                              device="cpu")
     windows, bounds = [], []
     flash, slot = fp.flash_prefill, da.decode_attention
-    monkeypatch.setattr(fp, "flash_prefill", lambda *a, window=0: (
-        windows.append(window), flash(*a, window=window))[1])
-    monkeypatch.setattr(da, "decode_attention", lambda q, k, v, ctx, lo=None: (
-        bounds.append(lo), slot(q, k, v, ctx, lo))[1])
+    monkeypatch.setattr(fp, "flash_prefill", lambda *a, window=0, **kw: (
+        windows.append(window), flash(*a, window=window, **kw))[1])
+    monkeypatch.setattr(da, "decode_attention",
+                        lambda q, k, v, ctx, lo=None, **kw: (
+                            bounds.append(lo), slot(q, k, v, ctx, lo, **kw))[1])
     rng = np.random.default_rng(9)
     ids = rng.integers(3, 250, size=(2, 128)).astype(np.int32)
     lengths = np.asarray([100, 37], np.int32)

@@ -82,11 +82,11 @@ class ServingConfig:
     max_batch_slots: int = 16                 # decode-step width; one
                                               # compilation serves all loads
     max_prefill_batch: int = 8                # max requests per prefill
-                                              # dispatch: bounds the prefill
-                                              # activation peak (n x bucket x
-                                              # vocab logits) AND the warmup
-                                              # compile grid (each power-of-2
-                                              # n x bucket is a program)
+                                              # dispatch, and the warmup
+                                              # grid's rows; rows x bucket is
+                                              # capped at max_prefill_tokens
+                                              # (the largest bucket), which
+                                              # bounds the activation peak
     decode_chunk: int = 1                     # decode steps per device
                                               # dispatch; >1 amortizes host
                                               # sync (tokens arrive in bursts
@@ -241,6 +241,14 @@ class ServingConfig:
             raise ValueError("max_prefill_padding must be in [0, 1]")
         if self.max_batch_slots < 1:
             raise ValueError("max_batch_slots must be >= 1")
+
+    @property
+    def max_prefill_tokens(self) -> int:
+        """Padded tokens (rows x bucket) one prefill dispatch may hold: one
+        row at the largest bucket, the working set the memory plan counts
+        (`engine.memory.activation_bytes`). The batcher caps each dispatch
+        at it, and warmup skips the (rows, bucket) pairs past it."""
+        return self.prefill_buckets[-1]
 
     def bucket_for(self, length: int) -> int:
         """Smallest prefill bucket that holds `length` tokens."""

@@ -21,6 +21,13 @@
 //   element     T:       q, and the rows when not int8: bf16 or fp16
 //               kInt8:   int8 rows with one f32 dequant factor per (kv head,
 //                        pool row) in k_scale / v_scale [KH, R] (paged only)
+//   ALiBi                with `slopes` ([KH, G] f32, null for none), slope *
+//                        p is added to the scaled score of the key at
+//                        position p of the slot's sequence (paged: the
+//                        block-table position, not the pool row), as the
+//                        JAX model's decode bias; the stats mode's m then
+//                        carries the bias (natural-log units), as the ring
+//                        merge of models/paged_core.py expects
 //   shapes               any head dim D that is a multiple of 16 and is
 //                        instantiated by `dispatch` (16, 64, 80, 96, 128,
 //                        192, 256: the JAX package's families and the test
@@ -105,6 +112,7 @@ constexpr int kStages = 3;           // tiles in flight
 constexpr int kMaxGroup = 16;        // query heads a block (the mma's rows)
 constexpr int kMaxSplitPages = 64;   // block-table entries a split reads
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum Mode { kOut, kStats, kParts };
 
@@ -118,6 +126,7 @@ struct Args {
   const int32_t* block_table;    // paged: [S, max_pages]
   const int32_t* ctx;            // [S] live keys
   const int32_t* lo;             // slot: [S] first live row, or null for 0
+  const float* slopes;           // [KH, G] ALiBi slopes, or null for none
   void* out;                     // T [S, KH, G, D], or f32 acc (stats)
   float* m_out;                  // stats: [S, KH, G]
   float* l_out;                  // stats: [S, KH, G]
@@ -558,6 +567,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // this lane's rows are query heads group (h = 0) and group + 8 (h = 1)
   float m_row[2] = {-INFINITY, -INFINITY};
   float l_row[2] = {0.f, 0.f};   // this lane's partial row sums
+  // their ALiBi slopes in exp2 units (0 without slopes: the score is then
+  // the scaled product alone)
+  float slope[2] = {0.f, 0.f};
+  if (a.slopes != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (group + 8 * h < gb)
+        slope[h] = a.slopes[(size_t)kh * a.G + g0 + group + 8 * h] * kLog2e;
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kStages - 2>();
@@ -625,10 +643,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
 
-    // mask, scale (times the k scale over int8 rows), online softmax for
-    // row group (accumulators 0, 1 of each n8 tile) and, when the block has
-    // more than 8 query heads, row group + 8 (accumulators 2, 3)
-    float f[2][2];
+    // mask, scale (times the k scale over int8 rows), ALiBi at the key's
+    // position, online softmax for row group (accumulators 0, 1 of each n8
+    // tile) and, when the block has more than 8 query heads, row group + 8
+    // (accumulators 2, 3)
+    // the key positions: one conversion, then constants of the loop
+    const float pos0 = (float)(p0 + t * kTile + key_of(0, 0));
+    float f[2][2], pos[2][2];
     bool live[2][2];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -636,6 +657,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = 0; e < 2; ++e) {
         const int j = key_of(nt, e);
         const int key = p0 + t * kTile + j;
+        pos[nt][e] = pos0 + (float)(kInt8 ? 2 * nt + e : 8 * nt + e);
         live[nt][e] = key < p1;
         if constexpr (kPaged)
           live[nt][e] = live[nt][e] && pid_s[(key - p0) / a.page] >= 0;
@@ -653,7 +675,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = sc[nt][2 * h + e];
-          x = live[nt][e] ? x * f[nt][e] : -INFINITY;
+          x = live[nt][e] ? fmaf(slope[h], pos[nt][e], x * f[nt][e])
+                          : -INFINITY;
           tmax = fmaxf(tmax, x);
         }
       }
@@ -814,11 +837,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = lane; i < gb * D; i += 32) o_mine[i] = 0.f;
   __syncthreads();
 
-  float m_r[kMaxGroup], l_r[kMaxGroup];
+  float m_r[kMaxGroup], l_r[kMaxGroup], slope[kMaxGroup];
 #pragma unroll
   for (int h = 0; h < kMaxGroup; ++h) {
     m_r[h] = -INFINITY;
     l_r[h] = 0.f;
+    slope[h] = a.slopes != nullptr && h < gb
+                   ? a.slopes[(size_t)kh * a.G + g0 + h] * kLog2e
+                   : 0.f;
   }
   for (int p = p0 + warp; p < p1; p += kWarps) {
     size_t row = (size_t)p;
@@ -853,7 +879,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int off2 = 16; off2 > 0; off2 >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, off2);
-      const float sc = dot * a.scale_log2 * ks;
+      const float sc = fmaf(slope[h], (float)p, dot * a.scale_log2 * ks);
       const float m_new = fmaxf(m_r[h], sc);
       const float alpha = exp2f(m_r[h] - m_new);      // 0 while m is -inf
       const float pr = exp2f(sc - m_new);

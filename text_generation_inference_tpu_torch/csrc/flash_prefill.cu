@@ -14,7 +14,11 @@
 // over keys j <= i and j < lengths[n], and with a sliding window W > 0 (the
 // entry's `window`; 0 is none) only over keys j > i - W for the real query
 // rows (i < lengths[n]), as the JAX model's mask (models/core.py prefill; the
-// Pallas kernel takes no window). Padded query rows (i >= lengths[n]) still
+// Pallas kernel takes no window). With ALiBi slopes (the entry's `slopes`,
+// [KH, G] f32, null for none) the scaled score of key j for query row i
+// takes slope[kh, g] * (j - i): the JAX model's bias slope * j less a
+// constant a row, which the softmax cancels (the JAX rule sends ALiBi to its
+// einsum; here it is one FMA a score). Padded query rows (i >= lengths[n]) still
 // attend over every live key (causally); rows of a sequence with lengths[n]
 // == 0 give 0; value rows at or past the length are zeroed before the product
 // (as the Pallas kernel does at flash_prefill.py:79-83: the padding may hold
@@ -66,7 +70,12 @@
 //     shared memory before its value product.
 //   - Softmax. Online, in fp32: the row max on the raw scores, then one
 //     FFMA and one ex2.approx a score with the scale folded in; row max and
-//     sum reduced within the quad; the output is written once in T.
+//     sum reduced within the quad; the output is written once in T. With
+//     ALiBi the max-then-scale shortcut does not hold: each score is first
+//     scaled and biased (two FFMA: slope * log2(e) * (j - i), with j - i a
+//     per-tile base plus a constant of the unrolled loop, so no integer
+//     conversion a score), and the row max and the exponent read the
+//     biased scores.
 // Still left: at D = 64 the softmax (one ex2 a score) weighs as much as the
 // products, and three consumer warpgroups of rows would hide more of it;
 // each block pays its own prologue (barrier set-up, the Q load) where a
@@ -148,6 +157,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const int32_t* __restrict__ lengths,   // [N]
+                     const float* __restrict__ slopes,      // [KH, G] or null
                      T* __restrict__ out,                   // [N, T, KH, G, D]
                      int T_len, int KH, int G, int window, float scale_log2) {
   using C = Config<D>;
@@ -238,10 +248,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     auto stage = [&](int kt) { return (kt - first_tile) % C::kStages; };
     auto phase = [&](int kt) { return ((kt - first_tile) / C::kStages) & 1; };
     int row[2], tok[2];
+    // ALiBi: the rows' slopes in exp2 units; the scores are then scaled
+    // before the row max (mul = 1), else after it (mul = the scale)
+    const bool alibi = slopes != nullptr;
+    const float mul = alibi ? 1.f : scale_log2;
+    float slope[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row[h] = r_wg + warp * 16 + group + 8 * h;
       tok[h] = tok0 + row[h] / G;
+      slope[h] = alibi ? slopes[kh * G + row[h] % G] * 1.4426950408889634f
+                       : 0.f;
     }
 
     float o[D / 2];
@@ -303,6 +320,20 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     // O and leaves P in s
     auto softmax = [&](int kt, float (&alpha)[2]) {
       const int key0 = kt * kBlockN;
+      if (alibi) {
+        // key - token = base[h] + c with c a constant of the unrolled loop:
+        // one int-to-float conversion a row and tile, two FFMA a score
+        float base[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          base[h] = slope[h] * (float)(key0 + quad * 2 - tok[h]);
+#pragma unroll
+        for (int i = 0; i < kBlockN / 2; ++i) {
+          const int h = (i / 2) % 2;
+          const float c = (float)((i / 4) * 8 + (i % 2));
+          s[i] = fmaf(s[i], scale_log2, fmaf(slope[h], c, base[h]));
+        }
+      }
       if (key0 + kBlockN > min(wg_first_tok + 1, len) || key0 < edge) {
 #pragma unroll
         for (int i = 0; i < kBlockN / 2; ++i) {
@@ -320,7 +351,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int h = 0; h < 2; ++h) {
         tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
         tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
-        const float m_new = fmaxf(m[h], tmax[h] * scale_log2);
+        const float m_new = fmaxf(m[h], tmax[h] * mul);
         m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
         alpha[h] = fast_exp2(m[h] - m_safe[h]);   // 0 while m is -inf
         m[h] = m_new;
@@ -329,7 +360,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < kBlockN / 2; ++i) {
         const int h = (i / 2) % 2;
-        s[i] = fast_exp2(fmaf(s[i], scale_log2, -m_safe[h]));   // -inf -> 0
+        s[i] = fast_exp2(fmaf(s[i], mul, -m_safe[h]));   // -inf -> 0
         l[h] += s[i];
       }
     };
@@ -459,8 +490,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* lengths, void* out, int N, int T_len, int KH,
-                   int G, int window, float scale, cudaStream_t stream) {
+                   const int32_t* lengths, const float* slopes, void* out,
+                   int N, int T_len, int KH, int G, int window, float scale,
+                   cudaStream_t stream) {
   using C = Config<D>;
   const int tpb = kBlockM / G;
   CUtensorMap tm_q, tm_k, tm_v;
@@ -490,8 +522,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const dim3 grid((T_len + tpb - 1) / tpb, KH, N);
   flash_prefill_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
-      tm_q, tm_k, tm_v, lengths, static_cast<T*>(out), T_len, KH, G, window,
-      scale * 1.4426950408889634f);
+      tm_q, tm_k, tm_v, lengths, slopes, static_cast<T*>(out), T_len, KH, G,
+      window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -520,7 +552,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 //   - Q once and K / V tiles of kKeys keys by 16-byte cp.async into two
 //     stages; keys at or past the length are zero-filled (the padding may
 //     hold NaN), so the length-edge tile's dead value rows are 0.
-//   - The online softmax in exp2 units as the wgmma kernel's; masks only on
+//   - The online softmax in exp2 units as the wgmma kernel's (with ALiBi,
+//     each score scaled and biased before the row max); masks only on
 //     the tiles that cross a warp's diagonal, the length or its window's
 //     lower edge; a block loads from the tile of its first visible key, and
 //     a warp skips the tiles wholly above its diagonal or wholly below its
@@ -600,6 +633,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
                          const float* __restrict__ k,   // [N, T, KH, D]
                          const float* __restrict__ v,
                          const int32_t* __restrict__ lengths,
+                         const float* __restrict__ slopes,  // [KH, G] or null
                          float* __restrict__ out,       // [N, T, KH, G, D]
                          int T_len, int KH, int G, int window,
                          float scale_log2) {
@@ -654,6 +688,13 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
   // this warp's rows: g and g + 8 of the 16 from wr
   const int wr = r0 + warp * 16;
   const int tok[2] = {(wr + g) / G, (wr + g + 8) / G};
+  // ALiBi, as the wgmma kernel: the rows' slopes in exp2 units, scores
+  // scaled before the row max (mul = 1) with slopes, after it without
+  const bool alibi = slopes != nullptr;
+  const float mul = alibi ? 1.f : scale_log2;
+  const float slope[2] = {
+      alibi ? slopes[kh * G + (wr + g) % G] * 1.4426950408889634f : 0.f,
+      alibi ? slopes[kh * G + (wr + g + 8) % G] * 1.4426950408889634f : 0.f};
   const int w_first_tok = wr / G;
   const int w_last_tok = min(wr + 15, rows_total - 1) / G;
   // the tiles this warp computes: later ones lie wholly above its diagonal
@@ -704,6 +745,19 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
       // masks only on a tile that crosses this warp's diagonal, the length
       // or its window's lower edge
       const int key0 = kt * kKeys;
+      if (alibi) {
+        // as the wgmma kernel: key - token = base[h] + a loop constant
+        const float base[2] = {slope[0] * (float)(key0 + 2 * qd - tok[0]),
+                               slope[1] * (float)(key0 + 2 * qd - tok[1])};
+#pragma unroll
+        for (int j = 0; j < kKeys / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float c = (float)(8 * j + (e & 1));
+            s[j][e] = fmaf(s[j][e], scale_log2,
+                           fmaf(slope[e / 2], c, base[e / 2]));
+          }
+      }
       if (key0 + kKeys > min(w_first_tok + 1, len) || key0 < edge) {
 #pragma unroll
         for (int j = 0; j < kKeys / 8; ++j)
@@ -725,7 +779,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
           tmax = fmaxf(tmax, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-        const float m_new = fmaxf(m[h], tmax * scale_log2);
+        const float m_new = fmaxf(m[h], tmax * mul);
         m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
         alpha[h] = exp2f(m[h] - m_safe[h]);       // 0 while m is -inf
         m[h] = m_new;
@@ -735,7 +789,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
       for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[j][e] = exp2f(fmaf(s[j][e], scale_log2, -m_safe[e / 2]));  // -inf -> 0
+          s[j][e] = exp2f(fmaf(s[j][e], mul, -m_safe[e / 2]));  // -inf -> 0
           l[e / 2] += s[j][e];
         }
 #pragma unroll
@@ -792,9 +846,9 @@ flash_prefill_f32_kernel(const float* __restrict__ q,   // [N, T, KH, G, D]
 
 template <int D>
 cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
-                         const int32_t* lengths, void* out, int N, int T_len,
-                         int KH, int G, int window, float scale,
-                         cudaStream_t stream) {
+                         const int32_t* lengths, const float* slopes,
+                         void* out, int N, int T_len, int KH, int G,
+                         int window, float scale, cudaStream_t stream) {
   using C = F32Config<D>;
   static bool attr_set[64] = {};
   int dev = 0;
@@ -812,19 +866,19 @@ cudaError_t launch_f32_d(const void* q, const void* k, const void* v,
   const dim3 grid((unsigned)((rows + C::kRows - 1) / C::kRows), KH, N);
   flash_prefill_f32_kernel<D><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), lengths, static_cast<float*>(out), T_len,
-      KH, G, window, scale * 1.4426950408889634f);
+      static_cast<const float*>(v), lengths, slopes, static_cast<float*>(out),
+      T_len, KH, G, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const int32_t* lengths, void* out, int N, int T_len,
-                       int KH, int G, int D, int window, float scale,
-                       cudaStream_t stream) {
-#define TGI_FLASH_F32(DV)                                                      \
-    case DV:                                                                 \
-      return launch_f32_d<DV>(q, k, v, lengths, out, N, T_len, KH, G, window, \
-                              scale, stream);
+                       const int32_t* lengths, const float* slopes, void* out,
+                       int N, int T_len, int KH, int G, int D, int window,
+                       float scale, cudaStream_t stream) {
+#define TGI_FLASH_F32(DV)                                                     \
+    case DV:                                                                \
+      return launch_f32_d<DV>(q, k, v, lengths, slopes, out, N, T_len, KH, G, \
+                              window, scale, stream);
   switch (D) {
     TGI_FLASH_F32(64) TGI_FLASH_F32(128) TGI_FLASH_F32(192) TGI_FLASH_F32(256)
 #undef TGI_FLASH_F32
@@ -836,11 +890,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 
 // dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the 3xTF32
 // mma.sync kernel); D 64, 128, 192 or 256; window: the sliding window in
-// keys, 0 for none
+// keys, 0 for none; slopes: [KH, G] f32 ALiBi slopes, or null for none
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
-                                 const int32_t* lengths, void* out, int N,
-                                 int T, int KH, int G, int D, int window,
-                                 int dtype, float scale, void* stream) {
+                                 const int32_t* lengths, const float* slopes,
+                                 void* out, int N, int T, int KH, int G, int D,
+                                 int window, int dtype, float scale,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte aligned bases; a block holds at least one token
   if (N <= 0 || T <= 0 || KH <= 0 || G <= 0 || G > kBlockM || KH > 65535 ||
@@ -849,16 +904,16 @@ extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
 #define TGI_FLASH_D(TY)                                                        \
   switch (D) {                                                                 \
-    case 64: return (int)launch<TY, 64>(q, k, v, lengths, out, N, T, KH, G, window, scale, s);   \
-    case 128: return (int)launch<TY, 128>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
-    case 192: return (int)launch<TY, 192>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
-    case 256: return (int)launch<TY, 256>(q, k, v, lengths, out, N, T, KH, G, window, scale, s); \
+    case 64: return (int)launch<TY, 64>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s);   \
+    case 128: return (int)launch<TY, 128>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
+    case 192: return (int)launch<TY, 192>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
+    case 256: return (int)launch<TY, 256>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
     default: return (int)cudaErrorInvalidValue;                                \
   }
   switch (dtype) {
     case 0: TGI_FLASH_D(__nv_bfloat16)
     case 1: TGI_FLASH_D(__half)
-    case 2: return (int)launch_f32(q, k, v, lengths, out, N, T, KH, G, D, window, scale, s);
+    case 2: return (int)launch_f32(q, k, v, lengths, slopes, out, N, T, KH, G, D, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef TGI_FLASH_D

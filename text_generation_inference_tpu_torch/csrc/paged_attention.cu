@@ -16,7 +16,11 @@
 //
 // Every entry takes `dtype`, the element type of q and of pools that are not
 // int8: 0 bf16, 1 fp16 (the mma body), 2 fp32 (the fp32 CUDA-core body,
-// `split_kernel_f32`; K2 then takes fp32 q over its int8 pools).
+// `split_kernel_f32`; K2 then takes fp32 q over its int8 pools), and
+// `slopes`, [KH, G] f32 ALiBi slopes or null: slope * p joins the scaled
+// score of the key at sequence position p (the JAX package sends ALiBi to
+// the kernel's plain twin, models/paged_core.py:152,276; here it is one FMA
+// a score).
 //
 // Replaces: the JAX package's ops/pallas/paged_attention.py
 //   normalized: paged_decode_attention (`_kernel_all_heads` +
@@ -48,7 +52,8 @@ using decode_split::Args;
 
 // Checks the paged entries share and fills their arguments.
 bool paged_args(Args& a, const void* q, const void* k_pool, const void* v_pool,
-                const int32_t* block_table, const int32_t* ctx, void* out,
+                const int32_t* block_table, const int32_t* ctx,
+                const float* slopes, void* out,
                 float* m_out, float* l_out, float* part,
                 unsigned int* arrivals, int KH, int G, int R, int page,
                 int max_pages, int num_pages, int pages_per_split, int splits,
@@ -63,6 +68,7 @@ bool paged_args(Args& a, const void* q, const void* k_pool, const void* v_pool,
   a.v = v_pool;
   a.block_table = block_table;
   a.ctx = ctx;
+  a.slopes = slopes;
   a.out = out;
   a.m_out = m_out;
   a.l_out = l_out;
@@ -86,13 +92,14 @@ bool paged_args(Args& a, const void* q, const void* k_pool, const void* v_pool,
 // leaves them zero). Both may be null when splits == 1.
 extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const int32_t* block_table,
-                                const int32_t* ctx, void* out, float* part,
+                                const int32_t* ctx, const float* slopes,
+                                void* out, float* part,
                                 unsigned int* arrivals, int S, int KH, int G,
                                 int D, int R, int page, int max_pages,
                                 int num_pages, int pages_per_split, int splits,
                                 int dtype, float scale, void* stream) {
   Args a;
-  if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, out, nullptr,
+  if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, out, nullptr,
                   nullptr, part, arrivals, KH, G, R, page, max_pages,
                   num_pages, pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
@@ -103,7 +110,8 @@ extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
 extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
                                       const void* v_pool,
                                       const int32_t* block_table,
-                                      const int32_t* ctx, float* acc,
+                                      const int32_t* ctx, const float* slopes,
+                                      float* acc,
                                       float* m_out, float* l_out, float* part,
                                       unsigned int* arrivals, int S, int KH,
                                       int G, int D, int R, int page,
@@ -111,8 +119,8 @@ extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
                                       int pages_per_split, int splits,
                                       int dtype, float scale, void* stream) {
   Args a;
-  if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, acc, m_out, l_out,
-                  part, arrivals, KH, G, R, page, max_pages, num_pages,
+  if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, acc, m_out,
+                  l_out, part, arrivals, KH, G, R, page, max_pages, num_pages,
                   pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<true, false, decode_split::kStats>(
@@ -124,14 +132,15 @@ extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
 extern "C" int tgi_paged_decode_stats_i8(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int32_t* block_table,
-    const int32_t* ctx, float* acc, float* m_out, float* l_out, float* part,
+    const int32_t* ctx, const float* slopes, float* acc, float* m_out,
+    float* l_out, float* part,
     unsigned int* arrivals, int S, int KH, int G, int D, int R, int page,
     int max_pages, int num_pages, int pages_per_split, int splits, int dtype,
     float scale, void* stream) {
   Args a;
   if (!k_scale || !v_scale ||
-      !paged_args(a, q, k_pool, v_pool, block_table, ctx, acc, m_out, l_out,
-                  part, arrivals, KH, G, R, page, max_pages, num_pages,
+      !paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, acc, m_out,
+                  l_out, part, arrivals, KH, G, R, page, max_pages, num_pages,
                   pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   a.k_scale = k_scale;

@@ -3,7 +3,10 @@
 //   tgi_slot_decode  S1: out[s, kh, g] = softmax(q . k) v over cache rows
 //                    in [lo[s], ctx[s]) (lo null: from row 0; a sliding
 //                    window W gives lo = ctx - W, as the JAX model's decode
-//                    mask; the Pallas kernel takes no window); the split
+//                    mask; the Pallas kernel takes no window), with slope *
+//                    row added to each scaled score given ALiBi slopes
+//                    ([KH, G] f32, or null; the JAX rule sends ALiBi to its
+//                    einsum, ops/attention.py:67); the split
 //                    body of csrc/decode_split.cuh (its
 //                    design, the shapes it takes and what bounds it are
 //                    written there) with the slot cache as its row source:
@@ -12,6 +15,8 @@
 //   tgi_ring_decode  S2: the same softmax over three sources at once: cache
 //                    rows < ctx[s] (ctx = the chunk's start position),
 //                    ring-buffer columns < step, and the current token's k/v
+//                    (no ALiBi: its one caller, the decode probe, serves
+//                    none)
 //
 // Replaces: the JAX package's
 //   ops/pallas/decode_attention.py      decode_attention (`_kernel`,
@@ -198,7 +203,7 @@ cudaError_t launch_merge_d(const decode_split::Args& a, int S, int D,
 
 bool slot_args(decode_split::Args& a, const void* q, const void* k,
                const void* v, const int32_t* ctx, const int32_t* lo,
-               void* out, float* part,
+               const float* slopes, void* out, float* part,
                unsigned int* arrivals, int KH, int G, int T, long long st_s,
                long long st_k, long long st_t, int rows_per_split, int splits,
                float scale) {
@@ -212,6 +217,7 @@ bool slot_args(decode_split::Args& a, const void* q, const void* k,
   a.v = v;
   a.ctx = ctx;
   a.lo = lo;
+  a.slopes = slopes;
   a.out = out;
   a.part = part;
   a.arrivals = arrivals;
@@ -230,21 +236,22 @@ bool slot_args(decode_split::Args& a, const void* q, const void* k,
 
 // S1: the split body of csrc/decode_split.cuh over the slot cache. lo:
 // [S] int32 first live row of each slot, or null for 0 (a row below it is
-// never read; the splits are numbered from the one that holds it). part:
+// never read; the splits are numbered from the one that holds it). slopes:
+// [KH, G] f32 ALiBi slopes, or null. part:
 // [S, KH * chunks, splits, min(G, 16), D + 2] f32 scratch, chunks =
 // ceil(G / 16); arrivals: [S * KH * chunks] uint32, all zero (the kernel
 // leaves them zero); both may be null when splits == 1. Strides are in
 // elements.
 extern "C" int tgi_slot_decode(const void* q, const void* k, const void* v,
                                const int32_t* ctx, const int32_t* lo,
-                               void* out, float* part,
+                               const float* slopes, void* out, float* part,
                                unsigned int* arrivals, int S, int KH, int G,
                                int D, int T, long long st_s, long long st_k,
                                long long st_t, int rows_per_split, int splits,
                                int dtype, float scale, void* stream) {
   decode_split::Args a;
-  if (!slot_args(a, q, k, v, ctx, lo, out, part, arrivals, KH, G, T, st_s,
-                 st_k, st_t, rows_per_split, splits, scale))
+  if (!slot_args(a, q, k, v, ctx, lo, slopes, out, part, arrivals, KH, G, T,
+                 st_s, st_k, st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<false, false, decode_split::kOut>(
       a, S, D, dtype, splits, stream);
@@ -263,8 +270,8 @@ extern "C" int tgi_ring_decode(const void* q, const void* k, const void* v,
                                int dtype, float scale, void* stream) {
   decode_split::Args a;
   if (C <= 0 || C > kMaxRing || step < 0 || step > C ||
-      !slot_args(a, q, k, v, ctx, nullptr, out, part, nullptr, KH, G, T,
-                 st_s, st_k, st_t, rows_per_split, splits, scale))
+      !slot_args(a, q, k, v, ctx, nullptr, nullptr, out, part, nullptr, KH, G,
+                 T, st_s, st_k, st_t, rows_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   int code = decode_split::dispatch<false, false, decode_split::kParts>(
       a, S, D, dtype, splits, stream);

@@ -54,7 +54,7 @@ import torch
 from ..config import ServingConfig
 from ..device import resolve_device
 from ..models import core
-from ..models.core import DecoderSpec, KVCache, check_supported
+from ..models.core import DecoderSpec, KVCache
 from ..ops import linear as linops
 from . import sampling
 from .memory import budget_bytes, plan_memory
@@ -630,7 +630,6 @@ class InferenceEngine(SlotBatchEngine):
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
                  eos_token_id: int, device=None, eager_decode: bool = False):
         self.device = resolve_device(device)
-        check_supported(spec)
         check_decode_config(config)
         self.spec = spec
         if config.fuse_matmuls:
@@ -718,7 +717,10 @@ class InferenceEngine(SlotBatchEngine):
             if bucket > self.max_seq:
                 continue
             for n in batch_sizes:
-                if n > self.num_slots:
+                # the batcher never emits more than max_prefill_tokens
+                # padded tokens a dispatch
+                if (n > self.num_slots
+                        or n * bucket > self.config.max_prefill_tokens):
                     continue
                 ids = [[1] * min(bucket, self.max_seq - 2)] * n
                 self.prefill(list(range(n)), ids, [RequestParams()] * n)

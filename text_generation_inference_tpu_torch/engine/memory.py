@@ -2,10 +2,11 @@
 
 `budget_bytes` is the memory an engine plans against: the card's total
 memory from `torch.cuda.mem_get_info`, or `CPU_BUDGET_BYTES` for an engine
-on the CPU (tests). The paged engine sizes its KV pool from it;
-`plan_memory` sizes the slot engine's batch (closed-form accounting: every
-serving buffer has a static shape, so capacity is arithmetic, not
-measurement).
+on the CPU (tests). The paged engine sizes its KV pool from it
+(`MemoryPlan` with `pool_bytes`); `plan_memory` sizes the slot engine's
+batch (closed-form accounting: every serving buffer has a static shape, so
+capacity is arithmetic, not measurement). Both set aside
+`activation_bytes`, the prefill working set of one dispatch.
 
 ESTIMATE_MEMORY=off disables the slot engine's slot shrinking (reference
 env contract).
@@ -21,6 +22,7 @@ import torch
 
 from ..config import ServingConfig
 from ..models.core import DecoderSpec
+from .sampling import DETAILS_ROWS
 
 logger = logging.getLogger(__name__)
 
@@ -69,13 +71,40 @@ def kv_row_bytes(spec: DecoderSpec, dtype) -> int:
             * (spec.head_dim * itemsize + scale_b))
 
 
+# bytes a (position, vocab entry) of a prefill holds at its peak: the f32
+# logits (4) beside the bf16 product they are cast from (2) or one f32 copy
+# of them (4: the lm_head bias add, or prompt details' log-softmax)
+LOGIT_BYTES = 10
+# bytes a (position, vocab entry) of one pass of `sampling.
+# prompt_token_details` holds: log-softmax (4), a rank mask (1) and the
+# stable sort's values, int64 indices and scratch (12 + 12), rounded up
+DETAILS_BYTES = 32
+
+
 def activation_bytes(spec: DecoderSpec, config: ServingConfig) -> int:
-    """Transient prefill working set: activations for the largest bucket
-    (hidden + mlp intermediates + the all-position logits), batch 1,
-    fp32-dominated."""
-    bucket = config.prefill_buckets[-1]
-    act = bucket * (spec.hidden_size * 6 + spec.intermediate_size * 3) * 4
-    return act + bucket * spec.vocab_size * 4
+    """Transient prefill working set of one dispatch: `max_prefill_tokens`
+    padded tokens (the batcher's cap: one row at the largest bucket, or
+    several at smaller buckets), with
+      - the activations, as the JAX plan counts them: hidden and MLP
+        intermediates in f32, T * (6 D + 3 I) * 4 bytes;
+      - the all-position logits: T * V * LOGIT_BYTES (the f32 logits and
+        the copy `prefill_forward` or `_finish_prefill` makes of them);
+      - one pass of prompt details, `DETAILS_ROWS` positions at a time
+        over all rows of the dispatch: DETAILS_ROWS * V * DETAILS_BYTES;
+      - where prefill attention takes the einsum (a head dim that is not a
+        multiple of 64), its f32 scores, masked copy, probabilities and
+        their cast: T * T * H * 14.
+    The JAX plan counts T * V * 4 bytes of logits for one row at the
+    largest bucket and no more; its batcher then sends up to
+    max_prefill_batch such rows. The port counts what a dispatch holds and
+    caps the dispatch (by design: see ROADMAP.md, Queue 3, F4)."""
+    t = config.max_prefill_tokens
+    act = t * (spec.hidden_size * 6 + spec.intermediate_size * 3) * 4
+    act += t * spec.vocab_size * LOGIT_BYTES
+    act += min(t, DETAILS_ROWS) * spec.vocab_size * DETAILS_BYTES
+    if spec.head_dim % 64:
+        act += t * t * spec.num_heads * 14
+    return act
 
 
 @dataclasses.dataclass
@@ -87,13 +116,16 @@ class MemoryPlan:
     hbm_bytes: int
     usable_bytes: int
     max_slots: int
+    pool_bytes: int | None = None   # the paged engine's page pool
 
     def describe(self) -> str:
         gb = 1024 ** 3
-        return (f"params {self.param_bytes / gb:.2f}GiB + "
-                f"kv/slot {self.kv_bytes_per_slot / gb:.3f}GiB x "
-                f"{self.max_slots} + act {self.activation_bytes / gb:.2f}GiB "
-                f"of {self.hbm_bytes / gb:.1f}GiB")
+        kv = (f"pool {self.pool_bytes / gb:.2f}GiB" if self.pool_bytes
+              is not None else f"kv/slot {self.kv_bytes_per_slot / gb:.3f}"
+              f"GiB x {self.max_slots}")
+        return (f"params {self.param_bytes / gb:.2f}GiB + {kv} + act "
+                f"{self.activation_bytes / gb:.2f}GiB of "
+                f"{self.hbm_bytes / gb:.1f}GiB")
 
 
 def plan_memory(spec: DecoderSpec, config: ServingConfig, params,

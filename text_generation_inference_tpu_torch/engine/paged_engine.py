@@ -42,12 +42,13 @@ import torch
 from ..config import ServingConfig
 from ..device import resolve_device
 from ..models import core, paged_core
-from ..models.core import DecoderSpec, check_supported
+from ..models.core import DecoderSpec
 from ..ops import linear as linops
 from .engine import (EngineState, PrefillResult, RequestParams,
                      SlotBatchEngine, _finish_prefill, _last_ids,
                      _sample_step, check_decode_config, fused_mlp_option)
-from .memory import activation_bytes, budget_bytes, kv_row_bytes, tree_bytes
+from .memory import (MemoryPlan, activation_bytes, budget_bytes, kv_row_bytes,
+                     tree_bytes)
 from .paged_cache import PageAllocator, PagedKVCache
 
 logger = logging.getLogger(__name__)
@@ -153,7 +154,6 @@ class PagedInferenceEngine(SlotBatchEngine):
                  eos_token_id: int, num_pages: Optional[int] = None,
                  device=None, eager_decode: bool = False):
         self.device = resolve_device(device)
-        check_supported(spec)
         check_decode_config(config)
         if spec.sliding_window is not None \
                 and config.max_sequence_length > spec.sliding_window:
@@ -182,6 +182,8 @@ class PagedInferenceEngine(SlotBatchEngine):
         self._dtype = params["embed_tokens"].dtype
         self._cache_dtype = (torch.int8 if config.kv_cache_dtype == "int8"
                              else self._dtype)
+        # the plan the pool was sized by (None for a pool of given pages)
+        self.memory_plan = None
         if num_pages is None:
             num_pages = self._pool_size_from_hbm(self._cache_dtype)
         max_pages_per_slot = -(-self.max_seq // self.page_size)
@@ -279,7 +281,10 @@ class PagedInferenceEngine(SlotBatchEngine):
             if bucket > self.max_seq:
                 continue
             for n in batch_sizes:
-                if n > self.num_slots:
+                # the batcher never emits more than max_prefill_tokens
+                # padded tokens a dispatch
+                if (n > self.num_slots
+                        or n * bucket > self.config.max_prefill_tokens):
                     continue
                 slots = list(range(n))
                 prompt_len = min(bucket, self.max_seq - 2)
@@ -327,6 +332,12 @@ class PagedInferenceEngine(SlotBatchEngine):
         env = os.getenv("PAGED_POOL_PAGES")
         if env:
             pages = int(env)
+        self.memory_plan = MemoryPlan(
+            param_bytes=params_b, kv_bytes_per_slot=self.max_seq * row_b,
+            state_bytes=self.num_slots * self.max_seq * 4 * 4,
+            activation_bytes=act, hbm_bytes=hbm, usable_bytes=max(usable, 0),
+            max_slots=self.num_slots, pool_bytes=int(pages) * bytes_per_page)
+        logger.info("memory plan: %s", self.memory_plan.describe())
         return int(pages)
 
     # -- capacity -----------------------------------------------------------

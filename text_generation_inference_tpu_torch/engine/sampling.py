@@ -388,6 +388,23 @@ class PromptDetails(NamedTuple):
     top_scores: torch.Tensor    # [..., T, TOP_N_CAP] f32
 
 
+# prompt positions one pass of `prompt_token_details` takes over all rows:
+# its log-softmax and sort hold a few copies of [DETAILS_ROWS, V] at a time,
+# not of every row's T positions (`engine.memory.activation_bytes` counts
+# one pass)
+DETAILS_ROWS = 128
+
+
+def _prompt_rows(scores: torch.Tensor, targets: torch.Tensor):
+    """(chosen logprob, rank, top ids, top logprobs, top scores) of a run
+    of prompt positions: scores [..., R, V] f32, targets [..., R, 1]."""
+    logprobs = torch.log_softmax(scores, dim=-1)
+    chosen_lp = torch.gather(logprobs, -1, targets)[..., 0]
+    chosen_score = torch.gather(scores, -1, targets)
+    rank = (torch.sum(scores > chosen_score, dim=-1) + 1).to(torch.int32)
+    return (chosen_lp, rank, *_top_candidates(scores, logprobs))
+
+
 def prompt_token_details(
     prompt_logits: torch.Tensor,  # [..., T-1, V]: logits at positions 0..T-2
     prompt_ids: torch.Tensor,     # [..., T] i32: the prompt token ids
@@ -397,16 +414,32 @@ def prompt_token_details(
     Position i's details come from the logits at position i-1; the first
     prompt token has no prediction (NaN logprob / rank 0 / no top tokens),
     matching reference tokens.py:441-455. Ranks and top-n use the raw
-    logits. Leading batch dimensions are allowed (the JAX package vmaps)."""
-    scores = prompt_logits.to(torch.float32)
-    logprobs = torch.log_softmax(scores, dim=-1)
-    targets = prompt_ids[..., 1:].long()[..., None]
-    chosen_lp = torch.gather(logprobs, -1, targets)[..., 0]
-    chosen_score = torch.gather(scores, -1, targets)
-    rank = (torch.sum(scores > chosen_score, dim=-1) + 1).to(torch.int32)
-    top_ids, top_lps, top_scores = _top_candidates(scores, logprobs)
-    lead = chosen_lp.shape[:-1]
-    dev = scores.device
+    logits. Leading batch dimensions are allowed (the JAX package vmaps).
+    A pass takes at most DETAILS_ROWS positions over all rows (each
+    position's details depend on its own logits only): whole rows while
+    they fit, else one row DETAILS_ROWS positions at a time, so that a
+    batch of rows holds no more than one row does. The passes are views of
+    the logits, no copy."""
+    t, v = prompt_logits.shape[-2:]
+    lead = prompt_logits.shape[:-2]
+    # merging the leading dimensions only keeps this a view of a
+    # [N, T, V] prefill's logits sliced to [:, :T-1]
+    logits = prompt_logits.reshape(-1, t, v)
+    targets = prompt_ids[..., 1:].long().reshape(-1, t, 1)
+    rows = max(DETAILS_ROWS // max(t, 1), 1)
+    groups = []
+    for r in range(0, logits.shape[0], rows):
+        parts = [_prompt_rows(logits[r:r + rows, c:c + DETAILS_ROWS]
+                              .to(torch.float32),
+                              targets[r:r + rows, c:c + DETAILS_ROWS])
+                 for c in range(0, max(t, 1), DETAILS_ROWS)]
+        groups.append([torch.cat([p[i] for p in parts], 1)
+                       for i in range(5)])
+    chosen_lp, rank, top_ids, top_lps, top_scores = (
+        torch.cat([g[i] for g in groups]).reshape(*lead, t, *tail)
+        for i, tail in enumerate(((), (), (TOP_N_CAP,), (TOP_N_CAP,),
+                                  (TOP_N_CAP,))))
+    dev = prompt_logits.device
 
     def first(value, dtype, *tail):
         return torch.full((*lead, 1, *tail), value, dtype=dtype, device=dev)

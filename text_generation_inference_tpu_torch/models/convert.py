@@ -3,8 +3,10 @@
 `params_from_jax` takes the JAX param tree with every leaf turned into a
 numpy array (`np.asarray(leaf)`; bf16 leaves arrive as ml_dtypes
 bfloat16) and returns the port's param dict on `device`, with the same
-keys and layouts, fused (`w_qkv`, `w_gu`) or not. It lets the tests give
-both packages identical weights.
+keys and layouts, fused (`w_qkv`, `w_gu`) or not: every key is carried,
+the top-level ones of the learned-position and BLOOM families included
+(`embed_positions`, `embed_ln`, OPT's `project_in` / `project_out`). It
+lets the tests give both packages identical weights.
 
 A JAX `Int4Weight` arrives as a NamedTuple whose leaves are numpy arrays
 or None; it is recognised and converted by its field names (nothing of the

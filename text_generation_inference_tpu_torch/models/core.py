@@ -7,16 +7,24 @@ The building blocks (`_norm`, `_rope_freqs`, `_apply_rope`, `_qkv`,
 and "scan" write modes, `decode_ring_step`, `ring_flush`) write the
 `KVCache` in place, where the JAX package donated it to each jitted step.
 `DecoderSpec` is the same static architecture description as in the JAX
-package; the port runs the RoPE families (`models/families.py`), sliding
-windows included, and the forward passes raise NotImplementedError for the
-position encodings a later slice ports (ALiBi, learned positions, the
-embedding LayerNorm).
+package, and every position encoding it names runs: RoPE, learned
+positions (with OPT's offset and its `project_in` / `project_out`) and
+ALiBi, with BLOOM's embedding LayerNorm.
 
 A sliding window of W keys masks what the JAX package's forward passes
 mask: in prefill, key j is visible to a real query row i when
 i - W < j <= i (rows past a prompt's length keep the causal mask), and in
 decode the keys at or past context_len - W. The kernels that the JAX rule
 routes a windowed model to take the window too (`ops/attention.py`).
+
+ALiBi adds slope[h] * j to the scaled score of key position j, as the JAX
+package's bias does (its `alibi_slopes`: the bloom and mpt formulas). The
+forward passes hand the attention dispatch the slopes as one [K, G] f32
+tensor a model (`alibi_slopes_kg`, built once per spec and device, so that
+a captured decode graph reads a fixed address); the einsum paths build the
+JAX package's dense bias from it and the kernels add the term themselves
+(`ops/attention.py`). The ring step's inline attention adds the bias to
+the cache part, the ring and the current token, as in the JAX package.
 
 Parameters are a plain dict of tensors with the JAX package's layout:
 layer weights stacked along a leading layer axis, linear weights [in, out]
@@ -28,14 +36,16 @@ which cost no copy in torch.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops import linear as linops
-from ..ops.attention import KERNELS, AttentionOps
+from ..ops.attention import KERNELS, AttentionOps, alibi_bias
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,16 +100,6 @@ class DecoderSpec:
     def rotary_dim(self) -> int:
         d = int(self.head_dim * self.rotary_pct)
         return d - d % 2
-
-
-def check_supported(spec: DecoderSpec) -> None:
-    """Raise NotImplementedError for architecture features the port does not
-    run yet."""
-    if spec.pos != "rope":
-        raise NotImplementedError(
-            f"position encoding {spec.pos!r} is not ported yet (rope only)")
-    if spec.embed_norm:
-        raise NotImplementedError("embedding LayerNorm is not ported yet")
 
 
 class KVCache(NamedTuple):
@@ -244,16 +244,75 @@ def _apply_rope(spec: DecoderSpec, x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x_rot, x_pass], dim=-1) if rd < x.shape[-1] else x_rot
 
 
+def alibi_slopes(num_heads: int, impl: str = "bloom") -> np.ndarray:
+    """ALiBi head slopes, f32 [num_heads] (the JAX package's `alibi_slopes`,
+    after the reference's bloom_modeling.py:104).
+
+    impl="mpt" uses MPT's ceil-power-of-two formula with the even/odd
+    reorder (HF MptModel.build_mpt_alibi_tensor, alibi_bias_max=8); for
+    power-of-two head counts the two formulas coincide, otherwise the
+    slope assignment differs per head."""
+    if impl == "mpt":
+        pow2 = 2 ** math.ceil(math.log2(num_heads))
+        base = np.arange(1, pow2 + 1, dtype=np.float64) * (8.0 / pow2)
+        slopes = 1.0 / np.exp2(base)
+        if pow2 != num_heads:
+            slopes = np.concatenate([slopes[1::2], slopes[0::2]])[:num_heads]
+        return slopes.astype(np.float32)
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = [base ** i for i in range(1, closest + 1)]
+    if closest < num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        slopes += [extra_base ** i
+                   for i in range(1, 2 * (num_heads - closest), 2)]
+    return np.asarray(slopes, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def alibi_slopes_kg(spec: DecoderSpec, device) -> Optional[torch.Tensor]:
+    """The spec's ALiBi slopes as a [K, G] f32 tensor on `device` (query
+    head h = k * G + g), or None for a spec without ALiBi. Built once per
+    (spec, device) and kept, so that every forward pass, and every captured
+    decode graph, reads the same tensor."""
+    if spec.pos != "alibi":
+        return None
+    group = spec.num_heads // spec.num_kv_heads
+    return torch.from_numpy(alibi_slopes(spec.num_heads, spec.alibi_impl)
+                            ).reshape(spec.num_kv_heads, group).to(device)
+
+
 def _embed(spec: DecoderSpec, params: dict, ids: torch.Tensor,
            positions: torch.Tensor) -> torch.Tensor:
+    """Token embeddings, projected up (OPT's `project_in`), scaled, plus
+    learned positions at `positions + pos_offset`, then the embedding
+    LayerNorm (BLOOM). A position past the table reads its last row (the
+    JAX package's gather fills it; only dead slots reach it)."""
     x = params["embed_tokens"][ids.long()]
+    if "project_in" in params:
+        x = torch.matmul(x, params["project_in"])
     if spec.embed_scale != 1.0:
         x = (x.to(torch.float32) * spec.embed_scale).to(x.dtype)
+    if spec.pos == "learned":
+        table = params["embed_positions"]
+        idx = (positions.long() + spec.pos_offset).clamp(0, table.shape[0] - 1)
+        x = x + table[idx]
+    if spec.embed_norm:
+        p = params["embed_ln"]
+        xf = x.to(torch.float32)
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        xf = (xf - mean) * torch.rsqrt(var + spec.norm_eps)
+        x = (xf * p["scale"].to(torch.float32)
+             + p["bias"].to(torch.float32)).to(x.dtype)
     return x
 
 
 def _unembed(spec: DecoderSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Final projection to [..., V] f32 logits."""
+    """Final projection to [..., V] f32 logits (through OPT's
+    `project_out` first where the model has one)."""
+    if "project_out" in params:
+        x = torch.matmul(x, params["project_out"])
     if spec.tie_word_embeddings:
         logits = torch.matmul(x, params["embed_tokens"].t())
     else:
@@ -262,6 +321,19 @@ def _unembed(spec: DecoderSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].to(torch.float32)
     return logits
+
+
+def _rotary(spec: DecoderSpec, positions: torch.Tensor):
+    """(cos, sin) for a RoPE spec, or None: learned positions and ALiBi
+    rotate nothing."""
+    return _rope_freqs(spec, positions) if spec.pos == "rope" else None
+
+
+def _rotate(spec: DecoderSpec, q: torch.Tensor, k: torch.Tensor, rope):
+    if rope is None:
+        return q, k
+    cos, sin = rope
+    return _apply_rope(spec, q, cos, sin), _apply_rope(spec, k, cos, sin)
 
 
 def _qkv(spec: DecoderSpec, lp: dict, x: torch.Tensor):
@@ -366,8 +438,9 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
     mask, as in the JAX package (an all-masked padded row would mint NaNs
     that reach later layers through 0 * NaN). The JAX slot-cache prefill
     applies the window, its paged prefill does not (the paged engine
-    refuses max_seq > window, where the window masks nothing)."""
-    check_supported(spec)
+    refuses max_seq > window, where the window masks nothing).
+
+    An ALiBi spec hands the dispatch its slopes (`alibi_slopes_kg`)."""
     n, t = ids.shape
     dev = ids.device
     positions = torch.arange(t, device=dev, dtype=torch.int32)[None, :].expand(n, t)
@@ -375,7 +448,8 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
     if prefix_embeds is not None:
         use_prefix = positions < prefix_len.to(dev)[:, None]
         x = torch.where(use_prefix[..., None], prefix_embeds.to(x.dtype), x)
-    cos, sin = _rope_freqs(spec, positions)
+    rope = _rotary(spec, positions)
+    slopes = alibi_slopes_kg(spec, dev)
 
     lengths = lengths.to(torch.int32)
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
@@ -391,10 +465,9 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
         lp = layer_params(params["layers"], li, attn.int4_plain)
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
+        q, k = _rotate(spec, q, k, rope)
         qg = q.reshape(n, t, spec.num_kv_heads, group, spec.head_dim)
-        a = attn.prefill(qg, k, v, lengths, None, mask, scale, window or 0)
+        a = attn.prefill(qg, k, v, lengths, slopes, mask, scale, window or 0)
         a = _attn_out(spec, lp, a.reshape(n, t, spec.num_heads, spec.head_dim))
         x = _residual(spec, lp, x, a)
         write_kv(li, k, v)
@@ -474,13 +547,12 @@ def decode_ring_step(
     over a float cache), by that one call per layer: the decode probe's
     kernel mode.
     """
-    check_supported(spec)
     s = ids.shape[0]
     t_max = cache.max_seq
     n_buf = kbuf.shape[3]
     dev = ids.device
     x = _embed(spec, params, ids, positions)        # [S, D]
-    cos, sin = _rope_freqs(spec, positions)
+    rope = _rotary(spec, positions)
 
     key_pos = torch.arange(t_max, device=dev)
     cache_mask = key_pos[None, :] < chunk_start[:, None]           # [S, Tmax]
@@ -492,11 +564,20 @@ def decode_ring_step(
         buf_mask = buf_mask & (buf_pos > lo)                       # [S, C]
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
+    slopes = alibi_slopes_kg(spec, dev)
+    if slopes is not None:
+        # the cache part, the ring and the current token each get their
+        # bias, at the absolute positions of their keys
+        cache_bias = alibi_bias(slopes, key_pos)[None]          # [1,K,G,T]
+        buf_pos = chunk_start[:, None] + torch.arange(n_buf, device=dev)
+        buf_bias = alibi_bias(slopes, buf_pos)                  # [S,K,G,C]
+        new_bias = alibi_bias(slopes, positions[:, None])[..., 0]  # [S,K,G]
     if ring_attention is not None:
         if cache.quantized:
             raise ValueError("ring_attention reads a float cache")
-        if spec.sliding_window is not None:
-            raise ValueError("ring_attention takes no sliding window")
+        if spec.sliding_window is not None or slopes is not None:
+            raise ValueError("ring_attention takes no sliding window and "
+                             "no ALiBi")
         ctx = chunk_start.to(torch.int32).contiguous()
 
     k_all, v_all = [], []
@@ -506,8 +587,7 @@ def decode_ring_step(
         kb, vb = kbuf[li], vbuf[li]                 # [S, K, C, D]
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
+        q, k = _rotate(spec, q, k, rope)
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim)
         if ring_attention is not None:
             attn = ring_attention(qg.contiguous(), ck, cv, kb, vb,
@@ -519,14 +599,18 @@ def decode_ring_step(
                                   ck.to(torch.float32)) * scale
             if cache.quantized:
                 scores = scores * cache.k_scale[li][:, :, None, :]
-            scores = scores.masked_fill(~cache_mask[:, None, None, :],
-                                        -math.inf)
             bscores = torch.einsum("skgd,skcd->skgc", qf,
                                    kb.to(torch.float32)) * scale
-            bscores = bscores.masked_fill(~buf_mask[:, None, None, :],
-                                          -math.inf)
             score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
                                   dim=-1) * scale                 # [S, K, G]
+            if slopes is not None:
+                scores = scores + cache_bias
+                bscores = bscores + buf_bias
+                score_new = score_new + new_bias
+            scores = scores.masked_fill(~cache_mask[:, None, None, :],
+                                        -math.inf)
+            bscores = bscores.masked_fill(~buf_mask[:, None, None, :],
+                                          -math.inf)
             all_scores = torch.cat([scores, bscores, score_new[..., None]],
                                    -1)
             probs = torch.softmax(all_scores, dim=-1).to(v.dtype)
@@ -603,10 +687,10 @@ def decode(
         plus the new column; ONE write per step after the layer loop.
       * "scan": each layer writes its k/v first, then attends through
         `attn.slot_decode` (`ops.attention.decode_attention`: the
-        slot-cache kernel S1 at T >= 2048, the einsum below).
+        slot-cache kernel S1 at T >= 2048, the einsum below), with the
+        ALiBi slopes of an ALiBi spec.
     The float cache only: an int8 cache is written by `ring_flush`.
     """
-    check_supported(spec)
     if cache.quantized:
         raise ValueError("decode has no int8 write path; int8 caches are "
                          "written by the ring chunks (ring_flush)")
@@ -616,7 +700,7 @@ def decode(
     t_max = cache.max_seq
     dev = ids.device
     x = _embed(spec, params, ids, positions)        # [S, D]
-    cos, sin = _rope_freqs(spec, positions)
+    rope = _rotary(spec, positions)
     key_pos = torch.arange(t_max, device=dev)
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
@@ -631,6 +715,10 @@ def decode(
     ctx = context_len.to(torch.int32).contiguous()
     # the slot kernel's lower bounds: the first row of each slot's window
     lo = (ctx - window).clamp(min=0) if window is not None else None
+    slopes = alibi_slopes_kg(spec, dev)
+    if slopes is not None and write_mode == "post":
+        cache_bias = alibi_bias(slopes, key_pos)[None]          # [1,K,G,T]
+        new_bias = alibi_bias(slopes, positions[:, None])[..., 0]  # [S,K,G]
 
     k_all, v_all = [], []
     for li in range(spec.num_layers):
@@ -638,21 +726,23 @@ def decode(
         ck, cv = cache.k[li], cache.v[li]           # [S, K, Tmax, D] views
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
+        q, k = _rotate(spec, q, k, rope)
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim)
         if write_mode == "scan":
             ck[rows, :, pos] = k.to(ck.dtype)
             cv[rows, :, pos] = v.to(cv.dtype)
-            a = attn.slot_decode(qg, ck, cv, ctx, None, mask, scale, lo)
+            a = attn.slot_decode(qg, ck, cv, ctx, slopes, mask, scale, lo)
         else:
             qf = qg.to(torch.float32)
             scores = torch.einsum("skgd,sktd->skgt", qf,
                                   ck.to(torch.float32)) * scale
-            scores = scores.masked_fill(~old_mask[:, None, None, :],
-                                        -math.inf)
             score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
                                   dim=-1) * scale             # [S, K, G]
+            if slopes is not None:
+                scores = scores + cache_bias
+                score_new = score_new + new_bias
+            scores = scores.masked_fill(~old_mask[:, None, None, :],
+                                        -math.inf)
             probs = torch.softmax(
                 torch.cat([scores, score_new[..., None]], -1),
                 dim=-1).to(cv.dtype)

@@ -1,27 +1,40 @@
 """HF model-family loader: config.json → DecoderSpec, checkpoint → params
-(port of the JAX package's `models/families.py`, its RoPE families).
+(port of the JAX package's `models/families.py`).
 
 Layout conventions match the JAX package: linear weights are [in, out]
 (activations are row vectors, `x @ W`); HF torch Linear stores [out, in]
-and is transposed on load. Layer weights are stacked along a leading layer
-axis. GPTQ checkpoints (AutoGPTQ `qweight/qzeros/scales/g_idx`, already
-in x @ W orientation) load as layer-stacked `Int4Weight`s wherever the JAX
-loader reads a linear through `_stack_linear`; the fused projections it
-splits at load (CodeGen's and NeoX's / Falcon's qkv, Falcon's and NeoX's
-dense layers) are read as dense weights there, and so here.
+and is transposed on load (GPT-2's Conv1D already stores [in, out]). Layer
+weights are stacked along a leading layer axis. GPTQ checkpoints (AutoGPTQ
+`qweight/qzeros/scales/g_idx`, already in x @ W orientation) load as
+layer-stacked `Int4Weight`s wherever the JAX loader reads a linear through
+`_stack_linear`; the fused projections it splits at load (CodeGen's, NeoX's,
+BLOOM's, Falcon's, MPT's and GPT-2's / StarCoder's qkv, and the dense layers
+of the families it reads densely) are read as dense weights there, and so
+here.
 
-Served: the RoPE decoders `llama`, `mistral`, `qwen2`, `gemma`, `gpt_neox`,
-`gptj`, `codegen`, `phi` and `falcon` (`RefinedWeb`, `RefinedWebModel`)
-without ALiBi. The learned-position families (`gpt2`, `opt`,
-`gpt_bigcode`), the ALiBi ones (`bloom`, `mpt`, Falcon with `alibi: true`)
-and the structural fallback for other model types are a later slice and
-raise NotImplementedError; so do the `quantize` modes other than gptq.
+Served: all sixteen model types of the JAX package's `FAMILIES`: the RoPE
+decoders `llama`, `mistral`, `qwen2`, `gemma`, `gpt_neox`, `gptj`,
+`codegen`, `phi` and `falcon` (`RefinedWeb`, `RefinedWebModel`); the
+learned-position decoders `gpt2`, `opt` (with `project_in` / `project_out`)
+and `gpt_bigcode` (multi-query); the ALiBi decoders `bloom` (with its
+embedding LayerNorm), `mpt` and Falcon with `alibi: true`. Any other model
+type goes through the structural fallback (`_load_fallback`,
+FALLBACK_FAMILY=auto|<family>|off), as in the JAX package. The `quantize`
+modes other than gptq are not ported yet and raise NotImplementedError.
+
+Falcon's loader also reads the q/k/v, out and MLP biases of a checkpoint
+whose config sets `bias: true`, and the `post_attention_layernorm` of one
+with `parallel_attn: false` (tiiuae/falcon-rw-1b has both). The JAX loader
+reads neither: its forward pass then fails on the missing biases, and a
+sequential Falcon would take the input LayerNorm twice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import os
 from pathlib import Path
 from typing import Callable
 
@@ -32,9 +45,7 @@ from ..ops.quant.int4 import Int4Weight, normalize_act_order
 from ..utils.weights import Weights
 from .core import DecoderSpec
 
-# model types of the JAX package that a later slice of the port serves
-LATER_FAMILIES = ("gpt2", "opt", "gpt_bigcode", "bloom", "mpt")
-
+logger = logging.getLogger(__name__)
 
 def load_hf_config(model_dir: str) -> dict:
     return json.loads((Path(model_dir) / "config.json").read_text())
@@ -94,11 +105,131 @@ def _neox_spec(c: dict) -> DecoderSpec:
     )
 
 
+def _gpt2_spec(c: dict) -> DecoderSpec:
+    d = c["n_embd"]
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["n_layer"],
+        num_heads=c["n_head"],
+        num_kv_heads=c["n_head"],
+        head_dim=d // c["n_head"],
+        intermediate_size=c.get("n_inner") or 4 * d,
+        pos="learned",
+        max_position_embeddings=c["n_positions"],
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        activation="gelu_tanh",
+        qkv_bias=True,
+        attn_out_bias=True,
+        mlp_bias=True,
+        tie_word_embeddings=True,
+    )
+
+
+def _bloom_spec(c: dict) -> DecoderSpec:
+    d = c.get("hidden_size") or c["n_embed"]
+    h = c.get("n_head") or c["num_attention_heads"]
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c.get("n_layer") or c["num_hidden_layers"],
+        num_heads=h,
+        num_kv_heads=h,
+        head_dim=d // h,
+        intermediate_size=4 * d,
+        pos="alibi",
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        embed_norm=True,
+        activation="gelu_tanh",
+        qkv_bias=True,
+        attn_out_bias=True,
+        mlp_bias=True,
+        tie_word_embeddings=True,
+    )
+
+
+def _opt_spec(c: dict) -> DecoderSpec:
+    if not c.get("do_layer_norm_before", True):
+        raise ValueError(
+            "OPT with do_layer_norm_before=False (opt-350m style post-norm) "
+            "is not supported")
+    d = c["hidden_size"]
+    h = c["num_attention_heads"]
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["num_hidden_layers"],
+        num_heads=h,
+        num_kv_heads=h,
+        head_dim=d // h,
+        intermediate_size=c["ffn_dim"],
+        pos="learned",
+        pos_offset=2,                # OPTLearnedPositionalEmbedding offset
+        max_position_embeddings=c["max_position_embeddings"],
+        norm="layernorm",
+        activation=("relu" if c.get("activation_function", "relu") == "relu"
+                    else "gelu"),
+        qkv_bias=c.get("enable_bias", True),
+        attn_out_bias=c.get("enable_bias", True),
+        mlp_bias=c.get("enable_bias", True),
+        tie_word_embeddings=c.get("tie_word_embeddings", True),
+    )
+
+
+def _mpt_spec(c: dict) -> DecoderSpec:
+    d = c["d_model"]
+    h = c["n_heads"]
+    attn = c.get("attn_config") or {}
+    if attn.get("softmax_scale") is not None:
+        raise ValueError("MPT custom softmax_scale is not supported")
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["n_layers"],
+        num_heads=h,
+        num_kv_heads=h,
+        head_dim=d // h,
+        intermediate_size=c.get("expansion_ratio", 4) * d,
+        pos="alibi" if attn.get("alibi", True) else "learned",
+        alibi_impl="mpt",
+        max_position_embeddings=c.get("max_seq_len", 2048),
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        activation="gelu",           # HF MptMLP: nn.GELU(approximate="none")
+        qkv_clip=attn.get("clip_qkv"),
+        qkv_bias=not c.get("no_bias", True),
+        attn_out_bias=not c.get("no_bias", True),
+        mlp_bias=False,              # HF MptMLP is always bias-free
+        tie_word_embeddings=True,
+    )
+
+
+def _bigcode_spec(c: dict) -> DecoderSpec:
+    d = c["n_embd"]
+    h = c["n_head"]
+    return DecoderSpec(
+        vocab_size=c["vocab_size"],
+        hidden_size=d,
+        num_layers=c["n_layer"],
+        num_heads=h,
+        num_kv_heads=1 if c.get("multi_query", True) else h,
+        head_dim=d // h,
+        intermediate_size=c.get("n_inner") or 4 * d,
+        pos="learned",
+        max_position_embeddings=c["n_positions"],
+        norm="layernorm",
+        norm_eps=c.get("layer_norm_epsilon", 1e-5),
+        activation="gelu_tanh",
+        qkv_bias=True,
+        attn_out_bias=True,
+        mlp_bias=True,
+        tie_word_embeddings=True,
+    )
+
+
 def _falcon_spec(c: dict) -> DecoderSpec:
-    if c.get("alibi"):
-        raise NotImplementedError(
-            "Falcon with alibi: true is not ported yet (the ALiBi families "
-            "are a later slice)")
     d = c["hidden_size"]
     h = c["num_attention_heads"]
     if c.get("new_decoder_architecture"):
@@ -115,7 +246,7 @@ def _falcon_spec(c: dict) -> DecoderSpec:
         num_kv_heads=kv,
         head_dim=d // h,
         intermediate_size=4 * d,
-        pos="rope",
+        pos="alibi" if c.get("alibi") else "rope",
         rope_theta=c.get("rope_theta", 10000.0),
         norm="layernorm",
         norm_eps=c.get("layer_norm_epsilon", 1e-5),
@@ -495,41 +626,64 @@ def _load_neox(w: Weights, s: DecoderSpec, dtype, device) -> dict:
     }
 
 
+def _split_falcon_qkv(qkv: torch.Tensor, h: int, k: int, dh: int):
+    """Falcon's fused qkv rows ([out, ...]: a weight [out, d_in] or a bias
+    [out]) in its three layouts: multi-query ([q (H*Dh) | k (Dh) | v (Dh)]),
+    multi-head (head-major, as NeoX) and the new decoder architecture (K
+    groups of H / K query heads, one k and one v). Returns the q, k and v
+    rows, each [rows, ...]."""
+    tail = qkv.shape[1:]
+    if k == 1:
+        return qkv[: h * dh], qkv[h * dh: (h + 1) * dh], qkv[(h + 1) * dh:]
+    if k == h:
+        grouped = qkv.reshape(h, 3, dh, *tail)
+        return tuple(grouped[:, j].reshape(h * dh, *tail) for j in range(3))
+    grouped = qkv.reshape(k, h // k + 2, dh, *tail)
+    return (grouped[:, :-2].reshape(h * dh, *tail),
+            grouped[:, -2].reshape(k * dh, *tail),
+            grouped[:, -1].reshape(k * dh, *tail))
+
+
 def _load_falcon(w: Weights, s: DecoderSpec, dtype, device) -> dict:
-    """Falcon's fused qkv in its three layouts: multi-query ([q | k | v]
-    rows), multi-head (head-major, as NeoX) and the new decoder
-    architecture (K groups of H / K query heads, one k and one v)."""
+    """Falcon's fused qkv in its three layouts (`_split_falcon_qkv`); with
+    `bias: true` its biases, and with `parallel_attn: false` its second
+    LayerNorm (see the module docstring)."""
     L, H, K, Dh = s.num_layers, s.num_heads, s.num_kv_heads, s.head_dim
-    qs, ks, vs = [], [], []
-    for i in range(L):
-        qkv = w.get(f"transformer.h.{i}.self_attention.query_key_value.weight")
-        d_in = qkv.shape[-1]
-        if K == 1:
-            # multi_query: rows are [q (H*Dh) | k (Dh) | v (Dh)]
-            qs.append(qkv[: H * Dh].t())
-            ks.append(qkv[H * Dh: (H + 1) * Dh].t())
-            vs.append(qkv[(H + 1) * Dh:].t())
-        elif K == H:
-            q, k, v = _split_fused_headmajor(qkv, H, Dh)
-            qs.append(q); ks.append(k); vs.append(v)
-        else:
-            # new_decoder_architecture: [K groups of (H/K q heads + 1 k + 1 v)]
-            grouped = qkv.reshape(K, H // K + 2, Dh, d_in)
-            qs.append(grouped[:, :-2].reshape(H * Dh, d_in).t())
-            ks.append(grouped[:, -2].reshape(K * Dh, d_in).t())
-            vs.append(grouped[:, -1].reshape(K * Dh, d_in).t())
     pre = "transformer.h.{i}"
-    # falcon's parallel_attn shares one layernorm between attn and mlp
+    qkv_name = pre + ".self_attention.query_key_value"
+    qs, ks, vs = zip(*(
+        (x.t() for x in _split_falcon_qkv(
+            w.get(qkv_name.format(i=i) + ".weight"), H, K, Dh))
+        for i in range(L)))
     ln1 = _norm_stack(w, pre + ".input_layernorm", L, dtype, device, True)
+    # the parallel block shares one layernorm between attention and the MLP
+    ln2 = (_norm_stack(w, pre + ".post_attention_layernorm", L, dtype,
+                       device, True)
+           if not s.parallel_residual
+           and w.has("transformer.h.0.post_attention_layernorm.weight")
+           else _shared_norm(ln1))
     layers = {
         "ln1": ln1,
-        "ln2": _shared_norm(ln1),
-        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
-        "wv": _stack(vs, dtype, device),
+        "ln2": ln2,
+        "wq": _stack(list(qs), dtype, device),
+        "wk": _stack(list(ks), dtype, device),
+        "wv": _stack(list(vs), dtype, device),
         "wo": _dense_t(w, pre + ".self_attention.dense", L, dtype, device),
         "w_up": _dense_t(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
         "w_down": _dense_t(w, pre + ".mlp.dense_4h_to_h", L, dtype, device),
     }
+    if s.qkv_bias and w.has(qkv_name.format(i=0) + ".bias"):
+        bq, bk, bv = zip(*(_split_falcon_qkv(
+            w.get(qkv_name.format(i=i) + ".bias"), H, K, Dh)
+            for i in range(L)))
+        layers.update(bq=_stack(list(bq), dtype, device),
+                      bk=_stack(list(bk), dtype, device),
+                      bv=_stack(list(bv), dtype, device))
+    for key, name, on in (("bo", ".self_attention.dense", s.attn_out_bias),
+                          ("b_up", ".mlp.dense_h_to_4h", s.mlp_bias),
+                          ("b_down", ".mlp.dense_4h_to_h", s.mlp_bias)):
+        if on and w.has((pre + name).format(i=0) + ".bias"):
+            layers[key] = _stack_bias(w, pre + name, L, dtype, device)
     return {
         "embed_tokens": _one(w.get("transformer.word_embeddings.weight"),
                              dtype, device),
@@ -538,26 +692,280 @@ def _load_falcon(w: Weights, s: DecoderSpec, dtype, device) -> dict:
     }
 
 
+def _load_gpt2_like(w: Weights, s: DecoderSpec, dtype, device,
+                    conv1d: bool) -> dict:
+    """GPT-2 and StarCoder (gpt_bigcode): `h.{i}` blocks with an optional
+    `transformer.` prefix, a fused c_attn of q | k | v blocks (GPT-2's
+    Conv1D stores [in, out] with its out axis split; StarCoder's Linear
+    [out, in] with [q (D) | k (K Dh) | v (K Dh)] rows), learned positions
+    `wpe` and tied embeddings."""
+    L, D = s.num_layers, s.hidden_size
+    kv = s.num_kv_heads * s.head_dim
+    prefix = "" if w.has("wte.weight") else "transformer."
+
+    def g(name):
+        return w.get(prefix + name)
+
+    def lin(name):       # as [in, out]
+        return g(name) if conv1d else g(name).t()
+
+    qs, ks, vs, bqs, bks, bvs = [], [], [], [], [], []
+    for i in range(L):
+        qkv = lin(f"h.{i}.attn.c_attn.weight")          # [in, D + 2 kv]
+        b = g(f"h.{i}.attn.c_attn.bias")
+        qs.append(qkv[:, :D]); ks.append(qkv[:, D:D + kv])
+        vs.append(qkv[:, D + kv:])
+        bqs.append(b[:D]); bks.append(b[D:D + kv]); bvs.append(b[D + kv:])
+    layers = {
+        "ln1": _norm_stack(w, prefix + "h.{i}.ln_1", L, dtype, device, True),
+        "ln2": _norm_stack(w, prefix + "h.{i}.ln_2", L, dtype, device, True),
+        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
+        "wv": _stack(vs, dtype, device),
+        "bq": _stack(bqs, dtype, device), "bk": _stack(bks, dtype, device),
+        "bv": _stack(bvs, dtype, device),
+    }
+    for key, name in (("wo", "attn.c_proj"), ("w_up", "mlp.c_fc"),
+                      ("w_down", "mlp.c_proj")):
+        layers[key] = _stack([lin(f"h.{i}.{name}.weight") for i in range(L)],
+                             dtype, device)
+        layers["b" + key[1:]] = _stack(
+            [g(f"h.{i}.{name}.bias") for i in range(L)], dtype, device)
+    return {
+        "embed_tokens": _one(g("wte.weight"), dtype, device),
+        "embed_positions": _one(g("wpe.weight"), dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, prefix + "ln_f", dtype, device),
+    }
+
+
+def _load_gpt2(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    return _load_gpt2_like(w, s, dtype, device, conv1d=True)
+
+
+def _load_bigcode(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    return _load_gpt2_like(w, s, dtype, device, conv1d=False)
+
+
+def _load_opt(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L = s.num_layers
+    pre = "model.decoder.layers.{i}"
+
+    def lin(name):
+        return _stack_linear(w, pre + name, L, dtype, device)
+
+    def bias(name):
+        return _stack_bias(w, pre + name, L, dtype, device)
+
+    layers = {
+        "ln1": _norm_stack(w, pre + ".self_attn_layer_norm", L, dtype, device,
+                           True),
+        "ln2": _norm_stack(w, pre + ".final_layer_norm", L, dtype, device,
+                           True),
+        "wq": lin(".self_attn.q_proj"), "wk": lin(".self_attn.k_proj"),
+        "wv": lin(".self_attn.v_proj"), "wo": lin(".self_attn.out_proj"),
+        "w_up": lin(".fc1"), "w_down": lin(".fc2"),
+    }
+    if s.qkv_bias:
+        layers.update(bq=bias(".self_attn.q_proj"),
+                      bk=bias(".self_attn.k_proj"),
+                      bv=bias(".self_attn.v_proj"))
+    if s.attn_out_bias:
+        layers["bo"] = bias(".self_attn.out_proj")
+    if s.mlp_bias:
+        layers.update(b_up=bias(".fc1"), b_down=bias(".fc2"))
+    params = {
+        "embed_tokens": _one(w.get("model.decoder.embed_tokens.weight"),
+                             dtype, device),
+        "embed_positions": _one(w.get("model.decoder.embed_positions.weight"),
+                                dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "model.decoder.final_layer_norm",
+                                       dtype, device),
+    }
+    if w.has("model.decoder.project_in.weight"):
+        # word_embed_proj_dim != hidden_size (opt-350m)
+        params["project_in"] = _one(
+            w.get("model.decoder.project_in.weight").t(), dtype, device)
+        params["project_out"] = _one(
+            w.get("model.decoder.project_out.weight").t(), dtype, device)
+    if not s.tie_word_embeddings:
+        params["lm_head"] = _one(w.get("lm_head.weight").t(), dtype, device)
+    return params
+
+
+def _load_mpt(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L, D = s.num_layers, s.hidden_size
+    pre = "transformer.blocks.{i}"
+    has_ln_bias = w.has("transformer.blocks.0.norm_1.bias")
+    qs, ks, vs, bqs, bks, bvs = [], [], [], [], [], []
+    for i in range(L):
+        qkv = w.get(f"transformer.blocks.{i}.attn.Wqkv.weight")   # [3D, D]
+        qs.append(qkv[:D].t()); ks.append(qkv[D:2 * D].t())
+        vs.append(qkv[2 * D:].t())
+        if s.qkv_bias:
+            b = w.get(f"transformer.blocks.{i}.attn.Wqkv.bias")
+            bqs.append(b[:D]); bks.append(b[D:2 * D]); bvs.append(b[2 * D:])
+    layers = {
+        "ln1": _norm_stack(w, pre + ".norm_1", L, dtype, device, has_ln_bias),
+        "ln2": _norm_stack(w, pre + ".norm_2", L, dtype, device, has_ln_bias),
+        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
+        "wv": _stack(vs, dtype, device),
+        "wo": _stack_linear(w, pre + ".attn.out_proj", L, dtype, device),
+        "w_up": _stack_linear(w, pre + ".ffn.up_proj", L, dtype, device),
+        "w_down": _stack_linear(w, pre + ".ffn.down_proj", L, dtype, device),
+    }
+    if s.qkv_bias:
+        layers.update(bq=_stack(bqs, dtype, device),
+                      bk=_stack(bks, dtype, device),
+                      bv=_stack(bvs, dtype, device))
+    if s.attn_out_bias:
+        layers["bo"] = _stack_bias(w, pre + ".attn.out_proj", L, dtype,
+                                   device)
+    if s.mlp_bias:
+        layers["b_up"] = _stack_bias(w, pre + ".ffn.up_proj", L, dtype,
+                                     device)
+        layers["b_down"] = _stack_bias(w, pre + ".ffn.down_proj", L, dtype,
+                                       device)
+    final_norm = {"scale": _one(w.get("transformer.norm_f.weight"), dtype,
+                                device)}
+    if w.has("transformer.norm_f.bias"):
+        final_norm["bias"] = _one(w.get("transformer.norm_f.bias"), dtype,
+                                  device)
+    return {
+        "embed_tokens": _one(w.get("transformer.wte.weight"), dtype, device),
+        "layers": layers,
+        "final_norm": final_norm,
+    }
+
+
+def _load_bloom(w: Weights, s: DecoderSpec, dtype, device) -> dict:
+    L, H, Dh = s.num_layers, s.num_heads, s.head_dim
+    pre = "transformer.h.{i}"
+    qs, ks, vs, bqs, bks, bvs = [], [], [], [], [], []
+    for i in range(L):
+        q, k, v = _split_fused_headmajor(
+            w.get(f"transformer.h.{i}.self_attention.query_key_value.weight"),
+            H, Dh)
+        bq, bk, bv = _split_fused_bias_headmajor(
+            w.get(f"transformer.h.{i}.self_attention.query_key_value.bias"),
+            H, Dh)
+        qs.append(q); ks.append(k); vs.append(v)
+        bqs.append(bq); bks.append(bk); bvs.append(bv)
+    layers = {
+        "ln1": _norm_stack(w, pre + ".input_layernorm", L, dtype, device,
+                           True),
+        "ln2": _norm_stack(w, pre + ".post_attention_layernorm", L, dtype,
+                           device, True),
+        "wq": _stack(qs, dtype, device), "wk": _stack(ks, dtype, device),
+        "wv": _stack(vs, dtype, device),
+        "bq": _stack(bqs, dtype, device), "bk": _stack(bks, dtype, device),
+        "bv": _stack(bvs, dtype, device),
+        "wo": _dense_t(w, pre + ".self_attention.dense", L, dtype, device),
+        "bo": _stack_bias(w, pre + ".self_attention.dense", L, dtype, device),
+        "w_up": _dense_t(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
+        "b_up": _stack_bias(w, pre + ".mlp.dense_h_to_4h", L, dtype, device),
+        "w_down": _dense_t(w, pre + ".mlp.dense_4h_to_h", L, dtype, device),
+        "b_down": _stack_bias(w, pre + ".mlp.dense_4h_to_h", L, dtype,
+                              device),
+    }
+    return {
+        "embed_tokens": _one(w.get("transformer.word_embeddings.weight"),
+                             dtype, device),
+        "embed_ln": _final_layernorm(
+            w, "transformer.word_embeddings_layernorm", dtype, device),
+        "layers": layers,
+        "final_norm": _final_layernorm(w, "transformer.ln_f", dtype, device),
+    }
+
+
 FAMILIES: dict[str, tuple[Callable[[dict], DecoderSpec], Callable]] = {
     "llama": (_llama_spec, _load_llama),
+    "gpt2": (_gpt2_spec, _load_gpt2),
+    "bloom": (_bloom_spec, _load_bloom),
     "gpt_neox": (_neox_spec, _load_neox),
     "falcon": (_falcon_spec, _load_falcon),
     "RefinedWeb": (_falcon_spec, _load_falcon),
     "RefinedWebModel": (_falcon_spec, _load_falcon),
+    "gpt_bigcode": (_bigcode_spec, _load_bigcode),
     "gptj": (_gptj_spec, _load_gptj),
     "codegen": (_codegen_spec, _load_codegen),
+    "opt": (_opt_spec, _load_opt),
+    "mpt": (_mpt_spec, _load_mpt),
     "phi": (_phi_spec, _load_phi),
     "mistral": (_mistral_spec, _load_llama),
     "qwen2": (_qwen2_spec, _load_llama),
     "gemma": (_gemma_spec, _load_gemma),
 }
 
+# Signature tensors per family, as the JAX package's: a checkpoint that
+# carries one names its layers as that family does. Ordered by how common
+# the convention is among fine-tunes and clones; read only for model types
+# outside FAMILIES.
+_FALLBACK_SIGNATURES = [
+    ("llama", "model.layers.0.self_attn.q_proj.weight"),
+    ("gpt_neox", "gpt_neox.layers.0.attention.query_key_value.weight"),
+    ("gptj", "transformer.h.0.attn.q_proj.weight"),
+    ("gpt_bigcode", "transformer.h.0.attn.c_attn.weight"),
+    ("gpt2", "transformer.h.0.attn.c_attn.weight"),
+    ("opt", "model.decoder.layers.0.self_attn.q_proj.weight"),
+    ("bloom", "transformer.h.0.self_attention.query_key_value.weight"),
+    ("falcon", "transformer.h.0.self_attention.query_key_value.weight"),
+    ("mpt", "transformer.blocks.0.attn.Wqkv.weight"),
+]
+
+
+def _load_fallback(model_dir: str, config: dict, model_type, dtype,
+                   device) -> tuple[DecoderSpec, dict]:
+    """The JAX package's structural fallback for model types outside
+    FAMILIES: serve the checkpoint through the first family whose
+    signature tensor it carries and whose spec builder and loader take it
+    (most unknown model types are renamed clones of a known architecture).
+
+    FALLBACK_FAMILY=auto (default) tries the signatures in order;
+    =<family> forces one family's loader; =off raises, as does a checkpoint
+    no family takes (ValueError, with the JAX package's message)."""
+    mode = os.getenv("FALLBACK_FAMILY", "auto").strip()
+    matrix = (f"unsupported model_type {model_type!r}; supported: "
+              f"{sorted(FAMILIES)}. Unknown types are served via the "
+              "structural fallback (FALLBACK_FAMILY=auto|<family>; "
+              "currently: " + mode + ")")
+    if mode.lower() in ("off", "0", "false"):
+        raise ValueError(matrix)
+    weights = Weights(model_dir)
+    if mode.lower() != "auto":
+        if mode not in FAMILIES:
+            raise ValueError(
+                f"FALLBACK_FAMILY={mode!r} is not a known family; "
+                f"choose one of {sorted(FAMILIES)} or auto/off")
+        candidates = [mode]
+    else:
+        candidates = list(dict.fromkeys(
+            fam for fam, sig in _FALLBACK_SIGNATURES if weights.has(sig)))
+    errors = []
+    for fam in candidates:
+        spec_fn, load_fn = FAMILIES[fam]
+        try:
+            spec = spec_fn(config)
+            params = load_fn(weights, spec, dtype, device)
+        except Exception as e:  # noqa: BLE001 - try the next convention
+            errors.append(f"{fam}: {type(e).__name__}: {e}")
+            continue
+        logger.warning(
+            "model_type %r is not natively supported; serving via the %r "
+            "family's structural fallback (set FALLBACK_FAMILY=off to "
+            "require native support)", model_type, fam)
+        return spec, params
+    raise ValueError(
+        matrix + (f"; fallback attempts failed: {errors}" if errors
+                  else "; no family signature tensor matched the checkpoint"))
+
 
 def load_model(model_dir: str, dtype=torch.bfloat16,
                quantize: str | None = None,
                device=None) -> tuple[DecoderSpec, dict]:
-    """Load (spec, params) for a checkpoint of a served family onto
-    `device` (CUDA unless the caller asks for the CPU). GPTQ tensors load as
+    """Load (spec, params) for a checkpoint of a served family, or of any
+    model type the structural fallback takes, onto `device` (CUDA unless
+    the caller asks for the CPU). GPTQ tensors load as
     Int4Weight whatever `quantize` says; quantize="gptq" is a requirement
     that the checkpoint carries them (GPTQ needs offline calibration, so
     it has no load-time path)."""
@@ -567,15 +975,13 @@ def load_model(model_dir: str, dtype=torch.bfloat16,
             f"quantize={quantize!r} is not ported yet (gptq only)")
     config = load_hf_config(model_dir)
     model_type = config.get("model_type")
-    if model_type not in FAMILIES:
-        later = (f"the {model_type!r} family is" if model_type in LATER_FAMILIES
-                 else f"model_type {model_type!r} (the structural fallback) is")
-        raise NotImplementedError(
-            f"{later} not ported yet: a later slice ports the learned-position "
-            f"and ALiBi families and the fallback; served: {sorted(FAMILIES)}")
-    spec_fn, load_fn = FAMILIES[model_type]
-    spec = spec_fn(config)
-    params = load_fn(Weights(model_dir), spec, dtype, device)
+    if model_type in FAMILIES:
+        spec_fn, load_fn = FAMILIES[model_type]
+        spec = spec_fn(config)
+        params = load_fn(Weights(model_dir), spec, dtype, device)
+    else:
+        spec, params = _load_fallback(model_dir, config, model_type, dtype,
+                                      device)
     if quantize == "gptq" and not any(isinstance(v, Int4Weight)
                                       for v in params["layers"].values()):
         # closes the trap where QUANTIZE=gptq on an fp checkpoint would

@@ -36,15 +36,16 @@ from ..ops.attention import KERNELS, AttentionOps
 from .core import (
     DecoderSpec,
     KVCache,
-    _apply_rope,
     _attn_out,
     _embed,
     _norm,
     _qkv,
     _residual,
-    _rope_freqs,
+    _rotary,
+    _rotate,
     _unembed,
-    check_supported,
+    alibi_bias,
+    alibi_slopes_kg,
     layer_params,
     prefill_forward,
     quantize_kv,
@@ -97,14 +98,14 @@ def decode_paged(
     """One decode step over every slot via the page pool. Writes each slot's
     new k/v row into its page in place, then attends over the pool.
     Returns ([S, V] f32 logits, cache)."""
-    check_supported(spec)
     if cache.quantized:
         raise ValueError("decode_paged has no int8 write path; int8 pools are "
                          "written by the ring chunks (paged_ring_flush)")
     s = ids.shape[0]
     bt = cache.block_table
     x = _embed(spec, params, ids, positions)
-    cos, sin = _rope_freqs(spec, positions)
+    rope = _rotary(spec, positions)
+    slopes = alibi_slopes_kg(spec, ids.device)
 
     # INACTIVE slots must not write at all: their block-table rows are
     # stale, and an in-bounds write would corrupt whichever live request
@@ -124,13 +125,13 @@ def decode_paged(
         kp, vp = cache.k[li], cache.v[li]               # [K, P*page, D] views
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)                     # q [S,H,Dh]; k/v [S,K,Dh]
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
+        q, k = _rotate(spec, q, k, rope)
         _put_rows(kp, 1, dst, k[src].transpose(0, 1), kept)
         _put_rows(vp, 1, dst, v[src].transpose(0, 1), kept)
 
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim).contiguous()
-        a = attn.paged_decode(qg, kp, vp, bt, ctx, page_size)
+        a = attn.paged_decode(qg, kp, vp, bt, ctx, page_size,
+                              alibi_slopes_kg=slopes)
         a = _attn_out(spec, lp, a.reshape(s, spec.num_heads, spec.head_dim))
         x = _residual(spec, lp, x, a)
     x = _norm(spec, params["final_norm"], x)
@@ -187,9 +188,13 @@ def decode_paged_ring_step(
     partial softmax stats, which are merged flash-decoding style with the
     in-chunk ring buffer and the current token.
 
+    An ALiBi spec's slopes reach the kernel's stats mode, whose m carries
+    the bias in natural-log units, and the ring's and the current token's
+    scores take the bias at their positions (`buf_bias`, `new_bias`, as the
+    JAX package computes them), so the merge compares like with like.
+
     Returns (logits [S, V] f32, k_all [L, S, K, D], v_all [L, S, K, D]).
     """
-    check_supported(spec)
     s = ids.shape[0]
     n_buf = kbuf.shape[3]
     bt = cache.block_table
@@ -197,19 +202,24 @@ def decode_paged_ring_step(
         # only the live-page bucket of the table is walked
         bt = bt[:, :live_pages].contiguous()
     x = _embed(spec, params, ids, positions)
-    cos, sin = _rope_freqs(spec, positions)
+    rope = _rotary(spec, positions)
     scale = 1.0 / math.sqrt(spec.head_dim)
     group = spec.num_heads // spec.num_kv_heads
     buf_mask = torch.arange(n_buf, device=ids.device)[None, :] < step_idx
     ctx = chunk_start.to(torch.int32).contiguous()
+    slopes = alibi_slopes_kg(spec, ids.device)
+    if slopes is not None:
+        buf_pos = (chunk_start[:, None]
+                   + torch.arange(n_buf, device=ids.device)[None, :])
+        buf_bias = alibi_bias(slopes, buf_pos)                  # [S,K,G,C]
+        new_bias = alibi_bias(slopes, positions[:, None])[..., 0]  # [S,K,G]
 
     k_all, v_all = [], []
     for li in range(spec.num_layers):
         lp = layer_params(params["layers"], li, attn.int4_plain)
         h = _norm(spec, lp["ln1"], x)
         q, k, v = _qkv(spec, lp, h)
-        q = _apply_rope(spec, q, cos, sin)
-        k = _apply_rope(spec, k, cos, sin)
+        q, k = _rotate(spec, q, k, rope)
         qg = q.reshape(s, spec.num_kv_heads, group, spec.head_dim).contiguous()
 
         # part 1: pool attention over pre-chunk context (partial stats); the
@@ -217,18 +227,22 @@ def decode_paged_ring_step(
         if cache.quantized:
             acc1, m1, l1 = attn.paged_decode_partial_i8(
                 qg, cache.k[li], cache.v[li], cache.k_scale[li],
-                cache.v_scale[li], bt, ctx, page_size)
+                cache.v_scale[li], bt, ctx, page_size, alibi_slopes_kg=slopes)
         else:
             acc1, m1, l1 = attn.paged_decode_partial(
-                qg, cache.k[li], cache.v[li], bt, ctx, page_size)
+                qg, cache.k[li], cache.v[li], bt, ctx, page_size,
+                alibi_slopes_kg=slopes)
 
         # part 2: in-chunk ring + current token
         qf = qg.to(torch.float32)
         bscores = torch.einsum("skgd,skcd->skgc", qf,
                                kbuf[li].to(torch.float32)) * scale
-        bscores = bscores.masked_fill(~buf_mask[:, None, None, :], -math.inf)
         score_new = torch.sum(qf * k[:, :, None, :].to(torch.float32),
                               dim=-1) * scale
+        if slopes is not None:
+            bscores = bscores + buf_bias
+            score_new = score_new + new_bias
+        bscores = bscores.masked_fill(~buf_mask[:, None, None, :], -math.inf)
         all_r = torch.cat([bscores, score_new[..., None]], dim=-1)
         m2 = torch.max(all_r, dim=-1).values                     # [S, K, G]
         p2 = torch.exp(all_r - m2[..., None])

@@ -4,15 +4,28 @@ the JAX package's `ops/attention.py`).
 Each route of `KERNELS` keeps the JAX package's rule, decided from shapes
 alone before any launch:
 
-- `prefill_attention` (`ops/attention.py:40`): the flash kernel when there
-  is no bias, the bucket is at least 128 and the head dim is a multiple of
-  64; otherwise the einsum path, the JAX rule's own route for those shapes.
+- `prefill_attention` (`ops/attention.py:40`): the flash kernel when the
+  bucket is at least 128 and the head dim is a multiple of 64; otherwise
+  the einsum path, the JAX rule's own route for those shapes.
 - `decode_attention`, the slot engine's "scan" write mode
-  (`ops/attention.py:67`): the slot-cache kernel (S1) when there is no
-  bias, the cache holds at least 2048 rows and the head dim is a multiple
-  of 64; otherwise the einsum path.
+  (`ops/attention.py:67`): the slot-cache kernel (S1) when the cache holds
+  at least 2048 rows and the head dim is a multiple of 64; otherwise the
+  einsum path.
 - the paged routes: the paged kernel at every shape, as the JAX paged
   forward passes call it (`models/paged_core.py:152,174-183`).
+
+ALiBi reaches the kernels the rule takes. The JAX rule sends every ALiBi
+call to its plain paths: a bias sends prefill and slot decode to the einsum
+(`ops/attention.py:38,67`) and `spec.pos != "alibi"` sends paged decode to
+the paged kernel's plain twin (`models/paged_core.py:152,276`). Here the
+forward passes hand each route the slopes, a [K, G] f32 tensor (query head
+k * G + g; None without ALiBi); the kernels add slope * j to the scaled
+score of key position j (flash prefill: slope * (j - i) for query row i,
+the same softmax), and the einsum paths add the JAX package's dense bias,
+slope * j (`alibi_bias`). Which keys are visible does not change. This
+differs from the JAX rule by design: its plain paths would write the
+[N, K, G, T, T] f32 scores to device memory or gather every live page
+each step.
 
 A sliding window reaches the kernels the rule takes: flash prefill takes
 `window` (0 is none) and masks key j for a real query row i unless
@@ -57,89 +70,100 @@ from .cuda.ring_decode_attention import (
 SLOT_KERNEL_MIN_ROWS = 2048
 
 
-def prefill_attention_einsum(q, k, v, lengths, bias, mask, scale: float,
+def alibi_bias(slopes: torch.Tensor, key_pos: torch.Tensor) -> torch.Tensor:
+    """The JAX package's dense ALiBi bias: slopes [K, G] times the key
+    positions [..., T] (as f32) gives [..., K, G, T]."""
+    return slopes[..., None] * key_pos.to(torch.float32)[..., None, None, :]
+
+
+def prefill_attention_einsum(q, k, v, lengths, slopes, mask, scale: float,
                              window: int = 0):
     """q [N, T, K, G, D]; k/v [N, T, K, D]; mask [N, T, T] bool (the
-    window, if any, already in it); returns [N, T, K, G, D]. Scores and
-    softmax in fp32, probabilities cast to v's dtype for the value product
-    (as the JAX package's XLA path)."""
+    window, if any, already in it); slopes [K, G] f32 or None; returns
+    [N, T, K, G, D]. Scores and softmax in fp32 with the JAX package's
+    ALiBi bias slope * j, probabilities cast to v's dtype for the value
+    product (as the JAX package's XLA path)."""
     scores = torch.einsum("nqkgd,nvkd->nkgqv", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    if bias is not None:
-        scores = scores + bias
+    if slopes is not None:
+        pos = torch.arange(q.shape[1], device=q.device)
+        scores = scores + alibi_bias(slopes, pos)[None, :, :, None, :]
     scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("nkgqv,nvkd->nqkgd", probs, v)
 
 
-def prefill_attention(q, k, v, lengths, bias, mask, scale: float,
+def prefill_attention(q, k, v, lengths, slopes, mask, scale: float,
                       window: int = 0):
     """q [N, T, K, G, D]; k/v [N, T, K, D]; returns [N, T, K, G, D].
 
-    `bias`/`mask` drive the einsum path; the kernel derives the causal,
-    length and window mask itself and has no bias."""
+    `mask` drives the einsum path; the kernel derives the causal, length
+    and window mask itself. `slopes` ([K, G] f32, or None) reach both."""
     n, t, kh, g, d = q.shape
-    if bias is None and t >= 128 and d % 64 == 0:       # the JAX rule
+    if t >= 128 and d % 64 == 0:                        # the JAX rule
         return fp.flash_prefill(q.contiguous(), k.contiguous(),
                                 v.contiguous(),
                                 lengths.to(torch.int32).contiguous(),
-                                window=window)
-    return prefill_attention_einsum(q, k, v, lengths, bias, mask, scale)
+                                window=window, slopes=slopes)
+    return prefill_attention_einsum(q, k, v, lengths, slopes, mask, scale)
 
 
-def decode_attention_einsum(q, k_cache, v_cache, context_len, bias, mask,
+def decode_attention_einsum(q, k_cache, v_cache, context_len, slopes, mask,
                             scale: float, lo=None):
     """q [S, K, G, D]; caches [S, K, T, D]; mask [S, T] bool (the window,
-    if any, already in it, so `lo` is not read); returns
-    [S, K, G, D]. Scores and softmax in fp32, probabilities cast to the
-    cache's dtype for the value product (as the JAX package's XLA path)."""
+    if any, already in it, so `lo` is not read); slopes [K, G] f32 or None;
+    returns [S, K, G, D]. Scores and softmax in fp32 with the JAX package's
+    ALiBi bias slope * j, probabilities cast to the cache's dtype for the
+    value product (as the JAX package's XLA path)."""
     scores = torch.einsum("skgd,sktd->skgt", q.to(torch.float32),
                           k_cache.to(torch.float32)) * scale
-    if bias is not None:
-        scores = scores + bias
+    if slopes is not None:
+        pos = torch.arange(k_cache.shape[2], device=q.device)
+        scores = scores + alibi_bias(slopes, pos)[None]
     scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     return torch.einsum("skgt,sktd->skgd", probs, v_cache)
 
 
-def decode_attention(q, k_cache, v_cache, context_len, bias, mask,
+def decode_attention(q, k_cache, v_cache, context_len, slopes, mask,
                      scale: float, lo=None):
     """q [S, K, G, D]; caches [S, K, T, D] (one layer of the slot cache);
-    returns [S, K, G, D]. `bias`/`mask` drive the einsum path; the kernel
-    reads the rows in [lo, context_len) itself (`lo`, a contiguous int32
-    [S] tensor, is max(context_len - window, 0) under a sliding window;
-    None reads from row 0) and has no bias."""
+    returns [S, K, G, D]. `mask` drives the einsum path; the kernel reads
+    the rows in [lo, context_len) itself (`lo`, a contiguous int32 [S]
+    tensor, is max(context_len - window, 0) under a sliding window; None
+    reads from row 0). `slopes` ([K, G] f32, or None) reach both."""
     d = q.shape[-1]
-    if (bias is None and k_cache.shape[2] >= SLOT_KERNEL_MIN_ROWS
-            and d % 64 == 0):                             # the JAX rule
+    if k_cache.shape[2] >= SLOT_KERNEL_MIN_ROWS and d % 64 == 0:  # JAX rule
         return slot_decode.decode_attention(
             q.contiguous(), k_cache, v_cache,
-            context_len.to(torch.int32).contiguous(), lo)
-    return decode_attention_einsum(q, k_cache, v_cache, context_len, bias,
+            context_len.to(torch.int32).contiguous(), lo, slopes=slopes)
+    return decode_attention_einsum(q, k_cache, v_cache, context_len, slopes,
                                    mask, scale)
 
 
 def _partial_i8_reference(q, k_pool, v_pool, k_scale_pool, v_scale_pool,
-                          block_table, ctx, page_size):
+                          block_table, ctx, page_size, alibi_slopes_kg=None):
     return pa.paged_decode_attention_partial_reference(
         q, k_pool, v_pool, block_table, ctx, page_size,
-        k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
+        alibi_slopes_kg=alibi_slopes_kg, k_scale_pool=k_scale_pool,
+        v_scale_pool=v_scale_pool)
 
 
 class AttentionOps(NamedTuple):
     """The kernel functions a forward pass calls."""
 
-    prefill: Callable          # (q, k, v, lengths, bias, mask, scale, window)
-    # slot cache, "scan" write mode: (q, k_cache, v_cache, ctx, bias, mask,
-    # scale, lo)
+    prefill: Callable          # (q, k, v, lengths, slopes, mask, scale, window)
+    # slot cache, "scan" write mode: (q, k_cache, v_cache, ctx, slopes,
+    # mask, scale, lo)
     slot_decode: Callable
     # the ring scheme's three sources in one softmax: (q, k_cache, v_cache,
-    # kbuf, vbuf, k_new, v_new, ctx, step_idx)
+    # kbuf, vbuf, k_new, v_new, ctx, step_idx); no ALiBi
     ring_decode: Callable
-    paged_decode: Callable     # (q, k_pool, v_pool, block_table, ctx, page)
+    # (q, k_pool, v_pool, block_table, ctx, page, alibi_slopes_kg=None)
+    paged_decode: Callable
     paged_decode_partial: Callable  # same args -> (acc, m, l)
     # int8 pools: (q, k_pool, v_pool, k_scale_pool, v_scale_pool,
-    # block_table, ctx, page) -> (acc, m, l)
+    # block_table, ctx, page, alibi_slopes_kg=None) -> (acc, m, l)
     paged_decode_partial_i8: Callable
     int4_plain: bool           # GPTQ-INT4 products by their plain version
 

@@ -40,16 +40,18 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64 = ctypes.c_longlong
 # argument types of each library's C entry points
 _SIGNATURES = {
+    # q, k, v, lengths, ALiBi slopes (or null), out; then N, T, KH, G, D,
+    # window, dtype
     "flash_prefill": {
-        "tgi_flash_prefill": [_vp] * 5 + [_i32] * 7 + [_f32, _vp],
+        "tgi_flash_prefill": [_vp] * 6 + [_i32] * 7 + [_f32, _vp],
     },
-    # q, pools (int8: and their scale pools), table, ctx, outputs, split
-    # scratch, arrival counters; then S, KH, G, D, R, page, max_pages,
-    # num_pages, pages per split, splits, half
+    # q, pools (int8: and their scale pools), table, ctx, ALiBi slopes (or
+    # null), outputs, split scratch, arrival counters; then S, KH, G, D, R,
+    # page, max_pages, num_pages, pages per split, splits, dtype
     "paged_attention": {
-        "tgi_paged_decode": [_vp] * 8 + [_i32] * 11 + [_f32, _vp],
-        "tgi_paged_decode_stats": [_vp] * 10 + [_i32] * 11 + [_f32, _vp],
-        "tgi_paged_decode_stats_i8": [_vp] * 12 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode": [_vp] * 9 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode_stats": [_vp] * 11 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode_stats_i8": [_vp] * 13 + [_i32] * 11 + [_f32, _vp],
     },
     # x, qweight, qzeros, scales, y, split workspace, arrival counters; then
     # M, N, K, group size, splits, dtype
@@ -63,12 +65,12 @@ _SIGNATURES = {
         "tgi_int4_mlp": [_vp] * 10 + [_i32] * 9 + [_vp],
     },
     # cache strides over S, K, T are int64; S1: q, k, v, ctx, the first
-    # live rows, out, split scratch, arrival counters, then rows per split,
-    # splits and half; S2:
+    # live rows, the ALiBi slopes, out, split scratch, arrival counters,
+    # then rows per split, splits and dtype; S2 (no slopes):
     # q, k, v, ctx, the ring's four sources, split scratch, out, then rows
     # per split, splits, the ring's columns and step, and half
     "slot_attention": {
-        "tgi_slot_decode": [_vp] * 8 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
+        "tgi_slot_decode": [_vp] * 9 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
                            + [_f32, _vp],
         "tgi_ring_decode": [_vp] * 10 + [_i32] * 5 + [_i64] * 3 + [_i32] * 5
                            + [_f32, _vp],

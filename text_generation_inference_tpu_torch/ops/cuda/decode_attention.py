@@ -11,6 +11,9 @@ Counterpart of the JAX package's `ops/pallas/decode_attention.py`
   lo:   [S] int32      optional: the first live row of each slot (a sliding
                        window W gives lo = ctx - W, the JAX model's decode
                        mask); rows below it are neither read nor counted
+  slopes: [K, G] f32   optional ALiBi slopes: slope * j is added to the
+                       scaled score of cache row j (the JAX model's decode
+                       bias; query head k * G + g)
   out:  [S, K, G, D]   in q's dtype
 
 q and the cache are bf16, fp16 or fp32 (`DTYPES`, fp32 on the split
@@ -33,8 +36,9 @@ lo[s]: its plan covers only the live rows [lo, ctx).
 
 `decode_attention` takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `decode_attention.launches` counts
-launches, `decode_attention.windowed` those given lower bounds. `check_cache` and `_masked_scores` are shared with
-`ring_decode_attention.py`.
+launches, `decode_attention.windowed` those given lower bounds,
+`decode_attention.alibi` those given slopes. `check_cache` and
+`_masked_scores` are shared with `ring_decode_attention.py`.
 """
 
 from __future__ import annotations
@@ -61,9 +65,10 @@ def split_plan(t: int) -> tuple[int, int]:
     return SPLIT_ROWS, max(1, -(-t // SPLIT_ROWS))
 
 
-def _masked_scores(q, k, v, ctx, lo=None):
-    """Scores [S, K, G, T] f32 (rows >= ctx, and rows < lo, at -inf) and
-    values [S, K, T, D] f32 (those rows zeroed)."""
+def _masked_scores(q, k, v, ctx, lo=None, slopes=None, row0: int = 0):
+    """Scores [S, K, G, T] f32 (rows >= ctx, and rows < lo, at -inf; plus
+    slope * (row0 + row) with `slopes`) and values [S, K, T, D] f32 (those
+    rows zeroed)."""
     d = q.shape[-1]
     t = k.shape[2]
     rows = torch.arange(t, device=q.device)[None, :]
@@ -72,6 +77,9 @@ def _masked_scores(q, k, v, ctx, lo=None):
         live = live & (rows >= lo.to(q.device)[:, None])
     scores = torch.einsum("skgd,sktd->skgt", q.to(torch.float32),
                           k.to(torch.float32)) * (1.0 / math.sqrt(d))
+    if slopes is not None:
+        pos = (rows[0] + row0).to(torch.float32)
+        scores = scores + slopes.to(torch.float32)[None, :, :, None] * pos
     scores = scores.masked_fill(~live[:, None, None, :], -math.inf)
     vf = torch.where(live[:, None, :, None], v.to(torch.float32), 0.0)
     return scores, vf
@@ -79,10 +87,12 @@ def _masked_scores(q, k, v, ctx, lo=None):
 
 def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, ctx: torch.Tensor,
-                               lo: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version: fp32 softmax over rows [lo, ctx), acc / max(l,
-    1e-30)."""
-    scores, vf = _masked_scores(q, k, v, ctx, lo)
+                               lo: torch.Tensor | None = None,
+                               slopes: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Plain version: fp32 softmax over rows [lo, ctx) (plus slope * row
+    with `slopes`), acc / max(l, 1e-30)."""
+    scores, vf = _masked_scores(q, k, v, ctx, lo, slopes)
     m = torch.max(scores, dim=-1, keepdim=True).values
     m = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(scores - m)                        # exp(-inf) = 0
@@ -94,7 +104,8 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
 def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
                                      v: torch.Tensor, ctx: torch.Tensor,
                                      rows_per_split=None,
-                                     lo: torch.Tensor | None = None
+                                     lo: torch.Tensor | None = None,
+                                     slopes: torch.Tensor | None = None
                                      ) -> torch.Tensor:
     """Plain twin of the kernel's schedule: (acc, m, l) of every split of
     `rows_per_split` cache rows (default: `split_plan`'s), from the split
@@ -114,7 +125,7 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
         r1 = min(r0 + rows_per_split, t)
         scores, vf = _masked_scores(q, k[:, :, r0:r1], v[:, :, r0:r1],
                                     torch.clamp(ctx - r0, min=0),
-                                    torch.clamp(lo - r0, min=0))
+                                    torch.clamp(lo - r0, min=0), slopes, r0)
         m = torch.max(scores, dim=-1).values                     # [S, K, G]
         m_safe = torch.where(torch.isneginf(m), 0.0, m)
         p = torch.exp(scores - m_safe[..., None])               # exp(-inf) = 0
@@ -155,18 +166,30 @@ def check_cache(fn: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "head dim and 16-byte aligned rows")
 
 
+def check_slopes(fn: str, q: torch.Tensor, slopes) -> None:
+    """Raise unless `slopes` is None or a contiguous f32 [K, G] tensor on
+    q's device."""
+    if slopes is not None and (
+            slopes.device != q.device or slopes.dtype != torch.float32
+            or slopes.shape != q.shape[1:3] or not slopes.is_contiguous()):
+        raise ValueError(f"{fn}: slopes must be a contiguous float32 "
+                         f"{tuple(q.shape[1:3])} tensor on {q.device}")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ctx: torch.Tensor,
-                     lo: torch.Tensor | None = None) -> torch.Tensor:
+                     lo: torch.Tensor | None = None,
+                     slopes: torch.Tensor | None = None) -> torch.Tensor:
     """See module docstring. Returns [S, K, G, D] in q's dtype."""
     if q.device.type == "cpu":
-        return decode_attention_reference(q, k, v, ctx, lo)
+        return decode_attention_reference(q, k, v, ctx, lo, slopes)
     check_cache("decode_attention", q, k, v, ctx)
     if lo is not None and (lo.device != q.device or lo.dtype != torch.int32
                            or lo.shape != ctx.shape
                            or not lo.is_contiguous()):
         raise ValueError("decode_attention: lo must be a contiguous int32 "
                          "[S] tensor on q's device")
+    check_slopes("decode_attention", q, slopes)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -183,7 +206,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_slot_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-            None if lo is None else lo.data_ptr(), out.data_ptr(),
+            None if lo is None else lo.data_ptr(),
+            None if slopes is None else slopes.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             counters.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows,
             splits, build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
@@ -191,8 +215,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     decode_attention.launches += 1
     if lo is not None:
         decode_attention.windowed += 1
+    if slopes is not None:
+        decode_attention.alibi += 1
     return out
 
 
 decode_attention.launches = 0
 decode_attention.windowed = 0
+decode_attention.alibi = 0

@@ -27,10 +27,18 @@ rna(x - hi), and each product is lo.hi + hi.lo + hi.hi with fp32 sums.
 its key tiles (`f32_key_tile(d)`: 64 keys, 32 at head dims 192 and 256).
 `visible` is the one mask every plain version applies.
 
+ALiBi (`slopes`, a [K, G] f32 tensor, query head k * G + g; None for
+none): the kernels and every plain version here add slope * (j - i) to the
+scaled score of key j for query row i. The JAX package's bias is slope * j
+(`models/core.py`); the two differ by a constant a row, which the softmax
+cancels, and the relative form keeps the added term small where the
+probabilities are large, so fp32 rounding of the term stays far below the
+tolerances at long buckets. Which keys are visible does not change.
+
 `flash_prefill` takes the plain version only for tensors on the CPU; for a
 CUDA tensor it launches the kernel or raises. `flash_prefill.launches`
 counts kernel launches, `flash_prefill.windowed` those whose window is
-shorter than the bucket.
+shorter than the bucket, `flash_prefill.alibi` those given slopes.
 """
 
 from __future__ import annotations
@@ -88,15 +96,30 @@ def _product_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             + torch.einsum(eq, a_hi, b_hi))
 
 
+def row_bias(slopes, rows: torch.Tensor, g: int,
+             keys: torch.Tensor) -> torch.Tensor:
+    """ALiBi in exp2 units for the rows `rows` [R] (row = token * G + g):
+    slope * log2(e) * (key - token), [K, R, J] for keys [J]; 0 without
+    slopes."""
+    if slopes is None:
+        return torch.zeros((), device=rows.device)
+    sl = slopes.to(torch.float32)[:, rows % g]                    # [K, R]
+    rel = (keys[None, :] - rows[:, None] // g).to(torch.float32)  # [R, J]
+    return (sl * math.log2(math.e))[:, :, None] * rel[None]
+
+
 def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, lengths: torch.Tensor,
-                                   window: int = 0) -> torch.Tensor:
+                                   window: int = 0,
+                                   slopes: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
     """Plain twin of the fp32 kernel's arithmetic (f32 inputs and output):
     rows token * G + g, key tiles of `f32_key_tile(d)` keys in order, both
     products in 3xTF32, the online softmax in exp2 units, keys at or past
     the length read as 0. A tile the kernel skips for a row (wholly above
     its diagonal, past the length or wholly below its window) is fully
-    masked here, which leaves the row's state as it was."""
+    masked here, which leaves the row's state as it was. With `slopes`,
+    the score in exp2 units is the scaled product plus `row_bias`."""
     n, t, kh, g, d = q.shape
     tile = f32_key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
@@ -107,7 +130,8 @@ def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
     kf, vf = (torch.nn.functional.pad(
         torch.where(live[:, :, None, None], x.to(torch.float32), 0.0)
         .permute(0, 2, 1, 3), (0, 0, 0, pad)) for x in (k, v))  # [N, K, T', D]
-    tok = torch.arange(t * g, device=q.device) // g
+    rows = torch.arange(t * g, device=q.device)
+    tok = rows // g
     m = torch.full((n, kh, t * g), -math.inf, device=q.device)
     l = torch.zeros((n, kh, t * g), device=q.device)
     o = torch.zeros((n, kh, t * g, d), device=q.device)
@@ -115,13 +139,14 @@ def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
     for key0 in range(0, int(ln.max()) if n else 0, tile):
         keys = torch.arange(key0, key0 + tile, device=q.device)
         sc = _product_3xtf32("nkrd,nkjd->nkrj", qf,
-                             kf[:, :, key0:key0 + tile])
+                             kf[:, :, key0:key0 + tile]) * scale_log2
+        sc = sc + row_bias(slopes, rows, g, keys)
         vis = visible(tok[None, :], keys, ln[:, None], window)  # [N, R, J]
         sc = torch.where(vis[:, None], sc, -math.inf)
-        m_new = torch.maximum(m, sc.max(dim=-1).values * scale_log2)
+        m_new = torch.maximum(m, sc.max(dim=-1).values)
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
         alpha = torch.exp2(m - m_safe)
-        p = torch.exp2(sc * scale_log2 - m_safe[..., None])
+        p = torch.exp2(sc - m_safe[..., None])
         l = l * alpha + p.sum(dim=-1)
         o = o * alpha[..., None] + _product_3xtf32(
             "nkrj,nkjd->nkrd", p, vf[:, :, key0:key0 + tile])
@@ -132,13 +157,21 @@ def flash_prefill_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, lengths: torch.Tensor,
-                            window: int = 0) -> torch.Tensor:
-    """Plain PyTorch version (fp32 math, output in q's dtype)."""
+                            window: int = 0,
+                            slopes: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version (fp32 math, output in q's dtype); with
+    `slopes`, the scaled scores plus slope * (j - i)."""
     n, t, kh, g, d = q.shape
     scale = 1.0 / math.sqrt(d)
     scores = torch.einsum("nqkgd,nvkd->nkgqv", q.to(torch.float32),
                           k.to(torch.float32)) * scale
     pos = torch.arange(t, device=q.device)
+    if slopes is not None:
+        rel = (pos[None, :] - pos[:, None]).to(torch.float32)   # [Tq, Tk]
+        scores = scores + slopes.to(torch.float32)[None, :, :, None, None] \
+            * rel
+
     key_valid = pos[None, :] < lengths.to(q.device)[:, None]    # [N, Tk]
     mask = visible(pos[None, :], pos,
                    lengths.to(q.device)[:, None], window)       # [N, Tq, Tk]
@@ -164,13 +197,16 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, lengths: torch.Tensor,
                                   block_m: int = BLOCK_M,
                                   block_n: int | None = None,
-                                  window: int = 0) -> torch.Tensor:
+                                  window: int = 0,
+                                  slopes: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
     """Plain twin of the kernel's schedule (fp32 math, output in q's dtype):
     online softmax in exp2 units over the key tiles a half row tile walks
     (from the tile of its `window_floor` to its diagonal and the length),
     masks only on the tiles that cross the half's diagonal, the length or
     its window's lower edge, dead value rows zeroed on the length-edge
-    tile."""
+    tile. With `slopes`, the row max is taken on the biased scores
+    (`row_bias`); without them, on the scaled scores as before."""
     n, t, kh, g, d = q.shape
     block_n = block_n or key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
@@ -215,7 +251,8 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                     kt_v = vf[b, :, key0:key0 + block_n]
                     if key0 + block_n > ln:  # the length-edge tile
                         kt_v = torch.where((keys < ln)[:, None], kt_v, 0.0)
-                    sc = torch.einsum("krd,kjd->krj", qs, kt_k) * scale_log2
+                    sc = (torch.einsum("krd,kjd->krj", qs, kt_k) * scale_log2
+                          + row_bias(slopes, tok0 * g + r, g, keys))
                     if key0 + block_n > min(first_tok + 1, ln) or key0 < edge:
                         vis = visible(tok, keys, ln, window)
                         sc = torch.where(vis, sc, -math.inf)
@@ -234,12 +271,13 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lengths: torch.Tensor, window: int = 0) -> torch.Tensor:
+                  lengths: torch.Tensor, window: int = 0,
+                  slopes: torch.Tensor | None = None) -> torch.Tensor:
     """See module docstring. Returns [N, T, K, G, D] in q's dtype."""
     if window < 0:
         raise ValueError(f"flash_prefill: window {window} < 0")
     if q.device.type == "cpu":
-        return flash_prefill_reference(q, k, v, lengths, window)
+        return flash_prefill_reference(q, k, v, lengths, window, slopes)
     n, t, kh, g, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
@@ -265,6 +303,11 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "boundaries (the kernel's TMA loads)")
     if g > BLOCK_M:
         raise ValueError(f"flash_prefill: group {g} > {BLOCK_M}")
+    if slopes is not None and (
+            slopes.device != q.device or slopes.dtype != torch.float32
+            or slopes.shape != (kh, g) or not slopes.is_contiguous()):
+        raise ValueError(f"flash_prefill: slopes must be a contiguous "
+                         f"float32 [{kh}, {g}] tensor on {q.device}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -273,14 +316,18 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         code = lib.tgi_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            None if slopes is None else slopes.data_ptr(),
             out.data_ptr(), n, t, kh, g, d, min(window, t),
             build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("flash_prefill", code)
     flash_prefill.launches += 1
     if 0 < window < t:
         flash_prefill.windowed += 1
+    if slopes is not None:
+        flash_prefill.alibi += 1
     return out
 
 
 flash_prefill.launches = 0
 flash_prefill.windowed = 0
+flash_prefill.alibi = 0

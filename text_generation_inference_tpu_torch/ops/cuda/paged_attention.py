@@ -11,6 +11,11 @@ Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
   ctx:         [S] i32 live tokens per slot
   out:         [S, K, G, D] (normalized), or acc [S, K, G, D] f32 plus
                m, l [S, K, G] f32 (stats)
+  alibi_slopes_kg: optional [K, G] f32 ALiBi slopes (query head k * G +
+               g): slope * p is added to the scaled score of the key at
+               position p of the slot's sequence (not its pool row), as the
+               JAX references add it; the stats mode's m carries the bias,
+               in natural-log units, for the ring merge
   int8 pools:  k/v pools int8 plus k_scale/v_scale pools [K, P * page_size]
                f32, one dequant factor per (kv head, pool row): the k scale
                multiplies the scores, the v scale folds into the
@@ -42,7 +47,8 @@ schedule, over bf16 or int8 pools.
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `paged_decode_attention.launches`,
 `paged_decode_attention_partial.launches` and
-`paged_decode_attention_partial_i8.launches` count launches.
+`paged_decode_attention_partial_i8.launches` count launches, their `alibi`
+attributes those given slopes.
 """
 
 from __future__ import annotations
@@ -74,10 +80,11 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
 
 
 def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
-                  k_scale_pool=None):
+                  k_scale_pool=None, alibi_slopes_kg=None, pos0: int = 0):
     """Scores [S, K, G, T'] f32 (dead keys at -inf; times the k scale for
-    int8 pools), values [K, S, T', D] f32 (dead rows zeroed) and the pool
-    rows [S, T'] each key came from, T' = max_pages * page_size."""
+    int8 pools; plus slope * (pos0 + t) with slopes), values [K, S, T', D]
+    f32 (dead rows zeroed) and the pool rows [S, T'] each key came from,
+    T' = max_pages * page_size."""
     s, kh, g, d = q.shape
     pool_rows = k_pool.shape[1]
     num_pages = pool_rows // page_size
@@ -96,6 +103,11 @@ def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
                           k) * (1.0 / math.sqrt(d))
     if k_scale_pool is not None:
         scores = scores * k_scale_pool[:, rows].transpose(0, 1)[:, :, None, :]
+    if alibi_slopes_kg is not None:
+        pos = torch.arange(pos0, pos0 + t, device=q.device,
+                           dtype=torch.float32)
+        scores = scores + (alibi_slopes_kg.to(torch.float32)[None, :, :, None]
+                           * pos)
     scores = scores.masked_fill(~live[:, None, None, :], -math.inf)
     v = torch.where(live[None, :, :, None], v, 0.0)
     return scores, v, rows
@@ -103,13 +115,16 @@ def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
 
 def paged_decode_attention_partial_reference(q, k_pool, v_pool, block_table,
                                              ctx, page_size,
+                                             alibi_slopes_kg=None,
                                              k_scale_pool=None,
-                                             v_scale_pool=None):
+                                             v_scale_pool=None, pos0=0):
     """Plain version of the stats mode: (acc f32, m f32, l f32). With int8
     pools, k_scale_pool/v_scale_pool [K, P * page_size] f32 carry each row's
-    dequant factor."""
+    dequant factor; `alibi_slopes_kg` as the JAX reference takes it (the
+    key at table position t is at sequence position pos0 + t)."""
     scores, v, rows = _gather_pages(q, k_pool, v_pool, block_table, ctx,
-                                    page_size, k_scale_pool)
+                                    page_size, k_scale_pool,
+                                    alibi_slopes_kg, pos0)
     m = torch.max(scores, dim=-1).values                       # [S, K, G]
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.exp(scores - m_safe[..., None])
@@ -122,11 +137,11 @@ def paged_decode_attention_partial_reference(q, k_pool, v_pool, block_table,
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, block_table, ctx,
-                                     page_size):
+                                     page_size, alibi_slopes_kg=None):
     """Plain version of the normalized mode (acc / max(l, 1e-30), so a slot
     with ctx == 0 gives 0, as the kernel does)."""
     acc, _, l = paged_decode_attention_partial_reference(
-        q, k_pool, v_pool, block_table, ctx, page_size)
+        q, k_pool, v_pool, block_table, ctx, page_size, alibi_slopes_kg)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
@@ -152,7 +167,7 @@ def merge_splits(parts, shape, device):
 def paged_decode_split_reference(q, k_pool, v_pool, block_table, ctx,
                                  page_size, pages_per_split=None,
                                  stats=False, k_scale_pool=None,
-                                 v_scale_pool=None):
+                                 v_scale_pool=None, alibi_slopes_kg=None):
     """Plain twin of the kernel's schedule: (acc, m, l) of every split of
     `pages_per_split` pages (default: `split_plan`'s), the splits past a
     slot's pages left out, then merged in split order. Returns the stats
@@ -174,8 +189,9 @@ def paged_decode_split_reference(q, k_pool, v_pool, block_table, ctx,
         split_ctx = torch.clamp(ctx - first * page_size, min=0)
         acc, m, l = paged_decode_attention_partial_reference(
             q, k_pool, v_pool, block_table[:, cols].contiguous(),
-            split_ctx.to(torch.int32), page_size, k_scale_pool=k_scale_pool,
-            v_scale_pool=v_scale_pool)
+            split_ctx.to(torch.int32), page_size, alibi_slopes_kg,
+            k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
+            pos0=first * page_size)
         parts.append((acc, m, l, sp < n_splits))
     acc, m, l = merge_splits(parts, q.shape, q.device)
     if stats:
@@ -236,8 +252,13 @@ def arrivals(device: torch.device, n: int) -> torch.Tensor:
 
 
 def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
-           pool_dtype=None):
+           pool_dtype=None, slopes=None):
     s, kh, g, d = q.shape
+    if slopes is not None and (
+            slopes.device != q.device or slopes.dtype != torch.float32
+            or slopes.shape != (kh, g) or not slopes.is_contiguous()):
+        raise ValueError(f"{fn}: alibi_slopes_kg must be a contiguous "
+                         f"float32 [{kh}, {g}] tensor on {q.device}")
     if q.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {q.device}")
     for name, x in (("k_pool", k_pool), ("v_pool", v_pool),
@@ -270,9 +291,9 @@ def _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
 
 
 def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
-            scale_pools=()):
-    """Launch one entry with the split plan, the fp32 split scratch and the
-    arrival counters."""
+            scale_pools=(), slopes=None):
+    """Launch one entry with the split plan, the fp32 split scratch, the
+    arrival counters and the ALiBi slopes (null for none)."""
     s, kh, g, d = q.shape
     lib = build.library("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -289,6 +310,7 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             *[p.data_ptr() for p in scale_pools],
             block_table.data_ptr(), ctx.data_ptr(),
+            None if slopes is None else slopes.data_ptr(),
             *[o.data_ptr() for o in outs],
             None if part is None else part.data_ptr(), counters.data_ptr(),
             s, kh, g, d, pool_rows, page_size, max_pages,
@@ -297,35 +319,45 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
     build.check("paged_attention", code)
 
 
+def _count(wrapper, slopes) -> None:
+    wrapper.launches += 1
+    if slopes is not None:
+        wrapper.alibi += 1
+
+
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_table: torch.Tensor,
-                           ctx: torch.Tensor, page_size: int) -> torch.Tensor:
+                           ctx: torch.Tensor, page_size: int,
+                           alibi_slopes_kg: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Normalized mode. Returns [S, K, G, D] in q's dtype."""
     if q.device.type == "cpu":
         return paged_decode_attention_reference(q, k_pool, v_pool,
-                                                block_table, ctx, page_size)
+                                                block_table, ctx, page_size,
+                                                alibi_slopes_kg)
     _check("paged_decode_attention", q, k_pool, v_pool, block_table, ctx,
-           page_size)
+           page_size, slopes=alibi_slopes_kg)
     out = torch.empty_like(q)
     if q.numel() == 0 or block_table.shape[1] == 0:
         return out.zero_()
     _launch("tgi_paged_decode", q, k_pool, v_pool,
-            block_table, ctx, page_size, [out])
-    paged_decode_attention.launches += 1
+            block_table, ctx, page_size, [out], slopes=alibi_slopes_kg)
+    _count(paged_decode_attention, alibi_slopes_kg)
     return out
 
 
 def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
                                    v_pool: torch.Tensor,
                                    block_table: torch.Tensor,
-                                   ctx: torch.Tensor, page_size: int):
+                                   ctx: torch.Tensor, page_size: int,
+                                   alibi_slopes_kg: torch.Tensor | None = None):
     """Stats mode: (acc [S,K,G,D] f32, m [S,K,G] f32, l [S,K,G] f32), with
     m = -inf, l = 0, acc = 0 for slots with ctx == 0."""
     if q.device.type == "cpu":
         return paged_decode_attention_partial_reference(
-            q, k_pool, v_pool, block_table, ctx, page_size)
+            q, k_pool, v_pool, block_table, ctx, page_size, alibi_slopes_kg)
     _check("paged_decode_attention_partial", q, k_pool, v_pool, block_table,
-           ctx, page_size)
+           ctx, page_size, slopes=alibi_slopes_kg)
     s, kh, g, d = q.shape
     acc = torch.empty((s, kh, g, d), dtype=torch.float32, device=q.device)
     m = torch.empty((s, kh, g), dtype=torch.float32, device=q.device)
@@ -333,8 +365,9 @@ def paged_decode_attention_partial(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return acc.zero_(), m.fill_(-math.inf), l.zero_()
     _launch("tgi_paged_decode_stats", q,
-            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l])
-    paged_decode_attention_partial.launches += 1
+            k_pool, v_pool, block_table, ctx, page_size, [acc, m, l],
+            slopes=alibi_slopes_kg)
+    _count(paged_decode_attention_partial, alibi_slopes_kg)
     return acc, m, l
 
 
@@ -343,16 +376,18 @@ def paged_decode_attention_partial_i8(q: torch.Tensor, k_pool: torch.Tensor,
                                       k_scale_pool: torch.Tensor,
                                       v_scale_pool: torch.Tensor,
                                       block_table: torch.Tensor,
-                                      ctx: torch.Tensor, page_size: int):
+                                      ctx: torch.Tensor, page_size: int,
+                                      alibi_slopes_kg: torch.Tensor | None
+                                      = None):
     """Stats mode over int8 pools with their [K, P * page_size] f32 scale
     pools: (acc, m, l) as `paged_decode_attention_partial`."""
     if q.device.type == "cpu":
         return paged_decode_attention_partial_reference(
-            q, k_pool, v_pool, block_table, ctx, page_size,
+            q, k_pool, v_pool, block_table, ctx, page_size, alibi_slopes_kg,
             k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool)
     fn = "paged_decode_attention_partial_i8"
     _check(fn, q, k_pool, v_pool, block_table, ctx, page_size,
-           pool_dtype=torch.int8)
+           pool_dtype=torch.int8, slopes=alibi_slopes_kg)
     for name, p in (("k_scale_pool", k_scale_pool),
                     ("v_scale_pool", v_scale_pool)):
         if (p.device != q.device or p.dtype != torch.float32
@@ -366,14 +401,16 @@ def paged_decode_attention_partial_i8(q: torch.Tensor, k_pool: torch.Tensor,
     if q.numel() == 0 or block_table.shape[1] == 0:
         return acc.zero_(), m.fill_(-math.inf), l.zero_()
     _launch("tgi_paged_decode_stats_i8", q, k_pool, v_pool, block_table, ctx,
-            page_size, [acc, m, l], scale_pools=(k_scale_pool, v_scale_pool))
-    paged_decode_attention_partial_i8.launches += 1
+            page_size, [acc, m, l], scale_pools=(k_scale_pool, v_scale_pool),
+            slopes=alibi_slopes_kg)
+    _count(paged_decode_attention_partial_i8, alibi_slopes_kg)
     return acc, m, l
 
 
 def paged_decode_attention_partial_stacked(q, k_pools, v_pools, block_table,
                                            ctx, layer_idx: int,
                                            page_size: int, *,
+                                           alibi_slopes_kg=None,
                                            k_scale_pools=None,
                                            v_scale_pools=None):
     """Stats mode over layer-stacked pools [L, K, R, D] (int8 pools with
@@ -383,12 +420,14 @@ def paged_decode_attention_partial_stacked(q, k_pools, v_pools, block_table,
         return paged_decode_attention_partial_i8(
             q, k_pools[layer_idx], v_pools[layer_idx],
             k_scale_pools[layer_idx], v_scale_pools[layer_idx], block_table,
-            ctx, page_size)
+            ctx, page_size, alibi_slopes_kg)
     return paged_decode_attention_partial(q, k_pools[layer_idx],
                                           v_pools[layer_idx], block_table,
-                                          ctx, page_size)
+                                          ctx, page_size, alibi_slopes_kg)
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = paged_decode_attention.alibi = 0
 paged_decode_attention_partial.launches = 0
+paged_decode_attention_partial.alibi = 0
 paged_decode_attention_partial_i8.launches = 0
+paged_decode_attention_partial_i8.alibi = 0

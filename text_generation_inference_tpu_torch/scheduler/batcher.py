@@ -120,11 +120,14 @@ class Batcher:
         return padding / total <= self.config.max_prefill_padding
 
     def _pick_prefill_batch(self) -> list[GenRequest]:
-        # cap the dispatch at max_prefill_batch: bounds the prefill
-        # activation peak and keeps the batch grid within the shapes
-        # warmup() pre-compiled
+        # cap the dispatch at max_prefill_batch (the batch grid warmup()
+        # ran) and at max_prefill_tokens padded tokens, rows x bucket: the
+        # prefill working set the memory plan counts (one row at the
+        # largest bucket; the reference's prefill weight limit). A request
+        # that would push the dispatch past it waits for the next one.
         free = min(len(self.engine.free_slots),
                    self.config.max_prefill_batch)
+        max_tokens = self.config.max_prefill_tokens
         if free == 0 or not self.queue:
             return []
         now = time.monotonic()
@@ -152,6 +155,8 @@ class Batcher:
                 need = alloc.pages_needed(budget)
                 fits = (reserved_pages + need <= alloc.num_free
                         and need <= alloc.max_pages_per_slot)
+            fits = fits and (len(chosen) + 1) * self.config.bucket_for(
+                max(lens + [total_len])) <= max_tokens
             padding_ok = self._padding_ok(lens + [total_len])
             if fits and padding_ok:
                 if skipped_any:
@@ -161,7 +166,8 @@ class Batcher:
                 reserved_pages += need
             else:
                 if not fits:
-                    # pages ARE the token-weight budget for the paged engine
+                    # pages ARE the token-weight budget for the paged
+                    # engine; padded tokens the prefill budget of both
                     metrics.increment("tgi_prefill_weight_limit_exceeded")
                 elif not padding_ok:
                     metrics.increment("tgi_prefill_padding_limit_exceeded")

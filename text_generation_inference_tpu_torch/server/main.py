@@ -1,7 +1,8 @@
 """Serving entrypoint: load model → build engine → start batcher + servers
-(port of the JAX package's `server/main.py`: a RoPE decoder on the
-paged engine, or on the slot engine with PAGED_ATTENTION=0; one device, no
-speculator). A prompt-prefix store (PREFIX_STORE_PATH) serves soft prompts
+(port of the JAX package's `server/main.py`: any decoder family of
+`models/families.py`, or a model type its structural fallback takes, on
+the paged engine, or on the slot engine with PAGED_ATTENTION=0; one device,
+no speculator). A prompt-prefix store (PREFIX_STORE_PATH) serves soft prompts
 by `prefix_id`; INT4_FUSED_MLP=1 runs a GPTQ model's decode MLP as one
 kernel (the engines read it).
 
