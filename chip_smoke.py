@@ -106,9 +106,17 @@ Phases (any failure exits non-zero; nothing is caught):
              StarCoder-15.5B at full width and depth (multi-query), paged,
              max_seq 8192, prompts of 500-7500 tokens. Run 10: BLOOM-7b1
              at full width and depth (ALiBi), paged, run 8's traffic and
-             memory check. All with gRPC. Every run logs its prefill
-             batches and its peak of allocated device memory, and holds
-             every prefill dispatch within the cap.
+             memory check. Run 11: mt0-xxl (bigscience/mt0-xxl's widths:
+             24 + 24 layers, d_model 4096, 64 heads, gated-GELU, vocab
+             250112) at full width and depth on the seq2seq engine, max_seq
+             1024, 16 slots, at the default chunk and on ring chunks of 8:
+             12 requests, prompts 50-1000, 48 new (wave A 8 unary; B 4, two
+             streaming, two behind a soft prompt with an `encoder.pt` and a
+             `decoder.pt`), + gRPC with ModelInfo (ENCODER_DECODER); the T5
+             path reaches no kernel of the port, so every counter must read
+             0. All with gRPC. Every run logs its prefill batches and its
+             peak of allocated device memory, and holds every prefill
+             dispatch within the cap.
   5. probe   the port's ring-decode probe (`tools/probe_decode.py`): one
              chunk of 64 ring-decode steps over 48 slots at full TinyLlama
              width, attention inline (the engine's formulation) or through
@@ -132,9 +140,13 @@ Phases (any failure exits non-zero; nothing is caught):
              capture seconds and the graphs' pool, beside the card's name
              and power limit; the kernels each config is about (the bf16
              paged kernel, S1, K1 and K2, M1 and K1; no `sum_splits` kernel
-             may run).
+             may run). Then the seq2seq engine's programs in run 11's two
+             configs at mt0-xxl and at google-t5/t5-large's widths (v1.0:
+             ReLU, tied head): the same lockstep, then every program of the
+             grid once on both engines (`decode_replay.every_program`); at
+             mt0-xxl also the same timing.
 
-Serving runs 1-10 serve through the captured programs: every decode
+Serving runs 1-11 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
 replay of a graph times the launches its capture recorded.
 
@@ -1259,6 +1271,38 @@ def sum_results(results):
 # --- the model --------------------------------------------------------------
 
 
+def first_layers(spec, params, n: int):
+    """A decoder's first n layers: (spec, params) over views of the layer
+    stacks (GPTQ stacks field by field), no copy."""
+    import dataclasses
+
+    from text_generation_inference_tpu_torch.ops.quant.int4 import Int4Weight
+
+    def cut(w):
+        if isinstance(w, dict):
+            return {k: cut(v) for k, v in w.items()}
+        if isinstance(w, Int4Weight):
+            return Int4Weight(*(None if f is None else f[:n] for f in w))
+        return w[:n]
+
+    return (dataclasses.replace(spec, num_layers=n),
+            dict(params, layers=cut(params["layers"])))
+
+
+def depth(spec) -> int:
+    """Layers of a decoder spec, or of a T5 spec's two stacks."""
+    return getattr(spec, "num_layers", None) or (spec.num_encoder_layers
+                                                 + spec.num_decoder_layers)
+
+
+def t5_model(torch, name, seed, **overrides):
+    """(spec, seeded random params made on the card) at T5_CONFIGS[name]."""
+    from text_generation_inference_tpu_torch.models import t5
+
+    spec = t5.T5Spec(**{**T5_CONFIGS[name], **overrides})
+    return spec, t5.random_params(spec, DEVICE, DTYPE, seed)
+
+
 def llama_spec(widths=None, **overrides):
     from text_generation_inference_tpu_torch.models.core import DecoderSpec
 
@@ -1848,6 +1892,28 @@ F4_BATCH_WAVE = 3
 # 500-7500 tokens, 32 new, two streaming
 TRAFFIC_STARCODER = (([500, 1800, 3000, 4500, 6000, 7500], 0),
                      ([7000, 2500, 5200, 900], 2)), 32
+# run 11 (mt0-xxl on the seq2seq engine, max_seq 1024, 16 slots): wave A 8
+# unary requests, wave B 4 (two streaming, two behind the seq2seq soft
+# prompt, one of each), prompts of 50-1000 tokens, 48 new tokens
+TRAFFIC_MT0 = (([50, 180, 320, 470, 610, 760, 880, 1000], 0),
+               ([300, 900, 640, 80], 2)), 48
+PREFIXES_MT0 = ([None] * 8, ["pt-s2s", "pt-s2s", None, None])
+S2S_PROMPT = {"encoder": 20, "decoder": 8}          # vectors
+# the T5 widths of run 11 and its graphs phase, from the config.json of
+# bigscience/mt0-xxl (gated-GELU, untied) and google-t5/t5-large (v1.0:
+# ReLU, tied head)
+T5_CONFIGS = {
+    "mt0-xxl": dict(vocab_size=250112, d_model=4096, d_kv=64, d_ff=10240,
+                    num_heads=64, num_encoder_layers=24,
+                    num_decoder_layers=24, rel_buckets=32,
+                    rel_max_distance=128, gated_act=True,
+                    tie_word_embeddings=False),
+    "t5-large": dict(vocab_size=32128, d_model=1024, d_kv=64, d_ff=4096,
+                     num_heads=16, num_encoder_layers=24,
+                     num_decoder_layers=24, rel_buckets=32,
+                     rel_max_distance=128, gated_act=False,
+                     tie_word_embeddings=True),
+}
 
 
 def write_prefix_store(root: str, hidden: int) -> None:
@@ -1867,6 +1933,19 @@ def write_prefix_store(root: str, hidden: int) -> None:
         else:
             save_file({"prompt_embeddings": arr},
                       os.path.join(root, name, "adapter_model.safetensors"))
+
+
+def write_s2s_prefix_store(root: str, hidden: int) -> None:
+    """One seeded seq2seq soft prompt, `pt-s2s`: a raw `encoder.pt` and a
+    raw `decoder.pt` tensor (S2S_PROMPT vectors each) at embedding scale."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 73)
+    os.makedirs(os.path.join(root, "pt-s2s"))
+    for side, n in S2S_PROMPT.items():
+        arr = rng.normal(size=(n, hidden)).astype(np.float32)
+        torch.save(torch.from_numpy(arr),
+                   os.path.join(root, "pt-s2s", f"{side}.pt"))
 
 
 def make_requests(lens, streaming_every, seed_base, new, prefixes=None,
@@ -1948,17 +2027,20 @@ async def run_wave(batcher, reqs):
     return ttft
 
 
-async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
-    """Generate and GenerateStream through the port's gRPC server; with
-    `prefix_id`, also a Generate behind that soft prompt and one with an
-    unknown prefix id, which validation must refuse."""
+async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None,
+                         model_kind="decoder"):
+    """Generate, GenerateStream and ModelInfo (which must report
+    `model_kind`) through the port's gRPC server; with `prefix_id`, also a
+    Generate behind that soft prompt and one with an unknown prefix id,
+    which validation must refuse."""
     import grpc
 
     from text_generation_inference_tpu_torch.pb import generation_pb2 as pb
     from text_generation_inference_tpu_torch.server.grpc_server import (
         GenerationServicer, make_handler)
 
-    servicer = GenerationServicer(config, tokenizer, batcher)
+    servicer = GenerationServicer(config, tokenizer, batcher,
+                                  model_kind=model_kind)
     server = grpc.aio.server()
     server.add_generic_rpc_handlers((make_handler(servicer),))
     port = server.add_insecure_port("127.0.0.1:0")
@@ -1973,6 +2055,16 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
                 "/fmaas.GenerationService/GenerateStream",
                 request_serializer=pb.SingleGenerationRequest.SerializeToString,
                 response_deserializer=pb.GenerationResponse.FromString)
+            info = await ch.unary_unary(
+                "/fmaas.GenerationService/ModelInfo",
+                request_serializer=pb.ModelInfoRequest.SerializeToString,
+                response_deserializer=pb.ModelInfoResponse.FromString)(
+                pb.ModelInfoRequest(model_id="m"))
+            kinds = pb.ModelInfoResponse.ModelKind
+            want = (kinds.ENCODER_DECODER if model_kind == "encoder_decoder"
+                    else kinds.DECODER_ONLY)
+            if info.model_kind != want:
+                raise AssertionError(f"gRPC ModelInfo: {info}")
             params = pb.Parameters(stopping=pb.StoppingCriteria(max_new_tokens=16))
             text = "The port serves this prompt over gRPC. " * 4
             resp = await generate(pb.BatchedGenerationRequest(
@@ -2000,7 +2092,8 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
                         raise
                 else:
                     raise AssertionError("gRPC: an unknown prefix_id was served")
-        log(f"grpc: Generate + GenerateStream on 127.0.0.1:{port}: 16 tokens "
+        log(f"grpc: ModelInfo ({kinds.Name(info.model_kind)}), Generate + "
+            f"GenerateStream on 127.0.0.1:{port}: 16 tokens "
             "each, stream text == unary text"
             + (f"; Generate with prefix_id {prefix_id!r} served, an unknown "
                "prefix_id refused (INVALID_ARGUMENT)" if prefix_id else ""))
@@ -2010,11 +2103,13 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None):
 
 
 def make_engine(torch, spec, params, max_seq, overrides, slot=False,
-                fused=False, eager=False, num_pages=None, slots=16):
+                fused=False, eager=False, num_pages=None, slots=16,
+                seq2seq=False):
     """A PagedInferenceEngine with `slots` slots and 128-token pages (the
     pool is sized from the card's memory unless `num_pages` is given, so the
     engines of earlier phases are collected first), or with `slot` the slot
-    engine (InferenceEngine, the server's PAGED_ATTENTION=0).
+    engine (InferenceEngine, the server's PAGED_ATTENTION=0), or with
+    `seq2seq` the encoder-decoder engine (Seq2SeqEngine, a T5 spec).
     `fused` builds it under INT4_FUSED_MLP=1, which the engine reads when it
     is built. Its decode dispatches replay captured CUDA graphs, or with
     `eager` run the step functions eagerly (the reference)."""
@@ -2024,6 +2119,8 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
     from text_generation_inference_tpu_torch.engine.engine import InferenceEngine
     from text_generation_inference_tpu_torch.engine.paged_engine import (
         PagedInferenceEngine)
+    from text_generation_inference_tpu_torch.engine.seq2seq import (
+        Seq2SeqEngine)
 
     gc.collect()
     if DEVICE == "cuda":
@@ -2033,7 +2130,9 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
                            **overrides)
     config.validate()
     kw = dict(eager_decode=eager)
-    if slot:
+    if seq2seq:
+        cls = Seq2SeqEngine
+    elif slot:
         cls = InferenceEngine
     else:
         cls, kw["num_pages"] = PagedInferenceEngine, num_pages
@@ -2161,7 +2260,8 @@ def time_decode(torch, engine, label, live=8, calls=16, focus=()):
 
 
 def graphs(torch, spec, params, label, card, overrides=None, slot=False,
-           fused=False, max_seq=2048, live=8, calls=16, focus=()):
+           fused=False, max_seq=2048, live=8, calls=16, focus=(),
+           seq2seq=False, timing=True):
     """The graphs phase for one profile config: (1) a graph engine and an
     eager engine built alike (a small pool), driven in lockstep through a
     staggered schedule (`tools.decode_replay.lockstep`): every dispatch's
@@ -2169,15 +2269,16 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
     their capture order; then pipelined dispatch on the graph engine equal
     to sequential dispatch on the eager one; (2) the time of a decode step
     in turns, eager, graphs, graphs, eager (`time_decode`) on the same two
-    engines. Returns the second graphs turn's record (and both modes'
-    means)."""
+    engines, unless `timing` is off. Returns the second graphs turn's record
+    (and both modes' means), or without `timing` what (1) saw."""
     from text_generation_inference_tpu_torch.tools import decode_replay
 
     t0 = time.monotonic()
     # 128 pages: the lockstep's requests, then `live` timed ones
     engines = {mode: make_engine(torch, spec, params, max_seq,
                                  overrides or {}, slot=slot, fused=fused,
-                                 eager=mode == "eager", num_pages=128)[0]
+                                 eager=mode == "eager", num_pages=128,
+                                 seq2seq=seq2seq)[0]
                for mode in ("graphs", "eager")}
     replayed, eager = engines["graphs"], engines["eager"]
     seen = decode_replay.lockstep(replayed, eager,
@@ -2188,6 +2289,9 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
     if DEVICE == "cuda" and not all(
             p.graph is not None for p in replayed.programs.programs.values()):
         raise AssertionError(f"graphs[{label}]: a program is not a graph")
+    if seq2seq:
+        # the keys the schedule never reached too
+        seen["every_program"] = decode_replay.every_program(replayed, eager)
     for e in (replayed, eager):
         e._clear_slots()
     tokens = decode_replay.pipelined_matches_sequential(
@@ -2197,9 +2301,14 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
         e._clear_slots()
     log(f"graphs[{label}]: replay == eager bit for bit over "
         f"{seen['dispatches']} staggered dispatches (keys in first-use order "
-        f"{seen['keys']}, captured as {seen['capture_order']}); pipelined "
+        f"{seen['keys']}, captured as {seen['capture_order']}"
+        + (f"; then each of the {seen['every_program']} programs once"
+           if seq2seq else "") + "); pipelined "
         f"dispatch == sequential on {tokens} tokens "
         f"({time.monotonic() - t0:.1f}s)")
+    if not timing:
+        return dict(seen, keys=len(seen["keys"]), capture_order=None,
+                    tokens=tokens)
     turns = [time_decode(torch, engines[mode], label, live, calls, focus)
              for mode in ("eager", "graphs", "graphs", "eager")]
     summary = {}
@@ -2222,7 +2331,7 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
               traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False,
               fused=False, prefixes=None, slots=16, details_waves=(),
-              memory_check=False):
+              memory_check=False, seq2seq=False):
     """One serving run through the Batcher (+ gRPC). With `prefixes` (a
     prefix id or None per request, wave by wave), the config's
     prefix_store_path is served as the server serves it, and an unknown
@@ -2243,7 +2352,8 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         Validation, ValidationError)
 
     engine, config = make_engine(torch, spec, params, max_seq, overrides,
-                                 slot=slot, fused=fused, slots=slots)
+                                 slot=slot, fused=fused, slots=slots,
+                                 seq2seq=seq2seq)
     t0 = time.monotonic()
     engine.warmup(batch_sizes=(1,))
     warmup_s = time.monotonic() - t0
@@ -2302,8 +2412,11 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
             sync(torch)
             wall = time.monotonic() - t0
             if with_grpc:
-                await grpc_roundtrip(batcher, config, tokenizer,
-                                     "pt-short" if prefixes else None)
+                pid = next((p for wave in prefixes or () for p in wave if p),
+                           None)
+                await grpc_roundtrip(batcher, config, tokenizer, pid,
+                                     "encoder_decoder" if seq2seq
+                                     else "decoder")
             return reqs, wall, ttft
         finally:
             await batcher.stop()
@@ -2365,7 +2478,7 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     n_pre = sum(1 for r in reqs if r.prefix_id)
     log(f"serve[{name}] {type(engine).__name__} {overrides}"
         f"{', INT4_FUSED_MLP=1' if fused else ''}, "
-        f"{spec.num_layers} layers at {spec.hidden_size} wide: {len(reqs)} "
+        f"{depth(spec)} layers at {spec.hidden_size} wide: {len(reqs)} "
         f"requests ({n_pre} behind a soft prompt), prompts "
         f"{min(r.input_length for r in reqs)}..{max(r.input_length for r in reqs)}"
         f" tokens, {tokens} tokens generated in {wall:.2f}s wall "
@@ -2705,7 +2818,10 @@ def main() -> int:
             or run3["int4_mlp_s4_stacked"]:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
     mark("probe, quant parity, serving run 3")
-    prof3 = graphs(torch, spec7b, params7b, "7b gptq int8kv", card,
+    # the 7B graphs phases at the first 16 of the 32 layers, to keep the
+    # script near half its time limit (serving runs 3 and 6 keep all 32)
+    spec7b16, params7b16 = first_layers(spec7b, params7b, 16)
+    prof3 = graphs(torch, spec7b16, params7b16, "7b gptq int8kv", card,
                    quantized, max_seq=1024, live=16, calls=4,
                    focus=("k1_", "split_kernel", "sum_splits"))
 
@@ -2733,13 +2849,13 @@ def main() -> int:
         f"-> {k1_rate['run 6']:.0f} in run 6 (w_qkv, wo), M1 {m1_rate:.0f} "
         f"(w_gu + the GLU + w_down)")
     mark("graphs: 7b gptq int8kv, serving run 6")
-    prof6 = graphs(torch, spec7b, params7b, "7b gptq int8kv fused", card,
+    prof6 = graphs(torch, spec7b16, params7b16, "7b gptq int8kv fused", card,
                    quantized, max_seq=1024, live=16, calls=4, fused=True,
                    focus=("int4_mlp_kernel", "k1_", "sum_splits"))
     mark("graphs: 7b gptq int8kv fused")
     log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
         f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
-    del params7b
+    del params7b, params7b16
 
     # run 7: Mistral-7B-v0.1 at full width and depth on the slot engine in
     # scan mode, max_seq 8192, 8 slots; prompts past its window of 4096 cut
@@ -2811,9 +2927,46 @@ def main() -> int:
             raise AssertionError(f"{key} never ran in serving run 10: {run10}")
     del params_bl
     mark("serving run 10")
+    # run 11: mt0-xxl at full width and depth (random bf16 weights made on
+    # the card) on the seq2seq engine behind the Batcher and gRPC, max_seq
+    # 1024, 16 slots, at the default chunk (1) and on ring chunks of 8;
+    # wave B's soft prompt has an encoder and a decoder side. The T5 path
+    # reaches no Pallas counterpart: every kernel counter must stay 0
+    spec_t5, params_t5 = t5_model(torch, "mt0-xxl", 11)
+    s2s_modes = {"default": {}, "ring8": dict(decode_chunk=8)}
+    run11 = {}
+    with tempfile.TemporaryDirectory() as store:
+        write_s2s_prefix_store(store, spec_t5.d_model)
+        for label, kw in s2s_modes.items():
+            run11[label] = serve_run(
+                torch, spec_t5, params_t5, f"mt0-xxl-seq2seq-{label}",
+                dict(kw, prefix_store_path=store), counters,
+                with_grpc=with_grpc, traffic=TRAFFIC_MT0, max_seq=1024,
+                prefixes=PREFIXES_MT0, seq2seq=True)
+    for label, run in run11.items():
+        launched = {k: run[k] for k in counters if run[k]}
+        if launched:
+            raise AssertionError(f"run 11 ({label}) launched {launched}")
+    log("run 11: no kernel of the port launched (the T5 path is einsum and "
+        "matmul, as in the JAX package)")
+    mark("serving run 11")
+    # the seq2seq decode programs: replay == eager bit for bit, at mt0-xxl
+    # then eager / graphs timing, and at t5-large (v1.0: ReLU, tied head)
+    prof11 = {}
+    for name, seed in (("mt0-xxl", None), ("t5-large", 12)):
+        if seed is not None:
+            spec_t5, params_t5 = t5_model(torch, name, seed)
+        for label, kw in s2s_modes.items():
+            prof11[f"{name} {label}"] = graphs(
+                torch, spec_t5, params_t5, f"{name} seq2seq {label}", card,
+                kw, max_seq=1024, live=16, calls=4, seq2seq=True,
+                timing=name == "mt0-xxl")
+        del params_t5
+        mark(f"graphs: {name} seq2seq")
+    log(f"profile seq2seq: {json.dumps(prof11)}")
 
     runs = (run1, run2, run3, run4, run5, run6, run7, run8, run9, run10,
-            probe_counts)
+            *run11.values(), probe_counts)
 
     def record(name, source, replaces, res, shapes):
         out = {"name": name, "route": "cuda",

@@ -1498,3 +1498,163 @@ def test_slot_decode_alibi(cuda_device, d, g, dtype):
                                 ctx_t[idx].contiguous(), slopes=slopes)
     alone = da.decode_attention(q, k, v, ctx_t, slopes=slopes)
     assert torch.equal(batch[0], alone[4]) and torch.equal(batch[2], alone[4])
+
+
+# --- the seq2seq engine (T5) on the card ---------------------------------------
+
+
+S2S_SPEC = dict(vocab_size=512, d_model=256, d_kv=64, d_ff=512, num_heads=4,
+                num_encoder_layers=2, num_decoder_layers=2)
+# case -> the engine config's decode keywords: the JAX engine's three modes
+S2S_CASES = {"chunk1": dict(),
+             "scan4": dict(decode_chunk=4, decode_write_mode="scan"),
+             "ring4-ctx": dict(decode_chunk=4, decode_ctx_buckets=[64, 128])}
+
+
+def s2s_engine(case, device, eager=False, gated=True):
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.seq2seq import (
+        Seq2SeqEngine)
+    from text_generation_inference_tpu_torch.models import t5
+
+    spec = t5.T5Spec(**S2S_SPEC, gated_act=gated,
+                     tie_word_embeddings=not gated)
+    params = t5.random_params(spec, device, torch.bfloat16, seed=9)
+    config = ServingConfig(max_sequence_length=256, max_new_tokens=200,
+                           max_batch_slots=6, prefill_buckets=[16, 64, 256],
+                           **S2S_CASES[case])
+    config.validate()
+    return Seq2SeqEngine(spec, params, config, eos_token_id=2, device=device,
+                         eager_decode=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [True, False], ids=["mt5", "v10"])
+@pytest.mark.parametrize("case", sorted(S2S_CASES))
+def test_seq2seq_graphs_replay_equals_eager(cuda_device, case, gated):
+    """Every decode dispatch of the seq2seq engine is a graph replay and
+    equals an eager engine built alike, bit for bit (outputs, slot state,
+    self- and cross-KV of every used slot), through the staggered schedule
+    with a never-used slot free beside the live ones, then every program of
+    the grid once; pipelined dispatch equals sequential dispatch."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = s2s_engine(case, cuda_device, gated=gated)
+    eager = s2s_engine(case, cuda_device, eager=True, gated=gated)
+    seen = decode_replay.lockstep(engine, eager, vocab=512)
+    torch.cuda.synchronize()
+    progs = engine.programs.programs.values()
+    assert all(p.graph is not None for p in progs)
+    assert sum(p.replays for p in progs) == seen["dispatches"]
+    assert all(p.graph is None for p in eager.programs.programs.values())
+    assert decode_replay.every_program(engine, eager) == len(engine.programs)
+    assert decode_replay.pipelined_matches_sequential(
+        s2s_engine(case, cuda_device, gated=gated),
+        s2s_engine(case, cuda_device, gated=gated), vocab=512) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chunk1", "ring4-ctx"])
+def test_seq2seq_capture_and_dispatch_are_sync_free(cuda_device, case):
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+
+    engine = s2s_engine(case, cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = engine.precompile_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n == len(engine.programs) > 0
+    slot = engine.acquire_slot()
+    engine.prefill([slot], [list(range(3, 60))],
+                   [RequestParams(max_new_tokens=64)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = engine.decode_steps_begin(want_details=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert engine.decode_steps_end(handle)[0].next_ids.shape == (6,)
+
+
+@pytest.mark.cuda
+def test_seq2seq_engine_lives_on_the_card(cuda_device):
+    """The loader puts every parameter on the card and the engine (CUDA by
+    default) every state tensor; params on the CPU are refused; the free
+    slots' rows stay finite."""
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+    from text_generation_inference_tpu_torch.engine.seq2seq import (
+        Seq2SeqEngine)
+    from text_generation_inference_tpu_torch.models import t5
+
+    spec = t5.T5Spec(**S2S_SPEC)
+    cpu = t5.random_params(spec, "cpu", torch.float32, seed=3)
+
+    class Checkpoint:
+        """HF T5 names over `cpu`'s tensors ([out, in] linears)."""
+
+        def __init__(self):
+            self.names = {"shared.weight": cpu["shared_embed"],
+                          "lm_head.weight": cpu["lm_head"].t()}
+            rel = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+            self.names[f"encoder.{rel}"] = cpu["enc_rel_bias"]
+            self.names[f"decoder.{rel}"] = cpu["dec_rel_bias"]
+            for side in ("encoder", "decoder"):
+                self.names[f"{side}.final_layer_norm.weight"] = \
+                    cpu[f"{side[:3]}_final_norm"]["scale"]
+                layers = cpu[f"{side}_layers"]
+                mlp = 1 if side == "encoder" else 2
+                subs = {"ln1": (0, "layer_norm"), "sa_q": (0, "SelfAttention.q"),
+                        "sa_k": (0, "SelfAttention.k"),
+                        "sa_v": (0, "SelfAttention.v"),
+                        "sa_o": (0, "SelfAttention.o"),
+                        "ln2": (mlp, "layer_norm"),
+                        "wi0": (mlp, "DenseReluDense.wi_0"),
+                        "wi1": (mlp, "DenseReluDense.wi_1"),
+                        "wo": (mlp, "DenseReluDense.wo")}
+                if side == "decoder":
+                    subs.update(ln_x=(1, "layer_norm"),
+                                xa_q=(1, "EncDecAttention.q"),
+                                xa_k=(1, "EncDecAttention.k"),
+                                xa_v=(1, "EncDecAttention.v"),
+                                xa_o=(1, "EncDecAttention.o"))
+                for key, (kind, sub) in subs.items():
+                    stacked = (layers[key]["scale"] if key.startswith("ln")
+                               else layers[key].transpose(1, 2))
+                    for i, w in enumerate(stacked):
+                        self.names[f"{side}.block.{i}.layer.{kind}.{sub}"
+                                   ".weight"] = w
+
+        def get(self, name):
+            return self.names[name]
+
+    params = t5.load_params(Checkpoint(), spec, torch.bfloat16)
+    flat = []
+
+    def walk(tree):
+        for v in tree.values():
+            walk(v) if isinstance(v, dict) else flat.append(v)
+
+    walk(params)
+    assert all(t.is_cuda for t in flat)
+    assert torch.equal(params["encoder_layers"]["sa_q"].float().cpu(),
+                       cpu["encoder_layers"]["sa_q"].to(torch.bfloat16).float())
+    config = ServingConfig(max_sequence_length=256, max_new_tokens=64,
+                           max_batch_slots=4, prefill_buckets=[64, 256])
+    config.validate()
+    engine = Seq2SeqEngine(spec, params, config, eos_token_id=2)
+    assert engine.device.type == "cuda"
+    assert all(t.is_cuda for t in (*engine.cache, *engine.state.tensors()))
+    with pytest.raises(ValueError, match="device"):
+        Seq2SeqEngine(spec, cpu, config, eos_token_id=2, device=cuda_device)
+    slot = engine.acquire_slot()
+    engine.prefill([slot], [list(range(3, 90))],
+                   [RequestParams(max_new_tokens=64)])
+    for _ in range(4):
+        step = engine.decode_steps()[0]
+        assert np.isfinite(step.logprob).all()      # free slots included
+    assert all(p.graph is not None
+               for p in engine.programs.programs.values())

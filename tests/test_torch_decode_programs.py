@@ -274,6 +274,11 @@ ENGINES = {
     "paged-chunk1": ("paged", dict()),
     "paged-ring4": ("paged", dict(decode_chunk=4, paged_gather_ctx_max=0)),
 }
+# the lockstep's state check also walks the int8 scale pools, whose
+# layout differs from the KV's
+LOCKSTEP_ENGINES = {**ENGINES, "paged-ring4-int8": (
+    "paged", dict(decode_chunk=4, kv_cache_dtype="int8",
+                  paged_gather_ctx_max=0))}
 
 
 def _engine(models, kind, kw, eager=False):
@@ -297,9 +302,9 @@ def test_pipelined_dispatch_equals_sequential(models, case):
     assert n > 0
 
 
-@pytest.mark.parametrize("case", sorted(ENGINES))
+@pytest.mark.parametrize("case", sorted(LOCKSTEP_ENGINES))
 def test_lockstep_replayed_and_eager_engines(models, case):
-    kind, kw = ENGINES[case]
+    kind, kw = LOCKSTEP_ENGINES[case]
     seen = decode_replay.lockstep(_engine(models, kind, kw),
                                   _engine(models, kind, kw, eager=True),
                                   vocab=models[0].vocab_size, dispatches=14)

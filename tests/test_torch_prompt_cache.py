@@ -135,6 +135,30 @@ class TestLru:
         pc = PrefixCache(store, embed_dim=DIM)
         assert pc.get("raw1") is pc.get("raw1")
 
+    def test_encoder_decoder_entry(self, store):
+        """tests/test_prompt_cache.py's seq2seq entry: `decoder.pt` beside
+        `encoder.pt`, both equal to the JAX store's; an encoder-only entry
+        has no decoder tensor to `get`."""
+        rng = np.random.default_rng(3)
+        write_raw_prefix(store, "s2s", rng.normal(size=(4, DIM)).astype(np.float32))
+        write_raw_prefix(store, "s2s", rng.normal(size=(6, DIM)).astype(np.float32),
+                         file="encoder.pt")
+        write_raw_prefix(store, "enc_only",
+                         rng.normal(size=(5, DIM)).astype(np.float32),
+                         file="encoder.pt")
+        pc, jpc = PrefixCache(store, embed_dim=DIM), JPrefixCache(store, embed_dim=DIM)
+        entry, jentry = pc.get_entry("s2s"), jpc.get_entry("s2s")
+        assert entry.decoder.shape == (4, DIM)
+        assert entry.encoder.shape == (6, DIM)
+        assert pc.prefix_length("s2s") == jpc.prefix_length("s2s") == 10
+        np.testing.assert_array_equal(entry.decoder, jentry.decoder)
+        np.testing.assert_array_equal(entry.encoder, jentry.encoder)
+        assert pc._bytes == 10 * DIM * 4
+        assert pc.get_entry("enc_only").decoder is None
+        assert pc.prefix_length("enc_only") == 5
+        with pytest.raises(InvalidPrefix):
+            pc.get("enc_only")
+
 
 # --- the engines ---------------------------------------------------------------
 

@@ -43,13 +43,16 @@ REPO = Path(__file__).parents[1]
 
 GOLDEN_DIRS = {"llama": fixtures.golden_llama_dir,
                "gpt2": fixtures.golden_gpt2_dir}
+# the encoder-decoder goldens, served by tests/test_torch_seq2seq.py
+SEQ2SEQ_GOLDEN_DIRS = {"t5": fixtures.golden_t5_dir,
+                       "mt0": fixtures.golden_mt0_dir}
 
 
 def golden_cases(family: str) -> list:
     """The oracle's expectations for a golden fixture: the cached file
     tests/test_golden.py writes when it exists, else generated here (and
     not written, so the two tests never race on the cache)."""
-    model_dir = Path(GOLDEN_DIRS[family]())
+    model_dir = Path({**GOLDEN_DIRS, **SEQ2SEQ_GOLDEN_DIRS}[family]())
     gen_src = REPO / "scripts" / "gen_goldens.py"
     h = hashlib.sha256(gen_src.read_bytes())
     for f in sorted(model_dir.iterdir()):

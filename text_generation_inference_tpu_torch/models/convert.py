@@ -22,6 +22,7 @@ import torch
 from ..device import resolve_device
 from ..ops.quant.int4 import Int4Weight
 from .core import DecoderSpec
+from .t5 import T5Spec
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -67,5 +68,24 @@ def params_from_jax(spec: DecoderSpec, params_np: dict,
     lp = out["layers"]
     q_out = _out_features(lp["w_qkv"] if "w_qkv" in lp else lp["wq"])
     if lp["ln1"]["scale"].shape[0] != spec.num_layers or q_out < spec.q_size:
+        raise ValueError("params do not match the spec")
+    return out
+
+
+def t5_params_from_jax(spec: T5Spec, params_np: dict, device=None) -> dict:
+    """The JAX T5 param tree (numpy leaves) → the port's T5 params on
+    `device`, key for key."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, device)
+
+    out = conv(params_np)
+    n_enc = out["encoder_layers"]["sa_q"].shape[0]
+    n_dec = out["decoder_layers"]["sa_q"].shape[0]
+    if (n_enc, n_dec) != (spec.num_encoder_layers, spec.num_decoder_layers) \
+            or out["shared_embed"].shape != (spec.vocab_size, spec.d_model):
         raise ValueError("params do not match the spec")
     return out

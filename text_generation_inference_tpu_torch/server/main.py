@@ -1,14 +1,15 @@
 """Serving entrypoint: load model → build engine → start batcher + servers
-(port of the JAX package's `server/main.py`: any decoder family of
-`models/families.py`, or a model type its structural fallback takes, on
-the paged engine, or on the slot engine with PAGED_ATTENTION=0; one device,
-no speculator). A prompt-prefix store (PREFIX_STORE_PATH) serves soft prompts
-by `prefix_id`; INT4_FUSED_MLP=1 runs a GPTQ model's decode MLP as one
-kernel (the engines read it).
+(port of the JAX package's `server/main.py`: a t5 / mt5 / umt5 checkpoint on
+the seq2seq engine; any decoder family of `models/families.py`, or a model
+type its structural fallback takes, on the paged engine, or on the slot
+engine with PAGED_ATTENTION=0; one device, no speculator). A prompt-prefix
+store (PREFIX_STORE_PATH) serves soft prompts by `prefix_id` (encoder- and
+decoder-side for seq2seq models); INT4_FUSED_MLP=1 runs a GPTQ model's
+decode MLP as one kernel (the engines read it).
 
 The other engine choices of the JAX entrypoint (speculative decoding,
-tensor parallelism, multi-host, the internal `generate.v1` API, seq2seq
-models) are later slices and raise NotImplementedError here.
+tensor parallelism, multi-host, the internal `generate.v1` API) are later
+slices and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -58,7 +59,8 @@ def _not_ported(config: ServingConfig) -> None:
 
 def build_engine(config: ServingConfig, device=None):
     """Returns (engine, tokenizer, model_kind) on `device` (CUDA unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU); dispatches decoder-only vs encoder-decoder
+    (the reference's get_model dispatch, models/__init__.py:48-136)."""
     _not_ported(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype_str]
@@ -71,6 +73,17 @@ def build_engine(config: ServingConfig, device=None):
         eos = hf_config.get("eos_token_id")
     if eos is None:
         raise ValueError("cannot determine eos_token_id for model")
+    if hf_config.get("model_type") in ("t5", "mt5", "umt5"):
+        from ..engine.seq2seq import Seq2SeqEngine
+        from ..models import t5
+        from ..utils.weights import Weights
+
+        spec = t5.spec_from_hf_config(hf_config)
+        params = t5.load_params(Weights(config.model_name), spec, dtype,
+                                device)
+        engine = Seq2SeqEngine(spec, params, config, eos_token_id=eos,
+                               device=device)
+        return engine, tokenizer, "encoder_decoder"
     spec, params = families.load_model(
         config.model_name, dtype=dtype, quantize=config.quantize,
         device=device)

@@ -11,6 +11,10 @@ the card tests (`tests/test_torch_cuda.py`), the CPU tests and
     end the engine state and the KV rows of every slot that held a request
     (the whole pools of a paged engine), must be equal bit for bit. The
     keys are dispatched in another order than they were captured.
+  * `every_program(replayed, eager)`: after `lockstep`, every program of
+    the grid (the keys the schedule never reached too) dispatched once on
+    both engines from their equal state: the same outputs for the live
+    slots, bit for bit.
   * `pipelined_matches_sequential(a, b)`: the same requests on two engines
     built alike, one dispatching chunk N+1 before it fetches chunk N
     (`decode_steps_begin` twice, then `decode_steps_end`), as the batcher
@@ -55,7 +59,9 @@ def _used_rows_equal(a, b, used: list[int]) -> None:
     """The engine state, and the KV a request may read, equal bit for bit:
     the whole pools of a paged engine (its eager warm-up runs drop every
     write), the rows below each used slot's history of a slot engine (its
-    warm-up writes only rows no request has reached yet)."""
+    warm-up writes only rows no request has reached yet; a seq2seq
+    engine's `cache` is its decode state, [L, S, H, T, D] slabs and the
+    per-slot encoder lengths)."""
     idx = torch.as_tensor(used, dtype=torch.long, device=a.state.history.device)
     for x, y in zip(a.state.tensors(), b.state.tensors()):
         if not torch.equal(x[idx], y[idx]):
@@ -68,6 +74,10 @@ def _used_rows_equal(a, b, used: list[int]) -> None:
         if paged:
             if not torch.equal(x, y):
                 raise AssertionError("the paged pools differ")
+            continue
+        if x.dim() == 1:         # per-slot values (a seq2seq encoder length)
+            if not torch.equal(x[idx], y[idx]):
+                raise AssertionError("the per-slot cache values differ")
             continue
         for s in used:           # slot cache [L, S, K, T(, D)]
             if not torch.equal(x[:, s, :, :hist[s]], y[:, s, :, :hist[s]]):
@@ -125,6 +135,25 @@ def lockstep(replayed, eager, vocab: int, dispatches: int = 16,
     return dict(dispatches=dispatches, keys=first_use,
                 capture_order=capture_order,
                 out_of_capture_order=order != sorted(order))
+
+
+def every_program(replayed, eager) -> int:
+    """Dispatch every program of `replayed` once on both engines, in
+    capture order, and hold their outputs equal on the slots live in both
+    (call after `lockstep`, which leaves them in equal state). The host
+    mirrors are not advanced: clear both engines' slots afterwards.
+    Returns the programs compared."""
+    rows = sorted(np.flatnonzero(replayed.state.active.cpu().numpy()))
+    if not np.array_equal(rows, np.flatnonzero(
+            eager.state.active.cpu().numpy())):
+        raise AssertionError("the engines' live slots differ")
+    for key, program in replayed.programs.programs.items():
+        got = program.run().cpu().numpy()
+        want = eager.programs.get(key).run().cpu().numpy()
+        if not np.array_equal(got[..., rows, :], want[..., rows, :],
+                              equal_nan=True):
+            raise AssertionError(f"program {key} differs from its eager step")
+    return len(replayed.programs)
 
 
 def pipelined_matches_sequential(pipelined, sequential, vocab: int,

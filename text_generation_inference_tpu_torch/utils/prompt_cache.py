@@ -1,15 +1,15 @@
 """Tuned-prompt (PEFT soft-prompt) prefix store with LRU caching (the port's
-copy of the JAX package's `utils/prompt_cache.py`, for decoder-only models).
+copy of the JAX package's `utils/prompt_cache.py`).
 
 Port of the reference's PrefixCache (reference:
 server/text_generation_server/prompt_cache.py:175-350): prefixes live under
-`PREFIX_STORE_PATH/<prefix_id>/` as either a raw `decoder.pt` tensor or a
-PEFT checkpoint (`adapter_model.safetensors` / `adapter_model.bin` with key
-"prompt_embeddings"); entries are LRU-evicted against a size cap in MB;
-prefix ids are checked against path traversal (prompt_cache.py:206-215) and
-tensors are sanitized for dtype/shape (prompt_cache.py:310). The
-encoder-side tensors of seq2seq models (`encoder.pt`) come with the seq2seq
-slice of the port.
+`PREFIX_STORE_PATH/<prefix_id>/` as raw `decoder.pt` and / or `encoder.pt`
+tensors (the encoder side for encoder-decoder models) or a PEFT checkpoint
+(`adapter_model.safetensors` / `adapter_model.bin` with key
+"prompt_embeddings", decoder side); entries are LRU-evicted against a size
+cap in MB; prefix ids are checked against path traversal
+(prompt_cache.py:206-215) and tensors are sanitized for dtype/shape
+(prompt_cache.py:310).
 
 Embeddings are held as host numpy arrays: the engine injects them into the
 prefill input embedding stream, so they only travel to the device with the
@@ -22,19 +22,25 @@ import threading
 import time
 from collections import OrderedDict
 from pathlib import Path, PurePath
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
 
 class PrefixEntry(NamedTuple):
-    """A tuned prompt: its decoder-side embeddings [P, hidden] f32."""
+    """A tuned prompt: decoder-side and (seq2seq only) encoder-side
+    embeddings (reference: prompt_cache.py loads decoder.pt and encoder.pt)."""
 
-    decoder: np.ndarray
+    decoder: Optional[np.ndarray]          # [P_dec, hidden] f32
+    encoder: Optional[np.ndarray] = None   # [P_enc, hidden] f32
 
     @property
     def total_length(self) -> int:
-        return self.decoder.shape[0]
+        return sum(a.shape[0] for a in self if a is not None)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(a.nbytes for a in self if a is not None)
 
 
 class PrefixNotFound(Exception):
@@ -77,16 +83,19 @@ class PrefixCache:
         with self._lock:
             if prefix_id not in self._cache:
                 self._cache[prefix_id] = entry
-                self._bytes += entry.decoder.nbytes
+                self._bytes += entry.nbytes
                 while self._bytes > self.max_bytes and len(self._cache) > 1:
                     _, evicted = self._cache.popitem(last=False)
-                    self._bytes -= evicted.decoder.nbytes
+                    self._bytes -= evicted.nbytes
             self._cache.move_to_end(prefix_id)
             return self._cache[prefix_id]
 
     def get(self, prefix_id: str) -> np.ndarray:
         """Decoder-side [prefix_len, embed_dim] f32 embeddings."""
-        return self.get_entry(prefix_id).decoder
+        entry = self.get_entry(prefix_id)
+        if entry.decoder is None:
+            raise InvalidPrefix(f"prefix {prefix_id!r} has no decoder tensor")
+        return entry.decoder
 
     def prefix_length(self, prefix_id: str) -> int:
         return self.get_entry(prefix_id).total_length
@@ -133,6 +142,7 @@ class PrefixCache:
         peft_st = d / "adapter_model.safetensors"
         peft_bin = d / "adapter_model.bin"
         dec_pt = d / "decoder.pt"
+        enc_pt = d / "encoder.pt"
         if peft_st.exists():
             from safetensors import safe_open
 
@@ -144,8 +154,9 @@ class PrefixCache:
             return PrefixEntry(self._sanitize(prefix_id, np.asarray(arr)))
         if peft_bin.exists():
             return PrefixEntry(self._load_pt(prefix_id, peft_bin))
-        if dec_pt.exists():
-            return PrefixEntry(self._load_pt(prefix_id, dec_pt))
+        if dec_pt.exists() or enc_pt.exists():
+            return PrefixEntry(*(self._load_pt(prefix_id, f) if f.exists()
+                                 else None for f in (dec_pt, enc_pt)))
         raise PrefixNotFound(f"prefix {prefix_id!r} has no known tensor file")
 
     def _sanitize(self, prefix_id: str, arr: np.ndarray) -> np.ndarray:
