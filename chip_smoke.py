@@ -145,8 +145,35 @@ Phases (any failure exits non-zero; nothing is caught):
              ReLU, tied head): the same lockstep, then every program of the
              grid once on both engines (`decode_replay.every_program`); at
              mt0-xxl also the same timing.
+  7. speculative decoding: fp32 exactness (TinyLlama widths, 4 layers:
+             speculative tokens equal plain tokens on both engines, with a
+             speculator that drafts the token the plain streams repeat
+             most); the distilled measurement (`tools/spec_measure.py` at
+             TinyLlama's full width and depth, made predictable: acceptance,
+             tokens per model call, tok/s against plain, distilling for at
+             most 45 s), then the bf16 streams of both engines against
+             plain up to their first difference, allowed only where the
+             plain top-2 margin is within FAMILY_ULPS bf16 ulps; replay ==
+             eager bit for bit for every verify program
+             (`decode_replay.spec_lockstep` + `every_program`: the paged
+             engine on ring chunks of 8 with its gate at 3 rows, the slot
+             engine); verify against plain decode on the same teacher-forced
+             tokens at Llama-2-7B widths (16 layers, bf16, paged and slot:
+             within FAMILY_ULPS bf16 ulps of the largest |logit|; and a
+             4-layer GPTQ-INT4 model whose verify products run K1 at 64
+             rows); serving run 12: Llama-2-7B at full width and depth on
+             the paged speculative engine (SPECULATOR=1: a random-init
+             speculator, n_predict 3, inner dim 2048;
+             SPECULATOR_MAX_BATCH_SIZE=8), 16 slots, max_seq 2048, 6 greedy
+             requests, then 8 more while they decode (a seeded sampling row
+             and a repetition-penalty row among them; 14 active, so the gate
+             takes plain steps), + gRPC: speculative and plain steps, flash
+             prefill and the paged kernel must run, the peak less params,
+             pool and graphs' pool within the plan (activation +
+             speculative bytes); then the wall and busy ms of a verify step
+             against a plain step at 8 live.
 
-Serving runs 1-11 serve through the captured programs: every decode
+Serving runs 1-12 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
 replay of a graph times the launches its capture recorded.
 
@@ -2104,12 +2131,14 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None,
 
 def make_engine(torch, spec, params, max_seq, overrides, slot=False,
                 fused=False, eager=False, num_pages=None, slots=16,
-                seq2seq=False):
+                seq2seq=False, speculative=None):
     """A PagedInferenceEngine with `slots` slots and 128-token pages (the
     pool is sized from the card's memory unless `num_pages` is given, so the
     engines of earlier phases are collected first), or with `slot` the slot
     engine (InferenceEngine, the server's PAGED_ATTENTION=0), or with
-    `seq2seq` the encoder-decoder engine (Seq2SeqEngine, a T5 spec).
+    `seq2seq` the encoder-decoder engine (Seq2SeqEngine, a T5 spec). With
+    `speculative` (the speculator's keyword arguments), the speculative
+    engine of either kind (PagedSpeculativeEngine, SpeculativeEngine).
     `fused` builds it under INT4_FUSED_MLP=1, which the engine reads when it
     is built. Its decode dispatches replay captured CUDA graphs, or with
     `eager` run the step functions eagerly (the reference)."""
@@ -2121,6 +2150,8 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
         PagedInferenceEngine)
     from text_generation_inference_tpu_torch.engine.seq2seq import (
         Seq2SeqEngine)
+    from text_generation_inference_tpu_torch.engine.speculative import (
+        PagedSpeculativeEngine, SpeculativeEngine)
 
     gc.collect()
     if DEVICE == "cuda":
@@ -2129,13 +2160,15 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
                            max_batch_slots=slots, kv_page_size=128,
                            **overrides)
     config.validate()
-    kw = dict(eager_decode=eager)
+    kw = dict(eager_decode=eager, **(speculative or {}))
     if seq2seq:
         cls = Seq2SeqEngine
     elif slot:
-        cls = InferenceEngine
+        cls = SpeculativeEngine if speculative is not None else InferenceEngine
     else:
-        cls, kw["num_pages"] = PagedInferenceEngine, num_pages
+        cls = (PagedSpeculativeEngine if speculative is not None
+               else PagedInferenceEngine)
+        kw["num_pages"] = num_pages
     before = os.environ.get("INT4_FUSED_MLP")
     os.environ["INT4_FUSED_MLP"] = "1" if fused else "0"
     try:
@@ -2493,6 +2526,417 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         f" GiB, KV {kv_bytes(engine) / 2 ** 30:.2f} GiB of it; launches "
         f"{counts}")
     return counts
+
+
+# --- speculative decoding ---------------------------------------------------
+
+SPEC_N_PREDICT = 3
+# run 12 (Llama-2-7B, paged, SPECULATOR=1, SPECULATOR_MAX_BATCH_SIZE=8):
+# wave A 6 greedy requests (every step speculates), then wave B 8 more while
+# A decodes (14 active: the gate falls back until 8 or fewer are left), a
+# seeded sampling row and a repetition-penalty row among them, two
+# streaming
+TRAFFIC_SPEC = ([100, 250, 420, 600, 900, 1300],
+                [150, 500, 820, 300, 700, 1100, 220, 640]), 32
+SPEC_KINDS = (("greedy",) * 6,
+              ("greedy", "sampled", "greedy", "penalty", "greedy", "greedy",
+               "greedy", "greedy"))
+SPEC_MAX_BATCH = 8
+
+
+def verify_parity(torch, spec, params, what, slot=False, counters=None,
+                  s=16, t=1024, max_seq=2048, chunk=SPEC_N_PREDICT + 1):
+    """Verification against plain decode on the same tokens: `s` prompts
+    (lengths 100..t-9 from the seed) prefilled into a paged pool (with
+    `slot`, a slot cache of max_seq rows); one copy of it takes `chunk`
+    plain decode steps (`decode_paged`: the paged kernel; with `slot`,
+    scan-mode `core.decode`: S1), each fed the previous step's greedy
+    token, the other one `verify_chunk_paged` over every page
+    (`verify_chunk`) on the same `chunk` tokens. The verify logits at
+    position j must agree with decode step j's within FAMILY_ULPS bf16 ulps
+    of the largest |logit|. The paged verify products take s x chunk rows
+    (`prepare_params`: K1's decode route at 64 rows for a GPTQ model), the
+    decode steps s rows. With `counters`, the verify call's launches are
+    counted and returned."""
+    from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
+    from text_generation_inference_tpu_torch.models import core, paged_core
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.ops import linear as linops
+
+    params = fuse_params(spec, params)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    lengths = torch.randint(100, t - 8, (s,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+    ids = torch.randint(3, spec.vocab_size, (s, t), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    slots = torch.arange(s, dtype=torch.int32, device=DEVICE)
+    page, max_pages = 128, max_seq // 128
+    if slot:
+        cache = core.KVCache.create(spec, s, max_seq, DTYPE, DEVICE)
+        lg, _ = core.prefill(spec, params, ids, lengths, slots, cache)
+    else:
+        cache = PagedKVCache.create(spec, s * max_pages, page, s, max_pages,
+                                    DTYPE, DEVICE)
+        cache.block_table.copy_(torch.arange(
+            s * max_pages, dtype=torch.int32, device=DEVICE).reshape(s, -1))
+        lg, _ = paged_core.prefill_paged(spec, params, ids, lengths, slots,
+                                         cache, page)
+    toks = [lg[torch.arange(s), lengths.long() - 1].argmax(-1).to(torch.int32)]
+    del lg
+    copy = type(cache)(*(None if x is None else x.clone() for x in cache))
+    step_params = linops.prepare_params(params, rows=s)
+    pos, dec = lengths.clone(), []
+    for _ in range(chunk):
+        if slot:
+            lg, _ = core.decode(spec, step_params, toks[-1], pos, cache,
+                                pos + 1, write_mode="scan")
+        else:
+            lg, _ = paged_core.decode_paged(spec, step_params, toks[-1], pos,
+                                            cache, pos + 1, page)
+        dec.append(lg)
+        toks.append(lg.argmax(-1).to(torch.int32))
+        pos = pos + 1
+    chunk_ids = torch.stack(toks[:chunk], dim=1)
+    for c in (counters or {}).values():
+        c.reset()
+    if slot:
+        vl, _, _ = core.verify_chunk(spec, params, chunk_ids, lengths, copy)
+    else:
+        vl, _, _ = paged_core.verify_chunk_paged(
+            spec, linops.prepare_params(params, rows=s * chunk), chunk_ids,
+            lengths, copy, page, torch.ones(s, dtype=torch.bool,
+                                            device=DEVICE),
+            max_seq, live_pages=max_pages)
+    counts = {k: c.read() for k, c in (counters or {}).items()}
+    sync(torch)
+    pairs = [(vl[:, j], dec[j]) for j in range(chunk)]
+    tol, peak = logit_tolerance(pairs, FAMILY_ULPS)
+    max_err, agree, decided = compare_logits(torch, pairs, spec.vocab_size,
+                                             tol, what)
+    log(f"{what}: {s} slots, contexts {int(lengths.min())}.."
+        f"{int(lengths.max())}, a chunk of {chunk} teacher-forced tokens, "
+        f"{spec.num_layers} layers at {spec.hidden_size} wide: verify vs "
+        f"{chunk} plain decode steps {describe_error(max_err, tol, peak, FAMILY_ULPS)}"
+        f", greedy tokens equal {agree}/{decided}"
+        + (f"; launches in the verify call {json.dumps({k: v for k, v in counts.items() if v})}"
+           if counters else ""))
+    return counts
+
+
+def fixed_speculator(torch, spec, token: int, inner: int = 64):
+    """A speculator that always drafts `token` (LayerNorm scale 0, bias 2:
+    every state is gelu(2); only the head's `token` column is set)."""
+    from text_generation_inference_tpu_torch.models.speculator import (
+        SpeculatorSpec)
+
+    n, v = SPEC_N_PREDICT, spec.vocab_size
+    zeros = lambda *shape: torch.zeros(*shape, dtype=DTYPE, device=DEVICE)
+    head = zeros(inner, v)
+    head[:, token] = 1.0
+    return SpeculatorSpec(v, spec.hidden_size, inner, n), {
+        "emb": [zeros(v, inner)] * n,
+        "w_state": [zeros(spec.hidden_size if i == 0 else inner, inner)
+                    for i in range(n)],
+        "ln_scale": [zeros(inner)] * n, "ln_bias": [zeros(inner) + 2.0] * n,
+        "head": [head] * n}
+
+
+def first_differences(plain, spec_toks, top2, what):
+    """Speculative against plain token streams up to each one's first
+    difference: a difference is allowed only where the plain engine's
+    top-2 margin at that position is within FAMILY_ULPS bf16 ulps of its
+    top score. Logs each difference's position and margin; returns how
+    many streams differ."""
+    diffs = []
+    for r, (a, b, scores) in enumerate(zip(plain, spec_toks, top2)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        top1, second = scores[i]
+        margin, bound = top1 - second, FAMILY_ULPS * bf16_ulp(abs(top1))
+        if margin > bound:
+            raise AssertionError(f"{what}: request {r} differs at token {i} "
+                                 f"where the plain top-2 margin {margin} "
+                                 f"exceeds {bound}")
+        diffs.append(dict(request=r, token=i, margin=margin, bound=bound))
+    log(f"{what}: {len(plain)} streams of {len(plain[0])} tokens, "
+        f"{len(plain) - len(diffs)} equal throughout; first differences "
+        f"(each within the plain top-2 margin bound): {json.dumps(diffs)}")
+    return len(diffs)
+
+
+def spec_exactness(torch):
+    """fp32 at TinyLlama widths, 4 layers: on both engines, speculative
+    tokens equal plain tokens exactly (8 greedy requests, one under a
+    repetition penalty), with a speculator that drafts the token the plain
+    streams repeat most, so drafts are accepted."""
+    global DTYPE
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+    from text_generation_inference_tpu_torch.tools.spec_measure import (
+        decode_all)
+
+    saved, DTYPE = DTYPE, torch.float32
+    try:
+        spec = llama_spec(TINYLLAMA, num_layers=4)
+        params = random_params(torch, spec)
+        rng = np.random.default_rng(SEED + 43)
+        prompts = [[int(x) for x in rng.integers(3, 259, n)]
+                   for n in (100, 230, 370, 480, 610, 750, 880, 960)]
+        new = 48
+        rps = [RequestParams(max_new_tokens=new + 8,
+                             repetition_penalty=1.3 if i == 3 else 1.0)
+               for i in range(len(prompts))]
+        out = {}
+        for slot in (False, True):
+            kind = "slot" if slot else "paged"
+            plain, _ = make_engine(torch, spec, params, 2048, {}, slot=slot,
+                                   num_pages=128)
+            want = decode_all(plain, prompts, new, rps=rps)[0]
+            del plain
+            vals, counts = np.unique(np.concatenate(want), return_counts=True)
+            sspec, sparams = fixed_speculator(torch, spec,
+                                              int(vals[np.argmax(counts)]))
+            eng, _ = make_engine(torch, spec, params, 2048, {}, slot=slot,
+                                 num_pages=128,
+                                 speculative=dict(speculator_spec=sspec,
+                                                  speculator_params=sparams))
+            got = decode_all(eng, prompts, new, rps=rps)[0]
+            if got != want:
+                raise AssertionError(f"fp32 speculative tokens differ from "
+                                     f"plain on the {kind} engine")
+            out[kind] = dict(spec_steps=eng.spec_steps,
+                             histogram=eng.accepted_histogram.tolist())
+            del eng
+    finally:
+        DTYPE = saved
+    log(f"spec exactness (fp32, TinyLlama widths, 4 layers, 8 requests of "
+        f"{new} tokens, one under a repetition penalty): speculative tokens "
+        f"== plain tokens on both engines; {json.dumps(out)}")
+    return out
+
+
+def spec_graphs(torch, spec, params, label, slot=False, overrides=None):
+    """Replay == eager bit for bit for the speculative engines' programs:
+    a graph engine and an eager one built alike go through
+    `tools.decode_replay.spec_lockstep` (greedy, penalty and seeded rows;
+    the paged engine's gate at 3 rows, so that plain steps are taken too),
+    then every program of the grid once on both
+    (`decode_replay.every_program`): the verify keys the schedule never
+    reached included."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    t0 = time.monotonic()
+    extra = {} if slot else dict(max_spec_batch=3)
+    engines = {mode: make_engine(torch, spec, params, 2048, overrides or {},
+                                 slot=slot, eager=mode == "eager",
+                                 num_pages=128, speculative=extra)[0]
+               for mode in ("graphs", "eager")}
+    replayed, eager = engines["graphs"], engines["eager"]
+    seen = decode_replay.spec_lockstep(replayed, eager,
+                                       vocab=TINYLLAMA["vocab_size"])
+    if DEVICE == "cuda" and not all(
+            p.graph is not None for p in replayed.programs.programs.values()):
+        raise AssertionError(f"spec graphs[{label}]: a program is not a graph")
+    seen["every_program"] = decode_replay.every_program(replayed, eager)
+    verify_keys = [k for k in replayed.programs.programs if k[0] == "verify"]
+    for e in (replayed, eager):
+        e._clear_slots()
+    if not slot and not (seen["spec_steps"] and seen["fallback_steps"]):
+        raise AssertionError(f"spec graphs[{label}]: {seen}")
+    log(f"spec graphs[{label}]: replay == eager bit for bit over "
+        f"{seen['dispatches']} dispatches ({seen['spec_steps']} speculative, "
+        f"{seen['fallback_steps']} plain; keys in first-use order "
+        f"{seen['keys']}), then each of the {seen['every_program']} programs "
+        f"once, the {len(verify_keys)} verify programs {verify_keys} among "
+        f"them ({time.monotonic() - t0:.1f}s)")
+    return seen
+
+
+def spec_requests(lens, kinds, streaming_every, new, seed_base):
+    """Run 12's requests: greedy, seeded sampling or repetition-penalty
+    rows as `kinds` says, every `streaming_every`-th streaming."""
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+    from text_generation_inference_tpu_torch.scheduler.request import (
+        GenRequest, ResponseOptions, StoppingCriteria)
+
+    rng = np.random.default_rng(SEED + seed_base)
+    reqs = []
+    for i, (n, kind) in enumerate(zip(lens, kinds)):
+        rp = RequestParams(max_new_tokens=new)
+        if kind == "sampled":
+            rp = RequestParams(max_new_tokens=new, temperature=0.8, top_k=50,
+                               seed=seed_base + i)
+        elif kind == "penalty":
+            rp = RequestParams(max_new_tokens=new, repetition_penalty=1.3)
+        reqs.append(GenRequest(
+            input_text="", input_ids=[int(x) for x in
+                                      rng.integers(3, 259, size=n)],
+            params=rp, stopping=StoppingCriteria(max_new_tokens=new),
+            options=ResponseOptions(),
+            streaming=bool(streaming_every) and i % streaming_every == 0))
+    return reqs
+
+
+def serve_spec(torch, spec, params, counters, with_grpc, card):
+    """Serving run 12: Llama-2-7B on the paged speculative engine behind the
+    Batcher (SPECULATOR=1: a random-init speculator, n_predict 3, inner
+    dim 2048; SPECULATOR_MAX_BATCH_SIZE=8), 16 slots, max_seq 2048,
+    TRAFFIC_SPEC (+ gRPC). Both the speculative and the plain (gated)
+    steps must run, every dispatch a graph replay; flash prefill and the
+    paged kernel must launch; the peak of allocated memory less params,
+    pool and graphs' pool must stay within the plan (activation_bytes +
+    speculative_bytes). Then the wall and busy ms of a verify step against
+    a plain step at 8 live (`time_decode`, the gate closed for the plain
+    one)."""
+    from text_generation_inference_tpu_torch.engine.memory import tree_bytes
+    from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
+
+    os.environ["SPECULATOR_MAX_BATCH_SIZE"] = str(SPEC_MAX_BATCH)
+    try:
+        engine, config = make_engine(
+            torch, spec, params, 2048, {},
+            speculative=dict(n_predict=SPEC_N_PREDICT))
+    finally:
+        del os.environ["SPECULATOR_MAX_BATCH_SIZE"]
+    if (engine.max_spec_batch, engine.sspec.inner_dim) != (
+            SPEC_MAX_BATCH, spec.hidden_size // 2):
+        raise AssertionError(f"run 12's engine: {engine.sspec}")
+    t0 = time.monotonic()
+    engine.warmup(batch_sizes=(1,))
+    warmup_s = time.monotonic() - t0
+    progs = engine.programs
+    replays0 = sum(p.replays for p in progs.programs.values())
+    resident = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
+    tokenizer = ByteTokenizer()
+    (lens_a, lens_b), new = TRAFFIC_SPEC
+
+    async def drive():
+        batcher = Batcher(engine, tokenizer, config)
+        batcher.start()
+        try:
+            t0 = time.monotonic()
+            wave_a = spec_requests(lens_a, SPEC_KINDS[0], 0, new, 100)
+            wave_b = spec_requests(lens_b, SPEC_KINDS[1], 4, new, 200)
+            batcher.submit_all(wave_a)
+            # wave B arrives while wave A decodes
+            while sum(r.generated_count for r in wave_a) < 4 * len(wave_a):
+                if time.monotonic() - t0 > 300:
+                    raise AssertionError("run 12: wave A does not decode")
+                await asyncio.sleep(0.005)
+            ttft = await run_wave(batcher, wave_b)
+            for r in wave_a:
+                await r.result_future
+                if r.generated_count != new:
+                    raise AssertionError(f"run 12: request {r.id} ended "
+                                         f"{r.stop_reason!r}: {r.error}")
+            sync(torch)
+            wall = time.monotonic() - t0
+            if with_grpc:
+                await grpc_roundtrip(batcher, config, tokenizer)
+            return wave_a + wave_b, wall, ttft
+        finally:
+            await batcher.stop()
+
+    for c in counters.values():
+        c.reset()
+    engine.spec_steps = engine.fallback_steps = 0
+    engine.accepted_histogram[:] = 0
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reqs, wall, ttft = asyncio.run(drive())
+    counts = {k: c.read() for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    replays = sum(p.replays for p in progs.programs.values()) - replays0
+    steps = engine.spec_steps + engine.fallback_steps
+    plan = engine.memory_plan
+    params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
+    graphs_b = progs.pool_bytes() or 0
+    transient = peak - params_b - pool_b - graphs_b
+    planned = plan.activation_bytes + plan.speculative_bytes
+    gib = 2 ** 30
+    tokens = sum(r.generated_count for r in reqs)
+    log(f"serve[7b-speculative] {type(engine).__name__} SPECULATOR=1 "
+        f"(n_predict {engine.sspec.n_predict}, inner_dim "
+        f"{engine.sspec.inner_dim}), SPECULATOR_MAX_BATCH_SIZE="
+        f"{engine.max_spec_batch}, {spec.num_layers} layers at "
+        f"{spec.hidden_size} wide on {card}: {len(reqs)} requests, "
+        f"{tokens} tokens in {wall:.2f}s wall ({tokens / wall:.1f} tok/s), "
+        f"streaming TTFT mean {np.mean(ttft) * 1e3:.1f} ms; "
+        f"{engine.spec_steps} speculative steps, {engine.fallback_steps} "
+        f"plain (gated) steps, each a graph replay ({len(progs)} programs "
+        f"captured at warmup, {warmup_s:.1f}s with the prefill shapes); "
+        f"accepted histogram (by n_emit) "
+        f"{engine.accepted_histogram.tolist()}; memory: plan "
+        f"{plan.describe()}; peak allocated {peak / gib:.2f} GiB = params "
+        f"{params_b / gib:.2f} + pool {pool_b / gib:.2f} + graphs' pool "
+        f"{graphs_b / gib:.3f} + transient {transient / gib:.3f} GiB (of it, "
+        f"allocated before the traffic: "
+        f"{(resident - params_b - pool_b - graphs_b) / gib:.3f} GiB) against "
+        f"the plan's activation + speculative {planned / gib:.3f} GiB "
+        f"(speculative {plan.speculative_bytes / gib:.3f}); launches {counts}")
+    if DEVICE == "cuda" and (replays != steps or not all(
+            p.graph is not None for p in progs.programs.values())):
+        raise AssertionError(f"run 12: {steps} decode dispatches, {replays} "
+                             "graph replays")
+    if not (engine.spec_steps and engine.fallback_steps):
+        raise AssertionError(f"run 12: {engine.spec_steps} speculative, "
+                             f"{engine.fallback_steps} plain steps")
+    for key in ("flash_prefill", "paged_decode_attention"):
+        if counts[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 12: {counts}")
+    if DEVICE == "cuda" and transient > planned:
+        raise AssertionError(f"run 12: transient {transient} bytes exceed "
+                             f"the plan's {planned}")
+    turns = {}
+    for label in ("verify", "plain"):
+        engine.max_spec_batch = SPEC_MAX_BATCH if label == "verify" else 0
+        turns[label] = time_decode(torch, engine, f"7b {label} step", live=8,
+                                   calls=8, focus=("split_kernel",))
+    engine.max_spec_batch = SPEC_MAX_BATCH
+    counts.update(spec_steps=engine.spec_steps,
+                  fallback_steps=engine.fallback_steps, tok_s=tokens / wall,
+                  transient_bytes=transient, planned_bytes=planned)
+    log(f"run 12 step at 8 live on {card}: verify "
+        f"{json.dumps({k: turns['verify'][k] for k in ('wall_ms', 'busy_ms', 'idle')})}"
+        f", plain {json.dumps({k: turns['plain'][k] for k in ('wall_ms', 'busy_ms', 'idle')})}")
+    return counts, turns
+
+
+def spec_measurement(torch):
+    """The distilled measurement (`tools.spec_measure`) at TinyLlama's full
+    width and depth, bf16, distilling for 45 s; then the bf16 streams of
+    both engines against plain up to their first differences (the paged
+    ones from the measurement, the slot engine's with the same distilled
+    speculator)."""
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+    from text_generation_inference_tpu_torch.tools import spec_measure
+
+    spec = llama_spec()
+    params = spec_measure.predictable_params(spec, DEVICE, DTYPE, SEED)
+    report = spec_measure.measure(spec, params, DEVICE, seconds=45.0, log=log)
+    streams = report.pop("streams")
+    sspec, sparams = report.pop("speculator")
+    log(f"spec_measure: {json.dumps(report)}")
+    if report["acceptance_rate"] <= 0:
+        raise AssertionError("the distilled speculator accepted nothing")
+    diffs = {"paged": first_differences(
+        streams["plain"], streams["speculative"], streams["plain_top2"],
+        "bf16 streams, paged")}
+    prompts = streams["prompts"]
+    n = len(streams["plain"][0])
+    rps = [RequestParams(max_new_tokens=n + 8)] * len(prompts)
+    plain, _ = make_engine(torch, spec, params, 512, {}, slot=True,
+                           slots=len(prompts))
+    want, _, _, top2 = spec_measure.decode_all(plain, prompts, n,
+                                               want_details=True, rps=rps)
+    del plain
+    eng, _ = make_engine(torch, spec, params, 512, {}, slot=True,
+                         slots=len(prompts),
+                         speculative=dict(speculator_spec=sspec,
+                                          speculator_params=sparams))
+    got = spec_measure.decode_all(eng, prompts, n, rps=rps)[0]
+    diffs["slot"] = first_differences(want, got, top2, "bf16 streams, slot")
+    return report, diffs
 
 
 def kv_bytes(engine) -> int:
@@ -2965,8 +3409,46 @@ def main() -> int:
         mark(f"graphs: {name} seq2seq")
     log(f"profile seq2seq: {json.dumps(prof11)}")
 
+    # speculative decoding: exactness in fp32, the distilled measurement
+    # and the bf16 streams, replay == eager for every verify program, verify
+    # against plain decode at 7B widths (bf16 paged and slot, GPTQ-INT4 with
+    # K1 at 64 rows), serving run 12
+    spec_exactness(torch)
+    mark("spec exactness")
+    spec_report, _ = spec_measurement(torch)
+    mark("spec measurement")
+    params = random_params(torch, spec)
+    for label, slot, kw in (("tinyllama paged ring8", False,
+                             dict(decode_chunk=8)),
+                            ("tinyllama slot", True, {})):
+        spec_graphs(torch, spec, params, label, slot=slot, overrides=kw)
+    del params
+    mark("spec graphs")
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+
+    spec7b = llama_spec(LLAMA7B)
+    # fused as the engine fuses them: no unfused copy stays resident in
+    # run 12 (its memory check)
+    params7b = fuse_params(spec7b, random_params(torch, spec7b))
+    spec7b16, params7b16 = first_layers(spec7b, params7b, 16)
+    verify_parity(torch, spec7b16, params7b16, "verify parity 7b paged")
+    verify_parity(torch, spec7b16, params7b16, "verify parity 7b slot",
+                  slot=True)
+    del params7b16
+    spec4 = llama_spec(LLAMA7B, num_layers=4)
+    gptq_verify = verify_parity(torch, spec4,
+                                random_params(torch, spec4, gptq=True),
+                                "verify parity 7b gptq", counters=counters)
+    if gptq_verify["int4_matmul_s4_stacked"] != 4 * spec4.num_layers:
+        raise AssertionError(f"K1 launches in the GPTQ verify: {gptq_verify}")
+    mark("verify parity")
+    run12, prof12 = serve_spec(torch, spec7b, params7b, counters, with_grpc,
+                               card)
+    del params7b
+    mark("serving run 12")
+
     runs = (run1, run2, run3, run4, run5, run6, run7, run8, run9, run10,
-            *run11.values(), probe_counts)
+            *run11.values(), probe_counts, run12, gptq_verify)
 
     def record(name, source, replaces, res, shapes):
         out = {"name": name, "route": "cuda",
@@ -3121,13 +3603,17 @@ def main() -> int:
     log(f"F4: run 8 transient {run8['transient_bytes']} of "
         f"{run8['activation_bytes']} planned bytes; run 10 "
         f"{run10['transient_bytes']} of {run10['activation_bytes']}")
+    log(f"speculative: run 12 {json.dumps({k: v for k, v in run12.items() if v})}; "
+        f"the GPTQ verify's launches {json.dumps({k: v for k, v in gptq_verify.items() if v})}; "
+        f"the distilled measurement {json.dumps(spec_report)}")
     log("launches: decode_attention in the serving runs, "
         "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6, "
         "flash_prefill_f32 in the fp32 parity phase, flash_prefill_d256 in "
         "run 8, flash_prefill_window and decode_attention_window in run 7, "
         "paged_decode_attention_d96 in the family parity phase (gpt_neox), "
         "the _alibi rows in run 10 (decode_attention_alibi: the family "
-        "parity phase's BLOOM slot case), the _mqa rows in run 9")
+        "parity phase's BLOOM slot case), the _mqa rows in run 9; run 12 and "
+        "the GPTQ verify call count in the first rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

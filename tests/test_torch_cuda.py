@@ -1658,3 +1658,155 @@ def test_seq2seq_engine_lives_on_the_card(cuda_device):
         assert np.isfinite(step.logprob).all()      # free slots included
     assert all(p.graph is not None
                for p in engine.programs.programs.values())
+
+
+# --- speculative decoding: one captured CUDA graph per verify key -----------
+
+# case -> (engine, config, GPTQ-INT4 weights)
+SPEC_CASES = {
+    "speculative-paged-chunk1": ("paged", dict(), False),
+    "speculative-paged-ring4": ("paged", dict(decode_chunk=4,
+                                              paged_gather_ctx_max=0), False),
+    "speculative-paged-ring4-gptq": ("paged", dict(decode_chunk=4,
+                                                   paged_gather_ctx_max=0),
+                                     True),
+    "speculative-slot": ("slot", dict(), False),
+}
+
+
+def spec_engine(case, device, eager=False):
+    """GRAPH_SPEC's model on a speculative engine with its random-init
+    speculator; the paged engine's gate at 3 rows, so that the lockstep
+    takes plain steps too."""
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.speculative import (
+        PagedSpeculativeEngine, SpeculativeEngine)
+
+    kind, kw, gptq = SPEC_CASES[case]
+    spec, params = graph_params(device, gptq)
+    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
+                           max_batch_slots=6, prefill_buckets=[16, 64, 256],
+                           kv_page_size=16, **kw)
+    config.validate()
+    if kind == "slot":
+        return SpeculativeEngine(spec, params, config, eos_token_id=2,
+                                 device=device, eager_decode=eager)
+    return PagedSpeculativeEngine(spec, params, config, eos_token_id=2,
+                                  num_pages=6 * 32, max_spec_batch=3,
+                                  device=device, eager_decode=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SPEC_CASES))
+def test_speculative_graphs_replay_equals_eager(cuda_device, case):
+    """Every speculative (and gated plain) dispatch is a replay of a
+    captured graph and equals an eager engine built alike, bit for bit
+    (outputs, n_emit, state, KV, the chain state), through the staggered
+    schedule; then every program of the grid, the verify keys the schedule
+    never reached included."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = spec_engine(case, cuda_device)
+    eager = spec_engine(case, cuda_device, eager=True)
+    seen = decode_replay.spec_lockstep(engine, eager, vocab=512)
+    torch.cuda.synchronize()
+    progs = engine.programs.programs
+    assert all(p.graph is not None for p in progs.values())
+    assert sum(p.replays for p in progs.values()) == seen["dispatches"]
+    assert all(p.graph is None for p in eager.programs.programs.values())
+    assert seen["spec_steps"] > 0
+    assert (seen["fallback_steps"] > 0) == (SPEC_CASES[case][0] == "paged")
+    assert decode_replay.every_program(engine, eager) == len(progs)
+    verify = [k for k in progs if k[0] == "verify"]
+    assert len(verify) == (1 if "chunk1" in case or "slot" in case else 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["speculative-paged-ring4",
+                                  "speculative-slot"])
+def test_speculative_capture_and_replay_are_sync_free(cuda_device, case):
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+
+    engine = spec_engine(case, cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        n = engine.precompile_decode()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert n == len(engine.programs) > 0
+    slot = engine.acquire_slot()
+    engine.prefill([slot], [list(range(3, 60))],
+                   [RequestParams(max_new_tokens=64)])
+    key = next(k for k in engine.programs.programs if k[0] == "verify")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed, n_emit = engine.programs.get(key).run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert packed.shape[:2] == (4, 6) and n_emit.shape == (6,)
+    assert 1 <= int(n_emit[slot]) <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", [False, True], ids=["paged", "slot"])
+def test_speculative_verify_matches_decode(cuda_device, slot):
+    """Four teacher-forced tokens through the verify forward against four
+    plain decode steps on the same cache (the paged kernel; S1 at 2048
+    rows), in bf16 at GRAPH_SPEC's widths: logits within 4 bf16 ulps of
+    the largest |logit| (the two round their bf16 activations at other
+    points, and the decode kernels round P to bf16; `chip_smoke.py` holds
+    the same bound at 7B widths)."""
+    from text_generation_inference_tpu_torch.engine.paged_cache import (
+        PagedKVCache)
+    from text_generation_inference_tpu_torch.models import core, paged_core
+
+    spec, params = graph_params(cuda_device, False)
+    s, t, page, max_seq = 4, 256, 16, 2048
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    ids = torch.randint(3, spec.vocab_size, (s, t), generator=g,
+                        device=cuda_device, dtype=torch.int32)
+    lengths = torch.tensor([200, 37, 129, 5], dtype=torch.int32,
+                           device=cuda_device)
+    slots = torch.arange(s, dtype=torch.int32, device=cuda_device)
+    max_pages = max_seq // page
+    if slot:
+        cache = core.KVCache.create(spec, s, max_seq, torch.bfloat16,
+                                    cuda_device)
+        lg, _ = core.prefill(spec, params, ids, lengths, slots, cache)
+    else:
+        cache = PagedKVCache.create(spec, s * max_pages, page, s, max_pages,
+                                    torch.bfloat16, cuda_device)
+        cache.block_table.copy_(torch.arange(
+            s * max_pages, dtype=torch.int32,
+            device=cuda_device).reshape(s, -1))
+        lg, _ = paged_core.prefill_paged(spec, params, ids, lengths, slots,
+                                         cache, page)
+    toks = [lg[torch.arange(s), lengths.long() - 1].argmax(-1).to(torch.int32)]
+    copy = type(cache)(*(None if x is None else x.clone() for x in cache))
+    pos, want = lengths.clone(), []
+    for _ in range(4):
+        if slot:
+            lg, _ = core.decode(spec, params, toks[-1], pos, cache, pos + 1,
+                                write_mode="scan")
+        else:
+            lg, _ = paged_core.decode_paged(spec, params, toks[-1], pos,
+                                            cache, pos + 1, page)
+        want.append(lg)
+        toks.append(lg.argmax(-1).to(torch.int32))
+        pos = pos + 1
+    chunk = torch.stack(toks[:4], dim=1)
+    if slot:
+        got, hidden, _ = core.verify_chunk(spec, params, chunk, lengths, copy)
+    else:
+        got, hidden, _ = paged_core.verify_chunk_paged(
+            spec, params, chunk, lengths, copy, page,
+            torch.ones(s, dtype=torch.bool, device=cuda_device), max_seq)
+    torch.cuda.synchronize()
+    assert hidden.shape == (s, 4, spec.hidden_size) and hidden.is_cuda
+    peak = max(w.abs().max().item() for w in want)
+    tol = 4 * math.ldexp(1.0, math.frexp(peak)[1] - 8)     # 4 bf16 ulps
+    for j in range(4):
+        err = (got[:, j] - want[j]).abs().max().item()
+        assert err <= tol, (j, err, tol)

@@ -355,6 +355,11 @@ class SlotBatchEngine:
         self.last_forward_ns = 0
         self.last_n_emitted = None
 
+    def _speculative_bytes(self) -> int:
+        """What speculative decoding holds beside the plain engine (the
+        speculator's weights and the verify step's working set): 0 here."""
+        return 0
+
     def _use_device(self) -> None:
         """Make the engine's CUDA device current on the calling thread (the
         batcher calls in from several threads)."""
@@ -516,15 +521,21 @@ class SlotBatchEngine:
             raise RuntimeError("precompile_decode runs every decode program "
                                "once on the engine's state: call it with no "
                                "request in flight")
-        keys = self._decode_keys(details)
+        fns = self._program_fns(details)
         if self.programs.capture:
             # the programs pin the shared scratch: size it for every row
             # count first, prefill's included
             linops.reserve_scratch(self.model_params, self.device,
                                    self.fuse_mlp)
-        self.programs.build({key: functools.partial(self._decode_chunk, *key)
-                             for key in keys})
-        return len(keys)
+        self.programs.build(fns)
+        return len(fns)
+
+    def _program_fns(self, details=(False, True)) -> dict:
+        """Every program `precompile_decode` makes: key -> eager step
+        function. The decode grid here; the speculative engines add (or
+        take instead) their verify programs."""
+        return {key: functools.partial(self._decode_chunk, *key)
+                for key in self._decode_keys(details)}
 
     def _ensure_programs(self) -> None:
         """An engine that never made its decode programs makes the whole
@@ -644,7 +655,8 @@ class InferenceEngine(SlotBatchEngine):
                              else self._dtype)
         self.memory_plan = plan_memory(spec, config, self.model_params,
                                        self._cache_dtype,
-                                       budget_bytes(self.device))
+                                       budget_bytes(self.device),
+                                       self._speculative_bytes())
         self.fuse_mlp = fused_mlp_option()
         self.num_slots = config.max_batch_slots   # possibly shrunk by the plan
         self.max_seq = config.max_sequence_length
@@ -693,15 +705,17 @@ class InferenceEngine(SlotBatchEngine):
         self._ensure_programs()
         for slot, rp in zip(slots, request_params):
             self.set_request_params(slot, rp)
+        return self._run_prefill(
+            functools.partial(self._prefill_device, want_prompt_details),
+            slots, token_ids, want_prompt_details, prefix_embeds)
 
-        def step(ids, lengths, slot_ids, prefix_len, embeds):
-            return _prefill_step(self.spec, self.eos_token_id,
-                                 want_prompt_details, self.model_params,
-                                 self.cache, self.state, ids, lengths,
-                                 slot_ids, prefix_len, embeds)
-
-        return self._run_prefill(step, slots, token_ids, want_prompt_details,
-                                 prefix_embeds)
+    def _prefill_device(self, want_prompt_details: bool, ids, lengths, slots,
+                        prefix_len, embeds):
+        """The device side of a prefill (`_run_prefill`'s `step`)."""
+        return _prefill_step(self.spec, self.eos_token_id,
+                             want_prompt_details, self.model_params,
+                             self.cache, self.state, ids, lengths, slots,
+                             prefix_len, embeds)
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
         """Run every prefill (batch, bucket) shape once (the first call

@@ -6,7 +6,10 @@ on the CPU (tests). The paged engine sizes its KV pool from it
 (`MemoryPlan` with `pool_bytes`); `plan_memory` sizes the slot engine's
 batch (closed-form accounting: every serving buffer has a static shape, so
 capacity is arithmetic, not measurement). Both set aside
-`activation_bytes`, the prefill working set of one dispatch.
+`activation_bytes`, the prefill working set of one dispatch, and a
+speculative engine also `speculative_bytes`, its speculator's weights and
+the working set of one verify step (the paged engine reserves it where it
+reserves the dense-gather rows).
 
 ESTIMATE_MEMORY=off disables the slot engine's slot shrinking (reference
 env contract).
@@ -117,30 +120,76 @@ class MemoryPlan:
     usable_bytes: int
     max_slots: int
     pool_bytes: int | None = None   # the paged engine's page pool
+    # a speculative engine's speculator weights and verify working set
+    speculative_bytes: int = 0
 
     def describe(self) -> str:
         gb = 1024 ** 3
         kv = (f"pool {self.pool_bytes / gb:.2f}GiB" if self.pool_bytes
               is not None else f"kv/slot {self.kv_bytes_per_slot / gb:.3f}"
               f"GiB x {self.max_slots}")
+        spec = (f" + speculative {self.speculative_bytes / gb:.2f}GiB"
+                if self.speculative_bytes else "")
         return (f"params {self.param_bytes / gb:.2f}GiB + {kv} + act "
-                f"{self.activation_bytes / gb:.2f}GiB of "
+                f"{self.activation_bytes / gb:.2f}GiB{spec} of "
                 f"{self.hbm_bytes / gb:.1f}GiB")
 
 
+# bytes a (slot, vocab entry) of one sampling pass (`sampling.next_tokens`)
+# holds at its peak: the f32 scores and their penalized and warped copies
+# (12), the sort's values, int64 indices and scratch (4 + 8 + 12), the
+# softmax and its cumulative sum (8), rounded up
+SAMPLING_BYTES = 48
+
+
+def speculative_bytes(spec: DecoderSpec, config: ServingConfig,
+                      sspec, dtype: torch.dtype, gathered: bool) -> int:
+    """What a speculative engine holds beside the plain one: the
+    speculator's weights (`sspec`, in `dtype`) and the working set of one
+    verify step over `config.max_batch_slots` slots and C = n_predict + 1
+    candidates, at max_seq rows (whole pages of them with `gathered`):
+      - with `gathered` (the paged engine), one layer's K and V gathered
+        from the pool, the chunk's rows written into them;
+      - the f32 keys the f32 scores read, counted twice (the upcast, and
+        as much again for the allocator's rounding and the products'
+        workspace);
+      - the scores [S, H, C, rows] in f32, their masked copy, the f32
+        probabilities and their cast;
+      - the [S, C, V] f32 logits beside the product they are cast from,
+        and one sampling pass over [S, V] (the C passes run in turn)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    i, v, n = sspec.inner_dim, sspec.vocab_size, sspec.n_predict
+    weights = (2 * n * v * i + sspec.model_dim * i + (n - 1) * i * i
+               + 2 * n * i) * item
+    s, c = config.max_batch_slots, n + 1
+    rows = config.max_sequence_length
+    if gathered:
+        rows = -(-rows // config.kv_page_size) * config.kv_page_size
+    kv = s * spec.num_kv_heads * rows * spec.head_dim
+    work = 2 * kv * 4
+    if gathered:
+        work += 2 * kv * item
+    work += s * spec.num_heads * c * rows * (3 * 4 + item)
+    work += s * c * spec.vocab_size * (4 + item)
+    work += s * spec.vocab_size * SAMPLING_BYTES
+    return weights + work
+
+
 def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
-                cache_dtype: torch.dtype, hbm_bytes: int) -> MemoryPlan:
+                cache_dtype: torch.dtype, hbm_bytes: int,
+                spec_bytes: int = 0) -> MemoryPlan:
     """The slot engine's memory plan: unless ESTIMATE_MEMORY=off, shrink
     `config.max_batch_slots` in place to the slots whose full-length KV
-    cache fits beside the weights, the prefill working set and the slot
-    state, with the configured safety margin (reference default 20%,
-    cli.py:28). An int8 cache counts its scale bytes."""
+    cache fits beside the weights, the prefill working set, the slot state
+    and `spec_bytes` (a speculative engine's `speculative_bytes`), with the
+    configured safety margin (reference default 20%, cli.py:28). An int8
+    cache counts its scale bytes."""
     param_bytes = tree_bytes(params)
     kv_per_slot = config.max_sequence_length * kv_row_bytes(spec, cache_dtype)
     act = activation_bytes(spec, config)
     state = config.max_batch_slots * config.max_sequence_length * 4 * 4
     usable = int(hbm_bytes * (1.0 - config.batch_safety_margin)) \
-        - param_bytes - act - state
+        - param_bytes - act - state - spec_bytes
     max_slots = config.max_batch_slots
     if os.getenv("ESTIMATE_MEMORY", "auto").lower() != "off":
         fit = max(1, usable // max(kv_per_slot, 1))
@@ -152,6 +201,6 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
     plan = MemoryPlan(param_bytes=param_bytes, kv_bytes_per_slot=kv_per_slot,
                       state_bytes=state, activation_bytes=act,
                       hbm_bytes=hbm_bytes, usable_bytes=max(usable, 0),
-                      max_slots=max_slots)
+                      max_slots=max_slots, speculative_bytes=spec_bytes)
     logger.info("memory plan: %s", plan.describe())
     return plan

@@ -321,8 +321,9 @@ class PagedInferenceEngine(SlotBatchEngine):
         # to paged_gather_ctx_max tokens per slot (k + v) — reserve it
         gather_rows = min(self.config.paged_gather_ctx_max, self.max_seq)
         gather_b = self.num_slots * gather_rows * row_b
+        spec_b = self._speculative_bytes()
         usable = int(hbm * (1 - self.config.batch_safety_margin)) \
-            - params_b - act - gather_b
+            - params_b - act - gather_b - spec_b
         pages = max(usable // bytes_per_page, self.num_slots * 2)
         # at least enough for one max-length sequence...
         pages = max(pages, -(-self.max_seq // self.page_size))
@@ -336,7 +337,8 @@ class PagedInferenceEngine(SlotBatchEngine):
             param_bytes=params_b, kv_bytes_per_slot=self.max_seq * row_b,
             state_bytes=self.num_slots * self.max_seq * 4 * 4,
             activation_bytes=act, hbm_bytes=hbm, usable_bytes=max(usable, 0),
-            max_slots=self.num_slots, pool_bytes=int(pages) * bytes_per_page)
+            max_slots=self.num_slots, pool_bytes=int(pages) * bytes_per_page,
+            speculative_bytes=spec_b)
         logger.info("memory plan: %s", self.memory_plan.describe())
         return int(pages)
 

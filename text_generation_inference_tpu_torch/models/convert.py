@@ -6,7 +6,8 @@ bfloat16) and returns the port's param dict on `device`, with the same
 keys and layouts, fused (`w_qkv`, `w_gu`) or not: every key is carried,
 the top-level ones of the learned-position and BLOOM families included
 (`embed_positions`, `embed_ln`, OPT's `project_in` / `project_out`). It
-lets the tests give both packages identical weights.
+lets the tests give both packages identical weights; `speculator_params_from_jax`
+and `t5_params_from_jax` do the same for a speculator's and a T5 model's.
 
 A JAX `Int4Weight` arrives as a NamedTuple whose leaves are numpy arrays
 or None; it is recognised and converted by its field names (nothing of the
@@ -70,6 +71,13 @@ def params_from_jax(spec: DecoderSpec, params_np: dict,
     if lp["ln1"]["scale"].shape[0] != spec.num_layers or q_out < spec.q_size:
         raise ValueError("params do not match the spec")
     return out
+
+
+def speculator_params_from_jax(sparams_np: dict, device=None) -> dict:
+    """The JAX speculator params (per-position lists of numpy arrays) →
+    the port's lists of tensors on `device`, key for key."""
+    device = resolve_device(device)
+    return {k: [_tensor(a, device) for a in v] for k, v in sparams_np.items()}
 
 
 def t5_params_from_jax(spec: T5Spec, params_np: dict, device=None) -> dict:

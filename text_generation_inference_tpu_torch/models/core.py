@@ -2,9 +2,10 @@
 
 The building blocks (`_norm`, `_rope_freqs`, `_apply_rope`, `_qkv`,
 `_attn_out`, `_mlp`, `_embed`, `_unembed`, and the prefill layer loop
-`prefill_forward`) are shared with the paged forward passes in
-`paged_core.py`. The slot-cache passes (`prefill`, `decode` in its "post"
-and "scan" write modes, `decode_ring_step`, `ring_flush`) write the
+`prefill_forward`, and the speculative verification's `verify_forward`)
+are shared with the paged forward passes in `paged_core.py`. The
+slot-cache passes (`prefill`, `decode` in its "post" and "scan" write
+modes, `decode_ring_step`, `ring_flush`, `verify_chunk`) write the
 `KVCache` in place, where the JAX package donated it to each jitted step.
 `DecoderSpec` is the same static architecture description as in the JAX
 package, and every position encoding it names runs: RoPE, learned
@@ -422,11 +423,14 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
                     write_kv: Callable[[int, torch.Tensor, torch.Tensor], None],
                     prefix_embeds: Optional[torch.Tensor] = None,
                     prefix_len: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    return_hidden: bool = False):
     """The causal forward over a right-padded bucket ids [N, T]: attention
     within the bucket only, masked by `lengths`. Hands each layer's k/v
     ([N, T, K, D]) to `write_kv(layer, k, v)`, which stores them in the
-    caller's cache. Returns [N, T, V] f32 logits at every position.
+    caller's cache. Returns [N, T, V] f32 logits at every position, and
+    with `return_hidden` also the final-norm hidden states [N, T, D] (they
+    seed the speculator).
 
     Soft prompts (prompt tuning): with `prefix_embeds` [N, T, D], row n
     takes its first `prefix_len[n]` input vectors from `prefix_embeds`
@@ -472,7 +476,8 @@ def prefill_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
         x = _residual(spec, lp, x, a)
         write_kv(li, k, v)
     x = _norm(spec, params["final_norm"], x)
-    return _unembed(spec, params, x)
+    logits = _unembed(spec, params, x)
+    return (logits, x) if return_hidden else logits
 
 
 def prefill(
@@ -485,14 +490,16 @@ def prefill(
     attn: AttentionOps = KERNELS,
     prefix_embeds: Optional[torch.Tensor] = None,  # [N, T, D] soft prompts
     prefix_len: Optional[torch.Tensor] = None,     # [N] i32 prefix positions
-) -> tuple[torch.Tensor, KVCache]:
+    return_hidden: bool = False,
+):
     """Full causal forward over a padded bucket; writes each layer's K/V
     into rows 0..T-1 of the `slots` of the cache, in place (quantized on the
     way in over an int8 cache). Rows past a prompt's length hold padding
     garbage that decode masks by context length, as in the JAX package.
     Rows with a soft prompt take its vectors at positions < prefix_len
     (`prefill_forward`). Returns ([N, T, V] f32 logits at every position,
-    cache)."""
+    cache), or with `return_hidden` (logits, the final-norm hidden states
+    [N, T, D], cache)."""
     rows = min(ids.shape[1], cache.max_seq)
     sl = slots.long()
 
@@ -507,9 +514,10 @@ def prefill(
         cache.k[li][sl, :, :rows] = k_t.to(cache.k.dtype)
         cache.v[li][sl, :, :rows] = v_t.to(cache.v.dtype)
 
-    return prefill_forward(spec, params, ids, lengths, attn, write_kv,
-                           prefix_embeds, prefix_len,
-                           spec.sliding_window), cache
+    out = prefill_forward(spec, params, ids, lengths, attn, write_kv,
+                          prefix_embeds, prefix_len, spec.sliding_window,
+                          return_hidden)
+    return (*out, cache) if return_hidden else (out, cache)
 
 
 # ---------------------------------------------------------------------------
@@ -759,3 +767,140 @@ def decode(
         cache.v[:, rows, :, pos] = torch.stack(v_all, 1).to(cache.v.dtype)
     x = _norm(spec, params["final_norm"], x)
     return _unembed(spec, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# speculative verification
+# ---------------------------------------------------------------------------
+
+
+def write_chunk(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, positions: torch.Tensor,
+                kv_major: bool = False) -> None:
+    """Scatter C candidate rows per slot into one layer's keys and values,
+    in place: k/v [S, C, K, D] land at rows positions [S, C] of ck/cv,
+    [S, K, T, D] (or [K, S, T, D] with `kv_major`). Rows at or past T are
+    dropped, as JAX's mode="drop" drops them, without a host sync: a
+    dropped (s, c) is redirected to col 0 at positions[s, 0], which the
+    kept write of col 0 also targets with the same values (a slot whose
+    first row lies past T writes its col 0 into row T - 1 of its own keys;
+    only a dead slot of a gathered view gets there, and its outputs are
+    discarded)."""
+    s, c = positions.shape
+    t = ck.shape[2]
+    pos = positions.to(torch.int64)
+    drop = pos >= t
+    dst = torch.where(drop, pos[:, :1].clamp(max=t - 1), pos)
+    src = torch.where(drop, 0, torch.arange(c, device=pos.device)[None, :])
+    rows = torch.arange(s, device=pos.device)[:, None]
+    for cache, new in ((ck, k), (cv, v)):
+        rows_new = new[rows, src].to(cache.dtype)               # [S, C, K, D]
+        if kv_major:
+            # adjacent advanced indices stay in place: [K, S, C, D]
+            cache[:, rows, dst] = rows_new.permute(2, 0, 1, 3)
+        else:
+            # indices split by a slice move to the front: [S, C, K, D]
+            cache[rows, :, dst] = rows_new
+
+
+def verify_attention(spec: DecoderSpec, qg: torch.Tensor, ck: torch.Tensor,
+                     cv: torch.Tensor, positions: torch.Tensor, scale: float,
+                     kv_major: bool = False) -> torch.Tensor:
+    """The JAX package's verify attention: qg [S, C, K, G, D] against one
+    layer's keys and values ck/cv [S, K, T, D] (or [K, S, T, D] with
+    `kv_major`: the product batches over the keys' own order, so no copy
+    of them is made but their f32 upcast), the chunk's rows already
+    written. Key j is visible to candidate c iff j <= positions[s, c] (and
+    within the sliding window, where the spec has one); an ALiBi spec adds
+    slope * j. Scores and softmax in f32, probabilities cast to the values'
+    dtype for the value product. Returns [S, C, K, G, D]."""
+    s, c, kh, g, d = qg.shape
+    t = ck.shape[2]
+    key_pos = torch.arange(t, device=qg.device)
+    mask = key_pos[None, None, :] <= positions[:, :, None]          # [S, C, T]
+    if spec.sliding_window is not None:
+        mask = mask & (key_pos[None, None, :]
+                       > positions[:, :, None] - spec.sliding_window)
+    q = qg.permute(0, 2, 3, 1, 4)                                   # [S,K,G,C,D]
+    mask = mask[:, None, None]                                      # [S,1,1,C,T]
+    if kv_major:
+        q, mask = q.transpose(0, 1), mask.transpose(0, 1)
+    b0, b1 = q.shape[:2]
+    scores = torch.matmul(q.reshape(b0, b1, g * c, d).to(torch.float32),
+                          ck.to(torch.float32).transpose(-1, -2))
+    scores = scores.view(b0, b1, g, c, t) * scale
+    slopes = alibi_slopes_kg(spec, qg.device)
+    if slopes is not None:
+        bias = alibi_bias(slopes, key_pos)[:, :, None, :]           # [K,G,1,T]
+        scores = scores + (bias[:, None] if kv_major else bias[None])
+    scores = scores.masked_fill(~mask, -math.inf)
+    probs = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.matmul(probs.view(b0, b1, g * c, t), cv).view(b0, b1, g, c, d)
+    if kv_major:
+        out = out.transpose(0, 1)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def verify_forward(spec: DecoderSpec, params: dict, ids: torch.Tensor,
+                   start_pos: torch.Tensor,
+                   layer_kv: Callable[[int, torch.Tensor, torch.Tensor],
+                                      tuple[torch.Tensor, torch.Tensor]],
+                   attn: AttentionOps = KERNELS, kv_major: bool = False):
+    """The layer loop of a verification forward over C candidate positions
+    per slot (ids [S, C], ids[:, 0] at start_pos): `layer_kv(layer, k, v)`
+    stores the chunk's k/v ([S, C, K, D]) in that layer's keys and values
+    and returns them ([S, K, T, D], or [K, S, T, D] with `kv_major`) for
+    `verify_attention`. Returns ([S, C, V] f32 logits, [S, C, D]
+    final-norm hidden states)."""
+    s, c = ids.shape
+    positions = (start_pos.to(torch.int32)[:, None]
+                 + torch.arange(c, device=ids.device, dtype=torch.int32))
+    x = _embed(spec, params, ids, positions)            # [S, C, D]
+    rope = _rotary(spec, positions)
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    group = spec.num_heads // spec.num_kv_heads
+    for li in range(spec.num_layers):
+        lp = layer_params(params["layers"], li, attn.int4_plain)
+        h = _norm(spec, lp["ln1"], x)
+        q, k, v = _qkv(spec, lp, h)                     # q [S, C, H, Dh]
+        q, k = _rotate(spec, q, k, rope)
+        ck, cv = layer_kv(li, k, v)
+        qg = q.reshape(s, c, spec.num_kv_heads, group, spec.head_dim)
+        a = verify_attention(spec, qg, ck, cv, positions, scale, kv_major)
+        a = _attn_out(spec, lp, a.reshape(s, c, spec.num_heads, spec.head_dim))
+        x = _residual(spec, lp, x, a)
+    x = _norm(spec, params["final_norm"], x)
+    return _unembed(spec, params, x), x
+
+
+def verify_chunk(
+    spec: DecoderSpec,
+    params: dict,
+    ids: torch.Tensor,          # [S, C] i32: candidate tokens per slot
+    start_pos: torch.Tensor,    # [S] i32: position of ids[:, 0]
+    cache: KVCache,
+    attn: AttentionOps = KERNELS,
+):
+    """Speculative-verification forward over the slot cache (the JAX
+    package's `verify_chunk`; the model side of the reference's speculative
+    decoding): C candidate positions per slot in one pass. Each layer
+    writes the chunk's K/V into the cache in place first (positions past
+    max_seq dropped), then candidate j attends over the slot's keys up to
+    its own position (causal within the chunk). The caller rewinds a
+    rejected position by not advancing the history: the next chunk
+    overwrites its row. The float cache only (both speculative engines
+    refuse int8 KV, as in the JAX package).
+
+    Returns ([S, C, V] f32 logits, [S, C, D] hidden states, cache)."""
+    if cache.quantized:
+        raise ValueError("verify_chunk reads and writes a float cache")
+    positions = (start_pos.to(torch.int64)[:, None]
+                 + torch.arange(ids.shape[1], device=ids.device))
+
+    def layer_kv(li, k, v):
+        write_chunk(cache.k[li], cache.v[li], k, v, positions)
+        return cache.k[li], cache.v[li]
+
+    logits, hidden = verify_forward(spec, params, ids, start_pos, layer_kv,
+                                    attn)
+    return logits, hidden, cache

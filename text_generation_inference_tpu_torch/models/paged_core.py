@@ -5,6 +5,10 @@ Same layer math as `models/core.py`; only the cache side differs: K/V rows
 live in flat page pools [L, K, P*page, D] and every read and write goes
 through the block table.
 
+Speculative verification (`verify_chunk_paged`) gathers one layer's live
+pages at a time inside its layer loop, where the JAX function gathers every
+layer's at once, and flushes the chunk's rows through the block table once.
+
 Writes update the pools IN PLACE (the JAX package donated the pools to
 each jitted step instead). Writes that JAX routed out of bounds and dropped
 (`.at[].set(mode="drop")`: inactive slots, padded prefill positions, ring
@@ -49,6 +53,8 @@ from .core import (
     layer_params,
     prefill_forward,
     quantize_kv,
+    verify_forward,
+    write_chunk,
 )
 
 
@@ -301,6 +307,75 @@ def paged_ring_flush(cache: PagedKVCache, kbuf: torch.Tensor,
     _put_rows(cache.k, 2, dst, kr, kept)
     _put_rows(cache.v, 2, dst, vr, kept)
     return cache
+
+
+def verify_chunk_paged(
+    spec: DecoderSpec,
+    params: dict,
+    ids: torch.Tensor,          # [S, C] candidate tokens per slot
+    start_pos: torch.Tensor,    # [S] position of ids[:, 0]
+    cache: PagedKVCache,
+    page_size: int,
+    active: torch.Tensor,       # [S] bool
+    max_seq: int,
+    live_pages: Optional[int] = None,
+    attn: AttentionOps = KERNELS,
+):
+    """Speculative verification through the block table (the JAX package's
+    `verify_chunk_paged`): the same outputs as `core.verify_chunk` over a
+    dense view of every slot's first `live_pages` pages, then the C chunk
+    rows flushed into the pool (`paged_ring_flush`: inactive slots,
+    positions at or past max_seq and unmapped pages dropped).
+
+    The JAX function gathers the view of every layer at once ([L, S, K, R,
+    D]) and runs `verify_chunk` on it, which returns an updated copy. Here
+    each layer gathers its own view of whole pages inside the layer loop
+    ([K, S, R, D], the pool's order, which the attention batches over as it
+    is), writes its chunk rows into it before the attention, and keeps them
+    for the one flush after the loop: at Llama-2-7B widths, 16 slots and
+    2048 rows that is 0.54 GB of K and V a layer instead of 17.2 GB, and
+    its copy. The pool is not written until the flush, so the view of a
+    later layer sees no row of this chunk. An unmapped (sentinel) page
+    reads the pool's last page where JAX's clamped gather reads its last
+    row: no candidate of a live slot sees either (keys before the chunk lie
+    in the slot's own pages, the chunk's own rows are written into the
+    view), so the outputs are the same.
+
+    Returns ([S, C, V] f32 logits, [S, C, D] hidden states, cache)."""
+    if cache.quantized:
+        raise ValueError("verify_chunk_paged reads and writes a float pool")
+    s, c = ids.shape
+    bt = cache.block_table
+    if live_pages is None:
+        live_pages = bt.shape[1]
+    kh, pool_rows, d = cache.k.shape[1:]
+    num_pages = pool_rows // page_size
+    # whole pages (clamped to the pool: a sentinel page reads the last one,
+    # whose rows no live candidate sees), in the pool's [K, ...] order
+    pages = bt[:, :live_pages].to(torch.int64).clamp(0, num_pages - 1)
+    pages = pages.reshape(-1)
+    positions = (start_pos.to(torch.int64)[:, None]
+                 + torch.arange(c, device=ids.device))
+    kbuf, vbuf = [], []
+
+    def layer_kv(li, k, v):
+        # [K, P, page, D] --pages--> [K, S * P', page, D] = [K, S, R, D]
+        ck, cv = (pool[li].view(kh, num_pages, page_size, d)
+                  .index_select(1, pages)
+                  .view(kh, s, live_pages * page_size, d)
+                  for pool in (cache.k, cache.v))
+        write_chunk(ck, cv, k, v, positions, kv_major=True)
+        kbuf.append(k)
+        vbuf.append(v)
+        return ck, cv
+
+    logits, hidden = verify_forward(spec, params, ids, start_pos, layer_kv,
+                                    attn, kv_major=True)
+    # the chunk rows [L, S, C, K, D] -> the ring layout [L, S, K, C, D]
+    paged_ring_flush(cache, torch.stack(kbuf).transpose(2, 3),
+                     torch.stack(vbuf).transpose(2, 3), start_pos, active,
+                     max_seq, page_size)
+    return logits, hidden, cache
 
 
 def prefill_paged(

@@ -2,14 +2,19 @@
 (port of the JAX package's `server/main.py`: a t5 / mt5 / umt5 checkpoint on
 the seq2seq engine; any decoder family of `models/families.py`, or a model
 type its structural fallback takes, on the paged engine, or on the slot
-engine with PAGED_ATTENTION=0; one device, no speculator). A prompt-prefix
-store (PREFIX_STORE_PATH) serves soft prompts by `prefix_id` (encoder- and
-decoder-side for seq2seq models); INT4_FUSED_MLP=1 runs a GPTQ model's
-decode MLP as one kernel (the engines read it).
+engine with PAGED_ATTENTION=0; one device). SPECULATOR=1 (a random-init
+speculator) or SPECULATOR_PATH (an fms_extras MLPSpeculator checkpoint)
+serves a decoder with speculative decoding, on the paged engine
+(`PagedSpeculativeEngine`) or with PAGED_ATTENTION=0 on the slot engine
+(`SpeculativeEngine`); SPECULATOR_N_PREDICT sets a random speculator's
+draft count. A prompt-prefix store (PREFIX_STORE_PATH) serves soft
+prompts by `prefix_id` (encoder- and decoder-side for seq2seq models);
+INT4_FUSED_MLP=1 runs a GPTQ model's decode MLP as one kernel (the engines
+read it).
 
-The other engine choices of the JAX entrypoint (speculative decoding,
-tensor parallelism, multi-host, the internal `generate.v1` API) are later
-slices and raise NotImplementedError here.
+The other engine choices of the JAX entrypoint (tensor parallelism,
+multi-host, the internal `generate.v1` API) are later slices and raise
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -45,9 +50,6 @@ DTYPES = {
 def _not_ported(config: ServingConfig) -> None:
     """Raise for every serving option this slice does not run."""
     checks = [
-        (bool(os.getenv("SPECULATOR_PATH"))
-         or os.getenv("SPECULATOR", "").lower() in ("1", "true"),
-         "speculative decoding"),
         (int(os.getenv("TENSOR_PARALLEL", "1")) > 1, "TENSOR_PARALLEL > 1"),
         (os.getenv("INTERNAL_API", "").lower() in ("1", "true"),
          "INTERNAL_API (generate.v1)"),
@@ -87,13 +89,55 @@ def build_engine(config: ServingConfig, device=None):
     spec, params = families.load_model(
         config.model_name, dtype=dtype, quantize=config.quantize,
         device=device)
-    if os.getenv("PAGED_ATTENTION", "1").lower() in ("1", "true"):
+    paged = os.getenv("PAGED_ATTENTION", "1").lower() in ("1", "true")
+    spec_path = os.getenv("SPECULATOR_PATH")
+    if spec_path or os.getenv("SPECULATOR", "").lower() in ("1", "true"):
+        engine = _speculative_engine(spec, params, config, eos, dtype, device,
+                                     paged, spec_path)
+    elif paged:
         engine = PagedInferenceEngine(spec, params, config, eos_token_id=eos,
                                       device=device)
     else:
         engine = InferenceEngine(spec, params, config, eos_token_id=eos,
                                  device=device)
     return engine, tokenizer, "decoder"
+
+
+def _speculative_engine(spec, params, config: ServingConfig, eos: int, dtype,
+                        device, paged: bool, spec_path: Optional[str]):
+    """The JAX entrypoint's speculator dispatch: SPECULATOR_PATH loads a
+    trained fms_extras MLPSpeculator (the weights the reference consumes)
+    and must match the model's width and vocabulary; bare SPECULATOR=1
+    builds a random-init one, which by the exactness invariant can only
+    slow serving."""
+    from ..engine.speculative import (PagedSpeculativeEngine,
+                                      SpeculativeEngine)
+
+    n_predict = int(os.getenv("SPECULATOR_N_PREDICT", "3"))
+    sspec = sparams = None
+    if spec_path:
+        from ..models.speculator import load_speculator
+
+        sspec, sparams = load_speculator(spec_path, dtype=dtype,
+                                         device=device)
+        if sspec.model_dim != spec.hidden_size \
+                or sspec.vocab_size != spec.vocab_size:
+            raise ValueError(
+                f"speculator at {spec_path} does not match the model: "
+                f"model_dim {sspec.model_dim} vs hidden {spec.hidden_size}, "
+                f"vocab {sspec.vocab_size} vs {spec.vocab_size}")
+        n_predict = sspec.n_predict
+        logger.info("loaded speculator from %s (n_predict=%d, inner_dim=%d)",
+                    spec_path, n_predict, sspec.inner_dim)
+    else:
+        logger.warning(
+            "SPECULATOR=1 without SPECULATOR_PATH builds a RANDOM-INIT "
+            "speculator: output stays exact but acceptance will be ~zero, "
+            "making serving strictly slower. Point SPECULATOR_PATH at a "
+            "trained MLPSpeculator checkpoint.")
+    cls = PagedSpeculativeEngine if paged else SpeculativeEngine
+    return cls(spec, params, config, eos_token_id=eos, speculator_spec=sspec,
+               speculator_params=sparams, n_predict=n_predict, device=device)
 
 
 def build_prompt_cache(config: ServingConfig,

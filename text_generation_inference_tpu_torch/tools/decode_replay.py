@@ -19,6 +19,13 @@ the card tests (`tests/test_torch_cuda.py`), the CPU tests and
     built alike, one dispatching chunk N+1 before it fetches chunk N
     (`decode_steps_begin` twice, then `decode_steps_end`), as the batcher
     does, and one dispatching and fetching in turn: the same outputs.
+  * `spec_lockstep(replayed, eager)`: the speculative engines' counterpart
+    of `lockstep` (they dispatch and fetch in one `decode_steps`, so a slot
+    is freed between dispatches): greedy, repetition-penalty and seeded
+    rows arriving and leaving; every dispatch's outputs for the live slots
+    and its n_emit (or None, a gated plain step), then the state, the KV
+    and the speculator's chain state, equal bit for bit. `every_program`
+    then runs every verify program (and the paged engine's decode grid).
 
 Both return what they saw (dispatches, keys, the order of first use), for
 the caller to print.
@@ -45,6 +52,13 @@ def _params(i: int, max_new: int) -> RequestParams:
         return RequestParams(max_new_tokens=max_new)
     return RequestParams(max_new_tokens=max_new, temperature=0.8, top_k=40,
                          top_p=0.95, seed=1000 + i)
+
+
+def _spec_params(i: int, max_new: int) -> RequestParams:
+    """Greedy, greedy under a repetition penalty, a seeded sample, in turn."""
+    if i % 3 == 1:
+        return RequestParams(max_new_tokens=max_new, repetition_penalty=1.3)
+    return _params(0 if i % 3 == 0 else 1, max_new)
 
 
 def _same_rows(a, b, rows, what: str) -> None:
@@ -148,12 +162,75 @@ def every_program(replayed, eager) -> int:
             eager.state.active.cpu().numpy())):
         raise AssertionError("the engines' live slots differ")
     for key, program in replayed.programs.programs.items():
-        got = program.run().cpu().numpy()
-        want = eager.programs.get(key).run().cpu().numpy()
-        if not np.array_equal(got[..., rows, :], want[..., rows, :],
-                              equal_nan=True):
+        got = _slot_rows(program.run(), rows)
+        want = _slot_rows(eager.programs.get(key).run(), rows)
+        if not all(np.array_equal(a, b, equal_nan=True)
+                   for a, b in zip(got, want)):
             raise AssertionError(f"program {key} differs from its eager step")
     return len(replayed.programs)
+
+
+def _slot_rows(output, rows) -> list[np.ndarray]:
+    """A program's output (a tensor, or a verify program's packed outputs
+    and n_emit) on the slots `rows`: the slot axis is the second to last
+    of packed outputs, the last of n_emit."""
+    outs = output if isinstance(output, tuple) else (output,)
+    return [o.cpu().numpy()[..., rows, :] if o.dim() >= 2
+            else o.cpu().numpy()[rows] for o in outs]
+
+
+def spec_lockstep(replayed, eager, vocab: int, dispatches: int = 14,
+                  seed: int = 2, max_new: int = 200) -> dict:
+    """Drive two speculative engines built alike (see the module
+    docstring) through one staggered schedule and hold them equal. Returns
+    {dispatches, keys (first-use order), spec_steps, fallback_steps}."""
+    rng = np.random.default_rng(seed)
+    engines = (replayed, eager)
+    arrive = {0: [0, 1], 2: [2], 4: [3], 7: [4], 9: [5]}
+    free_before = {6: 0, 11: 1}
+    live: list[int] = []
+    used: set[int] = set()
+    first_use: list[tuple] = []
+    fallback = 0
+    for i in range(dispatches):
+        if i in free_before and live:
+            slot = live.pop(free_before[i])
+            for e in engines:
+                e.free(slot)
+        for j in arrive.get(i, []):
+            ids = _prompt(rng, vocab, PROMPT_LENS[j])
+            slots = [e.acquire_slot() for e in engines]
+            if slots[0] is None or slots[0] != slots[1]:
+                raise AssertionError(f"slots differ: {slots}")
+            rp = _spec_params(j, max_new)
+            firsts = [e.prefill([slots[0]], [ids], [rp]).first_token
+                      for e in engines]
+            _same_rows(*firsts, [0], f"prefill of request {j}")
+            live.append(slots[0])
+            used.add(slots[0])
+        rows = sorted(live)
+        before = {k: p.replays for k, p in replayed.programs.programs.items()}
+        outs = [e.decode_steps() for e in engines]
+        ran = [k for k, p in replayed.programs.programs.items()
+               if p.replays != before.get(k, 0)]
+        if len(ran) != 1:
+            raise AssertionError(f"dispatch {i} ran programs {ran}")
+        if ran[0] not in first_use:
+            first_use.append(ran[0])
+        emits = [e.last_n_emitted for e in engines]
+        if emits[0] is None or emits[1] is None:
+            if emits[0] is not emits[1]:
+                raise AssertionError(f"dispatch {i}: one engine speculated")
+            fallback += 1
+        elif not np.array_equal(emits[0][rows], emits[1][rows]):
+            raise AssertionError(f"dispatch {i}: n_emit differs")
+        for step, (a, b) in enumerate(zip(*outs)):
+            _same_rows(a, b, rows, f"dispatch {i} position {step}")
+    _used_rows_equal(replayed, eager, sorted(used))
+    if not torch.equal(replayed.spec_hidden, eager.spec_hidden):
+        raise AssertionError("the speculator's chain state differs")
+    return dict(dispatches=dispatches, keys=first_use,
+                spec_steps=dispatches - fallback, fallback_steps=fallback)
 
 
 def pipelined_matches_sequential(pipelined, sequential, vocab: int,
