@@ -172,8 +172,31 @@ Phases (any failure exits non-zero; nothing is caught):
              pool and graphs' pool within the plan (activation +
              speculative bytes); then the wall and busy ms of a verify step
              against a plain step at 8 live.
+  8. int8    weights (QUANTIZE=int8 / int8-outliers / bitsandbytes; plain
+             torch products, no kernel of their own): a 4-layer model at
+             Llama-2-7B widths quantized on the card, through the kernels
+             against the plain versions in bf16 ulps (`model_parity`);
+             activation outliers planted in three features, which
+             calibration on the card (flash prefill) must find exactly,
+             and KL(bf16 || int8-outliers) below KL(bf16 || int8), both
+             printed. Serving run 13: Llama-2-7B at full width and depth,
+             random bf16 weights quantized to int8 on the card, the paged
+             engine, max_seq 8192, driven through generate.v1 over gRPC on
+             a local port (`server/internal_server.py`): a Prefill of 8
+             prompts (64-1024 tokens, one asking for its input tokens and
+             logprobs), NextToken with `completed_ids` deltas, a second
+             Prefill of 4 merged in, PruneBatch, ModelInfo, ClearCache;
+             every NextToken one replay of a captured chunk-1 program (both
+             detail flags); the greedy tokens equal the Batcher's for the
+             same prompts on the same engine; the params' bytes against the
+             bf16 model's, the int8 decode step against the bf16 one at 8
+             live, and the peak less params, pool and graphs' pool against
+             the plan (activation + int8 transient bytes). Then the GPTQ
+             solve (`ops/quant/gptq_quantize.py`) on the card against the
+             CPU at [256, 512], and one 7B linear timed (act-order off and
+             on) with a whole-7B estimate.
 
-Serving runs 1-12 serve through the captured programs: every decode
+Serving runs 1-13 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
 replay of a graph times the launches its capture recorded.
 
@@ -2939,6 +2962,475 @@ def spec_measurement(torch):
     return report, diffs
 
 
+# --- int8 weights, the generate.v1 internal API, the GPTQ solve -------------
+
+# planted residual-stream outliers at 7B width (as the JAX package's
+# tests/test_quant_quality.py plants feature 13 in the embedding): +30 in
+# every token's embedding, which RMSNorm leaves near 37 against ~0.03 for
+# the other features
+HOT_FEATURES = (13, 1000, 2777)
+# the linears that read the normed residual stream: their crossers of the
+# threshold are exactly the planted features
+RESIDUAL_READERS = ("wq", "wk", "wv", "w_gate", "w_up")
+
+
+def int8_parity(torch, counters):
+    """int8 weights at Llama-2-7B widths, 4 layers, quantized on the card
+    (`quantize_layer_params`) from seeded bf16 params: (1) the plain int8
+    model through the kernels against the same model through the plain
+    versions (`model_parity`, in bf16 ulps); (2) a copy with planted
+    activation outliers: calibration on the card (`collect_linear_input_
+    absmax`, its 128-token prompts through flash prefill) must find exactly
+    the planted features in every residual-stream reader, and KL(bf16 ||
+    int8-outliers) must be below KL(bf16 || int8) over a seeded corpus."""
+    from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
+    from text_generation_inference_tpu_torch.ops.quant import calibrate, quality
+    from text_generation_inference_tpu_torch.ops.quant.int8 import (
+        Int8OutlierWeight, Int8Weight, quantize_layer_params)
+
+    spec = llama_spec(LLAMA7B, num_layers=4)
+    params = random_params(torch, spec)
+    sync(torch)
+    t0 = time.monotonic()
+    q8 = quantize_layer_params(params)
+    sync(torch)
+    quant_s = time.monotonic() - t0
+    if not all(isinstance(q8["layers"][k], Int8Weight)
+               for k in ("wq", "wo", "w_gate", "w_down")):
+        raise AssertionError("int8 parity: a layer linear was not quantized")
+    log(f"int8 parity: quantize_layer_params on the card, {spec.num_layers} "
+        f"layers at 7B widths in {quant_s:.2f}s")
+    model_parity(torch, spec, q8, "int8 parity", ulps=FAMILY_ULPS)
+    del q8
+
+    emb = params["embed_tokens"].clone()
+    emb[:, list(HOT_FEATURES)] += 30.0
+    planted = dict(params, embed_tokens=emb)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 14)
+    calib = torch.randint(3, spec.vocab_size, (4, 128), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    before = fp.flash_prefill.launches
+    stats = calibrate.collect_linear_input_absmax(spec, planted, calib)
+    flash = fp.flash_prefill.launches - before
+    if DEVICE == "cuda" and flash != spec.num_layers:
+        raise AssertionError(f"calibration: {flash} flash prefill launches, "
+                             f"not one a layer")
+    hot = sorted(HOT_FEATURES)
+    for k in RESIDUAL_READERS:
+        for li in range(spec.num_layers):
+            crossers = np.flatnonzero(stats[k][li] > 6.0).tolist()
+            if crossers != hot:
+                raise AssertionError(f"calibration {k} layer {li}: features "
+                                     f"past the threshold {crossers}, "
+                                     f"planted {hot}")
+        picked = np.sort(calibrate.pick_outlier_features(stats[k]), axis=1)
+        if picked.tolist() != [hot] * spec.num_layers:
+            raise AssertionError(f"calibration {k}: picked {picked.tolist()}")
+    qo = quantize_layer_params(planted, outlier_stats=stats)
+    if not isinstance(qo["layers"]["wq"], Int8OutlierWeight):
+        raise AssertionError("int8-outliers: wq took no decomposition")
+    k_of = {k: (w.outlier_idx.shape[-1] if isinstance(w, Int8OutlierWeight)
+                else 0) for k, w in qo["layers"].items()
+            if isinstance(w, (Int8Weight, Int8OutlierWeight))}
+    rng = np.random.default_rng(SEED + 14)
+    corpus = [rng.integers(3, spec.vocab_size, size=256).tolist()
+              for _ in range(4)]
+    kl_plain = quality.mean_token_kl(spec, planted,
+                                     quantize_layer_params(planted), corpus)
+    kl_out = quality.mean_token_kl(spec, planted, qo, corpus)
+    log(f"int8 outliers: planted features {hot}, calibration (4 x 128 "
+        f"tokens, {flash} flash prefill launches) found exactly them past "
+        f"6.0 in {', '.join(RESIDUAL_READERS)} of every layer; outlier "
+        f"features per linear {json.dumps(k_of)}; KL(bf16 || int8) "
+        f"{kl_plain:.6g}, KL(bf16 || int8-outliers) {kl_out:.6g} over "
+        f"4 x 256 tokens")
+    if not kl_out < kl_plain:
+        raise AssertionError(f"int8-outliers KL {kl_out} is not below plain "
+                             f"int8's {kl_plain}")
+    return dict(quant_s=quant_s, kl_int8=kl_plain, kl_int8_outliers=kl_out)
+
+
+# run 13: generate.v1 over gRPC on the paged engine, Llama-2-7B int8 weights.
+# (prompt tokens, new tokens) a request; batch 1 is prefilled at once, batch
+# 2 merged in after RUN13_MERGE_AT NextTokens; request 1 asks for its input
+# tokens and logprobs and ends first
+RUN13_BATCH1 = [(64, 12), (200, 30), (350, 20), (512, 36), (640, 24),
+                (777, 32), (900, 16), (1024, 28)]
+RUN13_BATCH2 = [(100, 20), (300, 14), (600, 26), (1000, 18)]
+RUN13_MERGE_AT = 6
+RUN13_PRUNE = 7            # request 7 leaves by PruneBatch, not a delta
+RUN13_OVERRIDES = dict(prefill_buckets=[64, 128, 256, 512, 1024, 2048, 4096,
+                                        8192],
+                       max_prefill_padding=1.0, paged_gather_ctx_max=0)
+RUN13_MAX_SEQ = 8192       # max_prefill_tokens 8192: batch 1 at bucket 1024
+
+
+def run13_requests():
+    """[(request id, prompt text, new tokens)] of both batches; ASCII text
+    the byte tokenizer encodes one token a character."""
+    rng = np.random.default_rng(SEED + 13)
+    out = []
+    for rid, (n, new) in enumerate(RUN13_BATCH1 + RUN13_BATCH2, start=1):
+        text = "".join(chr(c) for c in rng.integers(97, 123, size=n))
+        out.append((rid, text, new))
+    return out[:len(RUN13_BATCH1)], out[len(RUN13_BATCH1):]
+
+
+async def drive_generate_v1(svc, config, batch1, batch2, want_input: int):
+    """The reference router's flow over a real gRPC socket: Prefill batch 1,
+    NextToken with `completed_ids` deltas, Prefill batch 2 and merge it,
+    PruneBatch one request, until every request has its tokens; then
+    ModelInfo and ClearCache. Returns ({request id: tokens}, counts)."""
+    import grpc
+
+    from text_generation_inference_tpu_torch.pb import generate_pb2 as gpb
+    from text_generation_inference_tpu_torch.server.internal_server import (
+        serve_internal_grpc)
+
+    server = await serve_internal_grpc(svc, config)
+    try:
+        async with grpc.aio.insecure_channel(
+                f"127.0.0.1:{config.grpc_port}") as ch:
+            def rpc(name):
+                req = getattr(gpb, f"{name}Request")
+                resp = getattr(gpb, f"{name}Response")
+                return ch.unary_unary(
+                    f"/generate.v1.TextGenerationService/{name}",
+                    request_serializer=req.SerializeToString,
+                    response_deserializer=resp.FromString)
+
+            def request(rid, text, new):
+                details = rid == want_input
+                return gpb.Request(
+                    id=rid, inputs=text, max_output_length=new,
+                    parameters=gpb.NextTokenChooserParameters(
+                        min_new_tokens=new),
+                    details=gpb.RequestedDetails(
+                        input_toks=details, logprobs=details, ranks=details))
+
+            want = {rid: new for rid, _, new in batch1 + batch2}
+            toks = {rid: [] for rid in want}
+            batch_of: dict[int, int] = {}
+            live: set[int] = set()
+            done: set[int] = set()          # finished, not yet reported
+            calls = dict(prefill=0, next_token=0, prune_batch=0)
+
+            def record(result):
+                for t in result.output_tokens:
+                    if len(toks[t.request_id]) < want[t.request_id]:
+                        toks[t.request_id].append(t.token_id)
+                finished = {rid for rid in live
+                            if len(toks[rid]) == want[rid]}
+                live.difference_update(finished)
+                done.update(finished)
+
+            async def prefill(bid, batch):
+                r = await rpc("Prefill")(gpb.PrefillRequest(batch=gpb.Batch(
+                    id=bid, requests=[request(*q) for q in batch])))
+                calls["prefill"] += 1
+                for rid, _, _ in batch:
+                    batch_of[rid] = bid
+                    live.add(rid)
+                record(r.result)
+                return r
+
+            def report(bid):
+                ids = sorted(rid for rid in done if batch_of[rid] == bid)
+                done.difference_update(ids)
+                return gpb.RequestsStatus(completed_ids=ids)
+
+            r = await prefill(1, batch1)
+            it = r.input_tokens[0]
+            if (it.request_id != want_input
+                    or len(it.tokens) != len(batch1[want_input - 1][1])
+                    or not all(math.isfinite(t.logprob) for t in it.tokens)):
+                raise AssertionError(f"run 13: input tokens {it}")
+            cached = {1}
+            while live:
+                if calls["next_token"] == RUN13_MERGE_AT and calls[
+                        "prefill"] == 1:
+                    await prefill(2, batch2)
+                    cached.add(2)
+                if RUN13_PRUNE in done and not calls["prune_batch"]:
+                    bid = batch_of[RUN13_PRUNE]
+                    pr = await rpc("PruneBatch")(gpb.PruneBatchRequest(
+                        batch=gpb.CachedBatch(batch_id=bid,
+                                              status=report(bid))))
+                    calls["prune_batch"] += 1
+                    if not pr.HasField("batch_id"):
+                        cached.discard(bid)
+                if not live:
+                    break
+                batches = [gpb.CachedBatch(batch_id=b, status=report(b))
+                           for b in sorted(cached)]
+                r = await rpc("NextToken")(gpb.NextTokenRequest(
+                    batches=batches))
+                calls["next_token"] += 1
+                merged = r.result.batch_id
+                for rid in live | done:
+                    batch_of[rid] = merged
+                cached = {merged}
+                record(r.result)
+            info = await rpc("ModelInfo")(gpb.ModelInfoRequest())
+            await rpc("ClearCache")(gpb.ClearCacheRequest())
+    finally:
+        await server.stop(grace=1.0)
+    calls["model_info"] = info
+    return toks, calls
+
+
+def run_batcher(torch, engine, config, batches, want_input: int):
+    """The fmaas path on the same engine: the same prompts as the
+    GenRequests the Generate servicer submits, batch 1 as one wave, then
+    batch 2; greedy, min_new_tokens = max_new_tokens. Returns {request id:
+    tokens}."""
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+    from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
+    from text_generation_inference_tpu_torch.scheduler.request import (
+        GenRequest, ResponseOptions, StoppingCriteria)
+
+    tokenizer = ByteTokenizer()
+
+    def wave(batch):
+        return [(rid, GenRequest(
+            input_text=text, input_ids=tokenizer.encode(text),
+            params=RequestParams(max_new_tokens=new, min_new_tokens=new),
+            stopping=StoppingCriteria(max_new_tokens=new, min_new_tokens=new),
+            options=ResponseOptions(input_tokens=rid == want_input,
+                                    token_logprobs=rid == want_input,
+                                    token_ranks=rid == want_input)))
+            for rid, text, new in batch]
+
+    async def drive():
+        batcher = Batcher(engine, tokenizer, config)
+        batcher.start()
+        try:
+            out = {}
+            for batch in batches:
+                reqs = wave(batch)
+                await run_wave(batcher, [r for _, r in reqs])
+                out.update((rid, [rec.token_id for rec in r.generated])
+                           for rid, r in reqs)
+            return out
+        finally:
+            await batcher.stop()
+
+    return asyncio.run(drive())
+
+
+def serve_internal(torch, counters, card):
+    """Run 13: Llama-2-7B widths at full depth, random bf16 weights made
+    on the card and quantized there to int8 (`QUANTIZE=int8`), on the paged
+    engine with its decode captured as CUDA graphs, served through
+    generate.v1 over gRPC on a local port (`drive_generate_v1`): every
+    NextToken one replay of a captured chunk-1 program, for both detail
+    flags. Checks: the greedy tokens equal the Batcher's (the fmaas path)
+    for the same prompts on the same engine after its slots are cleared;
+    the peak of allocated memory less params, pool and the graphs' pool
+    within the plan's activation and int8 transient bytes. Times the int8
+    decode step against the bf16 model's at 8 live requests."""
+    import dataclasses
+    import gc
+    import socket
+
+    from text_generation_inference_tpu_torch.engine.memory import tree_bytes
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.ops.quant.int8 import (
+        Int8Weight, quantize_layer_params)
+    from text_generation_inference_tpu_torch.server.internal_server import (
+        InternalTextGenerationService)
+
+    spec = llama_spec(LLAMA7B)
+    # fused as the engine fuses them: no unfused copy stays resident
+    params = fuse_params(spec, random_params(torch, spec))
+    bf16_bytes = tree_bytes(params)
+    engine, _ = make_engine(torch, spec, params, RUN13_MAX_SEQ,
+                            RUN13_OVERRIDES)
+    engine.warmup(batch_sizes=(1,))
+    step_bf16 = time_decode(torch, engine, "7b bf16 paged (run 13's model "
+                            "before quantization)", live=8, calls=16)
+    # free the bf16 engine's pool before the int8 codes are allocated, or
+    # they land in its cached segment and the int8 engine's pool cannot
+    del engine
+    gc.collect()
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    q8 = quantize_layer_params(params)
+    sync(torch)
+    quant_s = time.monotonic() - t0
+    del params
+    if not isinstance(q8["layers"]["w_gu"], Int8Weight):
+        raise AssertionError("run 13: w_gu was not quantized")
+    int8_bytes = tree_bytes(q8)
+    engine, config = make_engine(torch, spec, q8, RUN13_MAX_SEQ,
+                                 RUN13_OVERRIDES)
+    t0 = time.monotonic()
+    engine.warmup(batch_sizes=(1,))
+    warmup_s = time.monotonic() - t0
+    progs = engine.programs
+    keys = set(progs.programs)
+    chunk1 = {k for k in keys if k[2] == 1}
+    if DEVICE == "cuda" and ({k[0] for k in chunk1} != {False, True}
+                             or not all(progs.get(k).graph is not None
+                                        for k in keys)):
+        raise AssertionError(f"run 13: warmup captured {sorted(keys)}")
+    begin = engine.decode_steps_begin
+
+    def counted_begin(*args, **kw):
+        counted_begin.calls += 1
+        return begin(*args, **kw)
+
+    counted_begin.calls = 0
+    engine.decode_steps_begin = counted_begin
+    replays0 = {k: p.replays for k, p in progs.programs.items()}
+    batch1, batch2 = run13_requests()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    served = dataclasses.replace(config, grpc_port=port, uds_path=None)
+    svc = InternalTextGenerationService(engine, ByteTokenizer(), served)
+    for c in counters.values():
+        c.reset()
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    toks, calls = asyncio.run(drive_generate_v1(svc, served, batch1, batch2,
+                                                want_input=1))
+    sync(torch)
+    wall = time.monotonic() - t0
+    counts = {k: c.read() for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
+    if engine.num_active:
+        raise AssertionError("run 13: ClearCache left requests in flight")
+    replayed = {k: p.replays - replays0.get(k, 0)
+                for k, p in progs.programs.items()
+                if p.replays > replays0.get(k, 0)}
+    if set(progs.programs) != keys or counted_begin.calls != calls[
+            "next_token"] or sum(replayed.values()) != calls["next_token"]:
+        raise AssertionError(f"run 13: {calls['next_token']} NextTokens, "
+                             f"{counted_begin.calls} dispatches, replays "
+                             f"{replayed}")
+    if {k[0] for k in replayed} != {False, True} or any(
+            k[2] != 1 for k in replayed):
+        raise AssertionError(f"run 13: replayed {replayed}")
+    for key in ("flash_prefill", "paged_decode_attention"):
+        if DEVICE == "cuda" and counts[key] <= 0:
+            raise AssertionError(f"{key} never ran in serving run 13: {counts}")
+    want = {rid: new for rid, _, new in batch1 + batch2}
+    if {rid: len(t) for rid, t in toks.items()} != want:
+        raise AssertionError(f"run 13: token counts {toks}")
+    info = calls.pop("model_info")
+    kv = spec.num_layers * 2 * spec.num_kv_heads * spec.head_dim * 2
+    if (info.memory_scaling_model.nexttoken_linear_coef0 != kv
+            or info.eos_token != ByteTokenizer.eos_token_id):
+        raise AssertionError(f"run 13: ModelInfo {info}")
+    plan = engine.memory_plan
+    params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
+    graphs_b = progs.pool_bytes() or 0
+    transient = peak - params_b - pool_b - graphs_b
+    planned = plan.activation_bytes + plan.quant_bytes
+    gib = 2 ** 30
+    log(f"serve[run 13, generate.v1] {card}: {spec.num_layers} layers at "
+        f"7B widths, int8 weights quantized on the card in {quant_s:.1f}s "
+        f"(params {int8_bytes / gib:.2f} GiB against the bf16 model's "
+        f"{bf16_bytes / gib:.2f} GiB); warmup {warmup_s:.1f}s, "
+        f"{len(keys)} programs; {len(toks)} requests over gRPC on "
+        f"127.0.0.1:{port} in {wall:.2f}s: {calls} calls, each NextToken "
+        f"one replay ({json.dumps({str(k): v for k, v in replayed.items()})}); "
+        f"ModelInfo kv/token {kv}, weight_limit "
+        f"{info.memory_scaling_model.weight_limit}; launches {counts}")
+    log(f"serve[run 13] memory: plan {plan.describe()}; peak allocated "
+        f"{peak / gib:.2f} GiB = params {params_b / gib:.2f} + pool "
+        f"{pool_b / gib:.2f} + graphs' pool {graphs_b / gib:.3f} + transient "
+        f"{transient / gib:.3f} GiB against the plan's activation + int8 "
+        f"transient bytes {planned / gib:.3f} GiB")
+    if DEVICE == "cuda" and transient > planned:
+        raise AssertionError(f"run 13: transient {transient} exceeds the "
+                             f"plan's {planned} bytes")
+    # the fmaas path on the same engine, its slots cleared in place
+    engine._clear_slots()
+    engine.decode_steps_begin = begin
+    fmaas = run_batcher(torch, engine, config, (batch1, batch2), want_input=1)
+    diff = {rid: (toks[rid], fmaas[rid]) for rid in want
+            if toks[rid] != fmaas[rid]}
+    if diff:
+        raise AssertionError(f"run 13: generate.v1 and the Batcher differ: "
+                             f"{diff}")
+    step_int8 = time_decode(torch, engine, "7b int8 paged (run 13)", live=8,
+                            calls=16)
+    ratio = step_int8["wall_ms"] / step_bf16["wall_ms"]
+    log(f"run 13: greedy tokens of all {len(want)} requests equal the "
+        f"Batcher's ({sum(want.values())} tokens); int8 decode step "
+        f"{step_int8['wall_ms']:.3f} ms (busy {step_int8['busy_ms']:.3f}) "
+        f"against bf16 {step_bf16['wall_ms']:.3f} ms (busy "
+        f"{step_bf16['busy_ms']:.3f}) at 8 live: {ratio:.2f}x on {card}")
+    del engine
+    counts.update(int8_step_ms=step_int8["wall_ms"],
+                  bf16_step_ms=step_bf16["wall_ms"],
+                  int8_params_bytes=int8_bytes, bf16_params_bytes=bf16_bytes,
+                  transient_bytes=transient, planned_bytes=planned)
+    return counts
+
+
+def gptq_solve(torch, card):
+    """The GPTQ solve on the card (`gptq_quantize_weight`, float64): at
+    [256, 512] against the same call on the CPU (codes equal in at least
+    99.9% of entries and never more than one apart, scales within 1e-5
+    relative, g_idx identical), then one 7B linear (4096 x 4096, the
+    Hessian from 2048 random rows) timed with act-order off and on, and an
+    estimate for a whole 7B model's solves."""
+    from text_generation_inference_tpu_torch.ops.quant import int4
+    from text_generation_inference_tpu_torch.ops.quant.gptq_quantize import (
+        gptq_quantize_weight)
+
+    rng = np.random.default_rng(SEED + 15)
+    w = rng.normal(size=(256, 512)).astype(np.float32)
+    x = rng.normal(size=(1024, 512)).astype(np.float32)
+    h = 2.0 * (x.T @ x)
+    for act_order in (False, True):
+        got = gptq_quantize_weight(w, h, act_order=act_order, device=DEVICE)
+        want = gptq_quantize_weight(w, h, act_order=act_order, device="cpu")
+        qg, qw = (int4.unpack_rows(t[0].cpu()) for t in (got, want))
+        same = (qg == qw).float().mean().item()
+        far = (qg - qw).abs().max().item()
+        scale_err = ((got[2].cpu() - want[2]).abs() / want[2].abs()).max().item()
+        if same < 0.999 or far > 1 or scale_err > 1e-5 \
+                or not torch.equal(got[3].cpu(), want[3]):
+            raise AssertionError(f"gptq solve (act_order={act_order}): codes "
+                                 f"equal {same}, max diff {far}, scales "
+                                 f"{scale_err}")
+        log(f"gptq solve [256, 512] act_order={act_order}: {DEVICE} against "
+            f"the CPU: codes equal {same:.6f}, max diff {far}, scales max "
+            f"rel err {scale_err:.2e}, g_idx identical")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    w7 = torch.randn(4096, 4096, generator=gen, device=DEVICE) / 64
+    x7 = torch.randn(2048, 4096, generator=gen, device=DEVICE)
+    h7 = 2.0 * (x7.T @ x7)
+    times = {}
+    for act_order in (False, True):
+        sync(torch)
+        t0 = time.monotonic()
+        out = gptq_quantize_weight(w7, h7, act_order=act_order, device=DEVICE)
+        sync(torch)
+        times[act_order] = time.monotonic() - t0
+        if out[0].shape != (512, 4096):
+            raise AssertionError(f"gptq solve: qweight {out[0].shape}")
+    # a 7B layer solves six linears of 4096 inputs (q, k, v, o, gate, up)
+    # and one of 11008 (down); the column loop is the cost, so a solve
+    # scales with its inputs
+    per_layer = 6 + 11008 / 4096
+    estimate = {ao: 32 * per_layer * t for ao, t in times.items()}
+    log(f"gptq solve 4096 x 4096 (H from 2048 rows) on {card}: act_order "
+        f"off {times[False]:.3f}s, on {times[True]:.3f}s; a 7B model's 224 "
+        f"solves at about {estimate[False]:.0f}s / {estimate[True]:.0f}s "
+        f"(32 layers x {per_layer:.2f} solves of 4096 inputs; the Hessians "
+        f"not included)")
+    return dict(solve_s=times[False], solve_act_order_s=times[True],
+                estimate_7b_s=estimate[False],
+                estimate_7b_act_order_s=estimate[True])
+
+
 def kv_bytes(engine) -> int:
     """Bytes of an engine's KV cache or page pool (scale pools and the
     block table included)."""
@@ -3447,8 +3939,20 @@ def main() -> int:
     del params7b
     mark("serving run 12")
 
+    # int8 weights: parity, calibration and the outlier decomposition at 7B
+    # widths; run 13 through generate.v1 over gRPC; the GPTQ solve
+    int8_report = int8_parity(torch, counters)
+    mark("int8 parity")
+    if not with_grpc:
+        raise AssertionError("run 13 serves generate.v1 over gRPC: grpc is "
+                             "not installed")
+    run13 = serve_internal(torch, counters, card)
+    mark("serving run 13")
+    gptq_report = gptq_solve(torch, card)
+    mark("gptq solve")
+
     runs = (run1, run2, run3, run4, run5, run6, run7, run8, run9, run10,
-            *run11.values(), probe_counts, run12, gptq_verify)
+            *run11.values(), probe_counts, run12, gptq_verify, run13)
 
     def record(name, source, replaces, res, shapes):
         out = {"name": name, "route": "cuda",
@@ -3603,6 +4107,9 @@ def main() -> int:
     log(f"F4: run 8 transient {run8['transient_bytes']} of "
         f"{run8['activation_bytes']} planned bytes; run 10 "
         f"{run10['transient_bytes']} of {run10['activation_bytes']}")
+    log(f"int8: {json.dumps(int8_report)}; run 13 "
+        f"{json.dumps({k: v for k, v in run13.items() if v})}; gptq solve "
+        f"{json.dumps(gptq_report)} on {card}")
     log(f"speculative: run 12 {json.dumps({k: v for k, v in run12.items() if v})}; "
         f"the GPTQ verify's launches {json.dumps({k: v for k, v in gptq_verify.items() if v})}; "
         f"the distilled measurement {json.dumps(spec_report)}")
@@ -3612,8 +4119,8 @@ def main() -> int:
         "run 8, flash_prefill_window and decode_attention_window in run 7, "
         "paged_decode_attention_d96 in the family parity phase (gpt_neox), "
         "the _alibi rows in run 10 (decode_attention_alibi: the family "
-        "parity phase's BLOOM slot case), the _mqa rows in run 9; run 12 and "
-        "the GPTQ verify call count in the first rows")
+        "parity phase's BLOOM slot case), the _mqa rows in run 9; runs 12 "
+        "and 13 and the GPTQ verify count in the first rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1810,3 +1810,175 @@ def test_speculative_verify_matches_decode(cuda_device, slot):
     for j in range(4):
         err = (got[:, j] - want[j]).abs().max().item()
         assert err <= tol, (j, err, tol)
+
+
+# --- int8 weights, the generate.v1 internal API, the GPTQ solve ------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outliers", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_int8_weights_product_on_the_card(cuda_device, dtype, outliers):
+    """The int8 products on the card (a bf16 copy of the codes, the f32
+    accumulator from `torch.mm(..., out_dtype=float32)`) against the same
+    product on the CPU (f32 copies of the bf16 operands): the same f32
+    sums in another order, so one ulp of x's dtype of the largest output
+    (1e-5 relative for fp32 x)."""
+    from text_generation_inference_tpu_torch.ops.quant import int8
+
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy(rng.normal(size=(2, 512, 384)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(17, 512)).astype(np.float32))
+    x[:, 3] *= 20.0
+    if outliers:
+        q = int8.quantize_int8_outliers(
+            w, np.array([[3, 9, 70], [3, 1, 2]], np.int32))
+        fn = int8.matmul_int8_outliers
+    else:
+        q, fn = int8.quantize_int8(w), int8.matmul_int8
+    layer = type(q)(*(f[1] for f in q))
+    want = fn(x.to(dtype), layer)
+    got = fn(x.to(cuda_device, dtype),
+             type(q)(*(f.to(cuda_device) for f in layer)))
+    assert got.dtype == dtype and got.is_cuda
+    tol = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11,
+           torch.float32: 1e-5}[dtype]
+    scale = want.float().abs().max().item()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol,
+                               atol=tol * scale)
+    # the stack quantizes on the card to the same codes as on the CPU
+    on_card = (int8.quantize_int8_outliers(
+        w.to(cuda_device), q.outlier_idx.to(cuda_device)) if outliers
+        else int8.quantize_int8(w.to(cuda_device)))
+    assert torch.equal(on_card.q.cpu(), q.q)
+
+
+def int8_graph_engine(device, kind, eager=False):
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.engine import (
+        InferenceEngine)
+    from text_generation_inference_tpu_torch.engine.paged_engine import (
+        PagedInferenceEngine)
+    from text_generation_inference_tpu_torch.ops.quant.int8 import (
+        quantize_layer_params)
+
+    spec, params = graph_params(device, gptq=False)
+    params = quantize_layer_params(params)
+    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
+                           max_batch_slots=6, prefill_buckets=[16, 64, 256],
+                           kv_page_size=16)
+    config.validate()
+    if kind == "slot":
+        return InferenceEngine(spec, params, config, eos_token_id=2,
+                               device=device, eager_decode=eager)
+    return PagedInferenceEngine(spec, params, config, eos_token_id=2,
+                                num_pages=6 * 32, device=device,
+                                eager_decode=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "slot"])
+def test_int8_weights_graphs_replay_equals_eager(cuda_device, kind):
+    """An int8-weight model's decode dispatches replay captured graphs (the
+    bf16 copy of the codes is made inside the graph, from the graphs'
+    pool) and equal the eager steps bit for bit."""
+    from text_generation_inference_tpu_torch.engine.memory import (
+        quant_transient_bytes)
+    from text_generation_inference_tpu_torch.ops.quant.int8 import Int8Weight
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = int8_graph_engine(cuda_device, kind)
+    eager = int8_graph_engine(cuda_device, kind, eager=True)
+    assert isinstance(engine.model_params["layers"]["w_qkv"], Int8Weight)
+    # the largest linear's bf16 copy: the fused w_gu [256, 1024]
+    assert quant_transient_bytes(engine.model_params,
+                                 engine.config) == 256 * 1024 * 2
+    seen = decode_replay.lockstep(engine, eager, vocab=512)
+    torch.cuda.synchronize()
+    progs = engine.programs.programs.values()
+    assert all(p.graph is not None for p in progs)
+    assert sum(p.replays for p in progs) == seen["dispatches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["paged", "slot"])
+def test_internal_api_next_token_replays_a_captured_program(cuda_device,
+                                                            kind):
+    """generate.v1 on the card: NextToken's single step replays the
+    engine's captured (want_details, bucket, 1) program, for both detail
+    flags, and runs no step eagerly."""
+    import asyncio
+
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.pb import generate_pb2 as gpb
+    from text_generation_inference_tpu_torch.server.internal_server import (
+        InternalTextGenerationService)
+
+    class Tok:
+        def encode(self, text):
+            return [3 + (ord(c) % 200) for c in text]
+
+    class Ctx:
+        async def abort(self, code, details):
+            raise RuntimeError(details)
+
+    engine = int8_graph_engine(cuda_device, kind)
+    engine.warmup()
+    keys = set(engine.programs.programs)
+    assert {(d, 1) for d, _, c in keys if c == 1} == {(False, 1), (True, 1)}
+    svc = InternalTextGenerationService(engine, Tok(), ServingConfig())
+
+    def req(rid, details):
+        return gpb.Request(
+            id=rid, inputs="hello world " * rid, max_output_length=20,
+            parameters=gpb.NextTokenChooserParameters(),
+            details=gpb.RequestedDetails(logprobs=details, ranks=details))
+
+    async def go():
+        await svc.Prefill(gpb.PrefillRequest(batch=gpb.Batch(
+            id=1, requests=[req(1, True), req(2, False)])), Ctx())
+        out = []
+        for done in ([], [], [1], []):
+            r = await svc.NextToken(gpb.NextTokenRequest(batches=[
+                gpb.CachedBatch(batch_id=1, status=gpb.RequestsStatus(
+                    completed_ids=done))]), Ctx())
+            out.append(r)
+        return out
+
+    before = {k: p.replays for k, p in engine.programs.programs.items()}
+    out = asyncio.run(go())
+    assert set(engine.programs.programs) == keys       # nothing new made
+    replayed = {k for k, p in engine.programs.programs.items()
+                if p.replays > before[k]}
+    assert {k[0] for k in replayed} == {False, True}
+    assert all(k[2] == 1 and engine.programs.get(k).graph is not None
+               for k in replayed)
+    assert out[0].result.output_tokens[0].logprob < 0
+    assert [t.request_id for t in out[-1].result.output_tokens] == [2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_order", [False, True])
+def test_gptq_solve_on_the_card(cuda_device, act_order):
+    """The GPTQ solve in float64 on the card against the same call on the
+    CPU: codes equal in at least 99.9% of entries and never more than one
+    apart, scales within 1e-5 relative, g_idx identical."""
+    from text_generation_inference_tpu_torch.ops.quant.gptq_quantize import (
+        gptq_quantize_weight)
+
+    rng = np.random.default_rng(12)
+    w = rng.normal(size=(256, 512)).astype(np.float32)
+    x = rng.normal(size=(1024, 512)).astype(np.float32)
+    h = 2.0 * (x.T @ x)
+    got = gptq_quantize_weight(w, h, groupsize=128, act_order=act_order)
+    want = gptq_quantize_weight(w, h, groupsize=128, act_order=act_order,
+                                device="cpu")
+    assert all(t.is_cuda for t in got)
+    qg, qw = (int4.unpack_rows(t[0].cpu()) for t in (got, want))
+    assert (qg == qw).float().mean() >= 0.999
+    assert (qg - qw).abs().max() <= 1
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(),
+                               rtol=1e-5, atol=0)
+    assert torch.equal(got[3].cpu(), want[3])

@@ -262,7 +262,8 @@ def mini_gptq(tmp_path_factory):
 
 def test_gptq_loader_matches_jax_loader(mini_gptq):
     """Mirrors tests/test_gptq.py: quantize="gptq" loads a GPTQ checkpoint,
-    fails on a dense one; other modes are not ported."""
+    fails on a dense one; quantize="int8" on a GPTQ checkpoint leaves its
+    Int4Weights as they are (only tensor leaves quantize), as in JAX."""
     tspec, tparams = families.load_model(mini_gptq, dtype=torch.float32,
                                          quantize="gptq", device="cpu")
     jspec, jparams = jfamilies.load_model(mini_gptq, dtype=jnp.float32,
@@ -277,6 +278,21 @@ def test_gptq_loader_matches_jax_loader(mini_gptq):
     with pytest.raises(ValueError, match="no GPTQ tensors"):
         families.load_model(fixtures.tiny_llama(), dtype=torch.float32,
                             quantize="gptq", device="cpu")
-    with pytest.raises(NotImplementedError):
-        families.load_model(mini_gptq, dtype=torch.float32, quantize="int8",
-                            device="cpu")
+    _, t8params = families.load_model(mini_gptq, dtype=torch.float32,
+                                      quantize="int8", device="cpu")
+    _, j8params = jfamilies.load_model(mini_gptq, dtype=jnp.float32,
+                                       quantize="int8")
+    assert set(t8params["layers"]) == set(j8params["layers"])
+    for key, tw in t8params["layers"].items():
+        jw = j8params["layers"][key]
+        if isinstance(jw, jint4.Int4Weight):
+            assert isinstance(tw, int4.Int4Weight), key
+            for f in ("qweight", "qzeros", "scales", "g_idx", "zbias"):
+                np.testing.assert_array_equal(getattr(tw, f).numpy(),
+                                              np.asarray(getattr(jw, f)))
+        elif key in ("ln1", "ln2"):
+            np.testing.assert_array_equal(tw["scale"].numpy(),
+                                          np.asarray(jw["scale"]))
+        else:
+            assert isinstance(tw, torch.Tensor), key
+            np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))

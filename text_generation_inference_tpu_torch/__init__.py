@@ -6,11 +6,13 @@ reference) so each counterpart sits at the same relative
 path. The port imports `torch` and never `jax`, and nothing of the JAX
 package: it keeps its own copies of the host-side modules.
 
-  server/     gRPC + HTTP front-end, request validation
+  server/     gRPC (fmaas, and generate.v1 under INTERNAL_API) + HTTP
+              front-end, request validation
   scheduler/  continuous-batching queue and batcher loop
   engine/     paged inference engine, paged KV pool, sampling
   models/     the RoPE decoders (`core.py`, `paged_core.py`), loader
-  ops/        attention dispatch, linear layers, CUDA kernel wrappers
+  ops/        attention dispatch, linear layers (dense, GPTQ-INT4, int8),
+              quantization and calibration tools, CUDA kernel wrappers
   csrc/       hand-written CUDA C++ kernels for sm_90a
   utils/      detokenizer, tokenizer, metrics, tracing, weights loader
 

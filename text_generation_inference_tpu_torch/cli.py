@@ -1,13 +1,21 @@
-"""Command-line interface of the PyTorch port: `serve` (the other verbs of
-the JAX package's CLI are later slices).
+"""Command-line interface of the PyTorch port (the JAX package's verbs
+but `download-weights`, which only fetches from the hub):
 
     python -m text_generation_inference_tpu_torch.cli serve MODEL_DIR [--device cuda]
+    python -m text_generation_inference_tpu_torch.cli quantize MODEL_DIR OUT_DIR [--device cuda]
+    python -m text_generation_inference_tpu_torch.cli convert-to-safetensors MODEL_DIR
+    python -m text_generation_inference_tpu_torch.cli convert-to-fast-tokenizer MODEL_DIR
+
+`quantize` (GPTQ, `ops/quant/gptq_quantize.py`) and
+`convert-to-fast-tokenizer` import `transformers`; `quantize` runs the
+model on the CPU and each linear's solve on `--device`.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 
 def cmd_serve(args) -> None:
@@ -27,6 +35,56 @@ def cmd_serve(args) -> None:
     serve(config, device=args.device)
 
 
+def cmd_convert_to_safetensors(args) -> None:
+    """Convert torch .bin checkpoints to safetensors, keeping the first name
+    of tensors that share storage (reference: server/.../utils/convert.py:
+    13-60)."""
+    import torch
+    from safetensors.torch import save_file
+
+    model_dir = Path(args.model_path)
+    bins = sorted(model_dir.glob("pytorch_model*.bin"))
+    if not bins:
+        sys.exit(f"no pytorch_model*.bin files in {model_dir}")
+    for b in bins:
+        state = torch.load(b, map_location="cpu", weights_only=True)
+        seen: dict[int, str] = {}
+        out = {}
+        for name, tensor in state.items():
+            ptr = tensor.data_ptr()
+            if ptr in seen and tensor.numel() > 0:
+                continue
+            seen[ptr] = name
+            out[name] = tensor.contiguous()
+        target = b.with_name(b.name.replace("pytorch_model", "model")
+                             .replace(".bin", ".safetensors"))
+        save_file(out, target)
+        print(f"wrote {target}")
+
+
+def cmd_convert_to_fast_tokenizer(args) -> None:
+    from transformers import AutoTokenizer
+
+    tok = AutoTokenizer.from_pretrained(args.model_path, use_fast=True)
+    out = Path(args.output_path or args.model_path)
+    tok.save_pretrained(out)
+    print(f"wrote fast tokenizer to {out}")
+
+
+def cmd_quantize(args) -> None:
+    from .ops.quant.gptq_quantize import quantize_model
+
+    quantize_model(
+        model_path=args.model_path,
+        output_dir=args.output_dir,
+        bits=args.bits,
+        groupsize=args.groupsize,
+        calibration=args.dataset,
+        num_samples=args.num_samples,
+        device=args.device,
+    )
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="text-generation-server-torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -41,6 +99,27 @@ def main(argv=None) -> None:
     s.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: cuda)")
     s.set_defaults(fn=cmd_serve)
+
+    c = sub.add_parser("convert-to-safetensors",
+                       help="convert .bin checkpoints to .safetensors")
+    c.add_argument("model_path")
+    c.set_defaults(fn=cmd_convert_to_safetensors)
+
+    t = sub.add_parser("convert-to-fast-tokenizer")
+    t.add_argument("model_path")
+    t.add_argument("--output-path", default=None)
+    t.set_defaults(fn=cmd_convert_to_fast_tokenizer)
+
+    q = sub.add_parser("quantize", help="GPTQ-quantize a model offline")
+    q.add_argument("model_path")
+    q.add_argument("output_dir")
+    q.add_argument("--bits", type=int, default=4)
+    q.add_argument("--groupsize", type=int, default=128)
+    q.add_argument("--dataset", default="wikitext2")
+    q.add_argument("--num-samples", type=int, default=128)
+    q.add_argument("--device", default="cuda",
+                   help="torch device for the GPTQ solve (default: cuda)")
+    q.set_defaults(fn=cmd_quantize)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -9,7 +9,9 @@ capacity is arithmetic, not measurement). Both set aside
 `activation_bytes`, the prefill working set of one dispatch, and a
 speculative engine also `speculative_bytes`, its speculator's weights and
 the working set of one verify step (the paged engine reserves it where it
-reserves the dense-gather rows).
+reserves the dense-gather rows). Int8 weights add `quant_transient_bytes`:
+the port converts a layer's int8 codes to a bf16 copy for each product,
+which XLA never materializes (it converts on read).
 
 ESTIMATE_MEMORY=off disables the slot engine's slot shrinking (reference
 env contract).
@@ -25,6 +27,7 @@ import torch
 
 from ..config import ServingConfig
 from ..models.core import DecoderSpec
+from ..ops.quant.int8 import Int8OutlierWeight, Int8Weight
 from .sampling import DETAILS_ROWS
 
 logger = logging.getLogger(__name__)
@@ -110,6 +113,27 @@ def activation_bytes(spec: DecoderSpec, config: ServingConfig) -> int:
     return act
 
 
+def quant_transient_bytes(params: dict, config: ServingConfig) -> int:
+    """What the largest int8 product of a dispatch holds beside the
+    activations: the bf16 copy of one layer's codes that `quant.int8`
+    converts for the product (in * out * 2), and for an outlier weight the
+    gather of its K outlier features over `max_prefill_tokens` rows (in x's
+    dtype and its bf16 cast) and that product's f32 term [T, out]. 0 for a
+    model without int8 weights."""
+    t = config.max_prefill_tokens
+    x_item = params["embed_tokens"].element_size()
+    need = 0
+    for w in params.get("layers", {}).values():
+        if not isinstance(w, (Int8Weight, Int8OutlierWeight)):
+            continue
+        b = w.in_features * w.out_features * 2
+        if isinstance(w, Int8OutlierWeight):
+            b += (t * w.outlier_idx.shape[-1] * (x_item + 2)
+                  + t * w.out_features * 4)
+        need = max(need, b)
+    return need
+
+
 @dataclasses.dataclass
 class MemoryPlan:
     param_bytes: int
@@ -122,6 +146,8 @@ class MemoryPlan:
     pool_bytes: int | None = None   # the paged engine's page pool
     # a speculative engine's speculator weights and verify working set
     speculative_bytes: int = 0
+    # the largest int8 product's transient (`quant_transient_bytes`)
+    quant_bytes: int = 0
 
     def describe(self) -> str:
         gb = 1024 ** 3
@@ -130,8 +156,10 @@ class MemoryPlan:
               f"GiB x {self.max_slots}")
         spec = (f" + speculative {self.speculative_bytes / gb:.2f}GiB"
                 if self.speculative_bytes else "")
+        quant = (f" + int8 transient {self.quant_bytes / gb:.2f}GiB"
+                 if self.quant_bytes else "")
         return (f"params {self.param_bytes / gb:.2f}GiB + {kv} + act "
-                f"{self.activation_bytes / gb:.2f}GiB{spec} of "
+                f"{self.activation_bytes / gb:.2f}GiB{spec}{quant} of "
                 f"{self.hbm_bytes / gb:.1f}GiB")
 
 
@@ -180,16 +208,18 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
                 spec_bytes: int = 0) -> MemoryPlan:
     """The slot engine's memory plan: unless ESTIMATE_MEMORY=off, shrink
     `config.max_batch_slots` in place to the slots whose full-length KV
-    cache fits beside the weights, the prefill working set, the slot state
-    and `spec_bytes` (a speculative engine's `speculative_bytes`), with the
-    configured safety margin (reference default 20%, cli.py:28). An int8
-    cache counts its scale bytes."""
+    cache fits beside the weights, the prefill working set, the slot state,
+    `spec_bytes` (a speculative engine's `speculative_bytes`) and the int8
+    product's transient (`quant_transient_bytes`), with the configured
+    safety margin (reference default 20%, cli.py:28). An int8 cache counts
+    its scale bytes."""
     param_bytes = tree_bytes(params)
     kv_per_slot = config.max_sequence_length * kv_row_bytes(spec, cache_dtype)
     act = activation_bytes(spec, config)
+    quant = quant_transient_bytes(params, config)
     state = config.max_batch_slots * config.max_sequence_length * 4 * 4
     usable = int(hbm_bytes * (1.0 - config.batch_safety_margin)) \
-        - param_bytes - act - state - spec_bytes
+        - param_bytes - act - state - spec_bytes - quant
     max_slots = config.max_batch_slots
     if os.getenv("ESTIMATE_MEMORY", "auto").lower() != "off":
         fit = max(1, usable // max(kv_per_slot, 1))
@@ -201,6 +231,7 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
     plan = MemoryPlan(param_bytes=param_bytes, kv_bytes_per_slot=kv_per_slot,
                       state_bytes=state, activation_bytes=act,
                       hbm_bytes=hbm_bytes, usable_bytes=max(usable, 0),
-                      max_slots=max_slots, speculative_bytes=spec_bytes)
+                      max_slots=max_slots, speculative_bytes=spec_bytes,
+                      quant_bytes=quant)
     logger.info("memory plan: %s", plan.describe())
     return plan

@@ -48,7 +48,7 @@ from .engine import (EngineState, PrefillResult, RequestParams,
                      SlotBatchEngine, _finish_prefill, _last_ids,
                      _sample_step, check_decode_config, fused_mlp_option)
 from .memory import (MemoryPlan, activation_bytes, budget_bytes, kv_row_bytes,
-                     tree_bytes)
+                     quant_transient_bytes, tree_bytes)
 from .paged_cache import PageAllocator, PagedKVCache
 
 logger = logging.getLogger(__name__)
@@ -322,8 +322,9 @@ class PagedInferenceEngine(SlotBatchEngine):
         gather_rows = min(self.config.paged_gather_ctx_max, self.max_seq)
         gather_b = self.num_slots * gather_rows * row_b
         spec_b = self._speculative_bytes()
+        quant_b = quant_transient_bytes(self.model_params, self.config)
         usable = int(hbm * (1 - self.config.batch_safety_margin)) \
-            - params_b - act - gather_b - spec_b
+            - params_b - act - gather_b - spec_b - quant_b
         pages = max(usable // bytes_per_page, self.num_slots * 2)
         # at least enough for one max-length sequence...
         pages = max(pages, -(-self.max_seq // self.page_size))
@@ -338,7 +339,7 @@ class PagedInferenceEngine(SlotBatchEngine):
             state_bytes=self.num_slots * self.max_seq * 4 * 4,
             activation_bytes=act, hbm_bytes=hbm, usable_bytes=max(usable, 0),
             max_slots=self.num_slots, pool_bytes=int(pages) * bytes_per_page,
-            speculative_bytes=spec_b)
+            speculative_bytes=spec_b, quant_bytes=quant_b)
         logger.info("memory plan: %s", self.memory_plan.describe())
         return int(pages)
 

@@ -12,7 +12,9 @@ and `t5_params_from_jax` do the same for a speculator's and a T5 model's.
 A JAX `Int4Weight` arrives as a NamedTuple whose leaves are numpy arrays
 or None; it is recognised and converted by its field names (nothing of the
 JAX package is imported). Its TPU-only layouts (`q4`, `qlane`, blocked
-scales) are not carried: a weight that holds only those raises.
+scales) are not carried: a weight that holds only those raises. A JAX
+`Int8Weight` / `Int8OutlierWeight` is recognised by its fields the same
+way and carried field by field (`int8_from_jax`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.quant.int4 import Int4Weight
+from ..ops.quant.int8 import Int8OutlierWeight, Int8Weight
 from .core import DecoderSpec
 from .t5 import T5Spec
 
@@ -48,14 +51,26 @@ def int4_from_jax(w, device=None) -> Int4Weight:
                          for f in Int4Weight._fields})
 
 
+def int8_from_jax(w, device=None):
+    """A JAX Int8Weight / Int8OutlierWeight (numpy leaves) → the port's, by
+    field name."""
+    device = resolve_device(device)
+    cls = (Int8OutlierWeight if "outlier_idx" in getattr(w, "_fields", ())
+           else Int8Weight)
+    return cls(**{f: _tensor(getattr(w, f), device) for f in cls._fields})
+
+
 def _out_features(w) -> int:
-    return w.out_features if isinstance(w, Int4Weight) else w.shape[-1]
+    return (w.out_features
+            if isinstance(w, (Int4Weight, Int8Weight, Int8OutlierWeight))
+            else w.shape[-1])
 
 
 def params_from_jax(spec: DecoderSpec, params_np: dict,
                     device=None) -> dict:
-    """Nested dict of numpy arrays (and Int4Weight tuples) → nested dict of
-    torch tensors (and the port's Int4Weight)."""
+    """Nested dict of numpy arrays (and Int4Weight / Int8Weight /
+    Int8OutlierWeight tuples) → nested dict of torch tensors (and the port's
+    quantized weights)."""
     device = resolve_device(device)
 
     def conv(tree):
@@ -63,6 +78,8 @@ def params_from_jax(spec: DecoderSpec, params_np: dict,
             return {k: conv(v) for k, v in tree.items()}
         if isinstance(tree, tuple) and "qweight" in getattr(tree, "_fields", ()):
             return int4_from_jax(tree, device)
+        if isinstance(tree, tuple) and "scale" in getattr(tree, "_fields", ()):
+            return int8_from_jax(tree, device)
         return _tensor(tree, device)
 
     out = conv(params_np)

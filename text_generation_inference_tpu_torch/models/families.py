@@ -19,8 +19,16 @@ learned-position decoders `gpt2`, `opt` (with `project_in` / `project_out`)
 and `gpt_bigcode` (multi-query); the ALiBi decoders `bloom` (with its
 embedding LayerNorm), `mpt` and Falcon with `alibi: true`. Any other model
 type goes through the structural fallback (`_load_fallback`,
-FALLBACK_FAMILY=auto|<family>|off), as in the JAX package. The `quantize`
-modes other than gptq are not ported yet and raise NotImplementedError.
+FALLBACK_FAMILY=auto|<family>|off), as in the JAX package.
+
+`load_model` takes every `quantize` mode of the JAX loader: "gptq" (a
+requirement that the checkpoint carries GPTQ tensors), "int8" (every
+layer linear quantized at load, `ops/quant/int8.py`) and "int8-outliers"
+/ "bitsandbytes" (the static LLM.int8 decomposition: a calibration forward
+over tokenized text, the built-in texts or the lines of
+CALIBRATION_TEXT_PATH, picks each linear's outlier features first). As in
+JAX only tensor leaves are quantized, so int8 on a GPTQ checkpoint leaves
+its `Int4Weight`s as they are.
 
 Falcon's loader also reads the q/k/v, out and MLP biases of a checkpoint
 whose config sets `bias: true`, and the `post_attention_layernorm` of one
@@ -38,6 +46,7 @@ import os
 from pathlib import Path
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -960,19 +969,98 @@ def _load_fallback(model_dir: str, config: dict, model_type, dtype,
                   else "; no family signature tensor matched the checkpoint"))
 
 
+# The default LLM.int8 calibration corpus (the JAX package's texts): short
+# natural-language and code snippets. The threshold-6.0 outlier statistics
+# are defined over real-text activations, and uniform random token ids
+# light the wrong feature dims. CALIBRATION_TEXT_PATH supplies a
+# deployment's own corpus, one prompt a line.
+_CALIBRATION_TEXTS = [
+    "The quick brown fox jumps over the lazy dog. Machine learning systems "
+    "transform natural language into dense vector representations, and the "
+    "resulting activations exhibit systematic outlier feature dimensions.",
+    "def tokenize(text):\n    return [vocab[t] for t in text.split()]\n\n"
+    "class Server:\n    def __init__(self, port=8033):\n        self.port "
+    "= port",
+    "In 1969, the Apollo 11 mission landed the first humans on the Moon; "
+    "the guidance computer had 2048 words of RAM and ran at 0.043 MHz.",
+    "Les mots étrangers, die Umlaute, and 漢字 exercise the multilingual "
+    "token space; punctuation — em-dashes, ellipses… and “smart quotes” — "
+    "exercises the byte fallback.",
+]
+
+
+def _calibration_token_ids(model_dir: str, spec: DecoderSpec,
+                           calib_t: int) -> np.ndarray:
+    """The tokenized calibration prompts [N, T] (each cut to `calib_t`
+    tokens and padded by repeating its last token, so the stats stay on
+    text), or uniform random ids from a seed when the checkpoint has no
+    tokenizer."""
+    texts = None
+    path = os.getenv("CALIBRATION_TEXT_PATH")
+    if path:
+        texts = [ln for ln in Path(path).read_text().splitlines()
+                 if ln.strip()]
+    try:
+        from ..utils.tokenization import ServingTokenizer
+
+        tok = ServingTokenizer.load(model_dir)
+        rows = []
+        for text in texts or _CALIBRATION_TEXTS:
+            ids = [i for i in tok.encode(text, add_special_tokens=True)
+                   if i < spec.vocab_size]
+            if ids:
+                rows.append(ids[:calib_t])
+        if rows:
+            t = max(len(r) for r in rows)
+            out = np.zeros((len(rows), t), np.int64)
+            for i, r in enumerate(rows):
+                out[i, : len(r)] = r
+                out[i, len(r):] = r[-1]
+            logger.info("int8-outlier calibration: %d tokenized prompts "
+                        "(%s)", len(rows),
+                        "CALIBRATION_TEXT_PATH" if texts else "built-in")
+            return out
+    except Exception:
+        logger.warning(
+            "int8-outlier calibration: tokenizer unavailable for %s; "
+            "falling back to random token ids (outlier selection may be "
+            "inaccurate — provide tokenizer files or CALIBRATION_TEXT_PATH)",
+            model_dir, exc_info=True)
+    rng = np.random.default_rng(0)
+    return rng.integers(0, spec.vocab_size, size=(4, calib_t))
+
+
+def _log_outlier_selection(params: dict) -> None:
+    """Log which features the static LLM.int8 decomposition keeps in bf16."""
+    from ..ops.quant.int8 import Int8OutlierWeight
+
+    for k, w in params["layers"].items():
+        if isinstance(w, Int8OutlierWeight):
+            idx = w.outlier_idx.cpu().numpy()
+            logger.info(
+                "int8-outliers %s: %d/%d features bf16 (layer-0 dims: %s)",
+                k, idx.shape[1], w.in_features,
+                np.sort(idx[0])[:16].tolist())
+
+
 def load_model(model_dir: str, dtype=torch.bfloat16,
                quantize: str | None = None,
                device=None) -> tuple[DecoderSpec, dict]:
     """Load (spec, params) for a checkpoint of a served family, or of any
     model type the structural fallback takes, onto `device` (CUDA unless
-    the caller asks for the CPU). GPTQ tensors load as
-    Int4Weight whatever `quantize` says; quantize="gptq" is a requirement
-    that the checkpoint carries them (GPTQ needs offline calibration, so
-    it has no load-time path)."""
+    the caller asks for the CPU). GPTQ tensors load as Int4Weight whatever
+    `quantize` says.
+
+    quantize="int8" quantizes every layer linear at load time (per output
+    channel absmax, on `device`); "int8-outliers" (or the reference's flag
+    name "bitsandbytes") calibrates first and keeps each linear's outlier
+    feature rows in bf16; "gptq" requires the checkpoint to carry GPTQ
+    tensors (GPTQ needs offline calibration, so it has no load-time path)."""
     device = resolve_device(device)
-    if quantize not in (None, "gptq"):
-        raise NotImplementedError(
-            f"quantize={quantize!r} is not ported yet (gptq only)")
+    if quantize not in (None, "gptq", "int8", "int8-outliers",
+                        "bitsandbytes"):
+        raise ValueError(f"unsupported quantize mode {quantize!r}; expected "
+                         "'int8', 'int8-outliers', 'bitsandbytes' or 'gptq'")
     config = load_hf_config(model_dir)
     model_type = config.get("model_type")
     if model_type in FAMILIES:
@@ -982,8 +1070,21 @@ def load_model(model_dir: str, dtype=torch.bfloat16,
     else:
         spec, params = _load_fallback(model_dir, config, model_type, dtype,
                                       device)
-    if quantize == "gptq" and not any(isinstance(v, Int4Weight)
-                                      for v in params["layers"].values()):
+    if quantize == "int8":
+        from ..ops.quant.int8 import quantize_layer_params
+
+        params = quantize_layer_params(params)
+    elif quantize in ("int8-outliers", "bitsandbytes"):
+        from ..ops.quant.calibrate import collect_linear_input_absmax
+        from ..ops.quant.int8 import quantize_layer_params
+
+        calib_t = min(128, int(config.get("max_position_embeddings", 128)))
+        calib_ids = _calibration_token_ids(model_dir, spec, calib_t)
+        stats = collect_linear_input_absmax(spec, params, calib_ids)
+        params = quantize_layer_params(params, outlier_stats=stats)
+        _log_outlier_selection(params)
+    elif quantize == "gptq" and not any(isinstance(v, Int4Weight)
+                                        for v in params["layers"].values()):
         # closes the trap where QUANTIZE=gptq on an fp checkpoint would
         # silently serve full-precision weights
         raise ValueError(

@@ -21,6 +21,14 @@ the JAX route:
 A view made for `ops.attention.PLAIN` (`int4_plain`) runs the plain
 version instead, so a caller on the card can compare the two.
 
+INT8 weights (`quant.int8.Int8Weight`, `Int8OutlierWeight`: the JAX
+package's `QUANTIZE=int8` / `int8-outliers` / `bitsandbytes`) take the
+plain torch products of `quant/int8.py`, as the JAX package takes a plain
+XLA dot for them: no kernel, so a PLAIN view runs the same product.
+`layer_view` slices every field of a layer-stacked one. `prepare_params`
+and `reserve_scratch` leave them alone and `can_fuse_mlp` refuses them
+(M1 is INT4-only, as in JAX).
+
 The fused GLU MLP (JAX `can_fuse_mlp` / `mlp_fused`, `INT4_FUSED_MLP=1`):
 when the engine asks for it, `prepare_params` marks a stacked `w_gu` /
 `w_down` pair with the route "fused", and `models.core._mlp` runs the pair
@@ -47,6 +55,8 @@ from .cuda.int4_mlp import (ACTIVATIONS, MAX_ROWS, int4_mlp_reference,
                             int4_mlp_s4_stacked)
 from .cuda.paged_attention import arrivals
 from .quant.int4 import Int4Weight
+from .quant.int8 import (Int8OutlierWeight, Int8Weight, matmul_int8,
+                         matmul_int8_outliers)
 
 
 class Int4Stacked(NamedTuple):
@@ -62,7 +72,7 @@ class Int4Stacked(NamedTuple):
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense or GPTQ-INT4 w. x: [..., in] → [..., out]."""
+    """x @ w for a dense, GPTQ-INT4 or INT8 w. x: [..., in] → [..., out]."""
     if isinstance(w, Int4Stacked):
         wl = w.weight.layer(w.layer)
         x2 = _rows(x, wl)
@@ -79,7 +89,16 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
                              "a time (models.core.layer_params)")
         y2 = int4_matmul_s4(_rows(x, w), w)
         return y2.reshape(*x.shape[:-1], w.out_features)
+    if isinstance(w, Int8Weight):
+        return matmul_int8(x, w)
+    if isinstance(w, Int8OutlierWeight):
+        return matmul_int8_outliers(x, w)
     return torch.matmul(x, w)
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, (Int4Weight, Int4Stacked, Int8Weight,
+                          Int8OutlierWeight))
 
 
 def _rows(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
@@ -94,12 +113,15 @@ def _rows(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
 
 
 def layer_view(w, i: int, plain: bool = False):
-    """Layer i of a layer-stacked parameter (no copy): a tensor's slice, or
-    an `Int4Stacked` view of an int4 stack."""
+    """Layer i of a layer-stacked parameter (no copy): a tensor's slice, an
+    `Int4Stacked` view of an int4 stack, or an int8 weight of every field's
+    slice."""
     if isinstance(w, Int4Stacked):
         return w._replace(layer=i, plain=plain)
     if isinstance(w, Int4Weight):
         return Int4Stacked(w, i, "packed", plain)
+    if isinstance(w, (Int8Weight, Int8OutlierWeight)):
+        return type(w)(*(f[i] for f in w))
     return w[i]
 
 

@@ -10,11 +10,15 @@ serves a decoder with speculative decoding, on the paged engine
 draft count. A prompt-prefix store (PREFIX_STORE_PATH) serves soft
 prompts by `prefix_id` (encoder- and decoder-side for seq2seq models);
 INT4_FUSED_MLP=1 runs a GPTQ model's decode MLP as one kernel (the engines
-read it).
+read it). QUANTIZE=int8, int8-outliers or bitsandbytes quantizes a decoder's
+layer linears at load (`models/families.py`), gptq requires GPTQ tensors.
 
-The other engine choices of the JAX entrypoint (tensor parallelism,
-multi-host, the internal `generate.v1` API) are later slices and raise
-NotImplementedError here.
+INTERNAL_API=1 serves the reference's internal router↔shard API,
+generate.v1 (`server/internal_server.py`), instead of fmaas, on UDS_PATH
+or GRPC_PORT, with the prompt-prefix store; it refuses an int8 KV cache.
+
+The JAX entrypoint's tensor parallelism and multi-host serving are a later
+slice: TENSOR_PARALLEL > 1 raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -51,12 +55,14 @@ def _not_ported(config: ServingConfig) -> None:
     """Raise for every serving option this slice does not run."""
     checks = [
         (int(os.getenv("TENSOR_PARALLEL", "1")) > 1, "TENSOR_PARALLEL > 1"),
-        (os.getenv("INTERNAL_API", "").lower() in ("1", "true"),
-         "INTERNAL_API (generate.v1)"),
     ]
     for hit, what in checks:
         if hit:
             raise NotImplementedError(f"{what} is not ported yet")
+
+
+def internal_api() -> bool:
+    return os.getenv("INTERNAL_API", "").lower() in ("1", "true")
 
 
 def build_engine(config: ServingConfig, device=None):
@@ -64,6 +70,10 @@ def build_engine(config: ServingConfig, device=None):
     caller asks for the CPU); dispatches decoder-only vs encoder-decoder
     (the reference's get_model dispatch, models/__init__.py:48-136)."""
     _not_ported(config)
+    if internal_api():
+        from .internal_server import refuse_int8_kv
+
+        refuse_int8_kv(config)
     device = resolve_device(device)
     dtype = DTYPES[config.dtype_str]
     logger.info("loading model %s (dtype=%s, device=%s)", config.model_name,
@@ -167,13 +177,6 @@ async def async_serve(config: ServingConfig, device=None) -> None:
                     "captured as CUDA graphs" if programs.capture
                     else "made (eager step functions)", programs.seconds)
 
-    batcher = Batcher(engine, tokenizer, config, prompt_cache=prompt_cache)
-    batcher.start()
-
-    servicer = GenerationServicer(config, tokenizer, batcher, model_kind=model_kind)
-    grpc_server = await serve_grpc(servicer, config)
-    http_server = await serve_http(batcher, config.http_port)
-
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -182,6 +185,30 @@ async def async_serve(config: ServingConfig, device=None) -> None:
         except (NotImplementedError, RuntimeError):
             # RuntimeError when serving off the main thread (embedded use)
             pass
+
+    if internal_api():
+        # the reference's internal router↔shard surface instead of fmaas:
+        # this process is then a drop-in shard for the reference's router
+        from .internal_server import (InternalTextGenerationService,
+                                      serve_internal_grpc)
+
+        servicer = InternalTextGenerationService(
+            engine, tokenizer, config, prompt_cache=prompt_cache,
+            model_kind=model_kind)
+        grpc_server = await serve_internal_grpc(servicer, config)
+        logger.info("serving generate.v1 internal API for model=%s",
+                    config.model_name)
+        await stop.wait()
+        await grpc_server.stop(grace=5.0)
+        return
+
+    batcher = Batcher(engine, tokenizer, config, prompt_cache=prompt_cache)
+    batcher.start()
+
+    servicer = GenerationServicer(config, tokenizer, batcher, model_kind=model_kind)
+    grpc_server = await serve_grpc(servicer, config)
+    http_server = await serve_http(batcher, config.http_port)
+
     logger.info("serving model=%s on gRPC :%d HTTP :%d (slots=%d, max_seq=%d)",
                 config.model_name, config.grpc_port, config.http_port,
                 config.max_batch_slots, config.max_sequence_length)
