@@ -196,9 +196,35 @@ Phases (any failure exits non-zero; nothing is caught):
              CPU at [256, 512], and one 7B linear timed (act-order off and
              on) with a whole-7B estimate.
 
+  9. tp      tensor parallelism (`parallel/`): the kernels at the shapes
+             of a rank at world size 2 against their plain versions
+             (Llama-2-7B's 16 query over 16 kv heads: flash prefill, the
+             split body in both modes, K2; K1 on the four products'
+             shards at 16 and 1024 rows; M1 on the MLP's shards, I 5504;
+             StarCoder's 24 query heads over its one kv head: flash
+             prefill, the split body); world size 1 over NCCL (a graph
+             engine and an eager one on a group of one, in lockstep: each
+             decode program captured with its collectives, replay ==
+             eager bit for bit; then both timed); world size 2 on this
+             card, two processes over gloo on CUDA tensors (NCCL refuses
+             two ranks on one device; a gloo collective goes through the
+             host, so decode is eager), each pool TP_PAGES pages:
+             Llama-2-7B widths cut to TP_LAYERS layers in bf16, then
+             GPTQ-INT4 with an int8 KV pool under INT4_FUSED_MLP=1, each
+             with rank 0's logits within FAMILY_ULPS bf16 ulps of world
+             size 1 (rank 0 runs the whole model too), greedy streams
+             equal up to near-ties (`first_differences`), the step time at
+             both world sizes, then served through the Batcher and gRPC on
+             rank 0 over a `ReplicatedEngine` while rank 1 replays its ops;
+             then StarCoder's widths cut to TP_STARCODER_LAYERS layers
+             held to world size 1 the same way. Each rank must launch the
+             run's kernels (TP_KERNELS) and pick rank 0's tokens.
+             `--tp-only` runs the build and this phase alone.
+
 Serving runs 1-13 serve through the captured programs: every decode
 dispatch must be a graph replay, and a kernel's launches count each
-replay of a graph times the launches its capture recorded.
+replay of a graph times the launches its capture recorded. The tp
+phase's world size 2 runs decode eagerly.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -1004,6 +1030,11 @@ def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
 # serves them (w_qkv = wq|wk|wv, w_gu = w_gate|w_up)
 K1_SHAPES = {"w_qkv": (4096, 12288), "wo": (4096, 4096),
              "w_gu": (4096, 22016), "w_down": (11008, 4096)}
+# a rank's shards of the same products at world size 2 (the tp phase):
+# columns split for w_qkv and w_gu, rows for wo and w_down (5504 rows, 43
+# groups of 128)
+K1_TP_SHAPES = {"w_qkv/2": (4096, 6144), "wo/2": (2048, 4096),
+                "w_gu/2": (4096, 11008), "w_down/2": (5504, 4096)}
 
 
 def random_gptq(torch, gen, layers, in_f, out_f):
@@ -1113,7 +1144,7 @@ def check_int4(torch, timer, entry: str, key: str, m: int,
     from text_generation_inference_tpu_torch.ops.quant import int4
 
     dtype = dtype or torch.bfloat16
-    in_f, out_f = K1_SHAPES[key]
+    in_f, out_f = {**K1_SHAPES, **K1_TP_SHAPES}[key]
     gen = torch.Generator(device="cuda").manual_seed(SEED + m + in_f + out_f)
     stack = K1_WEIGHTS.get((in_f, out_f)) if keep else None
     if stack is None:
@@ -1213,7 +1244,7 @@ M1_WEIGHTS = []     # (w_gu, w_down) 2-layer stacks, kept with keep=True
 
 
 def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None,
-                   keep: bool = False):
+                   keep: bool = False, shape=None):
     """M1 on a 7B layer's MLP (layer 1 of 2-layer stacks: w_gu [4096,
     22016], w_down [11008, 4096], group 128) at m rows, against its plain
     version; beside it the two-K1 route on the same work (K1 on w_gu, the
@@ -1221,11 +1252,12 @@ def check_int4_mlp(torch, timer, m: int, activation: str, dtype=None,
     (torch._weight_int4pack_mm on each weight, the activation between).
     `keep` reuses one pair of weights for the whole process (a version
     under tools/kernel_ab.py may cache what it derives from a weight by
-    its address)."""
+    its address). `shape` (H, I) replaces the 7B layer's (a rank's
+    shard of it in the tp phase)."""
     from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
     from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
 
-    h, inter = M1_SHAPE
+    h, inter = shape or M1_SHAPE
     dtype = dtype or torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61 + m)
     if keep and M1_WEIGHTS:
@@ -2154,7 +2186,7 @@ async def grpc_roundtrip(batcher, config, tokenizer, prefix_id=None,
 
 def make_engine(torch, spec, params, max_seq, overrides, slot=False,
                 fused=False, eager=False, num_pages=None, slots=16,
-                seq2seq=False, speculative=None):
+                seq2seq=False, speculative=None, tp=None):
     """A PagedInferenceEngine with `slots` slots and 128-token pages (the
     pool is sized from the card's memory unless `num_pages` is given, so the
     engines of earlier phases are collected first), or with `slot` the slot
@@ -2164,7 +2196,8 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
     engine of either kind (PagedSpeculativeEngine, SpeculativeEngine).
     `fused` builds it under INT4_FUSED_MLP=1, which the engine reads when it
     is built. Its decode dispatches replay captured CUDA graphs, or with
-    `eager` run the step functions eagerly (the reference)."""
+    `eager` run the step functions eagerly (the reference). With `tp` (a
+    `parallel.comm.TPGroup`) it holds the rank's shard of the model."""
     import gc
 
     from text_generation_inference_tpu_torch.config import ServingConfig
@@ -2184,6 +2217,8 @@ def make_engine(torch, spec, params, max_seq, overrides, slot=False,
                            **overrides)
     config.validate()
     kw = dict(eager_decode=eager, **(speculative or {}))
+    if tp is not None:
+        kw["tp"] = tp
     if seq2seq:
         cls = Seq2SeqEngine
     elif slot:
@@ -3438,6 +3473,422 @@ def kv_bytes(engine) -> int:
                if x is not None)
 
 
+# --- tensor parallelism (`parallel/`) ---------------------------------------
+
+# world size 2 on the one card: each rank's KV pool (the two ranks share the
+# card, so neither sizes its pool from the card's memory), the depth of the
+# 7B-width runs and of the StarCoder-width one
+TP_PAGES = 64
+TP_LAYERS = 4
+TP_STARCODER_LAYERS = 2
+# the serving runs at world size 2: a wave of four unary requests, then
+# three with one streaming, 24 new tokens each
+TRAFFIC_TP = (([100, 250, 420, 600], 0), ([150, 500, 820], 2)), 24
+# prompts of the token streams held to world size 1
+TP_PROMPT_LENS = (700, 300, 520, 90)
+TP_NEW = 24
+# the kernels a tp run must launch on every rank
+TP_KERNELS = {
+    "bf16": ("flash_prefill", "paged_decode_attention",
+             "paged_decode_attention_stats"),
+    "gptq": ("flash_prefill", "int4_matmul", "int4_matmul_s4_stacked",
+             "int4_mlp_s4_stacked", "paged_decode_attention_partial_i8"),
+    "starcoder": ("flash_prefill", "paged_decode_attention"),
+}
+
+
+def tp_wrappers():
+    """The kernel wrappers whose launches the tp phase reads, by name."""
+    from text_generation_inference_tpu_torch.ops.cuda import flash_prefill as fp
+    from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
+    from text_generation_inference_tpu_torch.ops.cuda import int4_mlp as mlp
+    from text_generation_inference_tpu_torch.ops.cuda import paged_attention as pa
+
+    return {"flash_prefill": fp.flash_prefill,
+            "paged_decode_attention": pa.paged_decode_attention,
+            "paged_decode_attention_stats": pa.paged_decode_attention_partial,
+            "paged_decode_attention_partial_i8":
+                pa.paged_decode_attention_partial_i8,
+            "int4_matmul": im.int4_matmul,
+            "int4_matmul_s4_stacked": im.int4_matmul_s4_stacked,
+            "int4_mlp_s4_stacked": mlp.int4_mlp_s4_stacked}
+
+
+def tp_logits(torch, spec, params, tp=None):
+    """prefill_paged of two prompts (700 and 300 tokens, bucket 1024) and
+    4 decode_paged steps of fixed seeded ids, through the kernels, on the
+    whole model or (with `tp`) on the rank's shard: the logits at each
+    prompt's last position and at each step."""
+    from text_generation_inference_tpu_torch.engine.paged_cache import PagedKVCache
+    from text_generation_inference_tpu_torch.models import paged_core
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+    from text_generation_inference_tpu_torch.parallel.sharding import shard_model
+
+    if tp is not None:
+        spec, params = shard_model(spec, params, tp, DEVICE)
+    params = fuse_params(spec, params)
+    page, t, n = 128, 1024, 2
+    lengths = torch.tensor([700, 300], dtype=torch.int32, device=DEVICE)
+    slots = torch.tensor([0, 1], dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    ids = torch.randint(3, spec.vocab_size, (n, t), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    steps = torch.randint(3, spec.vocab_size, (4, n), generator=gen,
+                          device=DEVICE, dtype=torch.int32)
+    max_pages = t // page + 1
+    cache = PagedKVCache.create(spec, 2 * max_pages, page, n, max_pages,
+                                DTYPE, DEVICE)
+    cache.block_table.copy_(torch.arange(2 * max_pages, dtype=torch.int32,
+                                         device=DEVICE).reshape(n, max_pages))
+    lg, _ = paged_core.prefill_paged(spec, params, ids, lengths, slots, cache,
+                                     page)
+    out = [lg[torch.arange(n), lengths.long() - 1]]
+    pos = lengths.clone()
+    for step in steps:
+        lg, _ = paged_core.decode_paged(spec, params, step, pos, cache,
+                                        pos + 1, page)
+        out.append(lg)
+        pos = pos + 1
+    sync(torch)
+    return out, spec
+
+
+def tp_prompts(seed: int):
+    rng = np.random.default_rng(seed)
+    return [[int(x) for x in rng.integers(3, 259, size=n)]
+            for n in TP_PROMPT_LENS]
+
+
+def tp_rank(rank: int, world: int, port: int, out) -> None:
+    """One rank of the world-size-2 runs: the card, a gloo group on CUDA
+    tensors (NCCL refuses two ranks on one device) and the op stream's
+    group; `tp_rank_runs`; the result or the traceback to `out`."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    from text_generation_inference_tpu_torch.parallel.comm import TPGroup
+    from text_generation_inference_tpu_torch.parallel.multihost import OpChannel
+
+    global DTYPE
+    DTYPE = torch.bfloat16
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    try:
+        timeout = datetime.timedelta(minutes=5)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=world, timeout=timeout)
+        channel = OpChannel(dist.new_group(backend="gloo", timeout=timeout))
+        out.put((rank, True, tp_rank_runs(torch, TPGroup(rank, world),
+                                          channel)))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def tp_rank_runs(torch, tp, channel) -> dict:
+    """The runs of one rank at world size 2, the same calls on both ranks:
+    Llama-2-7B widths (TP_LAYERS layers) in bf16, then GPTQ-INT4 with an
+    int8 KV pool and INT4_FUSED_MLP=1, each held to world size 1 (rank 0
+    runs the whole model alone first), then served through the Batcher with
+    gRPC on rank 0 over a `ReplicatedEngine` while rank 1 replays; then
+    StarCoder's widths (TP_STARCODER_LAYERS layers: 48 query heads over one
+    kv head, so each rank attends with its 24 heads over the one kv head)
+    held to world size 1."""
+    out = {}
+    spec = llama_spec(LLAMA7B, num_layers=TP_LAYERS)
+    runs = (("bf16", random_params(torch, spec), False,
+             dict(paged_gather_ctx_max=0)),
+            ("gptq", random_params(torch, spec, gptq=True), True,
+             dict(kv_cache_dtype="int8", decode_chunk=8,
+                  paged_gather_ctx_max=0)))
+    for label, params, fused, overrides in runs:
+        out[label] = tp_run(torch, tp, channel, label, spec, params, fused,
+                            overrides, serve=True)
+        del params
+    spec_sc = family_spec("gpt_bigcode", num_layers=TP_STARCODER_LAYERS)
+    params_sc = family_params(torch, spec_sc, 9)
+    out["starcoder"] = tp_run(torch, tp, channel, "starcoder", spec_sc,
+                              params_sc, False, dict(paged_gather_ctx_max=0),
+                              serve=False)
+    return out
+
+
+def tp_run(torch, tp, channel, label, spec, params, fused, overrides,
+           serve: bool) -> dict:
+    """One model at world size 2: logits and greedy token streams against
+    world size 1 (on rank 0), the step time of both, and with `serve` a
+    Batcher run (+ gRPC) on rank 0 over the op stream. Returns this rank's
+    record: its local widths, the launches of the serving run (or of the
+    token streams), and on rank 0 the comparisons."""
+    from text_generation_inference_tpu_torch.parallel import multihost
+    from text_generation_inference_tpu_torch.tools import spec_measure
+
+    wrappers = tp_wrappers()
+    rec = {}
+    checksum = sum(float(p.float().sum()) for p in (
+        params["embed_tokens"], params["final_norm"]["scale"]))
+    rec["checksum"] = checksum
+    if tp.rank == 0:
+        want, _ = tp_logits(torch, spec, params)
+    got, local = tp_logits(torch, spec, params, tp)
+    rec["local"] = dict(heads=local.num_heads, kv_heads=local.num_kv_heads,
+                        intermediate=local.intermediate_size,
+                        kv_index=local.tp.kv_index,
+                        vocab_split=local.tp.head_split)
+    if tp.rank == 0:
+        pairs = list(zip(got, want))
+        tol, peak = logit_tolerance(pairs, FAMILY_ULPS)
+        max_err, agree, decided = compare_logits(
+            torch, pairs, spec.vocab_size, tol, f"tp {label} logits")
+        rec["logits"] = dict(max_abs_err=max_err, tol=tol, peak=peak,
+                             agree=agree, decided=decided)
+        log(f"tp[{label}] rank 0 at world size 2 against world size 1: "
+            f"{describe_error(max_err, tol, peak, FAMILY_ULPS)}, greedy "
+            f"tokens equal {agree}/{decided}")
+    del got
+    prompts = tp_prompts(SEED + 17)
+    if tp.rank == 0:
+        alone, _ = make_engine(torch, spec, params, 2048, overrides,
+                               fused=fused, eager=True, num_pages=TP_PAGES)
+        plain, _, _, top2 = spec_measure.decode_all(alone, prompts, TP_NEW,
+                                                    want_details=True)
+        rec["step_world1"] = time_decode(torch, alone, f"tp {label} world 1",
+                                         live=8, calls=8)
+        del alone
+    engine, config = make_engine(torch, spec, params, 2048, overrides,
+                                 fused=fused, eager=True, num_pages=TP_PAGES,
+                                 tp=tp)
+    if engine.fuse_mlp != fused:
+        raise AssertionError(f"tp[{label}]: INT4_FUSED_MLP not taken")
+    for fn in wrappers.values():
+        fn.launches = 0
+    toks, _, _, _ = spec_measure.decode_all(engine, prompts, TP_NEW,
+                                            want_details=True)
+    rec["stream_launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    if tp.rank == 0:
+        rec["streams_differing"] = first_differences(
+            plain, toks, top2, f"tp {label} streams, world 2 vs 1")
+    rec["tokens"] = toks
+    rec["step_world2"] = time_decode(torch, engine, f"tp {label} world 2",
+                                     live=8, calls=8)
+    if serve:
+        for fn in wrappers.values():
+            fn.launches = 0
+        if tp.rank == 0:
+            rec["serve"] = tp_serve(torch, multihost.ReplicatedEngine(
+                engine, channel, keepalive_s=None), config, label)
+        else:
+            rec["replayed_ops"] = multihost.follower_loop(engine, channel)
+        rec["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+    else:
+        rec["launches"] = rec["stream_launches"]
+    del engine
+    return rec
+
+
+def tp_serve(torch, engine, config, label) -> dict:
+    """Rank 0's serving run: TRAFFIC_TP through the Batcher and one
+    Generate / GenerateStream / ModelInfo over gRPC, on a
+    `ReplicatedEngine`; then the followers are released."""
+    from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
+
+    tokenizer = ByteTokenizer()
+    waves, new = TRAFFIC_TP
+
+    async def drive():
+        batcher = Batcher(engine, tokenizer, config)
+        batcher.start()
+        try:
+            reqs = []
+            t0 = time.monotonic()
+            for i, (lens, streaming_every) in enumerate(waves):
+                wave = make_requests(lens, streaming_every, 300 * (i + 1), new)
+                await run_wave(batcher, wave)
+                reqs += wave
+            wall = time.monotonic() - t0
+            await grpc_roundtrip(batcher, config, tokenizer)
+            return reqs, wall
+        finally:
+            await batcher.stop()
+
+    try:
+        reqs, wall = asyncio.run(drive())
+    finally:
+        engine.shutdown()
+    tokens = sum(r.generated_count for r in reqs)
+    if any(r.generated_count != new for r in reqs):
+        raise AssertionError(f"tp[{label}] serve: generated "
+                             f"{[r.generated_count for r in reqs]}")
+    log(f"tp[{label}] serve: {len(reqs)} requests + gRPC Generate / "
+        f"GenerateStream / ModelInfo on rank 0 of 2, {tokens} tokens in "
+        f"{wall:.2f}s wall")
+    return dict(requests=len(reqs), tokens=tokens, wall_s=wall)
+
+
+def tp_world1(torch, card) -> dict:
+    """World size 1 over NCCL: the sharding and the collectives run (a
+    group of one), and each decode program is captured with its NCCL
+    collectives inside. A graph engine and an eager one, both on the
+    group, in lockstep (`decode_replay.lockstep`: replay == eager bit for
+    bit); then the step time of each, TP_LAYERS layers at 7B widths."""
+    import torch.distributed as dist
+
+    from text_generation_inference_tpu_torch.parallel.comm import TPGroup
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        tp = TPGroup(0, 1)
+        spec = llama_spec(LLAMA7B, num_layers=TP_LAYERS)
+        params = random_params(torch, spec)
+        engines = {mode: make_engine(torch, spec, params, 2048,
+                                     dict(paged_gather_ctx_max=0),
+                                     eager=mode == "eager", num_pages=128,
+                                     tp=tp)[0]
+                   for mode in ("graphs", "eager")}
+        seen = decode_replay.lockstep(engines["graphs"], engines["eager"],
+                                      vocab=spec.vocab_size)
+        progs = engines["graphs"].programs
+        if not progs.capture or not all(
+                p.graph is not None for p in progs.programs.values()):
+            raise AssertionError("tp world 1: a decode program is not a graph")
+        for e in engines.values():
+            e._clear_slots()
+        times = {mode: time_decode(torch, engines[mode],
+                                   f"tp world 1 nccl {mode}", live=8,
+                                   calls=8)
+                 for mode in ("eager", "graphs")}
+        log(f"tp world 1 over NCCL on {card}: replay == eager bit for bit "
+            f"over {seen['dispatches']} dispatches, {len(progs)} programs "
+            f"captured with their collectives; wall ms/step eager "
+            f"{times['eager']['wall_ms']:.3f}, graphs "
+            f"{times['graphs']['wall_ms']:.3f}")
+        return dict(dispatches=seen["dispatches"], programs=len(progs),
+                    wall_ms={m: t["wall_ms"] for m, t in times.items()},
+                    busy_ms={m: t["busy_ms"] for m, t in times.items()})
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_world2(card) -> list:
+    """The two ranks of `tp_rank` on this card, each its own process;
+    returns their records (rank order), or raises with a rank's
+    traceback."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=tp_rank, args=(r, 2, port, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, errors = [None, None], []
+    try:
+        for _ in procs:
+            rank, ok, value = results.get(timeout=900)
+            if ok:
+                got[rank] = value
+            else:
+                errors.append(f"rank {rank}:\n{value}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    if errors:
+        raise AssertionError("tp world 2 failed:\n" + "\n".join(errors))
+    return got
+
+
+def tp_phase(torch, timer, card) -> dict:
+    """The tensor-parallel phase: (1) the kernels at the rank-local shapes
+    of world size 2 against their plain versions (Llama-2-7B's 16 heads
+    over 16 kv heads, K1 on the four products' shards, M1 on the MLP's
+    shards; StarCoder's 24 query heads over its one kv head); (2) world
+    size 1 over NCCL, decode captured with the collectives; (3) world size
+    2 on this card (`tp_world2`): each rank's launches, rank 0 against
+    world size 1. Gloo carries the collectives at world size 2, through
+    the host."""
+    import gc
+
+    # the ranks share the card with this process: hand back what earlier
+    # phases left in the allocator's cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tp: this process holds {torch.cuda.memory_allocated() / 2 ** 30:.2f}"
+        f" GiB allocated, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB "
+        "reserved")
+    kernels = {
+        "flash_prefill": check_flash_prefill(torch, timer, d=128, kh=16, g=1),
+        "paged_decode_attention": check_paged(torch, timer, stats=False,
+                                              kh=16, g=1, d=128),
+        "paged_decode_attention_stats": check_paged(torch, timer, stats=True,
+                                                    kh=16, g=1, d=128),
+        "paged_decode_attention_partial_i8": check_paged_int8(
+            torch, timer, kh=16, g=1, d=128),
+        "int4_matmul_s4_stacked": sum_results([
+            check_int4(torch, timer, "int4_matmul_s4_stacked", key, 16)
+            for key in K1_TP_SHAPES]),
+        "int4_matmul": sum_results([
+            check_int4(torch, timer, "int4_matmul", key, 1024)
+            for key in K1_TP_SHAPES]),
+        "int4_mlp_s4_stacked": check_int4_mlp(torch, timer, 16, "silu_glu",
+                                              shape=(4096, 5504)),
+        "flash_prefill_mqa": check_flash_prefill(torch, timer, d=128, kh=1,
+                                                 g=24, lens=(2000, 1500)),
+        "paged_decode_attention_mqa": check_paged(torch, timer, stats=False,
+                                                  kh=1, g=24, d=128)}
+    world1 = tp_world1(torch, card)
+    ranks = tp_world2(card)
+    for label, names in TP_KERNELS.items():
+        for rank, rec in enumerate(ranks):
+            missed = [k for k in names if rec[label]["launches"][k] <= 0]
+            if missed:
+                raise AssertionError(f"tp[{label}] rank {rank} never launched "
+                                     f"{missed}: {rec[label]['launches']}")
+        if len({rec[label]["checksum"] for rec in ranks}) != 1:
+            raise AssertionError(f"tp[{label}]: the ranks' weights differ")
+        if ranks[0][label]["tokens"] != ranks[1][label]["tokens"]:
+            raise AssertionError(f"tp[{label}]: the ranks chose other tokens")
+    want = {"bf16": dict(heads=16, kv_heads=16, intermediate=5504,
+                         kv_index=None, vocab_split=True),
+            "starcoder": dict(heads=24, kv_heads=1, intermediate=12288,
+                              kv_index=(0,), vocab_split=True)}
+    for label, local in want.items():
+        for rec in ranks:
+            if rec[label]["local"] != local:
+                raise AssertionError(f"tp[{label}] local widths "
+                                     f"{rec[label]['local']}, want {local}")
+    steps = {label: dict(world1_ms=ranks[0][label]["step_world1"]["wall_ms"],
+                         world2_ms=ranks[0][label]["step_world2"]["wall_ms"])
+             for label in TP_KERNELS}
+    log(f"tp steps (wall ms a decode step at 8 live, eager; world size 2 is "
+        f"two ranks on one card whose gloo collectives go through the host) "
+        f"on {card}: {json.dumps(steps)}; world size 1 over NCCL "
+        f"{json.dumps(world1)}")
+    for label in TP_KERNELS:
+        log(f"tp[{label}] launches by rank: "
+            f"{json.dumps([rec[label]['launches'] for rec in ranks])}; local "
+            f"widths {ranks[0][label]['local']}; rank 0 {json.dumps({k: v for k, v in ranks[0][label].items() if k in ('logits', 'streams_differing', 'serve')})}")
+    return dict(kernels=kernels, world1=world1, ranks=ranks, steps=steps)
+
+
 class Counter:
     """Reads and zeroes one launch counter (an attribute on a wrapper). A
     captured decode graph's launches are counted once per replay
@@ -3509,6 +3960,16 @@ def main() -> int:
 
     mark("build")
     timer = Timer(torch)
+    if "--tp-only" in sys.argv[1:]:
+        # the tensor-parallel phase alone (a quick check of its own)
+        tp = tp_phase(torch, timer, card)
+        mark("tp")
+        print(json.dumps({"tp_steps": tp["steps"], "world1": tp["world1"]}),
+              flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     fp32 = torch.float32
     fp64 = check_flash_prefill(torch, timer, d=64, kh=4, g=8)
     fp128 = check_flash_prefill(torch, timer, d=128, kh=8, g=4)
@@ -3950,6 +4411,11 @@ def main() -> int:
     mark("serving run 13")
     gptq_report = gptq_solve(torch, card)
     mark("gptq solve")
+    # tensor parallelism: the kernels at the rank-local shapes, world size
+    # 1 over NCCL (decode captured with its collectives), world size 2 on
+    # this card over gloo
+    tp = tp_phase(torch, timer, card)
+    mark("tp")
 
     runs = (run1, run2, run3, run4, run5, run6, run7, run8, run9, run10,
             *run11.values(), probe_counts, run12, gptq_verify, run13)
@@ -4073,6 +4539,56 @@ def main() -> int:
              name="paged_decode_attention_mqa",
              launches=run9["paged_decode_attention"]),
     ]
+    # the tp phase's rank-local shapes (world size 2): launches over both
+    # ranks' serving runs (StarCoder's: their token streams)
+    tp_launches = {label: {k: sum(rec[label]["launches"][k]
+                                  for rec in tp["ranks"])
+                           for k in tp["ranks"][0][label]["launches"]}
+                   for label in TP_KERNELS}
+    tp_rows = (
+        ("flash_prefill", "flash_prefill.cu", "flash_prefill.py:143",
+         "flash_prefill",
+         "bf16, N=2, T=2048, lengths 1500/900, H=16, KV=16, D=128 (a rank "
+         "of Llama-2-7B at world size 2)",
+         tp_launches["bf16"]["flash_prefill"]
+         + tp_launches["gptq"]["flash_prefill"]),
+        ("paged_decode_attention", "paged_attention.cu",
+         "paged_attention.py:261", "paged_decode_attention",
+         "bf16, S=16, KV=16, G=1, D=128, page 128 (a rank of Llama-2-7B)",
+         tp_launches["bf16"]["paged_decode_attention"]),
+        ("paged_decode_attention_stats", "paged_attention.cu",
+         "paged_attention.py:407", "paged_decode_attention_stats",
+         "bf16, S=16, KV=16, G=1, D=128, page 128 (a rank of Llama-2-7B)",
+         tp_launches["bf16"]["paged_decode_attention_stats"]),
+        ("paged_decode_attention_partial_i8", "paged_attention.cu",
+         "paged_attention.py:153", "paged_decode_attention_partial_i8",
+         "int8 pools, bf16 q, S=16, KV=16, G=1, D=128 (a rank of "
+         "Llama-2-7B)", tp_launches["gptq"]
+         ["paged_decode_attention_partial_i8"]),
+        ("int4_matmul_s4_stacked", "int4_matmul.cu", "int4_matmul.py:453",
+         "int4_matmul_s4_stacked",
+         "bf16, the sum over a rank's shards of a 7B layer's 4 products "
+         "(N 6144 / 4096 / 11008 / 4096, K 4096 / 2048 / 4096 / 5504) at "
+         "M=16", tp_launches["gptq"]["int4_matmul_s4_stacked"]),
+        ("int4_matmul", "int4_matmul.cu", "int4_matmul.py:637",
+         "int4_matmul", "bf16, the same 4 shards at M=1024",
+         tp_launches["gptq"]["int4_matmul"]),
+        ("int4_mlp_s4_stacked", "int4_mlp.cu", "int4_matmul.py:366",
+         "int4_mlp_s4_stacked",
+         "bf16, a rank's shard of a 7B layer's MLP (H=4096, I=5504), silu, "
+         "M=16", tp_launches["gptq"]["int4_mlp_s4_stacked"]),
+        ("flash_prefill", "flash_prefill.cu", "flash_prefill.py:143",
+         "flash_prefill_mqa",
+         "bf16, N=2, T=2048, lengths 2000/1500, H=24, KV=1, D=128 (a rank "
+         "of StarCoder)", tp_launches["starcoder"]["flash_prefill"]),
+        ("paged_decode_attention", "paged_attention.cu",
+         "paged_attention.py:261", "paged_decode_attention_mqa",
+         "bf16, S=16, KV=1, G=24, D=128 (a rank of StarCoder)",
+         tp_launches["starcoder"]["paged_decode_attention"]))
+    for name, source, replaces, key, shapes, launches in tp_rows:
+        res = {"library_ms": None, **tp["kernels"][key]}
+        kernels.append(dict(record(name, source, replaces, res, shapes),
+                            name=f"{key}_tp", launches=launches))
     for (m, act), res in m1.items():
         log(f"int4_mlp_s4_stacked {act} M={m}: {json.dumps(res)}")
     for dt, res in m1_dtypes.items():

@@ -434,7 +434,7 @@ def test_int8_kv_is_refused(port_model, monkeypatch):
         main.build_engine(cfg, device="cpu")
     # no refusal without the internal API, nor for a float cache
     monkeypatch.delenv("INTERNAL_API")
-    main._not_ported(cfg)
+    assert not main.internal_api()
     internal_server.refuse_int8_kv(make_config(ServingConfig))
 
 

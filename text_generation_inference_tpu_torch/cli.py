@@ -6,6 +6,10 @@ but `download-weights`, which only fetches from the hub):
     python -m text_generation_inference_tpu_torch.cli convert-to-safetensors MODEL_DIR
     python -m text_generation_inference_tpu_torch.cli convert-to-fast-tokenizer MODEL_DIR
 
+`serve` starts one process per rank when `TENSOR_PARALLEL` (default: every
+local CUDA card; 1 on the CPU) or the multi-host env asks for more than one
+(`parallel/launch.py`).
+
 `quantize` (GPTQ, `ops/quant/gptq_quantize.py`) and
 `convert-to-fast-tokenizer` import `transformers`; `quantize` runs the
 model on the CPU and each linear's solve on `--device`.

@@ -25,9 +25,16 @@ tensors, so those are reset in place, never rebound, while programs live;
 `reset()` after a device error rebuilds them and recaptures every program.
 On the CPU the programs are the eager step functions.
 
+Tensor parallelism: built with `tp` (a `parallel.comm.TPGroup`), an
+engine holds its rank's shard of the model (`parallel.sharding.
+shard_model`, where the JAX engine shards its params over a mesh), a KV
+cache of the rank's kv heads, and the slot count shared by every rank (the
+smallest plan of the group). Every rank makes the same engine calls in the
+same order (`parallel.multihost`), so their collectives meet.
+
 Other differences from the JAX engine, all of them mechanical: the cache
 and the state are updated in place on the device (the JAX engine donated
-them to each step); meshes are a later slice. Every call selects the
+them to each step). Every call selects the
 engine's CUDA device first and runs on its current stream, so device work
 stays in call order whichever thread of the batcher calls.
 
@@ -56,6 +63,7 @@ from ..device import resolve_device
 from ..models import core
 from ..models.core import DecoderSpec, KVCache
 from ..ops import linear as linops
+from ..parallel.sharding import shard_model
 from . import sampling
 from .memory import budget_bytes, plan_memory
 from .programs import DecodePrograms
@@ -337,12 +345,15 @@ class SlotBatchEngine:
     supports_decode_pipeline = True
     # the batcher may ask for a smaller chunk while a request streams
     supports_chunk_override = True
+    # the tensor-parallel group of a sharded engine (`parallel.comm`)
+    tp = None
 
     def _init_host(self, eager_decode: bool = False) -> None:
         # decode programs: CUDA graphs on the card unless eager_decode (the
         # eager reference tests compare with), the step functions elsewhere
         self.programs = DecodePrograms(
-            self.device, self.device.type == "cuda" and not eager_decode)
+            self.device, self.device.type == "cuda" and not eager_decode,
+            self.tp)
         self.free_slots: list[int] = list(range(self.num_slots))
         # free() runs on the event-loop thread while decode runs on the
         # executor thread (pipelined decode): guard the pending list
@@ -639,9 +650,13 @@ class InferenceEngine(SlotBatchEngine):
     and the slot state on one device; host-level prefill / decode / free."""
 
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
-                 eos_token_id: int, device=None, eager_decode: bool = False):
+                 eos_token_id: int, device=None, eager_decode: bool = False,
+                 tp=None):
         self.device = resolve_device(device)
         check_decode_config(config)
+        self.tp = tp
+        if tp is not None:
+            spec, params = shard_model(spec, params, tp, self.device)
         self.spec = spec
         if config.fuse_matmuls:
             from ..models.fuse import fuse_params
@@ -658,6 +673,9 @@ class InferenceEngine(SlotBatchEngine):
                                        budget_bytes(self.device),
                                        self._speculative_bytes())
         self.fuse_mlp = fused_mlp_option()
+        if tp is not None:
+            # every rank serves the same slots
+            config.max_batch_slots = tp.min_int(config.max_batch_slots)
         self.num_slots = config.max_batch_slots   # possibly shrunk by the plan
         self.max_seq = config.max_sequence_length
         self.decode_chunk = max(1, config.decode_chunk)

@@ -21,8 +21,11 @@ Other differences from the JAX engine, all of them mechanical:
   * `decode_write_mode` "post" and "scan" both run chunks as a loop of
     single paged steps (each writes the pool), as the JAX engine's
     `_paged_decode_multi` does; "ring" chunks use the ring buffer.
-  * Meshes are a later slice. Soft prompts are placed before their
-    prompts, and pages are reserved for prefix + prompt + max_new + 1.
+  * Tensor parallelism is one process per rank (`tp`, as the slot
+    engine's): the pool holds the rank's kv heads, and its page count is
+    the smallest over the group, so that every rank's allocator takes the
+    same decisions. Soft prompts are placed before their prompts, and
+    pages are reserved for prefix + prompt + max_new + 1.
   * The host bookkeeping is `engine.SlotBatchEngine`'s, shared with the
     slot engine: every call selects the engine's CUDA device first and runs
     on that device's current stream, so device work stays in call order
@@ -44,6 +47,7 @@ from ..device import resolve_device
 from ..models import core, paged_core
 from ..models.core import DecoderSpec
 from ..ops import linear as linops
+from ..parallel.sharding import shard_model
 from .engine import (EngineState, PrefillResult, RequestParams,
                      SlotBatchEngine, _finish_prefill, _last_ids,
                      _sample_step, check_decode_config, fused_mlp_option)
@@ -152,9 +156,12 @@ class PagedInferenceEngine(SlotBatchEngine):
 
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
                  eos_token_id: int, num_pages: Optional[int] = None,
-                 device=None, eager_decode: bool = False):
+                 device=None, eager_decode: bool = False, tp=None):
         self.device = resolve_device(device)
         check_decode_config(config)
+        self.tp = tp
+        if tp is not None:
+            spec, params = shard_model(spec, params, tp, self.device)
         if spec.sliding_window is not None \
                 and config.max_sequence_length > spec.sliding_window:
             # as the JAX engine: the paged passes take no window mask;
@@ -186,6 +193,9 @@ class PagedInferenceEngine(SlotBatchEngine):
         self.memory_plan = None
         if num_pages is None:
             num_pages = self._pool_size_from_hbm(self._cache_dtype)
+        if tp is not None:
+            # every rank's page allocator must take the same decisions
+            num_pages = tp.min_int(num_pages)
         max_pages_per_slot = -(-self.max_seq // self.page_size)
         self.allocator = PageAllocator(num_pages, self.page_size,
                                        max_pages_per_slot)

@@ -123,9 +123,18 @@ class DecodeProgram:
 
 class DecodePrograms:
     """An engine's decode programs by key; `capture` is whether they are
-    CUDA graphs (an engine on the card, unless built with eager_decode)."""
+    CUDA graphs (an engine on the card, unless built with eager_decode).
+    A tensor-parallel engine's programs hold its group's collectives: an
+    NCCL group's are captured with the step, every rank capturing the
+    same programs in the same order; a gloo group's cannot be captured
+    (`tp.capturable`), and asking for that raises."""
 
-    def __init__(self, device: torch.device, capture: bool):
+    def __init__(self, device: torch.device, capture: bool, tp=None):
+        if capture and tp is not None and not tp.capturable:
+            raise ValueError(
+                f"{tp}: its collectives go through the host and cannot be "
+                "captured into a CUDA graph; build the engine with "
+                "eager_decode=True")
         self.device = device
         self.capture = capture
         self.programs: dict[tuple, DecodeProgram] = {}

@@ -335,12 +335,15 @@ class PagedSpeculativeEngine(_Speculation, PagedInferenceEngine):
                  speculator_spec: Optional[SpeculatorSpec] = None,
                  speculator_params: Optional[dict] = None,
                  n_predict: int = 3, max_spec_batch: Optional[int] = None,
-                 device=None, eager_decode: bool = False):
+                 device=None, eager_decode: bool = False, tp=None):
         _refuse_int8(config)
         self.sspec = speculator_spec or _default_spec(spec, n_predict)
+        # under tensor parallelism the speculator and its chain state are
+        # whole on every rank: each drafts the same tokens from the same
+        # final-norm hidden state
         super().__init__(spec, params, config, eos_token_id,
                          num_pages=num_pages, device=device,
-                         eager_decode=eager_decode)
+                         eager_decode=eager_decode, tp=tp)
         self._init_speculator(speculator_params)
         self.max_spec_batch = (max_spec_batch if max_spec_batch is not None
                                else int(os.getenv("SPECULATOR_MAX_BATCH_SIZE",

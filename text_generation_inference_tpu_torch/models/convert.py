@@ -6,7 +6,8 @@ bfloat16) and returns the port's param dict on `device`, with the same
 keys and layouts, fused (`w_qkv`, `w_gu`) or not: every key is carried,
 the top-level ones of the learned-position and BLOOM families included
 (`embed_positions`, `embed_ln`, OPT's `project_in` / `project_out`). It
-lets the tests give both packages identical weights; `speculator_params_from_jax`
+lets the tests give both packages identical weights (and
+`rank_params_from_jax` a tensor-parallel rank its shard of them); `speculator_params_from_jax`
 and `t5_params_from_jax` do the same for a speculator's and a T5 model's.
 
 A JAX `Int4Weight` arrives as a NamedTuple whose leaves are numpy arrays
@@ -88,6 +89,18 @@ def params_from_jax(spec: DecoderSpec, params_np: dict,
     if lp["ln1"]["scale"].shape[0] != spec.num_layers or q_out < spec.q_size:
         raise ValueError("params do not match the spec")
     return out
+
+
+def rank_params_from_jax(spec: DecoderSpec, params_np: dict, rank: int,
+                         world: int, device=None) -> dict:
+    """Rank `rank` of `world`'s shard of the JAX package's params (numpy
+    leaves, unfused), cut by the JAX sharding rules
+    (`parallel.sharding.shard_params`): the port's params that JAX's
+    device `rank` holds on a mesh of `world` model devices."""
+    from ..parallel.sharding import shard_params
+
+    return shard_params(spec, params_from_jax(spec, params_np, "cpu"), rank,
+                        world, resolve_device(device))
 
 
 def speculator_params_from_jax(sparams_np: dict, device=None) -> dict:

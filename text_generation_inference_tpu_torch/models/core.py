@@ -27,6 +27,14 @@ JAX package's dense bias from it and the kernels add the term themselves
 (`ops/attention.py`). The ring step's inline attention adds the bias to
 the cache part, the ring and the current token, as in the JAX package.
 
+Tensor parallelism: on a rank's local spec (`spec.tp`, set by
+`parallel.sharding.shard_model`) the head and MLP widths are the rank's,
+and the building blocks place the collectives that GSPMD places in the
+JAX package: the vocab-split embedding lookup and the row-parallel
+products (wo, w_down) all-reduced, the vocab-split logits gathered, the
+kv heads a rank attends with picked from a whole k / v product
+(`_qkv`, `_row_linear`, `_embed`, `_unembed`).
+
 Parameters are a plain dict of tensors with the JAX package's layout:
 layer weights stacked along a leading layer axis, linear weights [in, out]
 (`x @ W`) or layer-stacked GPTQ `Int4Weight`s. The JAX `lax.scan` over
@@ -39,7 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, NamedTuple, Optional
+from typing import TYPE_CHECKING, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +55,9 @@ import torch.nn.functional as F
 
 from ..ops import linear as linops
 from ..ops.attention import KERNELS, AttentionOps, alibi_bias
+
+if TYPE_CHECKING:
+    from ..parallel.sharding import TPShard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +99,11 @@ class DecoderSpec:
     norm_bias: bool = False       # LayerNorm has bias (always true for layernorm)
     tie_word_embeddings: bool = False
     attn_softmax_in_f32: bool = True
+    # a tensor-parallel rank's layout (`parallel.sharding.TPShard`), on the
+    # rank's local spec (`parallel.sharding.shard_model`): its head and MLP
+    # widths above are then the rank's own, and the layer code places the
+    # collectives this layout calls for. None on an unsharded model.
+    tp: Optional["TPShard"] = None
 
     @property
     def q_size(self) -> int:
@@ -145,6 +161,12 @@ class KVCache(NamedTuple):
     @property
     def num_slots(self) -> int:
         return self.k.shape[1]
+
+
+def _tp(spec) -> Optional["TPShard"]:
+    """A rank's layout, or None (also for a spec without the field: the
+    tests hand the layer code the JAX package's spec)."""
+    return getattr(spec, "tp", None)
 
 
 def layer_params(layers: dict, i: int, int4_plain: bool = False) -> dict:
@@ -279,8 +301,23 @@ def alibi_slopes_kg(spec: DecoderSpec, device) -> Optional[torch.Tensor]:
     if spec.pos != "alibi":
         return None
     group = spec.num_heads // spec.num_kv_heads
-    return torch.from_numpy(alibi_slopes(spec.num_heads, spec.alibi_impl)
-                            ).reshape(spec.num_kv_heads, group).to(device)
+    tp = _tp(spec)
+    if tp is None:
+        slopes = alibi_slopes(spec.num_heads, spec.alibi_impl)
+    else:
+        # a rank's query heads are the model's heads head_offset onwards:
+        # their slopes, not those of heads 0.. of a smaller model
+        slopes = alibi_slopes(tp.num_heads, spec.alibi_impl)[
+            tp.head_offset:tp.head_offset + spec.num_heads]
+    return torch.from_numpy(np.ascontiguousarray(slopes)).reshape(
+        spec.num_kv_heads, group).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_index(tp: "TPShard", device) -> torch.Tensor:
+    """A rank's `kv_index` as a tensor on `device`, built once (a captured
+    decode graph reads a fixed address)."""
+    return torch.tensor(tp.kv_index, dtype=torch.long).to(device)
 
 
 def _embed(spec: DecoderSpec, params: dict, ids: torch.Tensor,
@@ -288,8 +325,21 @@ def _embed(spec: DecoderSpec, params: dict, ids: torch.Tensor,
     """Token embeddings, projected up (OPT's `project_in`), scaled, plus
     learned positions at `positions + pos_offset`, then the embedding
     LayerNorm (BLOOM). A position past the table reads its last row (the
-    JAX package's gather fills it; only dead slots reach it)."""
-    x = params["embed_tokens"][ids.long()]
+    JAX package's gather fills it; only dead slots reach it).
+
+    On a rank with the vocab split (`spec.tp.embed_split`) each rank looks
+    up the ids in its block of rows, zeros for the rest, and the sum over
+    the ranks is every id's row, exactly (one rank adds it to zeros)."""
+    table = params["embed_tokens"]
+    tp = _tp(spec)
+    if tp is not None and tp.embed_split:
+        n = table.shape[0]
+        local = ids.long() - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+        x = tp.comm.all_reduce(x)
+    else:
+        x = table[ids.long()]
     if "project_in" in params:
         x = torch.matmul(x, params["project_in"])
     if spec.embed_scale != 1.0:
@@ -311,7 +361,9 @@ def _embed(spec: DecoderSpec, params: dict, ids: torch.Tensor,
 
 def _unembed(spec: DecoderSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     """Final projection to [..., V] f32 logits (through OPT's
-    `project_out` first where the model has one)."""
+    `project_out` first where the model has one). A rank with the vocab
+    split gathers every rank's block of the logits (the bias, whole on
+    every rank, is added after)."""
     if "project_out" in params:
         x = torch.matmul(x, params["project_out"])
     if spec.tie_word_embeddings:
@@ -319,6 +371,9 @@ def _unembed(spec: DecoderSpec, params: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         logits = linops.matmul(x, params["lm_head"])
     logits = logits.to(torch.float32)
+    tp = _tp(spec)
+    if tp is not None and tp.head_split:
+        logits = tp.comm.all_gather_last(logits)
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"].to(torch.float32)
     return logits
@@ -338,12 +393,16 @@ def _rotate(spec: DecoderSpec, q: torch.Tensor, k: torch.Tensor, rope):
 
 
 def _qkv(spec: DecoderSpec, lp: dict, x: torch.Tensor):
-    """x: [..., D] -> q [..., H, Dh], k/v [..., K, Dh]."""
+    """x: [..., D] -> q [..., H, Dh], k/v [..., K, Dh]. On a rank whose
+    query heads are split but whose wk / wv stayed whole, k and v are cut
+    to the kv heads its query heads read (`TPShard.kv_index`)."""
+    tp = _tp(spec)
+    kv_heads = spec.num_kv_heads if tp is None else tp.kv_heads_in
     if "w_qkv" in lp:
         qkv = linops.matmul(x, lp["w_qkv"])
         if "b_qkv" in lp:
             qkv = qkv + lp["b_qkv"]
-        qs, ks = spec.q_size, spec.kv_size
+        qs, ks = spec.q_size, kv_heads * spec.head_dim
         q = qkv[..., :qs]
         k = qkv[..., qs:qs + ks]
         v = qkv[..., qs + ks:]
@@ -360,27 +419,67 @@ def _qkv(spec: DecoderSpec, lp: dict, x: torch.Tensor):
         k = torch.clamp(k, -spec.qkv_clip, spec.qkv_clip)
         v = torch.clamp(v, -spec.qkv_clip, spec.qkv_clip)
     q = q.reshape(*x.shape[:-1], spec.num_heads, spec.head_dim)
-    k = k.reshape(*x.shape[:-1], spec.num_kv_heads, spec.head_dim)
-    v = v.reshape(*x.shape[:-1], spec.num_kv_heads, spec.head_dim)
+    k = k.reshape(*x.shape[:-1], kv_heads, spec.head_dim)
+    v = v.reshape(*x.shape[:-1], kv_heads, spec.head_dim)
+    if tp is not None and tp.kv_index is not None:
+        idx = _kv_index(tp, k.device)
+        k, v = k.index_select(-2, idx), v.index_select(-2, idx)
     return q, k, v
 
 
+def _row_linear(spec: DecoderSpec, x: torch.Tensor, w,
+                name: str) -> torch.Tensor:
+    """x @ w for a row-parallel weight (`name` "wo" or "w_down"), whole on
+    every rank. Unsharded, the product. On a rank (`spec.tp`), x may be the
+    rank's block of the product's input (query heads or MLP columns split)
+    and w the rank's block of rows. A split weight gives a partial sum,
+    all-reduced; a whole weight (an INT4 fallback) takes the whole input,
+    all-gathered, and reduces nothing. A split weight with a whole input
+    takes the rank's block of it; under act-order the whole input is
+    permuted first (the permutation is global: the rank's rows read
+    features other ranks hold)."""
+    tp = _tp(spec)
+    if tp is None:
+        return linops.matmul(x, w)
+    split_in, row = ((tp.attn_split, tp.wo_row) if name == "wo"
+                     else (tp.mlp_split, tp.down_row))
+    if not row:
+        if split_in:
+            x = tp.comm.all_gather_last(x)
+        return linops.matmul(x, w)
+    perm = linops.input_perm(w)
+    if perm is not None or not split_in:
+        if split_in:
+            x = tp.comm.all_gather_last(x)
+        if perm is not None:
+            x, w = x[..., perm.long()], linops.drop_perm(w)
+        n = x.shape[-1] // tp.world
+        x = x.narrow(-1, tp.rank * n, n)
+    return tp.comm.all_reduce(
+        linops.matmul(x, w, in_offset=tp.rank * x.shape[-1]))
+
+
 def _attn_out(spec: DecoderSpec, lp: dict, attn: torch.Tensor) -> torch.Tensor:
-    out = linops.matmul(attn.reshape(*attn.shape[:-2], spec.q_size), lp["wo"])
+    out = _row_linear(spec, attn.reshape(*attn.shape[:-2], spec.q_size),
+                      lp["wo"], "wo")
     if spec.attn_out_bias:
         out = out + lp["bo"]
     return out
 
 
 def _mlp(spec: DecoderSpec, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    tp = _tp(spec)
     if "w_gu" in lp:
         rows = x.numel() // x.shape[-1]
         if "b_gu" not in lp and not spec.mlp_bias and linops.can_fuse_mlp(
                 lp["w_gu"], lp["w_down"], spec.activation, rows):
             # decode GPTQ-INT4 path under INT4_FUSED_MLP=1: gu product,
-            # activation and down product as one launch (kernel M1)
-            return linops.mlp_fused(x, lp["w_gu"], lp["w_down"],
-                                    spec.activation)
+            # activation and down product as one launch (kernel M1); on a
+            # rank whose pair is split, a partial sum
+            out = linops.mlp_fused(x, lp["w_gu"], lp["w_down"],
+                                   spec.activation)
+            return (tp.comm.all_reduce(out) if tp is not None
+                    and tp.down_row else out)
         gu = linops.matmul(x, lp["w_gu"])
         if "b_gu" in lp:
             gu = gu + lp["b_gu"]
@@ -396,7 +495,7 @@ def _mlp(spec: DecoderSpec, lp: dict, x: torch.Tensor) -> torch.Tensor:
             if spec.mlp_bias:
                 gate = gate + lp["b_gate"]
     h = _activate(spec, up, gate)
-    out = linops.matmul(h, lp["w_down"])
+    out = _row_linear(spec, h, lp["w_down"], "w_down")
     if spec.mlp_bias:
         out = out + lp["b_down"]
     return out

@@ -71,8 +71,13 @@ class Int4Stacked(NamedTuple):
     plain: bool = False
 
 
-def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense, GPTQ-INT4 or INT8 w. x: [..., in] → [..., out]."""
+def matmul(x: torch.Tensor, w, in_offset: Optional[int] = None
+           ) -> torch.Tensor:
+    """x @ w for a dense, GPTQ-INT4 or INT8 w. x: [..., in] → [..., out].
+    `in_offset`: x and w's rows are the block of the input features from
+    `in_offset` on (a tensor-parallel row split); an `Int8OutlierWeight`
+    then takes only the outlier features inside the block, whose rows the
+    others' blocks do not hold."""
     if isinstance(w, Int4Stacked):
         wl = w.weight.layer(w.layer)
         x2 = _rows(x, wl)
@@ -92,8 +97,23 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     if isinstance(w, Int8Weight):
         return matmul_int8(x, w)
     if isinstance(w, Int8OutlierWeight):
-        return matmul_int8_outliers(x, w)
+        return matmul_int8_outliers(x, w, in_offset)
     return torch.matmul(x, w)
+
+
+def input_perm(w) -> Optional[torch.Tensor]:
+    """The act-order input permutation of a layer's weight, or None."""
+    if isinstance(w, Int4Stacked):
+        return None if w.weight.perm is None else w.weight.perm[w.layer]
+    return w.perm if isinstance(w, Int4Weight) else None
+
+
+def drop_perm(w):
+    """The weight without its input permutation, for an input the caller
+    has permuted already."""
+    if isinstance(w, Int4Stacked):
+        return w._replace(weight=w.weight._replace(perm=None))
+    return w._replace(perm=None) if isinstance(w, Int4Weight) else w
 
 
 def is_quantized(w) -> bool:

@@ -32,7 +32,7 @@ outside any Pallas kernel.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -146,15 +146,26 @@ def dequantize_int8_outliers(w: Int8OutlierWeight,
     return base.to(dtype)
 
 
-def matmul_int8_outliers(x: torch.Tensor,
-                         w: Int8OutlierWeight) -> torch.Tensor:
+def matmul_int8_outliers(x: torch.Tensor, w: Int8OutlierWeight,
+                         in_offset: Optional[int] = None) -> torch.Tensor:
     """x @ dequant(w): the int8 part as `matmul_int8`, plus a thin bf16
-    product over the K outlier features, both into f32."""
+    product over the K outlier features, both into f32. With `in_offset`,
+    x and q hold the input features from `in_offset` on (a tensor-parallel
+    row split; `outlier_idx` and `outlier_w` stay whole): only the outlier
+    features inside the block count, so the sum over the blocks is the
+    whole product."""
     x2 = x.reshape(-1, x.shape[-1])
     y = _product_f32(x2.to(torch.bfloat16), w.q) * w.scale.to(torch.float32)
     if w.outlier_idx.shape[-1]:
-        xo = x2[:, w.outlier_idx.long()].to(torch.bfloat16)    # [M, K]
-        y = y + _product_f32(xo, w.outlier_w)
+        idx = w.outlier_idx.long()
+        if in_offset is None:
+            xo = x2[:, idx]
+        else:
+            local = idx - in_offset
+            inside = (local >= 0) & (local < x2.shape[-1])
+            xo = x2[:, local.clamp(0, x2.shape[-1] - 1)].masked_fill(
+                ~inside, 0)
+        y = y + _product_f32(xo.to(torch.bfloat16), w.outlier_w)  # [M, K]
     return y.to(x.dtype).reshape(*x.shape[:-1], w.out_features)
 
 

@@ -17,8 +17,15 @@ INTERNAL_API=1 serves the reference's internal router↔shard API,
 generate.v1 (`server/internal_server.py`), instead of fmaas, on UDS_PATH
 or GRPC_PORT, with the prompt-prefix store; it refuses an int8 KV cache.
 
-The JAX entrypoint's tensor parallelism and multi-host serving are a later
-slice: TENSOR_PARALLEL > 1 raises NotImplementedError here.
+Tensor parallelism and multi-host serving (`parallel/`): TENSOR_PARALLEL
+ranks (default: every local card of every host; 1 on the CPU) under the
+JAX package's multi-host env (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
+JAX_PROCESS_ID; `parallel/launch.py`). `serve` starts one process per
+local card; each loads the model, keeps its shard, and warms up. Rank 0
+serves, on either gRPC surface, through a `ReplicatedEngine`; the other
+ranks replay its engine ops (`parallel/multihost.py`). As in the JAX
+entrypoint, a t5 checkpoint is served unsharded (one rank a host), and the
+slot engine's speculative decoding refuses TENSOR_PARALLEL > 1.
 """
 
 from __future__ import annotations
@@ -51,25 +58,21 @@ DTYPES = {
 }
 
 
-def _not_ported(config: ServingConfig) -> None:
-    """Raise for every serving option this slice does not run."""
-    checks = [
-        (int(os.getenv("TENSOR_PARALLEL", "1")) > 1, "TENSOR_PARALLEL > 1"),
-    ]
-    for hit, what in checks:
-        if hit:
-            raise NotImplementedError(f"{what} is not ported yet")
+SEQ2SEQ_TYPES = ("t5", "mt5", "umt5")
 
 
 def internal_api() -> bool:
     return os.getenv("INTERNAL_API", "").lower() in ("1", "true")
 
 
-def build_engine(config: ServingConfig, device=None):
+def build_engine(config: ServingConfig, device=None, tp=None):
     """Returns (engine, tokenizer, model_kind) on `device` (CUDA unless the
     caller asks for the CPU); dispatches decoder-only vs encoder-decoder
-    (the reference's get_model dispatch, models/__init__.py:48-136)."""
-    _not_ported(config)
+    (the reference's get_model dispatch, models/__init__.py:48-136). With
+    `tp` (a `parallel.comm.TPGroup`) a decoder's engine holds the rank's
+    shard: the model loads on the CPU and the engine moves its shard to
+    `device`; a t5 checkpoint is built whole, as the JAX entrypoint builds
+    it before making its mesh."""
     if internal_api():
         from .internal_server import refuse_int8_kv
 
@@ -85,7 +88,7 @@ def build_engine(config: ServingConfig, device=None):
         eos = hf_config.get("eos_token_id")
     if eos is None:
         raise ValueError("cannot determine eos_token_id for model")
-    if hf_config.get("model_type") in ("t5", "mt5", "umt5"):
+    if hf_config.get("model_type") in SEQ2SEQ_TYPES:
         from ..engine.seq2seq import Seq2SeqEngine
         from ..models import t5
         from ..utils.weights import Weights
@@ -96,30 +99,39 @@ def build_engine(config: ServingConfig, device=None):
         engine = Seq2SeqEngine(spec, params, config, eos_token_id=eos,
                                device=device)
         return engine, tokenizer, "encoder_decoder"
-    spec, params = families.load_model(
-        config.model_name, dtype=dtype, quantize=config.quantize,
-        device=device)
     paged = os.getenv("PAGED_ATTENTION", "1").lower() in ("1", "true")
     spec_path = os.getenv("SPECULATOR_PATH")
-    if spec_path or os.getenv("SPECULATOR", "").lower() in ("1", "true"):
+    speculate = spec_path or os.getenv("SPECULATOR", "").lower() in (
+        "1", "true")
+    if speculate and not paged and tp is not None and tp.world > 1:
+        raise ValueError(
+            "SPECULATOR with PAGED_ATTENTION=0 (slot engine) does not "
+            "support TENSOR_PARALLEL>1; use the paged speculative engine or "
+            "TENSOR_PARALLEL=1")
+    spec, params = families.load_model(
+        config.model_name, dtype=dtype, quantize=config.quantize,
+        device="cpu" if tp is not None else device)
+    if speculate:
         engine = _speculative_engine(spec, params, config, eos, dtype, device,
-                                     paged, spec_path)
+                                     paged, spec_path, tp)
     elif paged:
         engine = PagedInferenceEngine(spec, params, config, eos_token_id=eos,
-                                      device=device)
+                                      device=device, tp=tp)
     else:
         engine = InferenceEngine(spec, params, config, eos_token_id=eos,
-                                 device=device)
+                                 device=device, tp=tp)
     return engine, tokenizer, "decoder"
 
 
 def _speculative_engine(spec, params, config: ServingConfig, eos: int, dtype,
-                        device, paged: bool, spec_path: Optional[str]):
+                        device, paged: bool, spec_path: Optional[str],
+                        tp=None):
     """The JAX entrypoint's speculator dispatch: SPECULATOR_PATH loads a
     trained fms_extras MLPSpeculator (the weights the reference consumes)
     and must match the model's width and vocabulary; bare SPECULATOR=1
     builds a random-init one, which by the exactness invariant can only
-    slow serving."""
+    slow serving. Under `tp` the paged engine shards the model and keeps
+    the speculator whole on every rank."""
     from ..engine.speculative import (PagedSpeculativeEngine,
                                       SpeculativeEngine)
 
@@ -145,9 +157,11 @@ def _speculative_engine(spec, params, config: ServingConfig, eos: int, dtype,
             "speculator: output stays exact but acceptance will be ~zero, "
             "making serving strictly slower. Point SPECULATOR_PATH at a "
             "trained MLPSpeculator checkpoint.")
-    cls = PagedSpeculativeEngine if paged else SpeculativeEngine
-    return cls(spec, params, config, eos_token_id=eos, speculator_spec=sspec,
-               speculator_params=sparams, n_predict=n_predict, device=device)
+    kw = dict(eos_token_id=eos, speculator_spec=sspec,
+              speculator_params=sparams, n_predict=n_predict, device=device)
+    if paged:
+        return PagedSpeculativeEngine(spec, params, config, tp=tp, **kw)
+    return SpeculativeEngine(spec, params, config, **kw)
 
 
 def build_prompt_cache(config: ServingConfig,
@@ -160,11 +174,16 @@ def build_prompt_cache(config: ServingConfig,
                        max_prefix_length=config.max_prompt_prefix_length)
 
 
-async def async_serve(config: ServingConfig, device=None) -> None:
+async def async_serve(config: ServingConfig, device=None, tp=None,
+                      channel=None) -> None:
+    """Serve until SIGINT / SIGTERM. With `tp` and `channel` (a rank's
+    groups, `parallel.launch.init_rank`), rank 0 serves through a
+    `ReplicatedEngine` and every other rank replays its ops until it
+    stops."""
     from ..utils import tracing
 
     tracing.configure(config.otlp_endpoint, config.otlp_service_name)
-    engine, tokenizer, model_kind = build_engine(config, device)
+    engine, tokenizer, model_kind = build_engine(config, device, tp)
     prompt_cache = build_prompt_cache(config, engine.spec.hidden_size)
     if os.getenv("WARMUP", "1").lower() not in ("0", "false"):
         logger.info("warming up (set WARMUP=0 to skip)")
@@ -176,7 +195,29 @@ async def async_serve(config: ServingConfig, device=None) -> None:
         logger.info("decode programs: %d %s in %.1fs", len(programs),
                     "captured as CUDA graphs" if programs.capture
                     else "made (eager step functions)", programs.seconds)
+    if channel is not None and channel.world > 1:
+        from ..parallel import multihost
 
+        if channel.rank != 0:
+            logger.info("rank %d replaying rank 0's engine ops",
+                        channel.rank)
+            await asyncio.get_running_loop().run_in_executor(
+                None, multihost.follower_loop, engine, channel)
+            return
+        engine = multihost.ReplicatedEngine(engine, channel)
+        logger.info("rank 0 serving for %d ranks", channel.world)
+    try:
+        await _serve_surfaces(config, engine, tokenizer, model_kind,
+                              prompt_cache)
+    finally:
+        if hasattr(engine, "shutdown"):
+            engine.shutdown()   # release the followers (OP_STOP)
+
+
+async def _serve_surfaces(config: ServingConfig, engine, tokenizer,
+                          model_kind: str, prompt_cache) -> None:
+    """fmaas (the Batcher, gRPC and HTTP) or, with INTERNAL_API=1,
+    generate.v1 over `engine`, until SIGINT / SIGTERM."""
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -220,11 +261,51 @@ async def async_serve(config: ServingConfig, device=None) -> None:
 
 
 def serve(config: ServingConfig, device=None) -> None:
+    """Serve on `device`, or with TENSOR_PARALLEL > 1 (or a multi-host env)
+    one process per card of this host (`parallel.launch`)."""
+    from ..parallel import launch
+
+    _logging(config)
+    dev_type = resolve_device(device).type
+    lay = launch.layout(dev_type)
+    if families.load_hf_config(config.model_name).get("model_type") \
+            in SEQ2SEQ_TYPES and lay.per_host > 1:
+        # served whole, as the JAX entrypoint serves it: one rank a host
+        logger.info("a t5 checkpoint is served unsharded: one rank a host")
+        lay = launch.Layout(world=lay.world // lay.per_host, per_host=1,
+                            host=lay.host, coordinator=lay.coordinator)
+    if lay.world == 1:
+        _run(config, device)
+        return
+    logger.info("starting %d of %d ranks (host %d, group at %s)",
+                lay.per_host, lay.world, lay.host, lay.coordinator)
+    launch.spawn(_serve_rank, lay, config, dev_type)
+
+
+def _serve_rank(rank: int, local: int, lay, config: ServingConfig,
+                dev_type: str) -> None:
+    """One rank of `serve`: its card, its groups, then `async_serve`."""
+    from ..parallel import launch
+
+    _logging(config)
+    device = torch.device("cuda", local) if dev_type == "cuda" else "cpu"
+    if dev_type == "cuda":
+        torch.cuda.set_device(device)
+    tp, channel = launch.init_rank(rank, lay.world, lay.coordinator,
+                                   "nccl" if dev_type == "cuda" else "gloo")
+    _run(config, device, tp, channel)
+
+
+def _logging(config: ServingConfig) -> None:
     logging.basicConfig(
         level=getattr(logging, config.log_level.upper(), logging.INFO),
-        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+        format="%(asctime)s %(levelname)s %(processName)s %(name)s "
+               "%(message)s")
+
+
+def _run(config: ServingConfig, device, tp=None, channel=None) -> None:
     try:
-        asyncio.run(async_serve(config, device))
+        asyncio.run(async_serve(config, device, tp, channel))
     except Exception as e:
         from ..utils.termination import write_termination_log
 
