@@ -102,7 +102,7 @@ Phases (any failure exits non-zero; nothing is caught):
              at a time, one asking for its input tokens' details: flash
              prefill's D = 256 body and the split body at D = 256; its peak
              of allocated memory less params, pool and the graphs' pool
-             must stay within the plan's activation_bytes (F4). Run 9:
+             must stay within the plan's graph-pool term (F4). Run 9:
              StarCoder-15.5B at full width and depth (multi-query), paged,
              max_seq 8192, prompts of 500-7500 tokens. Run 10: BLOOM-7b1
              at full width and depth (ALiBi), paged, run 8's traffic and
@@ -126,8 +126,9 @@ Phases (any failure exits non-zero; nothing is caught):
              `engine/programs.py`) in four configs, after run 2 (TinyLlama
              bf16 paged, per-step decode, 8 live requests), after run 4
              (the slot engine in scan mode, 8 live), after run 3 (7B GPTQ
-             + int8 KV, ring chunks of 8, 16 live; the first 16 of its 32
-             layers, to keep the script near half its time limit) and
+             + int8 KV, ring chunks of 8, 16 live; the first
+             GRAPHS_7B_LAYERS (8) of its 32 layers, to keep the script
+             within its time limit) and
              after run 6 (as run 3, INT4_FUSED_MLP=1): (1) a graph engine and an eager one
              (`eager_decode=True`) built alike, in lockstep through a
              staggered schedule (`tools/decode_replay.py`): outputs, state
@@ -141,8 +142,9 @@ Phases (any failure exits non-zero; nothing is caught):
              and power limit; the kernels each config is about (the bf16
              paged kernel, S1, K1 and K2, M1 and K1; no `sum_splits` kernel
              may run). Then the seq2seq engine's programs in run 11's two
-             configs at mt0-xxl and at google-t5/t5-large's widths (v1.0:
-             ReLU, tied head): the same lockstep, then every program of the
+             configs at mt0-xxl's widths (GRAPHS_MT0_LAYERS, 4 + 4
+             layers) and at google-t5/t5-large's (v1.0: ReLU, tied head;
+             24 + 24): the same lockstep, then every program of the
              grid once on both engines (`decode_replay.every_program`); at
              mt0-xxl also the same timing.
   7. speculative decoding: fp32 exactness (TinyLlama widths, 4 layers:
@@ -169,8 +171,8 @@ Phases (any failure exits non-zero; nothing is caught):
              and a repetition-penalty row among them; 14 active, so the gate
              takes plain steps), + gRPC: speculative and plain steps, flash
              prefill and the paged kernel must run, the peak less params,
-             pool and graphs' pool within the plan (activation +
-             speculative bytes); then the wall and busy ms of a verify step
+             pool within the plan (the graph-pool term + speculative
+             bytes); then the wall and busy ms of a verify step
              against a plain step at 8 live.
   8. int8    weights (QUANTIZE=int8 / int8-outliers / bitsandbytes; plain
              torch products, no kernel of their own): a 4-layer model at
@@ -220,11 +222,34 @@ Phases (any failure exits non-zero; nothing is caught):
              held to world size 1 the same way. Each rank must launch the
              run's kernels (TP_KERNELS) and pick rank 0's tokens.
              `--tp-only` runs the build and this phase alone.
+ 10. prefill the prefill programs (one captured CUDA graph per JAX prefill
+             key, `engine/programs.py`), after the seq2seq graphs phases:
+             for TinyLlama bf16 on the paged and on the slot engine (scan),
+             Llama-2-7B widths with GPTQ-INT4 weights and int8 KV (16 of
+             32 layers, max_seq 4096), the paged speculative engine at
+             Llama-2-7B widths (16 layers) and the seq2seq engine at
+             t5-large's widths: a graph engine and an eager one, both
+             warmed up (the warm grid captured; capture time and the
+             graphs' pool against the plan's graph-pool term printed), in
+             lockstep through prefill dispatches of several row counts and
+             buckets, a details key and a soft-prompt key run twice, keys
+             captured at first use while a request is live
+             (`decode_replay.prefill_lockstep`: first tokens, prompt
+             details, state and KV equal bit for bit); then TinyLlama at
+             1 x 64, 1 x 256, 1 x 1024 and 8 x 256 and the 7B at 1 x 512
+             and 8 x 512 timed in turns eager, graphs, graphs, eager
+             (`time_prefill`: wall ms by the host clock, busy ms and idle
+             share from torch.profiler, host launches a dispatch), flash
+             prefill and K1 launches equal in both modes.
+             `--prefill-only` runs the build and this phase alone.
 
-Serving runs 1-13 serve through the captured programs: every decode
-dispatch must be a graph replay, and a kernel's launches count each
-replay of a graph times the launches its capture recorded. The tp
-phase's world size 2 runs decode eagerly.
+Serving runs 1-13 serve through the captured programs: every prefill and
+every decode dispatch must be a graph replay (the warm grid captured at
+warmup, other prefill keys at their first use), and a kernel's launches
+count each replay of a graph times the launches its capture recorded.
+Runs 8 and 10 hold the graphs' pool, and the peak less params and KV, to
+the plan's one graph-pool term. The tp phase's world size 2 runs prefill
+and decode eagerly.
 
 The second-to-last line of output is the `kernels` JSON record, the last
 line the device record. Exits non-zero without CUDA, or when the port's
@@ -254,6 +279,11 @@ PEAK_TF32_FLOPS = 494.7e12      # H100 SXM dense TF32 tensor cores
 # the JAX reference package's directory (named here, never imported)
 JAX_PACKAGE_DIR = "text_generation_inference" + "_tpu"
 PORT_DIR = "text_generation_inference_tpu_torch"
+# the depth of the 7B decode graphs phases (of 32 layers) and of the
+# mt0-xxl seq2seq graphs phase (of 24 + 24), cut to keep the script within
+# its time limit; the serving runs keep every layer
+GRAPHS_7B_LAYERS = 8
+GRAPHS_MT0_LAYERS = 4
 
 # TinyLlama-1.1B (config.json of TinyLlama/TinyLlama-1.1B-Chat-v1.0)
 TINYLLAMA = dict(vocab_size=32000, hidden_size=2048, num_layers=22,
@@ -2249,6 +2279,27 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
                  "cudaMemcpyAsync", "cudaMemsetAsync", "cudaLaunchCooperative")
 
 
+def read_profile(prof):
+    """A torch.profiler run's device kernels [(ms, count, name)], the most
+    device time first, and the host calls that enqueue device work."""
+    from torch.autograd import DeviceType
+
+    kernels, host = [], 0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == DeviceType.CUDA:
+            # device-side events only: an operator's own "self device time"
+            # is the time of the kernels it launched, events of their own
+            dev_us = getattr(evt, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(evt, "self_cuda_time_total", 0)
+            if dev_us > 0:
+                kernels.append((dev_us / 1e3, evt.count, evt.key))
+        elif evt.key.startswith(HOST_LAUNCHES):
+            host += evt.count
+    kernels.sort(reverse=True)
+    return kernels, host
+
+
 def time_decode(torch, engine, label, live=8, calls=16, focus=()):
     """Where a decode dispatch's time goes on `engine` (its decode graphs,
     or its step functions when built with eager_decode): `live` requests
@@ -2259,7 +2310,6 @@ def time_decode(torch, engine, label, live=8, calls=16, focus=()):
     that enqueue device work a step, the kernels that take the most device
     time, and the share of the kernels whose name holds each string of
     `focus`. Frees every slot again (in place) at the end."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from text_generation_inference_tpu_torch.engine.engine import RequestParams
@@ -2298,19 +2348,7 @@ def time_decode(torch, engine, label, live=8, calls=16, focus=()):
         for _ in range(calls):
             engine.decode_steps(want_details=False)
         sync(torch)
-    kernels, host = [], 0
-    for evt in prof.key_averages():
-        if getattr(evt, "device_type", None) == DeviceType.CUDA:
-            # device-side events only: an operator's own "self device time"
-            # is the time of the kernels it launched, events of their own
-            dev_us = getattr(evt, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(evt, "self_cuda_time_total", 0)
-            if dev_us > 0:
-                kernels.append((dev_us / 1e3, evt.count, evt.key))
-        elif evt.key.startswith(HOST_LAUNCHES):
-            host += evt.count
-    kernels.sort(reverse=True)
+    kernels, host = read_profile(prof)
     progs = engine.programs
     out = dict(label=label, mode="eager" if eager else "graphs",
                wall_ms=wall_ms, dispatch_span_ms=span_ms,
@@ -2419,6 +2457,206 @@ def graphs(torch, spec, params, label, card, overrides=None, slot=False,
     return dict(g, summary=summary)
 
 
+# --- prefill programs ------------------------------------------------------
+
+# (rows, bucket) of the timed prefill dispatches of the prefill phase
+PREFILL_SHAPES_TINYLLAMA = ((1, 64), (1, 256), (1, 1024), (8, 256))
+PREFILL_SHAPES_7B = ((1, 512), (8, 512))
+
+
+def time_prefill(torch, engine, label, shapes, counters, calls=6):
+    """Where a prefill dispatch's time goes on `engine` (its prefill
+    graphs, or its step functions when built with eager_decode), for each
+    (rows, bucket) of `shapes` (prompts 3 tokens short of the bucket, freed
+    after each call): one call (a key outside the warm grid is captured
+    there), then `calls` calls timed by the host clock ending in
+    torch.cuda.synchronize(), then `calls` more under torch.profiler: the
+    card's busy time and idle share, the host calls that enqueue device
+    work a dispatch. The `counters` read over the timed calls (their
+    launches a dispatch) go beside."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from text_generation_inference_tpu_torch.engine.engine import RequestParams
+
+    mode = "graphs" if engine.programs.capture else "eager"
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for n, bucket in shapes:
+        prompts = [[int(x) for x in rng.integers(3, 259, bucket - 3)]
+                   for _ in range(n)]
+        rps = [RequestParams(max_new_tokens=4)] * n
+
+        def once():
+            slots = [engine.acquire_slot() for _ in range(n)]
+            engine.prefill(slots, prompts, rps)
+            for slot in slots:
+                engine.free(slot)
+
+        once()
+        sync(torch)
+        for c in counters.values():
+            c.reset()
+        t0 = time.monotonic()
+        for _ in range(calls):
+            once()
+        sync(torch)
+        wall_ms = (time.monotonic() - t0) * 1e3 / calls
+        counts = {k: c.read() / calls for k, c in counters.items()
+                  if c.read()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                once()
+            sync(torch)
+        kernels, host = read_profile(prof)
+        busy_ms = sum(k[0] for k in kernels) / calls
+        rec = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                   idle=max(0.0, 1 - busy_ms / wall_ms),
+                   host_launches=host / calls,
+                   device_events=sum(k[1] for k in kernels) / calls,
+                   kernels_reported=bool(kernels), launches=counts)
+        out[f"{n}x{bucket}"] = rec
+        log(f"prefill time[{label}, {mode}] {n} x {bucket}: wall "
+            f"{wall_ms:.3f} ms, busy {busy_ms:.3f} ms, "
+            f"{100 * rec['idle']:.1f}% idle, {rec['host_launches']:.1f} host "
+            f"launches, {rec['device_events']:.1f} device events a dispatch; "
+            f"kernel launches a dispatch {json.dumps(counts)}")
+    return out
+
+
+def prefill_programs(torch, label, spec, params, card, counters,
+                     overrides=None, max_seq=2048, slot=False, seq2seq=False,
+                     speculative=None, shapes=(), warm_sizes=None):
+    """The prefill programs of one engine config: a graph engine and an
+    eager one (`eager_decode=True`) built alike (128 pages), both warmed up
+    (`warm_sizes`, default the engine's), the graph engine's warmup timed
+    and its graphs' pool printed against the plan's graph-pool term; then
+    `tools.decode_replay.prefill_lockstep` (replay == eager bit for bit:
+    first tokens, prompt details, state and KV, over several row counts and
+    buckets, a details key and a soft-prompt key run twice, keys captured at
+    their first use while a request is live); then, for `shapes`, the time
+    of a prefill dispatch in turns eager, graphs, graphs, eager
+    (`time_prefill`), whose flash prefill and K1 launches must be equal in
+    both modes."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    t0 = time.monotonic()
+    engines = {mode: make_engine(torch, spec, params, max_seq,
+                                 overrides or {}, slot=slot,
+                                 eager=mode == "eager", num_pages=128,
+                                 seq2seq=seq2seq,
+                                 speculative=speculative)[0]
+               for mode in ("graphs", "eager")}
+    replayed, eager = engines["graphs"], engines["eager"]
+    warm = {}
+    for mode, engine in engines.items():
+        t1 = time.monotonic()
+        if warm_sizes is None:
+            engine.warmup()
+        else:
+            engine.warmup(warm_sizes)
+        sync(torch)
+        warm[mode] = time.monotonic() - t1
+    progs = replayed.programs
+    pool = progs.pool_bytes() or 0
+    # the seq2seq engine makes no memory plan (as the JAX one)
+    plan = getattr(replayed, "memory_plan", None)
+    term = plan.graph_pool_bytes if plan is not None else None
+    seen = decode_replay.prefill_lockstep(replayed, eager,
+                                          vocab=TINYLLAMA["vocab_size"])
+    sync(torch)
+    if DEVICE == "cuda" and not all(p.graph is not None
+                                    for p in progs.every_program()):
+        raise AssertionError(f"prefill[{label}]: a program is not a graph")
+    for e in engines.values():
+        e._clear_slots()
+    gib = 2 ** 30
+    rec = dict(warm_prefill_programs=(len(progs.prefill)
+                                      - len(seen["captured"])),
+               prefill_capture_s=progs.prefill_seconds,
+               warmup_s=warm["graphs"], eager_warmup_s=warm["eager"],
+               pool_bytes=pool, graph_pool_term=term,
+               pool_after_lockstep=progs.pool_bytes() or 0,
+               keys=[str(k) for k in seen["keys"]])
+    log(f"prefill[{label}] on {card}: replay == eager bit for bit over "
+        f"{seen['dispatches']} prefill dispatches (keys {seen['keys']}; "
+        f"captured at first use {seen['captured']}) and the decode dispatch "
+        f"after them; warmup made {rec['warm_prefill_programs']} prefill "
+        f"programs ({rec['prefill_capture_s']:.1f}s of capture, eager runs "
+        f"included) and {len(progs)} decode programs in {warm['graphs']:.1f}s "
+        f"(the eager engine's warmup {warm['eager']:.1f}s); graphs' pool "
+        f"{pool / gib:.3f} GiB after warmup, "
+        f"{rec['pool_after_lockstep'] / gib:.3f} GiB after the lockstep"
+        + (f", against the plan's graph-pool term {term / gib:.3f} GiB ("
+           f"prefill {plan.activation_bytes / gib:.3f}, decode "
+           f"{plan.decode_bytes / gib:.3f})" if plan is not None else "")
+        + f" ({time.monotonic() - t0:.1f}s)")
+    if shapes:
+        turns = [time_prefill(torch, engines[mode], label, shapes, counters)
+                 for mode in ("eager", "graphs", "graphs", "eager")]
+        summary = {}
+        for shape in turns[0]:
+            summary[shape] = {}
+            for mode, runs in (("eager", turns[0::3]),
+                               ("graphs", turns[1:3])):
+                summary[shape][mode] = {
+                    k: float(np.mean([r[shape][k] for r in runs]))
+                    for k in ("wall_ms", "busy_ms", "idle", "host_launches")}
+            for key in ("flash_prefill", "int4_matmul"):
+                got = {turn[shape]["launches"].get(key, 0) for turn in turns}
+                if len(got) != 1:
+                    raise AssertionError(
+                        f"prefill[{label}] {shape}: {key} launches a "
+                        f"dispatch differ between eager and graphs: {got}")
+                summary[shape][f"{key}_launches"] = got.pop()
+        log(f"prefill[{label}] timing on {card}: {json.dumps(summary)}")
+        rec["timing"] = summary
+    for e in engines.values():
+        e.programs.clear()
+    return rec
+
+
+def prefill_phase(torch, card, counters) -> dict:
+    """The prefill programs (`prefill_programs`) at full width: TinyLlama
+    bf16 on the paged engine (timed at PREFILL_SHAPES_TINYLLAMA) and on the
+    slot engine (scan mode); Llama-2-7B widths with GPTQ-INT4 weights and
+    int8 KV on ring chunks of 8 (16 of its 32 layers, max_seq 4096 so that
+    8 rows of 512 fit the prefill cap; timed at PREFILL_SHAPES_7B); the
+    paged speculative engine at Llama-2-7B widths (16 layers, bf16); the
+    seq2seq engine at google-t5/t5-large's widths."""
+    out = {}
+    spec = llama_spec()
+    params = random_params(torch, spec)
+    out["tinyllama paged"] = prefill_programs(
+        torch, "tinyllama bf16 paged", spec, params, card, counters,
+        shapes=PREFILL_SHAPES_TINYLLAMA)
+    out["tinyllama slot"] = prefill_programs(
+        torch, "tinyllama bf16 slot scan", spec, params, card, counters,
+        dict(decode_write_mode="scan"), slot=True)
+    del params
+    spec7b16 = llama_spec(LLAMA7B, num_layers=16)
+    params = random_params(torch, spec7b16, gptq=True)
+    out["7b gptq int8kv"] = prefill_programs(
+        torch, "7b gptq int8kv", spec7b16, params, card, counters,
+        dict(kv_cache_dtype="int8", decode_chunk=8, paged_gather_ctx_max=0),
+        max_seq=4096, shapes=PREFILL_SHAPES_7B)
+    del params
+    from text_generation_inference_tpu_torch.models.fuse import fuse_params
+
+    params = fuse_params(spec7b16, random_params(torch, spec7b16))
+    out["7b speculative paged"] = prefill_programs(
+        torch, "7b speculative paged", spec7b16, params, card, counters,
+        speculative=dict(n_predict=SPEC_N_PREDICT, max_spec_batch=3),
+        warm_sizes=(1,))
+    del params
+    spec_t5, params_t5 = t5_model(torch, "t5-large", 12)
+    out["t5-large seq2seq"] = prefill_programs(
+        torch, "t5-large seq2seq", spec_t5, params_t5, card, counters,
+        max_seq=1024, seq2seq=True)
+    del params_t5
+    return out
+
+
 def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
               traffic=TRAFFIC_TINYLLAMA, max_seq=2048, slot=False,
               fused=False, prefixes=None, slots=16, details_waves=(),
@@ -2429,11 +2667,13 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     prefix id must fail validation. With `details_waves`, those waves'
     first requests ask for their input tokens' details. Every prefill
     dispatch must hold at most `max_prefill_tokens` padded tokens (rows x
-    bucket). With `memory_check` (F4), the run's peak of allocated memory
-    less the params, the KV pool and the graphs' pool must stay within the
-    plan's `activation_bytes`, the prefill cap must have refused a request,
-    and wave `F4_BATCH_WAVE` must have prefilled as one dispatch of
-    `max_prefill_batch` rows."""
+    bucket). Every prefill and every decode dispatch must be a replay of a
+    captured graph. With `memory_check` (F4), the graphs' pool (prefill and
+    decode programs) must stay within the plan's one graph-pool term
+    (`MemoryPlan.graph_pool_bytes`), and so must the run's peak of
+    allocated memory less the params and the KV pool; the prefill cap must
+    have refused a request, and wave `F4_BATCH_WAVE` must have prefilled
+    as one dispatch of `max_prefill_batch` rows."""
     from text_generation_inference_tpu_torch.engine.memory import tree_bytes
     from text_generation_inference_tpu_torch.utils import metrics
     from text_generation_inference_tpu_torch.scheduler.batcher import Batcher
@@ -2449,7 +2689,8 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
     engine.warmup(batch_sizes=(1,))
     warmup_s = time.monotonic() - t0
     progs = engine.programs
-    captured = (len(progs), progs.seconds, (progs.pool_bytes() or 0) / 2 ** 20)
+    captured = (len(progs), progs.seconds, (progs.pool_bytes() or 0) / 2 ** 20,
+                len(progs.prefill), progs.prefill_seconds)
     # every decode dispatch of the run must be a replay of a captured graph
     begin = engine.decode_steps_begin
 
@@ -2475,6 +2716,7 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated() if DEVICE == "cuda" else 0
     replays0 = sum(p.replays for p in progs.programs.values())
+    prefill_replays0 = sum(p.replays for p in progs.prefill.values())
     tokenizer = ByteTokenizer()
     waves, new = traffic
     prompt_cache = build_prompt_cache(config, spec.hidden_size)
@@ -2532,21 +2774,25 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
         graphs_b = progs.pool_bytes() or 0
         transient = peak - params_b - pool_b - graphs_b
+        term = plan.graph_pool_bytes
         gib = 2 ** 30
         log(f"serve[{name}] memory (F4): plan {plan.describe()}; peak "
             f"allocated {peak / gib:.2f} GiB = params {params_b / gib:.2f} + "
             f"pool {pool_b / gib:.2f} + graphs' pool {graphs_b / gib:.3f} + "
             f"transient {transient / gib:.2f} GiB (of it, allocated before "
             f"the traffic: {(resident - params_b - pool_b - graphs_b) / gib:.3f}"
-            f" GiB) against the plan's "
-            f"activation_bytes {plan.activation_bytes / gib:.2f} GiB; the "
-            f"prefill cap ({config.max_prefill_tokens} tokens) refused "
-            f"{counts['prefill_cap_refusals']:.0f} times; prefill "
+            f" GiB) against the plan's graph-pool term {term / gib:.3f} GiB "
+            f"(prefill {plan.activation_bytes / gib:.3f}, decode "
+            f"{plan.decode_bytes / gib:.3f}); {len(progs.prefill)} prefill "
+            f"programs; the prefill cap ({config.max_prefill_tokens} tokens) "
+            f"refused {counts['prefill_cap_refusals']:.0f} times; prefill "
             f"(rows, bucket) {sorted(set(prefill_shapes))}")
-        if DEVICE == "cuda" and transient > plan.activation_bytes:
-            raise AssertionError(f"serve[{name}]: the prefill working set "
-                                 f"{transient} exceeds the plan's "
-                                 f"{plan.activation_bytes} bytes")
+        if DEVICE == "cuda" and (graphs_b > term
+                                 or graphs_b + transient > term):
+            raise AssertionError(f"serve[{name}]: the graphs' pool "
+                                 f"{graphs_b} and transient {transient} "
+                                 f"bytes exceed the plan's graph-pool term "
+                                 f"{term}")
         if counts["prefill_cap_refusals"] <= 0:
             raise AssertionError(f"serve[{name}]: the prefill cap never "
                                  "refused a request")
@@ -2557,14 +2803,19 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
                                  f"prefilled as one dispatch {batch}: "
                                  f"{sorted(set(prefill_shapes))}")
         counts["transient_bytes"] = transient
-        counts["activation_bytes"] = plan.activation_bytes
+        counts["graph_pool_bytes"] = graphs_b
+        counts["graph_pool_term"] = term
     replays = sum(p.replays for p in progs.programs.values()) - replays0
+    prefill_replays = (sum(p.replays for p in progs.prefill.values())
+                       - prefill_replays0)
     if DEVICE == "cuda" and (
             replays != counted_begin.calls or counted_begin.calls == 0
-            or not all(p.graph is not None for p in progs.programs.values())):
+            or prefill_replays != len(prefill_rows)
+            or not all(p.graph is not None for p in progs.every_program())):
         raise AssertionError(
             f"serve[{name}]: {counted_begin.calls} decode dispatches, "
-            f"{replays} graph replays")
+            f"{replays} graph replays; {len(prefill_rows)} prefill "
+            f"dispatches, {prefill_replays} prefill replays")
     tokens = sum(r.generated_count for r in reqs)
     n_pre = sum(1 for r in reqs if r.prefix_id)
     log(f"serve[{name}] {type(engine).__name__} {overrides}"
@@ -2575,10 +2826,13 @@ def serve_run(torch, spec, params, name, overrides, counters, with_grpc,
         f" tokens, {tokens} tokens generated in {wall:.2f}s wall "
         f"({tokens / wall:.1f} tok/s), streaming TTFT mean "
         f"{np.mean(ttft) * 1e3:.1f} ms max {np.max(ttft) * 1e3:.1f} ms; "
-        f"{counted_begin.calls} decode dispatches, each a graph replay "
-        f"({captured[0]} programs captured at warmup in {captured[1]:.1f}s of "
+        f"{counted_begin.calls} decode dispatches and {len(prefill_rows)} "
+        f"prefill dispatches, each a graph replay ({captured[0]} decode "
+        f"programs captured at warmup in {captured[1]:.1f}s and "
+        f"{captured[3]} prefill programs in {captured[4]:.1f}s of "
         f"{warmup_s:.1f}s, graph pool {captured[2]:.1f} MiB; "
-        f"{len(progs)} programs at the end); prefill batches of "
+        f"{len(progs)} decode and {len(progs.prefill)} prefill programs at "
+        f"the end); prefill batches of "
         f"{prefill_rows} rows; peak allocated {peak / 2 ** 30:.2f} GiB of "
         f"{torch.cuda.mem_get_info()[1] / 2 ** 30 if DEVICE == 'cuda' else 0:.2f}"
         f" GiB, KV {kv_bytes(engine) / 2 ** 30:.2f} GiB of it; launches "
@@ -2842,7 +3096,7 @@ def serve_spec(torch, spec, params, counters, with_grpc, card):
     TRAFFIC_SPEC (+ gRPC). Both the speculative and the plain (gated)
     steps must run, every dispatch a graph replay; flash prefill and the
     paged kernel must launch; the peak of allocated memory less params,
-    pool and graphs' pool must stay within the plan (activation_bytes +
+    pool must stay within the plan (the graph-pool term +
     speculative_bytes). Then the wall and busy ms of a verify step against
     a plain step at 8 live (`time_decode`, the gate closed for the plain
     one)."""
@@ -2910,7 +3164,7 @@ def serve_spec(torch, spec, params, counters, with_grpc, card):
     params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
     graphs_b = progs.pool_bytes() or 0
     transient = peak - params_b - pool_b - graphs_b
-    planned = plan.activation_bytes + plan.speculative_bytes
+    planned = plan.graph_pool_bytes + plan.speculative_bytes
     gib = 2 ** 30
     tokens = sum(r.generated_count for r in reqs)
     log(f"serve[7b-speculative] {type(engine).__name__} SPECULATOR=1 "
@@ -2930,7 +3184,7 @@ def serve_spec(torch, spec, params, counters, with_grpc, card):
         f"{graphs_b / gib:.3f} + transient {transient / gib:.3f} GiB (of it, "
         f"allocated before the traffic: "
         f"{(resident - params_b - pool_b - graphs_b) / gib:.3f} GiB) against "
-        f"the plan's activation + speculative {planned / gib:.3f} GiB "
+        f"the plan's graph pool + speculative {planned / gib:.3f} GiB "
         f"(speculative {plan.speculative_bytes / gib:.3f}); launches {counts}")
     if DEVICE == "cuda" and (replays != steps or not all(
             p.graph is not None for p in progs.programs.values())):
@@ -2942,9 +3196,10 @@ def serve_spec(torch, spec, params, counters, with_grpc, card):
     for key in ("flash_prefill", "paged_decode_attention"):
         if counts[key] <= 0:
             raise AssertionError(f"{key} never ran in serving run 12: {counts}")
-    if DEVICE == "cuda" and transient > planned:
-        raise AssertionError(f"run 12: transient {transient} bytes exceed "
-                             f"the plan's {planned}")
+    if DEVICE == "cuda" and graphs_b + transient > planned:
+        raise AssertionError(f"run 12: the graphs' pool {graphs_b} and "
+                             f"transient {transient} bytes exceed the "
+                             f"plan's {planned}")
     turns = {}
     for label in ("verify", "plain"):
         engine.max_spec_batch = SPEC_MAX_BATCH if label == "verify" else 0
@@ -3364,7 +3619,7 @@ def serve_internal(torch, counters, card):
     params_b, pool_b = tree_bytes(engine.model_params), kv_bytes(engine)
     graphs_b = progs.pool_bytes() or 0
     transient = peak - params_b - pool_b - graphs_b
-    planned = plan.activation_bytes + plan.quant_bytes
+    planned = plan.graph_pool_bytes + plan.quant_bytes
     gib = 2 ** 30
     log(f"serve[run 13, generate.v1] {card}: {spec.num_layers} layers at "
         f"7B widths, int8 weights quantized on the card in {quant_s:.1f}s "
@@ -3378,11 +3633,12 @@ def serve_internal(torch, counters, card):
     log(f"serve[run 13] memory: plan {plan.describe()}; peak allocated "
         f"{peak / gib:.2f} GiB = params {params_b / gib:.2f} + pool "
         f"{pool_b / gib:.2f} + graphs' pool {graphs_b / gib:.3f} + transient "
-        f"{transient / gib:.3f} GiB against the plan's activation + int8 "
+        f"{transient / gib:.3f} GiB against the plan's graph pool + int8 "
         f"transient bytes {planned / gib:.3f} GiB")
-    if DEVICE == "cuda" and transient > planned:
-        raise AssertionError(f"run 13: transient {transient} exceeds the "
-                             f"plan's {planned} bytes")
+    if DEVICE == "cuda" and graphs_b + transient > planned:
+        raise AssertionError(f"run 13: the graphs' pool {graphs_b} and "
+                             f"transient {transient} bytes exceed the "
+                             f"plan's {planned}")
     # the fmaas path on the same engine, its slots cleared in place
     engine._clear_slots()
     engine.decode_steps_begin = begin
@@ -3970,6 +4226,17 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--prefill-only" in sys.argv[1:]:
+        # the prefill programs' phase alone (a quick check of its own)
+        prefill = prefill_phase(torch, card, {
+            "flash_prefill": Counter(fp.flash_prefill),
+            "int4_matmul": Counter(im.int4_matmul)})
+        mark("prefill programs")
+        print(json.dumps({"prefill": prefill}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     fp32 = torch.float32
     fp64 = check_flash_prefill(torch, timer, d=64, kh=4, g=8)
     fp128 = check_flash_prefill(torch, timer, d=128, kh=8, g=4)
@@ -4215,10 +4482,11 @@ def main() -> int:
             or run3["int4_mlp_s4_stacked"]:
         raise AssertionError(f"run 3 left the ring-chunk kernel path: {run3}")
     mark("probe, quant parity, serving run 3")
-    # the 7B graphs phases at the first 16 of the 32 layers, to keep the
-    # script near half its time limit (serving runs 3 and 6 keep all 32)
-    spec7b16, params7b16 = first_layers(spec7b, params7b, 16)
-    prof3 = graphs(torch, spec7b16, params7b16, "7b gptq int8kv", card,
+    # the 7B graphs phases at the first GRAPHS_7B_LAYERS of the 32 layers,
+    # to keep the script within its time limit (serving runs 3 and 6 keep
+    # all 32)
+    spec7b8, params7b8 = first_layers(spec7b, params7b, GRAPHS_7B_LAYERS)
+    prof3 = graphs(torch, spec7b8, params7b8, "7b gptq int8kv", card,
                    quantized, max_seq=1024, live=16, calls=4,
                    focus=("k1_", "split_kernel", "sum_splits"))
 
@@ -4246,13 +4514,13 @@ def main() -> int:
         f"-> {k1_rate['run 6']:.0f} in run 6 (w_qkv, wo), M1 {m1_rate:.0f} "
         f"(w_gu + the GLU + w_down)")
     mark("graphs: 7b gptq int8kv, serving run 6")
-    prof6 = graphs(torch, spec7b16, params7b16, "7b gptq int8kv fused", card,
+    prof6 = graphs(torch, spec7b8, params7b8, "7b gptq int8kv fused", card,
                    quantized, max_seq=1024, live=16, calls=4, fused=True,
                    focus=("int4_mlp_kernel", "k1_", "sum_splits"))
     mark("graphs: 7b gptq int8kv fused")
     log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
         f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
-    del params7b, params7b16
+    del params7b, params7b8
 
     # run 7: Mistral-7B-v0.1 at full width and depth on the slot engine in
     # scan mode, max_seq 8192, 8 slots; prompts past its window of 4096 cut
@@ -4347,12 +4615,17 @@ def main() -> int:
     log("run 11: no kernel of the port launched (the T5 path is einsum and "
         "matmul, as in the JAX package)")
     mark("serving run 11")
-    # the seq2seq decode programs: replay == eager bit for bit, at mt0-xxl
-    # then eager / graphs timing, and at t5-large (v1.0: ReLU, tied head)
+    # the seq2seq decode programs: replay == eager bit for bit, at mt0-xxl's
+    # widths cut to GRAPHS_MT0_LAYERS + GRAPHS_MT0_LAYERS layers (the time
+    # limit; run 11 keeps all 24 + 24) then eager / graphs timing, and at
+    # t5-large (v1.0: ReLU, tied head)
+    del params_t5
     prof11 = {}
-    for name, seed in (("mt0-xxl", None), ("t5-large", 12)):
-        if seed is not None:
-            spec_t5, params_t5 = t5_model(torch, name, seed)
+    for name, seed, cut in (("mt0-xxl", 11, GRAPHS_MT0_LAYERS),
+                            ("t5-large", 12, None)):
+        layers = ({} if cut is None else
+                  dict(num_encoder_layers=cut, num_decoder_layers=cut))
+        spec_t5, params_t5 = t5_model(torch, name, seed, **layers)
         for label, kw in s2s_modes.items():
             prof11[f"{name} {label}"] = graphs(
                 torch, spec_t5, params_t5, f"{name} seq2seq {label}", card,
@@ -4361,6 +4634,10 @@ def main() -> int:
         del params_t5
         mark(f"graphs: {name} seq2seq")
     log(f"profile seq2seq: {json.dumps(prof11)}")
+    # the prefill programs: replay == eager for every engine kind, eager
+    # against graphs prefill timing, the graphs' pool against the plan
+    prefill_report = prefill_phase(torch, card, counters)
+    mark("prefill programs")
 
     # speculative decoding: exactness in fp32, the distilled measurement
     # and the bf16 streams, replay == eager for every verify program, verify
@@ -4620,12 +4897,14 @@ def main() -> int:
         f"{json.dumps(fp_alibi_f32)}")
     log(f"paged_decode_attention_partial_i8 ALiBi (bloom-7b1 widths): "
         f"{json.dumps(pi8_alibi)}")
-    log(f"F4: run 8 transient {run8['transient_bytes']} of "
-        f"{run8['activation_bytes']} planned bytes; run 10 "
-        f"{run10['transient_bytes']} of {run10['activation_bytes']}")
+    log(f"F4: run 8 graphs' pool {run8['graph_pool_bytes']} + transient "
+        f"{run8['transient_bytes']} of the {run8['graph_pool_term']} bytes "
+        f"of the plan's graph-pool term; run 10 {run10['graph_pool_bytes']} "
+        f"+ {run10['transient_bytes']} of {run10['graph_pool_term']}")
     log(f"int8: {json.dumps(int8_report)}; run 13 "
         f"{json.dumps({k: v for k, v in run13.items() if v})}; gptq solve "
         f"{json.dumps(gptq_report)} on {card}")
+    log(f"prefill programs: {json.dumps(prefill_report)}")
     log(f"speculative: run 12 {json.dumps({k: v for k, v in run12.items() if v})}; "
         f"the GPTQ verify's launches {json.dumps({k: v for k, v in gptq_verify.items() if v})}; "
         f"the distilled measurement {json.dumps(spec_report)}")

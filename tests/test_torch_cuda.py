@@ -1982,3 +1982,133 @@ def test_gptq_solve_on_the_card(cuda_device, act_order):
     np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(),
                                rtol=1e-5, atol=0)
     assert torch.equal(got[3].cpu(), want[3])
+
+
+# --- prefill programs: one captured CUDA graph per prefill key ---------------
+
+# case -> a (graphs, eager) pair of engines built alike: one key kind each
+PREFILL_CASES = ("slot-scan-chunk1-s1", "paged-ring4-bf16",
+                 "paged-ring4-gptq-int8", "speculative-paged-ring4",
+                 "speculative-slot", "seq2seq-ring4-ctx")
+
+
+def prefill_engines(case, device, monkeypatch, eager=False):
+    if case.startswith("speculative"):
+        return spec_engine(case, device, eager=eager)
+    if case.startswith("seq2seq"):
+        return s2s_engine(case[len("seq2seq-"):], device, eager=eager)
+    return graph_engine(case, device, monkeypatch, eager=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PREFILL_CASES)
+def test_prefill_graphs_replay_equals_eager(cuda_device, monkeypatch, case):
+    """Every prefill dispatch is a replay of a captured graph and equals an
+    eager engine's, bit for bit (first tokens, prompt details, state, the
+    KV rows or pages written, the chain state), over row counts, buckets,
+    a details key and a soft-prompt key run twice; the keys after the
+    first dispatch are captured at their first use while its request is
+    live, and a decode dispatch over it then equals the eager one."""
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = prefill_engines(case, cuda_device, monkeypatch)
+    eager = prefill_engines(case, cuda_device, monkeypatch, eager=True)
+    seen = decode_replay.prefill_lockstep(engine, eager, vocab=512)
+    torch.cuda.synchronize()
+    progs = engine.programs.prefill
+    assert all(p.graph is not None for p in progs.values())
+    assert sum(p.replays for p in progs.values()) == seen["dispatches"]
+    assert all(p.graph is None for p in eager.programs.prefill.values())
+    assert set(seen["captured"]) == set(seen["keys"])
+    assert seen["keys"][4] == seen["keys"][5]      # the soft prompt, twice
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged-ring4-gptq-int8",
+                                  "slot-scan-chunk1-s1"])
+def test_prefill_launches_count_as_eager(cuda_device, monkeypatch, case):
+    """The same prefills on a graph engine and an eager one: flash prefill
+    and K1 launch counts from `programs.launches` (captured x replays)
+    equal the eager engine's wrapper calls."""
+    from text_generation_inference_tpu_torch.engine import programs
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+
+    counters = (fp.flash_prefill, im.int4_matmul)
+    counts = []
+    for eager in (True, False):
+        engine = prefill_engines(case, cuda_device, monkeypatch, eager=eager)
+        engine.precompile_decode()
+        before = [programs.launches(c) for c in counters]
+        for n, length in ((1, 200), (2, 200), (1, 200), (3, 40)):
+            slots = [engine.acquire_slot() for _ in range(n)]
+            engine.prefill(slots, [list(range(3, 3 + length))] * n,
+                           [RequestParams(max_new_tokens=4)] * n)
+            for slot in slots:
+                engine.free(slot)
+        torch.cuda.synchronize()
+        counts.append([programs.launches(c) - b
+                       for c, b in zip(counters, before)])
+    assert counts[0] == counts[1] and counts[0][0] > 0
+    assert (counts[0][1] > 0) == ("gptq" in case)
+
+
+def pool_engine(device, eager=False):
+    """GRAPH_SPEC with a vocabulary of 32000 (the logits then dominate the
+    prefill working set, as at full size, rather than the allocator's
+    segment sizes) on the paged engine, ring chunks of 4."""
+    from text_generation_inference_tpu_torch.config import ServingConfig
+    from text_generation_inference_tpu_torch.engine.paged_engine import (
+        PagedInferenceEngine)
+    from text_generation_inference_tpu_torch.models.core import DecoderSpec
+    from text_generation_inference_tpu_torch.tools.probe_decode import (
+        random_params)
+
+    spec = DecoderSpec(**dict(GRAPH_SPEC, vocab_size=32000))
+    params = random_params(spec, device, torch.bfloat16, seed=9)
+    config = ServingConfig(max_sequence_length=2048, max_new_tokens=256,
+                           max_batch_slots=6, prefill_buckets=[16, 64, 256],
+                           kv_page_size=16, decode_chunk=4,
+                           paged_gather_ctx_max=0)
+    config.validate()
+    return PagedInferenceEngine(spec, params, config, eos_token_id=2,
+                                num_pages=6 * 32, device=device,
+                                eager_decode=eager)
+
+
+@pytest.mark.cuda
+def test_prefill_warm_grid_serves_without_capture_and_recaptures(
+        cuda_device):
+    """warmup() captures the warm grid (buckets x 1, 2, 4 rows within
+    max_prefill_tokens); serving its keys captures nothing new; reset()
+    drops every graph and captures the same keys again, whose replays then
+    equal an eager engine's; the graphs' pool stays within the plan's
+    graph-pool term."""
+    from text_generation_inference_tpu_torch.engine.engine import (
+        RequestParams)
+    from text_generation_inference_tpu_torch.tools import decode_replay
+
+    engine = pool_engine(cuda_device)
+    engine.warmup()
+    warm = dict(engine.programs.prefill)
+    assert warm and all(k[0] * k[1] <= engine.config.max_prefill_tokens
+                        for k in warm)
+    assert {k[0] for k in warm} == {1, 2, 4}
+    pool = engine.programs.pool_bytes()
+    assert pool is not None and 0 < pool <= engine.memory_plan.graph_pool_bytes
+    for n, bucket in ((1, 16), (2, 64), (4, 64), (1, 256)):
+        slots = [engine.acquire_slot() for _ in range(n)]
+        engine.prefill(slots, [list(range(3, bucket - 1))] * n,
+                       [RequestParams(max_new_tokens=4)] * n)
+        for slot in slots:
+            engine.free(slot)
+    assert engine.programs.prefill == warm
+    engine.reset()
+    assert set(engine.programs.prefill) == set(warm)
+    assert all(engine.programs.prefill[k] is not warm[k] for k in warm)
+    assert all(p.graph is not None for p in engine.programs.prefill.values())
+    eager = pool_engine(cuda_device, eager=True)
+    eager.warmup()
+    decode_replay.prefill_lockstep(engine, eager, vocab=512)
+    assert engine.programs.pool_bytes() <= \
+        engine.memory_plan.graph_pool_bytes

@@ -15,15 +15,19 @@ and the paged engine share, and `InferenceEngine`, the slot engine
   * `free(slot)` is host bookkeeping; the device-side mask update is
     applied at the start of the next engine call.
 
-Decode programs: as the JAX engines compile one program per decode key
+Programs: as the JAX engines compile one program per decode key
 (want_details, context rows, chunk) and `warmup` compiles them all
 (`precompile_decode`), an engine on the card captures one CUDA graph per
-key (`engine.programs`) and each decode dispatch replays one; prefill runs
-eagerly (`warmup` runs each prefill shape once, which builds the kernels).
-The programs are captured against the engine's own cache and state
-tensors, so those are reset in place, never rebound, while programs live;
-`reset()` after a device error rebuilds them and recaptures every program.
-On the CPU the programs are the eager step functions.
+key (`engine.programs`) and each decode dispatch replays one. Prefill
+likewise: one graph per JAX prefill key (n, bucket, want_prompt_details,
+has_prefix), with static input buffers; `warmup` captures the JAX warmup's
+grid (buckets x `_warmup_batch_grid()`, no details, no soft prompt, less
+the dispatches past `max_prefill_tokens`), and any other key is captured
+at its first use. The programs are captured against the engine's own
+cache and state tensors, so those are reset in place, never rebound,
+while programs live; `reset()` after a device error rebuilds them and
+recaptures every program. On the CPU the programs are the eager step
+functions.
 
 Tensor parallelism: built with `tp` (a `parallel.comm.TPGroup`), an
 engine holds its rank's shard of the model (`parallel.sharding.
@@ -216,8 +220,10 @@ def _finish_prefill(eos_id: int, want_prompt_details: bool,
     state.history_len[slots_l] = lengths + 1
     state.hist_start[slots_l] = prefix_len
     state.input_len[slots_l] = lengths
-    state.gen_count[slots_l] = 1
-    state.active[slots_l] = True
+    # index_fill_, not `x[idx] = 1`, which copies a host scalar (a capture
+    # refuses the copy)
+    state.gen_count.index_fill_(0, slots_l, 1)
+    state.active.index_fill_(0, slots_l, True)
     pdet = (sampling.prompt_token_details(logits_all[:, :b - 1], ids)
             if want_prompt_details else None)
     return sampling.pack_step_outputs(next_ids, details), pdet
@@ -339,7 +345,8 @@ class SlotBatchEngine:
     `_init_host(eager_decode)`, and implements `_decode_chunk(want_details,
     bucket, chunk)`, the eager decode step, `_bucket_grid()` and
     `_pick_bucket()` (context rows or live pages: the middle of a decode
-    program's key)."""
+    program's key), and `_prefill_device(key, *inputs)`, the eager prefill
+    step of a prefill key."""
 
     # the batcher may dispatch chunk N+1 before fetching chunk N
     supports_decode_pipeline = True
@@ -349,11 +356,18 @@ class SlotBatchEngine:
     tp = None
 
     def _init_host(self, eager_decode: bool = False) -> None:
-        # decode programs: CUDA graphs on the card unless eager_decode (the
-        # eager reference tests compare with), the step functions elsewhere
+        # prefill and decode programs: CUDA graphs on the card unless
+        # eager_decode (the eager reference tests compare with), the step
+        # functions elsewhere
         self.programs = DecodePrograms(
             self.device, self.device.type == "cuda" and not eager_decode,
             self.tp)
+        # the batch sizes of the last warmup (None before one): reset()
+        # recaptures its grid
+        self._warm_sizes: Optional[tuple[int, ...]] = None
+        # set while warmup prefills: a new prefill program runs eagerly
+        # once before its capture
+        self._warming = False
         self.free_slots: list[int] = list(range(self.num_slots))
         # free() runs on the event-loop thread while decode runs on the
         # executor thread (pipelined decode): guard the pending list
@@ -451,14 +465,16 @@ class SlotBatchEngine:
         return pe_list, [0 if pe is None else int(pe.shape[0])
                          for pe in pe_list]
 
-    def _run_prefill(self, step, slots, token_ids, want_prompt_details: bool,
+    def _run_prefill(self, slots, token_ids, want_prompt_details: bool,
                      prefix_embeds=None) -> PrefillResult:
         """The host side of a prefill (JAX `InferenceEngine.prefill`): place
         each prompt after its soft prompt, pad to the bucket of the total
-        length, run `step(ids, lengths, slots, prefix_len, embeds)` on the
-        device (→ packed outputs, prompt details), fetch its outputs.
-        `embeds` is the [N, T, D] f32 soft-prompt input, or None when no
-        request has one; prompt details cover the prompt tokens only."""
+        length, run the prefill program of the key (n, bucket,
+        want_prompt_details, has_prefix) (`_prefill_key`) over (ids,
+        lengths, slots, prefix_len, embeds), fetch its outputs (packed
+        outputs, prompt details). `embeds` is the [N, T, D] f32 soft-prompt
+        input, or None when no request has one; prompt details cover the
+        prompt tokens only."""
         n = len(slots)
         pe_list, prefix_lens = self._prefixes(prefix_embeds, n)
         total_lens = [p + len(t) for p, t in zip(prefix_lens, token_ids)]
@@ -469,19 +485,17 @@ class SlotBatchEngine:
             ids[i, prefix_lens[i]: prefix_lens[i] + len(toks)] = toks
         embeds = None
         if any(prefix_lens):
-            host = np.zeros((n, bucket, self.spec.hidden_size), np.float32)
+            embeds = np.zeros((n, bucket, self.spec.hidden_size), np.float32)
             for i, pe in enumerate(pe_list):
                 if pe is not None:
-                    host[i, : pe.shape[0]] = pe
-            embeds = torch.from_numpy(host).to(self.device)
-
-        def dev(a):
-            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
-
+                    embeds[i, : pe.shape[0]] = pe
+        key = self._prefill_key(n, bucket, want_prompt_details,
+                                embeds is not None)
+        arrays = (ids, lengths, np.asarray(slots, np.int32),
+                  np.asarray(prefix_lens, np.int32), embeds)
         t0 = time.monotonic_ns()
         try:
-            packed, pdet = step(dev(ids), dev(lengths), dev(slots),
-                                dev(np.asarray(prefix_lens, np.int32)), embeds)
+            packed, pdet = self._prefill_program(key, arrays).run(arrays)
             packed = packed.cpu().numpy()
             if pdet is not None:
                 pdet = sampling.PromptDetails(*(t.cpu().numpy() for t in pdet))
@@ -510,6 +524,61 @@ class SlotBatchEngine:
                     "top_scores": pdet.top_scores[i, s0:e0],
                 })
         return PrefillResult(first_token=first, prompt_details=prompt_details)
+
+    # -- prefill programs ---------------------------------------------------
+
+    def _prefill_key(self, n: int, bucket: int, want_prompt_details: bool,
+                     has_prefix: bool) -> tuple:
+        """The JAX engines' prefill key of a dispatch."""
+        return (n, bucket, want_prompt_details, has_prefix)
+
+    def _prefill_program(self, key: tuple, arrays: tuple):
+        """The prefill program of `key`, made at its first use from this
+        call's host arrays: with an eager run before its capture while
+        warmup prefills, else captured alone, as JAX compiles a key at its
+        first call (an eager run would hold a working set outside the
+        graphs' pool, beside it, which the memory plan does not count)."""
+        program = self.programs.prefill.get(key)
+        if program is None:
+            if self.programs.capture:
+                # the programs pin the shared scratch: size it first
+                linops.reserve_scratch(self.model_params, self.device,
+                                       self.fuse_mlp)
+            program = self.programs.build_prefill(
+                key, functools.partial(self._prefill_device, key), arrays,
+                warm=self._warming)
+        return program
+
+    def _warm_prefill_grid(self, batch_sizes, prefill,
+                           max_len: Optional[int] = None) -> int:
+        """warmup's prefill half: `prefill(n, bucket)` for every pair of the
+        JAX warmup's grid (buckets up to `max_len`, by default max_seq, x
+        batch sizes up to the slots) that the batcher can dispatch (at most
+        max_prefill_tokens padded tokens), the largest dispatches first
+        (their working set is the graphs' pool that the smaller ones
+        reuse), each key's program made with an eager run before its
+        capture. Returns the dispatches run."""
+        max_len = self.max_seq if max_len is None else max_len
+        pairs = [(n, bucket) for bucket in self.config.prefill_buckets
+                 for n in batch_sizes
+                 if bucket <= max_len and n <= self.num_slots
+                 and n * bucket <= self.config.max_prefill_tokens]
+        pairs.sort(key=lambda p: (p[0] * p[1], p[1]), reverse=True)
+        self._warm_sizes = tuple(batch_sizes)
+        self._warming = True
+        try:
+            return sum(bool(prefill(n, bucket)) for n, bucket in pairs)
+        finally:
+            self._warming = False
+
+    def _recapture(self, had_programs: bool) -> None:
+        """After reset() rebuilt the device state: the warm grid again if
+        warmup had run (it recaptures every warm prefill key and the decode
+        grid), else the decode grid if it had been made."""
+        if self._warm_sizes is not None:
+            self.warmup(self._warm_sizes)
+        elif had_programs:
+            self.precompile_decode()
 
     # -- decode programs ----------------------------------------------------
 
@@ -647,7 +716,9 @@ class SlotBatchEngine:
 
 class InferenceEngine(SlotBatchEngine):
     """The slot engine: model params, a `[L, S, K, max_seq, D]` KV cache
-    and the slot state on one device; host-level prefill / decode / free."""
+    and the slot state on one device; host-level prefill / decode / free.
+    `eager_decode=True` runs every program, prefill and decode, eagerly on
+    the card (the reference replays are compared with; as on the CPU)."""
 
     def __init__(self, spec: DecoderSpec, params: dict, config: ServingConfig,
                  eos_token_id: int, device=None, eager_decode: bool = False,
@@ -694,9 +765,10 @@ class InferenceEngine(SlotBatchEngine):
     def reset(self) -> None:
         """Rebuild the cache and the state after an EngineDeviceError: all
         slots become free; callers must have failed their in-flight requests
-        first. The decode programs were captured against the old tensors:
-        they are dropped, and recaptured against the new ones if there were
-        any (as the JAX engine recompiles against new buffers)."""
+        first. The programs were captured against the old tensors: they are
+        dropped, and recaptured against the new ones (`_recapture`: the warm
+        grid, or the decode grid if only that was made), as the JAX engine
+        recompiles against new buffers."""
         self._use_device()
         had_programs = len(self.programs) > 0
         self.programs.clear()
@@ -706,8 +778,7 @@ class InferenceEngine(SlotBatchEngine):
         self.state = EngineState.create(self.num_slots, self.max_seq,
                                         self.device)
         self._reset_host()
-        if had_programs:
-            self.precompile_decode()
+        self._recapture(had_programs)
         logger.warning("engine device state reset (all slots cleared)")
 
     def prefill(self, slots, token_ids, request_params,
@@ -723,46 +794,39 @@ class InferenceEngine(SlotBatchEngine):
         self._ensure_programs()
         for slot, rp in zip(slots, request_params):
             self.set_request_params(slot, rp)
-        return self._run_prefill(
-            functools.partial(self._prefill_device, want_prompt_details),
-            slots, token_ids, want_prompt_details, prefix_embeds)
+        return self._run_prefill(slots, token_ids, want_prompt_details,
+                                 prefix_embeds)
 
-    def _prefill_device(self, want_prompt_details: bool, ids, lengths, slots,
-                        prefix_len, embeds):
-        """The device side of a prefill (`_run_prefill`'s `step`)."""
-        return _prefill_step(self.spec, self.eos_token_id,
-                             want_prompt_details, self.model_params,
-                             self.cache, self.state, ids, lengths, slots,
-                             prefix_len, embeds)
+    def _prefill_device(self, key: tuple, ids, lengths, slots, prefix_len,
+                        embeds):
+        """The eager prefill step of a key (n, bucket, want_prompt_details,
+        has_prefix): its program's function."""
+        return _prefill_step(self.spec, self.eos_token_id, key[2],
+                             self.model_params, self.cache, self.state, ids,
+                             lengths, slots, prefix_len, embeds)
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
-        """Run every prefill (batch, bucket) shape once (the first call
-        builds the CUDA kernels and warms cuBLAS and the allocator, which
-        should not land on the first request), reset the slot state in
-        place, then make every decode program (context bucket x details x
-        chunk: `precompile_decode`) and run each once."""
+        """Make the prefill program of every (batch, bucket) shape of the
+        grid (`_warm_prefill_grid`: one eager run, which builds the CUDA
+        kernels and warms cuBLAS and the allocator, then the capture and its
+        replay), reset the slot state in place, then make every decode
+        program (context bucket x details x chunk: `precompile_decode`) and
+        run each once."""
         if batch_sizes is None:
             batch_sizes = self._warmup_batch_grid()
         t0 = time.monotonic()
-        n_runs = 0
-        for bucket in self.config.prefill_buckets:
-            if bucket > self.max_seq:
-                continue
-            for n in batch_sizes:
-                # the batcher never emits more than max_prefill_tokens
-                # padded tokens a dispatch
-                if (n > self.num_slots
-                        or n * bucket > self.config.max_prefill_tokens):
-                    continue
-                ids = [[1] * min(bucket, self.max_seq - 2)] * n
-                self.prefill(list(range(n)), ids, [RequestParams()] * n)
-                n_runs += 1
+
+        def prefill(n, bucket):
+            ids = [[1] * min(bucket, self.max_seq - 2)] * n
+            return self.prefill(list(range(n)), ids, [RequestParams()] * n)
+
+        n_runs = self._warm_prefill_grid(batch_sizes, prefill)
         # reset the slot state the dummy prefills polluted, in place (the
         # cache rows they wrote are overwritten by the next prefill of each
         # slot), before the decode programs run against it
         self._clear_slots()
         n_programs = self._warm_decode()
-        logger.info("warmup ran %d prefill shapes and made %d decode programs "
+        logger.info("warmup made %d prefill programs and %d decode programs "
                     "in %.1fs", n_runs, n_programs, time.monotonic() - t0)
 
     def _ctx_bucket_grid(self) -> list[int]:

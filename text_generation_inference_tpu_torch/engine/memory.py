@@ -5,13 +5,18 @@ memory from `torch.cuda.mem_get_info`, or `CPU_BUDGET_BYTES` for an engine
 on the CPU (tests). The paged engine sizes its KV pool from it
 (`MemoryPlan` with `pool_bytes`); `plan_memory` sizes the slot engine's
 batch (closed-form accounting: every serving buffer has a static shape, so
-capacity is arithmetic, not measurement). Both set aside
-`activation_bytes`, the prefill working set of one dispatch, and a
-speculative engine also `speculative_bytes`, its speculator's weights and
-the working set of one verify step (the paged engine reserves it where it
-reserves the dense-gather rows). Int8 weights add `quant_transient_bytes`:
-the port converts a layer's int8 codes to a bf16 copy for each product,
-which XLA never materializes (it converts on read).
+capacity is arithmetic, not measurement). Both set aside the engine's one
+graph pool (`MemoryPlan.graph_pool_bytes`): on the card every prefill and
+decode program is a CUDA graph whose working set lives in one memory pool
+that the engine keeps for good, at most the larger of `activation_bytes`,
+the prefill working set of one dispatch, and `decode_bytes`, the working
+set of the largest decode program (eager, the same term bounds the
+transient, since prefill and decode dispatches run one at a time). A
+speculative engine also sets aside `speculative_bytes`, its speculator's
+weights and the working set of one verify step. Int8 weights add
+`quant_transient_bytes`: the port converts a layer's int8 codes to a bf16
+copy for each product, which XLA never materializes (it converts on
+read).
 
 ESTIMATE_MEMORY=off disables the slot engine's slot shrinking (reference
 env contract).
@@ -28,7 +33,7 @@ import torch
 from ..config import ServingConfig
 from ..models.core import DecoderSpec
 from ..ops.quant.int8 import Int8OutlierWeight, Int8Weight
-from .sampling import DETAILS_ROWS
+from .sampling import DETAILS_ROWS, TOP_N_CAP
 
 logger = logging.getLogger(__name__)
 
@@ -148,6 +153,15 @@ class MemoryPlan:
     speculative_bytes: int = 0
     # the largest int8 product's transient (`quant_transient_bytes`)
     quant_bytes: int = 0
+    # the largest decode program's working set (`decode_bytes`)
+    decode_bytes: int = 0
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """The engine's one graph pool (prefill and decode programs), or on
+        an eager engine the transient of one dispatch: the larger working
+        set of the two."""
+        return max(self.activation_bytes, self.decode_bytes)
 
     def describe(self) -> str:
         gb = 1024 ** 3
@@ -158,8 +172,10 @@ class MemoryPlan:
                 if self.speculative_bytes else "")
         quant = (f" + int8 transient {self.quant_bytes / gb:.2f}GiB"
                  if self.quant_bytes else "")
-        return (f"params {self.param_bytes / gb:.2f}GiB + {kv} + act "
-                f"{self.activation_bytes / gb:.2f}GiB{spec}{quant} of "
+        return (f"params {self.param_bytes / gb:.2f}GiB + {kv} + graph pool "
+                f"{self.graph_pool_bytes / gb:.2f}GiB (the larger of prefill "
+                f"{self.activation_bytes / gb:.2f}GiB and decode "
+                f"{self.decode_bytes / gb:.2f}GiB){spec}{quant} of "
                 f"{self.hbm_bytes / gb:.1f}GiB")
 
 
@@ -168,6 +184,30 @@ class MemoryPlan:
 # (12), the sort's values, int64 indices and scratch (4 + 8 + 12), the
 # softmax and its cumulative sum (8), rounded up
 SAMPLING_BYTES = 48
+
+
+def decode_bytes(spec: DecoderSpec, config: ServingConfig,
+                 dtype: torch.dtype, gather_bytes: int = 0) -> int:
+    """The working set of the largest decode program: a chunk of
+    `decode_chunk` steps over `max_batch_slots` slots S, each step's
+    activations freed before the next, with
+      - one step's activations in f32, S * (6 D + 3 I) * 4 bytes (the
+        prefill count at S rows);
+      - one step's logits and sampling pass: S * V * (LOGIT_BYTES +
+        SAMPLING_BYTES);
+      - the chunk's k and v ring buffers, [L, S, K, chunk, D] each in
+        `dtype` (the model's), and its packed outputs, [chunk, S, 3 + 3
+        TOP_N_CAP] f32 (`sampling.pack_step_outputs`);
+      - `gather_bytes`: the paged engine's dense-gather view of the live
+        pages (k and v of `paged_gather_ctx_max` rows a slot)."""
+    s, chunk = config.max_batch_slots, max(1, config.decode_chunk)
+    item = torch.empty((), dtype=dtype).element_size()
+    work = s * (spec.hidden_size * 6 + spec.intermediate_size * 3) * 4
+    work += s * spec.vocab_size * (LOGIT_BYTES + SAMPLING_BYTES)
+    work += 2 * (spec.num_layers * s * spec.num_kv_heads * chunk
+                 * spec.head_dim * item)
+    work += chunk * s * (3 + 3 * TOP_N_CAP) * 4
+    return work + gather_bytes
 
 
 def speculative_bytes(spec: DecoderSpec, config: ServingConfig,
@@ -208,7 +248,8 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
                 spec_bytes: int = 0) -> MemoryPlan:
     """The slot engine's memory plan: unless ESTIMATE_MEMORY=off, shrink
     `config.max_batch_slots` in place to the slots whose full-length KV
-    cache fits beside the weights, the prefill working set, the slot state,
+    cache fits beside the weights, the graph pool (the larger of the
+    prefill working set and the decode programs'), the slot state,
     `spec_bytes` (a speculative engine's `speculative_bytes`) and the int8
     product's transient (`quant_transient_bytes`), with the configured
     safety margin (reference default 20%, cli.py:28). An int8 cache counts
@@ -216,10 +257,11 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
     param_bytes = tree_bytes(params)
     kv_per_slot = config.max_sequence_length * kv_row_bytes(spec, cache_dtype)
     act = activation_bytes(spec, config)
+    dec = decode_bytes(spec, config, params["embed_tokens"].dtype)
     quant = quant_transient_bytes(params, config)
     state = config.max_batch_slots * config.max_sequence_length * 4 * 4
     usable = int(hbm_bytes * (1.0 - config.batch_safety_margin)) \
-        - param_bytes - act - state - spec_bytes - quant
+        - param_bytes - max(act, dec) - state - spec_bytes - quant
     max_slots = config.max_batch_slots
     if os.getenv("ESTIMATE_MEMORY", "auto").lower() != "off":
         fit = max(1, usable // max(kv_per_slot, 1))
@@ -232,6 +274,6 @@ def plan_memory(spec: DecoderSpec, config: ServingConfig, params,
                       state_bytes=state, activation_bytes=act,
                       hbm_bytes=hbm_bytes, usable_bytes=max(usable, 0),
                       max_slots=max_slots, speculative_bytes=spec_bytes,
-                      quant_bytes=quant)
+                      quant_bytes=quant, decode_bytes=dec)
     logger.info("memory plan: %s", plan.describe())
     return plan

@@ -5,17 +5,22 @@ The KV pool is sized from the device memory budget, requests reserve
 exactly ceil((input + max_new) / page_size) pages at admission, and the
 scheduler's admission question becomes "are there enough free pages".
 
-Decode programs: as the JAX engine compiles one program per decode key
-(want_details, live pages, chunk) and `warmup` compiles them all
-(`precompile_decode`), this engine on the card captures one CUDA graph per
+Programs: as the JAX engine compiles one program per decode key
+(want_details, live pages, chunk) and one per prefill key (n, bucket,
+want_prompt_details, has_prefix), and `warmup` compiles the decode grid
+and the prefill grid, this engine on the card captures one CUDA graph per
 key (`engine.programs`; the host side is `engine.SlotBatchEngine`'s) and
-each decode dispatch replays one. The programs hold the addresses of the
-pool, the block table and the state, so `warmup` resets them in place;
-`reset()` after a device error rebuilds them and recaptures every program.
+each dispatch replays one; a prefill key outside the warm grid is
+captured at its first use. The host writes the block table before a
+prefill replay reads it. The programs hold the addresses of the pool, the
+block table and the state, so `warmup` resets them in place; `reset()`
+after a device error rebuilds them and recaptures every program.
+`eager_decode=True` runs every program eagerly on the card.
 
 Other differences from the JAX engine, all of them mechanical:
-  * Prefill runs eagerly; `warmup` runs each prefill shape once (which also
-    builds the CUDA kernels).
+  * Warmup takes out the prefill dispatches past `max_prefill_tokens`
+    (the batcher never sends them) and, as the JAX engine, those too large
+    for the pool.
   * The pools and the engine state are updated in place on the device
     (the JAX engine donated them to each step).
   * `decode_write_mode` "post" and "scan" both run chunks as a loop of
@@ -51,8 +56,9 @@ from ..parallel.sharding import shard_model
 from .engine import (EngineState, PrefillResult, RequestParams,
                      SlotBatchEngine, _finish_prefill, _last_ids,
                      _sample_step, check_decode_config, fused_mlp_option)
-from .memory import (MemoryPlan, activation_bytes, budget_bytes, kv_row_bytes,
-                     quant_transient_bytes, tree_bytes)
+from .memory import (MemoryPlan, activation_bytes, budget_bytes,
+                     decode_bytes, kv_row_bytes, quant_transient_bytes,
+                     tree_bytes)
 from .paged_cache import PageAllocator, PagedKVCache
 
 logger = logging.getLogger(__name__)
@@ -189,10 +195,8 @@ class PagedInferenceEngine(SlotBatchEngine):
         self._dtype = params["embed_tokens"].dtype
         self._cache_dtype = (torch.int8 if config.kv_cache_dtype == "int8"
                              else self._dtype)
-        # the plan the pool was sized by (None for a pool of given pages)
-        self.memory_plan = None
-        if num_pages is None:
-            num_pages = self._pool_size_from_hbm(self._cache_dtype)
+        # the memory plan, which sizes the pool unless its pages are given
+        num_pages = self._plan_pool(self._cache_dtype, num_pages)
         if tp is not None:
             # every rank's page allocator must take the same decisions
             num_pages = tp.min_int(num_pages)
@@ -247,9 +251,9 @@ class PagedInferenceEngine(SlotBatchEngine):
 
     def reset(self) -> None:
         """Rebuild pool and state after an EngineDeviceError: all pages and
-        slots become free. The decode programs were captured against the
-        old tensors: they are dropped, and recaptured against the new ones
-        if there were any (as the JAX engine recompiles)."""
+        slots become free. The programs were captured against the old
+        tensors: they are dropped, and recaptured against the new ones
+        (`_recapture`), as the JAX engine recompiles."""
         self._use_device()
         had_programs = len(self.programs) > 0
         self.programs.clear()
@@ -261,8 +265,7 @@ class PagedInferenceEngine(SlotBatchEngine):
         self.state = EngineState.create(self.num_slots, self.max_seq,
                                         self.device)
         self._clear_slots()
-        if had_programs:
-            self.precompile_decode()
+        self._recapture(had_programs)
         logger.warning("paged engine device state reset (all slots cleared)")
 
     def _clear_slots(self) -> None:
@@ -278,63 +281,65 @@ class PagedInferenceEngine(SlotBatchEngine):
         self.cache.block_table.copy_(torch.from_numpy(self._bt_host))
 
     def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
-        """Run every prefill (batch, bucket) shape once (the first call
-        builds the CUDA kernels and warms cuBLAS and the allocator, which
-        should not land on the first request), free every page and slot in
-        place, then make every decode program (live-page bucket x details x
-        chunk: `precompile_decode`) and run each once."""
+        """Make the prefill program of every (batch, bucket) shape of the
+        grid (`_warm_prefill_grid`: one eager run, which builds the CUDA
+        kernels and warms cuBLAS and the allocator, then the capture and its
+        replay; as the JAX engine, a shape whose n full prompts exceed the
+        pool warms with the shortest prompts of its bucket, or is skipped),
+        free every page and slot in place, then make every decode program
+        (live-page bucket x details x chunk: `precompile_decode`) and run
+        each once."""
         if batch_sizes is None:
             batch_sizes = self._warmup_batch_grid()
         t0 = time.monotonic()
-        n_runs = 0
-        for bucket in self.config.prefill_buckets:
-            if bucket > self.max_seq:
-                continue
-            for n in batch_sizes:
-                # the batcher never emits more than max_prefill_tokens
-                # padded tokens a dispatch
-                if (n > self.num_slots
-                        or n * bucket > self.config.max_prefill_tokens):
-                    continue
-                slots = list(range(n))
-                prompt_len = min(bucket, self.max_seq - 2)
-                pages_full = n * self.allocator.pages_needed(prompt_len + 2)
-                if pages_full > self.allocator.num_free:
-                    smaller = [b for b in self.config.prefill_buckets
-                               if b < bucket]
-                    prompt_len = (smaller[-1] + 1) if smaller else 1
-                    if n * self.allocator.pages_needed(prompt_len + 2) \
-                            > self.allocator.num_free:
-                        logger.info("warmup: skipping (n=%d, bucket=%d) — "
-                                    "exceeds pool", n, bucket)
-                        continue
-                ids = [[1] * prompt_len] * n
-                rps = [RequestParams(max_new_tokens=1)] * n
-                self.prefill(slots, ids, rps)
-                n_runs += 1
-                for slot in slots:
-                    self.free(slot)
+
+        def prefill(n, bucket):
+            slots = list(range(n))
+            prompt_len = min(bucket, self.max_seq - 2)
+            pages_full = n * self.allocator.pages_needed(prompt_len + 2)
+            if pages_full > self.allocator.num_free:
+                smaller = [b for b in self.config.prefill_buckets
+                           if b < bucket]
+                prompt_len = (smaller[-1] + 1) if smaller else 1
+                if n * self.allocator.pages_needed(prompt_len + 2) \
+                        > self.allocator.num_free:
+                    logger.info("warmup: skipping (n=%d, bucket=%d) — "
+                                "exceeds pool", n, bucket)
+                    return None
+            ids = [[1] * prompt_len] * n
+            rps = [RequestParams(max_new_tokens=1)] * n
+            result = self.prefill(slots, ids, rps)
+            for slot in slots:
+                self.free(slot)
+            return result
+
+        n_runs = self._warm_prefill_grid(batch_sizes, prefill)
         # the pool is the largest allocation on the card: reset in place
         self._clear_slots()
         n_programs = self._warm_decode()
-        logger.info("paged warmup ran %d prefill shapes and made %d decode "
+        logger.info("paged warmup made %d prefill programs and %d decode "
                     "programs in %.1fs", n_runs, n_programs,
                     time.monotonic() - t0)
 
-    def _pool_size_from_hbm(self, dtype) -> int:
+    def _plan_pool(self, dtype, num_pages: Optional[int] = None) -> int:
+        """Set `memory_plan` and return the pool's pages: `num_pages` when
+        given, else what the device's memory holds beside everything else
+        the plan sets aside (or PAGED_POOL_PAGES)."""
         hbm = budget_bytes(self.device)
         row_b = kv_row_bytes(self.spec, dtype)
         bytes_per_page = self.page_size * row_b
         params_b = tree_bytes(self.model_params)
         act = activation_bytes(self.spec, self.config)
         # dense-gather ring decode materializes a per-chunk KV view of up
-        # to paged_gather_ctx_max tokens per slot (k + v) — reserve it
+        # to paged_gather_ctx_max tokens per slot (k + v): part of the
+        # decode programs' working set
         gather_rows = min(self.config.paged_gather_ctx_max, self.max_seq)
-        gather_b = self.num_slots * gather_rows * row_b
+        dec = decode_bytes(self.spec, self.config, self._dtype,
+                           self.num_slots * gather_rows * row_b)
         spec_b = self._speculative_bytes()
         quant_b = quant_transient_bytes(self.model_params, self.config)
         usable = int(hbm * (1 - self.config.batch_safety_margin)) \
-            - params_b - act - gather_b - spec_b - quant_b
+            - params_b - max(act, dec) - spec_b - quant_b
         pages = max(usable // bytes_per_page, self.num_slots * 2)
         # at least enough for one max-length sequence...
         pages = max(pages, -(-self.max_seq // self.page_size))
@@ -342,14 +347,16 @@ class PagedInferenceEngine(SlotBatchEngine):
         worst_case = self.num_slots * (-(-self.max_seq // self.page_size))
         pages = min(pages, worst_case)
         env = os.getenv("PAGED_POOL_PAGES")
-        if env:
+        if num_pages is not None:
+            pages = num_pages
+        elif env:
             pages = int(env)
         self.memory_plan = MemoryPlan(
             param_bytes=params_b, kv_bytes_per_slot=self.max_seq * row_b,
             state_bytes=self.num_slots * self.max_seq * 4 * 4,
             activation_bytes=act, hbm_bytes=hbm, usable_bytes=max(usable, 0),
             max_slots=self.num_slots, pool_bytes=int(pages) * bytes_per_page,
-            speculative_bytes=spec_b, quant_bytes=quant_b)
+            speculative_bytes=spec_b, quant_bytes=quant_b, decode_bytes=dec)
         logger.info("memory plan: %s", self.memory_plan.describe())
         return int(pages)
 
@@ -381,15 +388,17 @@ class PagedInferenceEngine(SlotBatchEngine):
             self._bt_host[slot] = row
             self.set_request_params(slot, rp)
         self.cache.block_table.copy_(torch.from_numpy(self._bt_host))
-
-        def step(ids, lengths, slot_ids, prefix_len, embeds):
-            return _paged_prefill_step(
-                self.spec, self.eos_token_id, self.page_size,
-                want_prompt_details, self.model_params, self.cache,
-                self.state, ids, lengths, slot_ids, prefix_len, embeds)
-
-        return self._run_prefill(step, slots, token_ids, want_prompt_details,
+        return self._run_prefill(slots, token_ids, want_prompt_details,
                                  prefix_embeds)
+
+    def _prefill_device(self, key: tuple, ids, lengths, slots, prefix_len,
+                        embeds):
+        """The eager prefill step of a key (n, bucket, want_prompt_details,
+        has_prefix): its program's function."""
+        return _paged_prefill_step(
+            self.spec, self.eos_token_id, self.page_size, key[2],
+            self.model_params, self.cache, self.state, ids, lengths, slots,
+            prefix_len, embeds)
 
     def _decode_chunk(self, want_details: bool, live_pages: int,
                       chunk: int) -> torch.Tensor:

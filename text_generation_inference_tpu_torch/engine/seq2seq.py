@@ -13,8 +13,9 @@ the CPU).
 Differences from the decoder engines, all as in the JAX package:
 
   * prefill = encode the prompt + run the decoder over its start token
-    (and a tuned decoder prefix), caching encoder cross-KV per slot; it
-    runs eagerly, as the other engines' prefill does;
+    (and a tuned decoder prefix), caching encoder cross-KV per slot: one
+    prefill program (a captured graph on the card) per JAX key (n, bucket,
+    dec_width, has_enc, has_dec), the warm grid captured at warmup;
   * the decode state is a `T5DecodeState` ([L, S, H, T, D] self- and
     cross-KV and each slot's encoder length) over a decoder budget of
     `min(1 + prefix budget + max_new_tokens, max_seq)` positions;
@@ -96,8 +97,8 @@ def _s2s_prefill_step(spec: T5Spec, eos_id: int, params: dict,
     state.history_len[sl] = dec_lengths + 1
     state.hist_start[sl] = dec_lengths
     state.input_len[sl] = enc_lengths
-    state.gen_count[sl] = 1
-    state.active[sl] = True
+    state.gen_count.index_fill_(0, sl, 1)
+    state.active.index_fill_(0, sl, True)
     return sampling.pack_step_outputs(next_ids, details)
 
 
@@ -212,9 +213,8 @@ class Seq2SeqEngine(SlotBatchEngine):
     def reset(self) -> None:
         """Rebuild the decode and slot state after an EngineDeviceError: all
         slots become free; callers must have failed their in-flight requests
-        first. The decode programs were captured against the old tensors:
-        they are dropped, and recaptured against the new ones if there were
-        any."""
+        first. The programs were captured against the old tensors: they are
+        dropped, and recaptured against the new ones (`_recapture`)."""
         self._use_device()
         had_programs = len(self.programs) > 0
         self.programs.clear()
@@ -225,8 +225,7 @@ class Seq2SeqEngine(SlotBatchEngine):
         self.state = EngineState.create(self.num_slots, self.max_dec,
                                         self.device)
         self._reset_host()
-        if had_programs:
-            self.precompile_decode()
+        self._recapture(had_programs)
         logger.warning("seq2seq device state reset (all slots cleared)")
 
     def _clear_slots(self) -> None:
@@ -235,30 +234,25 @@ class Seq2SeqEngine(SlotBatchEngine):
         super()._clear_slots()
         self.cache.zero_()
 
-    def warmup(self, batch_sizes: Optional[tuple[int, ...]] = None) -> None:
-        """Run every prefill (batch, bucket) shape once (the batcher never
-        emits more than max_prefill_tokens padded tokens a dispatch, so the
-        larger pairs are skipped), zero the state in place, make every
-        decode program (`precompile_decode`) and run each once, then zero
-        the state again."""
-        if batch_sizes is None:
-            batch_sizes = self._warmup_batch_grid()
+    def warmup(self, batch_sizes: tuple[int, ...] = (1,)) -> None:
+        """Make the prefill program of every (batch, bucket) shape of the
+        grid (`_warm_prefill_grid` over encoder buckets up to max_seq, one
+        row a dispatch by default, as the JAX seq2seq warmup; the batcher
+        never emits more than max_prefill_tokens padded tokens a dispatch,
+        so the larger pairs are skipped), zero the state in place, make
+        every decode program (`precompile_decode`) and run each once, then
+        zero the state again."""
         t0 = time.monotonic()
-        n_runs = 0
-        for bucket in self.config.prefill_buckets:
-            if bucket > self.max_enc:
-                continue
-            for n in batch_sizes:
-                if (n > self.num_slots
-                        or n * bucket > self.config.max_prefill_tokens):
-                    continue
-                ids = [[1] * min(bucket, self.max_enc - 1)] * n
-                self.prefill(list(range(n)), ids, [RequestParams()] * n)
-                n_runs += 1
+
+        def prefill(n, bucket):
+            ids = [[1] * min(bucket, self.max_enc - 1)] * n
+            return self.prefill(list(range(n)), ids, [RequestParams()] * n)
+
+        n_runs = self._warm_prefill_grid(batch_sizes, prefill, self.max_enc)
         self._clear_slots()
         n_programs = self._warm_decode()
         self._clear_slots()
-        logger.info("seq2seq warmup ran %d prefill shapes and made %d decode "
+        logger.info("seq2seq warmup made %d prefill programs and %d decode "
                     "programs in %.1fs", n_runs, n_programs,
                     time.monotonic() - t0)
 
@@ -294,29 +288,24 @@ class Seq2SeqEngine(SlotBatchEngine):
         dec_ids[:, 0] = self.spec.decoder_start_token_id
         dec_lengths = np.asarray([1 + p for p in dec_plens], np.int32)
 
-        def dev(a):
-            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
-
         def embeds(pre, width, start):
             host = np.zeros((n, width, self.spec.d_model), np.float32)
             for i, p in enumerate(pre):
                 if p is not None:
                     host[i, start: start + p.shape[0]] = p
-            return torch.from_numpy(host).to(self.device)
+            return host
 
-        kwargs = {}
-        if any(enc_plens):
-            kwargs.update(enc_prefix_embeds=embeds(enc_pre, bucket, 0),
-                          enc_prefix_len=dev(enc_plens))
-        if any(dec_plens):
-            kwargs.update(dec_prefix_embeds=embeds(dec_pre, dec_width, 1),
-                          dec_prefix_len=dev(dec_plens))
+        has_enc, has_dec = any(enc_plens), any(dec_plens)
+        arrays = (ids, enc_lengths, np.asarray(slots, np.int32), dec_ids,
+                  dec_lengths,
+                  embeds(enc_pre, bucket, 0) if has_enc else None,
+                  np.asarray(enc_plens, np.int32) if has_enc else None,
+                  embeds(dec_pre, dec_width, 1) if has_dec else None,
+                  np.asarray(dec_plens, np.int32) if has_dec else None)
+        key = (n, bucket, dec_width, has_enc, has_dec)
         t0 = time.monotonic_ns()
         try:
-            packed = _s2s_prefill_step(
-                self.spec, self.eos_token_id, self.model_params, self.cache,
-                self.state, dev(ids), dev(enc_lengths), dev(slots),
-                dev(dec_ids), dev(dec_lengths), **kwargs)
+            packed = self._prefill_program(key, arrays).run(arrays)
             packed = packed.cpu().numpy()
         except Exception as e:
             raise EngineDeviceError(f"seq2seq prefill failed: {e}") from e
@@ -326,6 +315,18 @@ class Seq2SeqEngine(SlotBatchEngine):
         first = StepResult(*sampling.unpack_step_outputs(packed))
         self.last_forward_ns = time.monotonic_ns() - t0
         return PrefillResult(first_token=first, prompt_details=None)
+
+    def _prefill_device(self, key: tuple, enc_ids, enc_lengths, slots,
+                        dec_ids, dec_lengths, enc_embeds, enc_plen,
+                        dec_embeds, dec_plen) -> torch.Tensor:
+        """The eager prefill step of a key (n, bucket, dec_width, has_enc,
+        has_dec): its program's function; the soft-prompt inputs are None
+        where the key has none."""
+        return _s2s_prefill_step(
+            self.spec, self.eos_token_id, self.model_params, self.cache,
+            self.state, enc_ids, enc_lengths, slots, dec_ids, dec_lengths,
+            enc_prefix_embeds=enc_embeds, enc_prefix_len=enc_plen,
+            dec_prefix_embeds=dec_embeds, dec_prefix_len=dec_plen)
 
     # -- decode programs ------------------------------------------------------
 

@@ -34,6 +34,13 @@ speculator's chain state `spec_hidden` in place: it is reset in place,
 never rebound. A replay's outputs, packed [C, S, W] and n_emit [S], are
 copied to pinned memory, and the host advances each slot's context by its
 n_emit, as the JAX engines do after their device_get.
+
+Prefill programs: the slot engine's own prefill (which seeds the chain
+state) is one program per JAX `_spec_prefill_fns` key (n, bucket); its
+prefills with prompt details or a soft prompt take the plain engine's
+keys, as the JAX engine routes them there. The paged engine's prefill is
+the plain paged one, the slots' chain state zeroed in the same program,
+under the paged keys.
 """
 
 from __future__ import annotations
@@ -298,16 +305,26 @@ class SpeculativeEngine(_Speculation, InferenceEngine):
                                  self.model_params, self.spec_params,
                                  self.cache, self.state, self.spec_hidden)
 
-    def _prefill_device(self, want_prompt_details: bool, ids, lengths, slots,
-                        prefix_len, embeds):
-        """Its own prefill, which captures each prompt's last hidden state
-        for the speculator; prompt details and soft prompts take the plain
-        prefill, as in the JAX engine, and their slots' chain state starts
-        from zero (the JAX engine keeps the previous occupant's)."""
-        if want_prompt_details or embeds is not None:
-            out = super()._prefill_device(want_prompt_details, ids, lengths,
-                                          slots, prefix_len, embeds)
-            self.spec_hidden[slots.long()] = 0
+    def _prefill_key(self, n: int, bucket: int, want_prompt_details: bool,
+                     has_prefix: bool) -> tuple:
+        """(n, bucket) for its own prefill (JAX `_spec_prefill_fns`); the
+        plain engine's key for one with prompt details or a soft prompt."""
+        if want_prompt_details or has_prefix:
+            return super()._prefill_key(n, bucket, want_prompt_details,
+                                        has_prefix)
+        return (n, bucket)
+
+    def _prefill_device(self, key: tuple, ids, lengths, slots, prefix_len,
+                        embeds):
+        """Its own prefill (a key (n, bucket)), which captures each prompt's
+        last hidden state for the speculator; prompt details and soft
+        prompts take the plain prefill, as in the JAX engine, and their
+        slots' chain state starts from zero (the JAX engine keeps the
+        previous occupant's)."""
+        if len(key) > 2:
+            out = super()._prefill_device(key, ids, lengths, slots,
+                                          prefix_len, embeds)
+            self.spec_hidden.index_fill_(0, slots.long(), 0)
             return out
         return _spec_prefill_step(self.spec, self.eos_token_id,
                                   self.model_params, self.cache, self.state,
@@ -384,18 +401,16 @@ class PagedSpeculativeEngine(_Speculation, PagedInferenceEngine):
 
     # -- prefill -------------------------------------------------------------
 
-    def prefill(self, slots, token_ids, request_params,
-                want_prompt_details: bool = False, prefix_embeds=None):
+    def _prefill_device(self, key: tuple, ids, lengths, slots, prefix_len,
+                        embeds):
         """The plain paged prefill; the slots' chain state starts from zero
         (verify position 0 recomputes the true logits, so a cold chain only
         lowers the first step's acceptance), which also keeps a previous
         occupant's state out, as in the JAX engine."""
-        result = super().prefill(slots, token_ids, request_params,
-                                 want_prompt_details=want_prompt_details,
-                                 prefix_embeds=prefix_embeds)
-        self.spec_hidden.index_fill_(
-            0, torch.as_tensor(slots, dtype=torch.long, device=self.device), 0)
-        return result
+        out = super()._prefill_device(key, ids, lengths, slots, prefix_len,
+                                      embeds)
+        self.spec_hidden.index_fill_(0, slots.long(), 0)
+        return out
 
     # -- speculative decode --------------------------------------------------
 

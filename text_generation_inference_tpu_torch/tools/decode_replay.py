@@ -19,6 +19,16 @@ the card tests (`tests/test_torch_cuda.py`), the CPU tests and
     built alike, one dispatching chunk N+1 before it fetches chunk N
     (`decode_steps_begin` twice, then `decode_steps_end`), as the batcher
     does, and one dispatching and fetching in turn: the same outputs.
+  * `prefill_lockstep(replayed, eager)`: the prefill programs' check: the
+    same prefill dispatches on both engines (several row counts and
+    buckets, a dispatch asking for prompt details, one soft-prompt key run
+    twice with the soft prompt on another row; the first dispatch's rows
+    stay live while the later keys are captured at their first use). Each
+    dispatch's first tokens and prompt details, and the state and KV rows
+    (pages) it wrote (and a speculative engine's chain state), must be
+    equal bit for bit, and exactly one prefill program must have run on
+    the replaying engine; then one decode dispatch on both engines over
+    the live rows.
   * `spec_lockstep(replayed, eager)`: the speculative engines' counterpart
     of `lockstep` (they dispatch and fetch in one `decode_steps`, so a slot
     is freed between dispatches): greedy, repetition-penalty and seeded
@@ -37,6 +47,7 @@ import numpy as np
 import torch
 
 from ..engine.engine import RequestParams
+from ..utils.prompt_cache import PrefixEntry
 
 # prompt lengths of the requests, in the order they arrive
 PROMPT_LENS = (40, 95, 17, 130, 61, 8)
@@ -69,13 +80,15 @@ def _same_rows(a, b, rows, what: str) -> None:
             raise AssertionError(f"{what}: {name} differs on rows {rows}")
 
 
-def _used_rows_equal(a, b, used: list[int]) -> None:
+def _used_rows_equal(a, b, used: list[int], written: bool = False) -> None:
     """The engine state, and the KV a request may read, equal bit for bit:
     the whole pools of a paged engine (its eager warm-up runs drop every
     write), the rows below each used slot's history of a slot engine (its
     warm-up writes only rows no request has reached yet; a seq2seq
     engine's `cache` is its decode state, [L, S, H, T, D] slabs and the
-    per-slot encoder lengths)."""
+    per-slot encoder lengths). With `written`, right after a prefill, the
+    rows it wrote: those below the history less its last (sampled) token,
+    whose KV row the next decode step writes."""
     idx = torch.as_tensor(used, dtype=torch.long, device=a.state.history.device)
     for x, y in zip(a.state.tensors(), b.state.tensors()):
         if not torch.equal(x[idx], y[idx]):
@@ -83,7 +96,7 @@ def _used_rows_equal(a, b, used: list[int]) -> None:
     pools = [t for t in a.cache if isinstance(t, torch.Tensor)]
     others = [t for t in b.cache if isinstance(t, torch.Tensor)]
     paged = hasattr(a.cache, "block_table")
-    hist = a.state.history_len.cpu().numpy()
+    hist = a.state.history_len.cpu().numpy() - (1 if written else 0)
     for x, y in zip(pools, others):
         if paged:
             if not torch.equal(x, y):
@@ -231,6 +244,87 @@ def spec_lockstep(replayed, eager, vocab: int, dispatches: int = 14,
         raise AssertionError("the speculator's chain state differs")
     return dict(dispatches=dispatches, keys=first_use,
                 spec_steps=dispatches - fallback, fallback_steps=fallback)
+
+
+# (rows, longest prompt, prompt details, rows behind a soft prompt) of each
+# dispatch of `prefill_lockstep`: row r's prompt is 13 r tokens shorter
+PREFILL_DISPATCHES = ((1, 40, False, ()), (2, 100, False, ()),
+                      (3, 230, False, ()), (1, 60, True, ()),
+                      (2, 50, False, (0,)), (2, 50, False, (1,)),
+                      (1, 40, False, ()))
+SOFT_PROMPT = 8            # vectors of a soft prompt
+
+
+def _same_details(a, b, what: str) -> None:
+    """Two prefills' prompt details (None, or a dict of arrays a row) equal,
+    NaN equal to NaN."""
+    if (a is None) != (b is None):
+        raise AssertionError(f"{what}: prompt details on one engine only")
+    for r, (x, y) in enumerate(zip(a or (), b or ())):
+        for name in x:
+            if not np.array_equal(x[name], y[name], equal_nan=True):
+                raise AssertionError(f"{what}: row {r}'s {name} differs")
+
+
+def prefill_lockstep(replayed, eager, vocab: int,
+                     dispatches=PREFILL_DISPATCHES, seed: int = 3,
+                     max_new: int = 64) -> dict:
+    """Drive both engines through the same prefill dispatches (see the
+    module docstring) and hold them equal. Returns {dispatches, keys (of
+    each dispatch, in order), captured (the keys made during the run)}."""
+    rng = np.random.default_rng(seed)
+    engines = (replayed, eager)
+    hidden = getattr(replayed.spec, "d_model", None) or \
+        replayed.spec.hidden_size
+    seq2seq = hasattr(replayed.spec, "d_model")
+    before_keys = set(replayed.programs.prefill)
+    keys, live, used = [], [], set()
+    for i, (n, longest, details, prefixed) in enumerate(dispatches):
+        prompts = [_prompt(rng, vocab, max(1, longest - 13 * r))
+                   for r in range(n)]
+        rps = [_params(r, max_new) for r in range(n)]
+        prefixes = None
+        if prefixed:
+            prefixes = [None] * n
+            for r in prefixed:
+                vec = rng.normal(size=(SOFT_PROMPT, hidden)).astype(
+                    np.float32)
+                prefixes[r] = PrefixEntry(decoder=vec,
+                                          encoder=vec if seq2seq else None)
+        slots = [[e.acquire_slot() for _ in range(n)] for e in engines]
+        if None in slots[0] or slots[0] != slots[1]:
+            raise AssertionError(f"slots differ: {slots}")
+        replays = {k: p.replays for k, p in replayed.programs.prefill.items()}
+        outs = [e.prefill(slots[0], prompts, rps, want_prompt_details=details,
+                          prefix_embeds=prefixes) for e in engines]
+        ran = [k for k, p in replayed.programs.prefill.items()
+               if p.replays != replays.get(k, 0)]
+        if len(ran) != 1:
+            raise AssertionError(f"prefill {i} ran programs {ran}")
+        keys.append(ran[0])
+        what = f"prefill {i} {ran[0]}"
+        _same_rows(outs[0].first_token, outs[1].first_token, list(range(n)),
+                   what)
+        _same_details(outs[0].prompt_details, outs[1].prompt_details, what)
+        _used_rows_equal(replayed, eager, slots[0], written=True)
+        if hasattr(replayed, "spec_hidden") and not torch.equal(
+                replayed.spec_hidden, eager.spec_hidden):
+            raise AssertionError(f"{what}: the chain state differs")
+        used.update(slots[0])
+        if i == 0:
+            live = slots[0]
+            continue
+        for slot in slots[0]:
+            for e in engines:
+                e.free(slot)
+    outs = [e.decode_steps(want_details=True) for e in engines]
+    for step, (a, b) in enumerate(zip(*outs)):
+        _same_rows(a, b, sorted(live), f"decode step {step} after the "
+                   "prefills")
+    _used_rows_equal(replayed, eager, sorted(live))
+    return dict(dispatches=len(dispatches), keys=keys,
+                captured=[k for k in replayed.programs.prefill
+                          if k not in before_keys])
 
 
 def pipelined_matches_sequential(pipelined, sequential, vocab: int,
