@@ -47,7 +47,9 @@ Phases (any failure exits non-zero; nothing is caught):
              over int8 pools and S1, each also timed without slopes and
              each rejecting the plain version without slopes and with the
              next head's slopes; multi-query flash prefill and paged decode
-             at StarCoder's heads (48 over 1).
+             at StarCoder's heads (48 over 1), flash prefill at
+             Falcon-7B's (71 over 1, D 64). K1's rows and dtypes (1, 17,
+             65, 1000 rows; fp16 / fp32 x) beside their library call.
   3. parity  one prefill and a few decode steps with the kernels and with
              their plain versions (`ops.attention.PLAIN`); logits and
              greedy tokens are compared: the full-width bf16 TinyLlama
@@ -1121,9 +1123,9 @@ def int4_library_call(torch, x, w):
         fn()
         return fn, "torch._weight_int4pack_mm"
     except LIBRARY_ERRORS as e:
-        wd = int4.dequantize(w, torch.bfloat16)
+        wd = int4.dequantize(w, x.dtype)
         return (lambda: torch.matmul(x, wd),
-                f"torch.matmul on the dequantized bf16 weight "
+                f"torch.matmul on the weight dequantized to x's dtype "
                 f"({type(e).__name__}: {str(e)[:80]})")
 
 
@@ -1157,7 +1159,8 @@ def k1_close(torch, got, want, what, loose=False):
 
 def check_int4(torch, timer, entry: str, key: str, m: int,
                act_order: bool = False, dtype=None, light: bool = False,
-               keep: bool = False, loose: bool = False):
+               keep: bool = False, loose: bool = False,
+               library: bool = False):
     """K1 through one of its three entry names on one 7B product at m rows,
     x in `dtype` (bf16 by default): the stacked name reads layer 1 of a
     2-layer stack, the packed and the s4 names a layer's view. With
@@ -1168,7 +1171,8 @@ def check_int4(torch, timer, entry: str, key: str, m: int,
     (tinygemm) and the dense ceiling: torch.matmul on the weight
     dequantized to bf16 beforehand, not the same function (it reads 4x the
     weight bytes) but what the card reaches on a dense product of the
-    shape. `keep` reuses one weight per shape for the whole process."""
+    shape. `keep` reuses one weight per shape for the whole process;
+    `library` adds the library yardstick to a light check."""
     from text_generation_inference_tpu_torch.ops import linear
     from text_generation_inference_tpu_torch.ops.cuda import int4_matmul as im
     from text_generation_inference_tpu_torch.ops.quant import int4
@@ -1208,14 +1212,21 @@ def check_int4(torch, timer, entry: str, key: str, m: int,
                        2.0 * m * in_f * out_f)
     label = (f"kernel {entry} {key} [{in_f}, {out_f}] M={m} "
              f"{str(dtype).split('.')[-1]}{' act-order' if act_order else ''}")
-    if light:
+    if light and not library:
         log(f"{label}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} bound_ms "
             f"{b_ms:.4f} ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
         return dict(err=err, ms=ms, bound_ms=b_ms, bound_by=b_by)
-    plain_ms = timer(ref, iters=3, warmup=1)
     lib_fn, lib_name = int4_library_call(torch, xk, w)
     lib_err = (lib_fn().float() - want.float()).abs().max().item()
     library_ms = timer(lib_fn)
+    if light:
+        log(f"{label}: max_abs_err {err:.3e} (tol {tol}) ms {ms:.4f} "
+            f"library_ms {library_ms:.4f} ({lib_name}, max abs diff from "
+            f"plain {lib_err:.3e}) bound_ms {b_ms:.4f} ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of the bound")
+        return dict(err=err, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=library_ms, library=lib_name)
+    plain_ms = timer(ref, iters=3, warmup=1)
     wd = int4.dequantize(w, dtype)
     dense_ms = timer(lambda: torch.matmul(xk, wd))
     del wd
@@ -4281,10 +4292,11 @@ def main() -> int:
     # row counts off the tiles (1, 17, the first prefill 65, 1000), and
     # fp16 / fp32 x on wo and w_down (K = 11008: 172 K tiles) on both routes
     k1_edges = {(m, key): check_int4(torch, timer, "int4_matmul", key, m,
-                                     light=True)
+                                     light=True, library=True)
                 for m in (1, 17, 65, 1000) for key in K1_SHAPES}
     k1_dtypes = {(m, key, str(dt)): check_int4(torch, timer, "int4_matmul",
-                                               key, m, dtype=dt, light=True)
+                                               key, m, dtype=dt, light=True,
+                                               library=True)
                  for dt in (torch.float16, fp32) for key in ("wo", "w_down")
                  for m in (16, 2048)}
     for key in ("wo", "w_down"):
@@ -4330,6 +4342,9 @@ def main() -> int:
                                  alibi=True)
     fp_mqa = check_flash_prefill(torch, timer, d=128, kh=1, g=48,
                                  lens=(2000, 1500))
+    # Falcon-7B's heads (config.json of tiiuae/falcon-7b: 71 over 1, D 64)
+    fp_falcon = check_flash_prefill(torch, timer, d=64, kh=1, g=71,
+                                    lens=(2000, 1500))
     pn_mqa = check_paged(torch, timer, stats=False, kh=1, g=48, d=128)
     # M1 at a 7B layer's MLP: decode rows of run 6 (16 slots) and the
     # kernel's largest row tile, both activations; fp16 / fp32 x (F3)
@@ -4809,6 +4824,14 @@ def main() -> int:
                     "bf16, N=2, T=2048, lengths 2000/1500, H=48, KV=1, "
                     "D=128 (starcoder)"),
              name="flash_prefill_mqa", launches=run9["flash_prefill"]),
+        # Falcon-7B's 71 query heads over one kv head: the family parity
+        # phase's falcon prefill
+        dict(record("flash_prefill", "flash_prefill.cu",
+                    "flash_prefill.py:143", fp_falcon,
+                    "bf16, N=2, T=2048, lengths 2000/1500, H=71, KV=1, "
+                    "D=64 (falcon-7b)"),
+             name="flash_prefill_falcon",
+             launches=fam_counts["falcon"]["flash_prefill"]),
         dict(record("paged_decode_attention", "paged_attention.cu",
                     "paged_attention.py:261", pn_mqa,
                     "bf16, S=16, KV=1, G=48, D=128, page 128, ctx up to "

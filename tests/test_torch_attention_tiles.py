@@ -7,8 +7,9 @@ the CPU, as tests/test_torch_kernels.py runs them).
   as `csrc/paged_attention.cu`'s kernel does in one launch, over float
   pools and over int8 pools with their scale pools (K2's schedule).
 - Flash prefill: `flash_prefill_tiled_reference` walks the kernel's row
-  tiles (two halves of 64 rows) and 128-key tiles, masking only the tiles
-  that cross a half's diagonal or the length, as `csrc/flash_prefill.cu`.
+  tiles (`row_tile(G)`: tokens x a sub-group of the query heads, in
+  warpgroups of 64 rows) and 128-key tiles, masking only the tiles that
+  cross a warpgroup's diagonal or the length, as `csrc/flash_prefill.cu`.
 
 Inputs are seeded numpy arrays; both packages compute in fp32 and must
 agree within 1e-5. tests/test_torch_cuda.py holds the kernels themselves
@@ -270,4 +271,44 @@ def test_tiled_twin_other_tiles_match_pallas(block_m, block_n):
                              interpret=True)
     got = tfp.flash_prefill_tiled_reference(*t(q, k, v, lens),
                                             block_m=block_m, block_n=block_n)
+    close(got, want)
+
+
+# the query groups of the served families: Llama / Mistral (1, 4, 8),
+# Qwen2 (6, 7), Llama-2-70B (8), 16, StarCoder's rank (24), StarCoder (48),
+# 64, Falcon-7B (71), 128
+SERVED_GROUPS = [1, 2, 4, 6, 7, 8, 16, 24, 48, 64, 71, 128]
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", SERVED_GROUPS)
+def test_row_tile_fills_every_row(g, d):
+    """A row tile holds gs query heads of the group x tpb tokens: gs
+    divides G, and the tile's rows (192 at D = 64, else 128) are all used;
+    a G that divides them keeps its whole group."""
+    rows = tfp.block_rows(d)
+    assert rows == (192 if d == 64 else tfp.BLOCK_M)
+    gs, tpb = tfp.row_tile(g, rows)
+    assert g % gs == 0 and gs * tpb == rows
+    if rows % g == 0:
+        assert gs == g
+
+
+@pytest.mark.parametrize("g", [48, 71])
+def test_tiled_twin_sub_groups_match_pallas_interpret(g):
+    """Multi-query groups that do not divide the row tile (at D = 32, 128
+    rows: StarCoder's 48 in 16 heads x 8 tokens, three sub-groups;
+    Falcon-7B's 71 in one head x 128 tokens, 71 sub-groups), lengths of 0,
+    inside the first key tile and past it, NaN in the keys and values past
+    each length."""
+    t_len = 130
+    q, k, v = prefill_case(3, t_len, g, kh=1, seed=40 + g)
+    lens = np.asarray([0, 100, t_len - 1], np.int32)
+    want = jfp.flash_prefill(*j(q, k, v, lens), interpret=True)
+    for b, ln in enumerate(lens):
+        k[b, ln:] = np.nan
+        v[b, ln:] = np.nan
+    got = tfp.flash_prefill_tiled_reference(*t(q, k, v, lens))
+    assert torch.isfinite(got).all()
+    assert torch.all(got[0] == 0)                       # length 0
     close(got, want)

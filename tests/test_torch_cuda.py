@@ -123,16 +123,20 @@ def test_stacked_pool_view_is_the_same_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4, 6, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 4, 6, 7, 8, 24, 48, 71])
 @pytest.mark.parametrize("t", [128, 2048])
 def test_flash_prefill_tile_edges(cuda_device, d, g, t):
-    """The smallest bucket and the largest, lengths on the 128-key tile
-    edges, NaN in k and v past each length (P = 0 does not cancel NaN: the
-    kernel must mask those scores and zero those value rows); G = 6 leaves
-    rows of the 128-row tile unused (21 tokens a tile)."""
+    """The smallest bucket and the largest, lengths on and past the key
+    tile edges (128 keys up to D = 128, 80 at D = 256), NaN in k and v past
+    each length (P = 0 does not cancel NaN: the kernel must mask those
+    scores and zero those value rows); groups that do not divide the row
+    tile run in sub-groups of `row_tile(g, block_rows(d))` heads (at 192
+    rows, D = 64: 6 and 24 whole, 7 and 71 one head x 192 tokens, 48 whole
+    in 4 tokens; at 128 rows: 6 in 2 heads x 64 tokens, 7 and 71 one head x
+    128 tokens, 24 in 8 x 16, 48 in 16 x 8)."""
     rng = np.random.default_rng(10 * d + g + t)
-    lengths = sorted({0, 1, 127, min(128, t), min(129, t), t})
+    lengths = sorted({0, 1, 80, 81, 127, min(128, t), min(129, t), t})
     n, kh = len(lengths), 1
     q = bf16(rng, n, t, kh, g, d, device=cuda_device)
     k = bf16(rng, n, t, kh, d, device=cuda_device)
@@ -936,7 +940,7 @@ def test_flash_prefill_kernel_float16(cuda_device, d, g):
     close(got, fp.flash_prefill_reference(q, k, v, lengths), 2e-2)
 
 
-# (head dim, group, dtype): the wgmma kernel's 64-key tiles at head dims
+# (head dim, group, dtype): the wgmma kernel's 80-key tiles at head dims
 # 192 and 256 (gemma-7b: 16 heads of 256 over 16 kv heads; gemma-2b: 8 over
 # 1), and the fp32 CUDA-core kernel
 FLASH_CASES = [(192, 8, torch.bfloat16), (256, 1, torch.bfloat16),
@@ -949,17 +953,20 @@ FLASH_CASES = [(192, 8, torch.bfloat16), (256, 1, torch.bfloat16),
 @pytest.mark.parametrize("d,g,dtype", FLASH_CASES)
 def test_flash_prefill_large_head_dims_and_float32(cuda_device, d, g, dtype):
     """F2: flash prefill at D 192 / 256 and in fp32 against its plain
-    version, lengths on and off the 64-key tile edges, a length-0 row and
-    NaN past the lengths (never read into the output)."""
+    version, lengths on and off the wgmma kernel's 80-key tile edges (and
+    the fp32 kernel's 32- and 64-key ones), a length-0 row and NaN past
+    the lengths (never read into the output)."""
     rng = np.random.default_rng(970 + d + g)
-    n, t, kh = 3, 300, 2
+    n, t, kh = 4, 300, 2
     q = bf16(rng, n, t, kh, g, d, device=cuda_device).to(dtype)
     k = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
     v = bf16(rng, n, t, kh, d, device=cuda_device).to(dtype)
-    lengths = torch.tensor([257, 0, 64], dtype=torch.int32, device=cuda_device)
+    lengths = torch.tensor([257, 0, 64, 80], dtype=torch.int32,
+                           device=cuda_device)
     want = fp.flash_prefill_reference(q, k, v, lengths)
-    k[2, 64:] = float("nan")
-    v[2, 64:] = float("nan")
+    for i, ln in ((2, 64), (3, 80)):
+        k[i, ln:] = float("nan")
+        v[i, ln:] = float("nan")
     before = fp.flash_prefill.launches
     got = fp.flash_prefill(q, k, v, lengths)
     torch.cuda.synchronize()
@@ -1242,11 +1249,13 @@ def test_reset_after_a_device_error_recaptures(cuda_device, monkeypatch):
 
 
 # (head dim, group, dtype): both flash bodies at every head dim they are
-# built for, falcon-7b's 71 query heads on one kv head
+# built for, falcon-7b's 71 query heads on one kv head and StarCoder's 48
+# (both in sub-groups of `row_tile(g)` heads)
 WINDOW_FLASH_CASES = [(64, 4, torch.bfloat16), (128, 1, torch.bfloat16),
                       (128, 4, torch.float16), (192, 8, torch.bfloat16),
                       (256, 1, torch.bfloat16), (256, 2, torch.float16),
-                      (64, 71, torch.bfloat16), (64, 4, torch.float32),
+                      (64, 71, torch.bfloat16), (128, 48, torch.bfloat16),
+                      (64, 4, torch.float32),
                       (128, 2, torch.float32), (192, 1, torch.float32),
                       (256, 4, torch.float32)]
 
@@ -1345,9 +1354,11 @@ def _rejects(got, wrong, tol):
 
 
 # (head dim, group, dtype): both flash bodies at head dims 64 / 128, one kv
-# head's group of 1 and StarCoder's 48
+# head's group of 1 and StarCoder's 48; the wgmma body at D = 256 in
+# sub-groups (24: 8 heads x 16 tokens)
 ALIBI_FLASH_CASES = [(64, 1, torch.bfloat16), (128, 1, torch.bfloat16),
                      (128, 48, torch.bfloat16), (64, 48, torch.float16),
+                     (256, 24, torch.float16),
                      (64, 1, torch.float32), (128, 48, torch.float32)]
 
 

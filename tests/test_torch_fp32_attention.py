@@ -1,13 +1,14 @@
 """F2 on the CPU: the attention wrappers' float32 plain paths and the flash
-kernel's 64-key tiles at head dims 192 and 256, against the JAX package.
+kernel's short key tiles at head dims 192 and 256, against the JAX package.
 
 On the card a float32 call runs the fp32 CUDA-core bodies (flash prefill's
 `flash_prefill_f32_kernel`, the split body's `split_kernel_f32`) and the
-flash kernel tiles 64 keys at D 192 / 256 (tests/test_torch_cuda.py holds
+flash kernel tiles 80 keys at D 192 / 256 (tests/test_torch_cuda.py holds
 them against these plain versions there). Here:
 
-- `flash_prefill_tiled_reference` at `key_tile(d)` = 64 keys, D 192 and
-  256, against the Pallas `flash_prefill` in interpret mode;
+- `flash_prefill_tiled_reference` at `key_tile(d)` = 80 keys, D 192 and
+  256, and at 64-key tiles, against the Pallas `flash_prefill` in
+  interpret mode;
 - every attention wrapper on float32 CPU tensors at head dim 192 (flash
   prefill, the paged kernel in both modes, K2's int8 pools with an fp32 q,
   S1 and S2) against the JAX Pallas kernel in interpret mode.
@@ -52,24 +53,27 @@ def normal(rng, *shape):
 
 
 def test_key_tiles_follow_the_head_dim():
-    assert [tfp.key_tile(d) for d in (64, 128, 192, 256)] == [128, 128, 64, 64]
+    assert [tfp.key_tile(d) for d in (64, 128, 192, 256)] == [128, 128, 80, 80]
     assert set(tfp.HEAD_DIMS) >= {192, 256}
     assert torch.float32 in tfp.DTYPES and torch.float32 in tpa.DTYPES
     assert 192 in tpa.HEAD_DIMS
 
 
-# lengths on and off the 64-key tile edges, a zero length, the whole T
+# lengths on and off the 64- and 80-key tile edges, a zero length, the
+# whole T; the twin at the kernel's key tile and at 64 keys
 @pytest.mark.parametrize("g", [1, 2])
 @pytest.mark.parametrize("d", [192, 256])
 def test_flash_twin_64_key_tiles_matches_pallas(d, g):
     rng = np.random.default_rng(d + g)
-    n, t_len, kh = 5, 160, 1
+    n, t_len, kh = 7, 160, 1
     q, k, v = (normal(rng, n, t_len, kh, g, d), normal(rng, n, t_len, kh, d),
                normal(rng, n, t_len, kh, d))
-    lens = np.asarray([0, 1, 64, 65, t_len], np.int32)
+    lens = np.asarray([0, 1, 64, 65, 80, 81, t_len], np.int32)
     want = jfp.flash_prefill(*j(q, k, v, lens), interpret=True)
-    got = tfp.flash_prefill_tiled_reference(*t(q, k, v, lens))
-    close(got, want)
+    for block_n in (None, 64):
+        got = tfp.flash_prefill_tiled_reference(*t(q, k, v, lens),
+                                                block_n=block_n)
+        close(got, want)
     # the wrapper's fp32 plain path (what a CPU tensor takes)
     close(tfp.flash_prefill(*t(q, k, v, lens)), want)
 

@@ -29,25 +29,38 @@
 // it is bound by operations: 989 TFLOP/s bf16, reached only through wgmma.
 //
 // Design:
-//   - Rows. The G query heads of a kv head are folded into rows (row =
-//     token * G + g); a block takes 128 rows (128 / G tokens) of one
-//     (sequence, kv head): two consumer warpgroups of 64 rows each plus one
-//     producer warpgroup, of which one thread starts every load.
-//     setmaxnreg moves registers from the producer (24) to the consumers
-//     (240). blockIdx.x runs over the row tiles from the last tokens down,
-//     so the longest tiles start first, and the row tiles of one (sequence,
-//     kv head) sit side by side in launch order: they run together and
-//     read its K/V tiles from L2, not each from device memory.
+//   - Rows. The G query heads of a kv head are folded into rows; a block
+//     takes a tile of kBlockM rows of one (sequence, kv head): tpb tokens x
+//     gs query heads (row = token * gs + head), gs the sub-group of the kv
+//     group that `row_tile(G, kBlockM)` picks in ops/cuda/flash_prefill.py
+//     (the largest divisor of G that divides kBlockM, so every tile is
+//     whole: at 128 rows G = 48 takes 16 heads x 8 tokens, G = 71 one head x
+//     128 tokens; a G that divides kBlockM keeps gs = G). Consumer
+//     warpgroups of 64 rows each (three at D = 64, where a warpgroup's
+//     softmax outlasts another's products; two above) plus one producer
+//     warpgroup, of which one thread starts every load. setmaxnreg moves
+//     registers from the producer (24) to the consumers (160 with three,
+//     240 with two). blockIdx.x runs over (row tile, sub-group) pairs,
+//     sub-group fastest and row tiles from the last tokens down, so the
+//     longest tiles start first, and the blocks of one (sequence, kv head)
+//     sit side by side in launch order: they run together and read its K/V
+//     tiles from L2, not each from device memory.
 //   - Loads. TMA with mbarriers: Q once per block (a 5-D map over (D, G, KH,
-//     T, N)), then K and V tiles of 128 keys, 64 at D = 192 and 256, where
-//     Q takes 48 or 64 KB (4-D maps over (D, KH, T, N);
-//     a tile past T is zero-filled by the hardware) into a ring of kStages
-//     stages with full / empty barriers, 128-byte swizzled in [D / 64]
-//     column blocks of [rows][64]. The maps are encoded per call on the
-//     host through cudaGetDriverEntryPoint (no link flag) and passed as
-//     __grid_constant__ parameters.
+//     T, N), box {64, gs, 1, tpb, 1} at head g0), then K and V tiles of
+//     kBlockN keys (128 up to D = 128, 80 at D = 192 and 256, where Q takes
+//     48 or 64 KB; 4-D maps over (D, KH, T, N); a tile past T is
+//     zero-filled by the hardware), 128-byte swizzled in [D / 64] column
+//     blocks of [rows][64]. K and V have rings of their own (kKStages,
+//     kVStages), each stage with full / empty barriers: a K stage is
+//     released as soon as every warpgroup's score product has read it, a V
+//     stage after their value products, so the producer (issuing K_kt+1
+//     before V_kt, the order in which stages come free) runs further ahead
+//     than one shared stage a tile allowed (at D = 256, with two stages,
+//     the load of tile kt + 1 waited for tile kt - 1's value products). The
+//     maps are encoded per call on the host through cudaGetDriverEntryPoint
+//     (no link flag) and passed as __grid_constant__ parameters.
 //   - Products. Both on wgmma with fp32 accumulators in registers:
-//     S = Q K^T (m64n128k16, m64n64k16 over 64-key tiles; A = Q and B = the
+//     S = Q K^T (m64n128k16, m64n80k16 over 80-key tiles; A = Q and B = the
 //     K tile from shared memory, both K-major), then O += P V (m64nDk16,
 //     D up to 256: 128 accumulators a thread; A = P from registers, rounded
 //     to T, B = the V tile straight from its row-major [keys, D] layout
@@ -58,9 +71,9 @@
 //     product has its own fence and commit and no wgmma sits under a
 //     branch ptxas cannot prove uniform (the warpgroup index is broadcast
 //     with a shuffle): otherwise ptxas serializes every wgmma.
-//   - Ping-pong between the warpgroups. They take turns (two named
-//     barriers) to start their products, so one warpgroup's softmax runs
-//     while the other's products hold the tensor cores.
+//   - Ping-pong between the warpgroups. They take turns in order (a named
+//     barrier each) to start their products, so the others' softmax runs
+//     while one's products hold the tensor cores.
 //   - Masks only where needed. A block walks key tiles up to its causal and
 //     length limit, from the tile of its first visible key (`window_floor`:
 //     0 without a window); a warpgroup masks a tile only when the tile
@@ -76,11 +89,17 @@
 //     per-tile base plus a constant of the unrolled loop, so no integer
 //     conversion a score), and the row max and the exponent read the
 //     biased scores.
-// Still left: at D = 64 the softmax (one ex2 a score) weighs as much as the
-// products, and three consumer warpgroups of rows would hide more of it;
-// each block pays its own prologue (barrier set-up, the Q load) where a
-// persistent grid would overlap it with the previous tile's epilogue; the
-// output leaves through 4-byte stores rather than a TMA store.
+// Tried on the card and left out (PERF.md, Findings): two-block clusters that
+// share each K / V tile by TMA multicast (slower: the pair runs in lock
+// step, and cross-block stage releases cost more than the L2 reads they
+// save), a persistent grid (spills at 160 registers a consumer thread),
+// three warpgroups at D = 128 (80-key tiles to fit 160 registers: faster
+// at StarCoder's heads, slower with ALiBi and at Qwen2's groups), 192-key
+// tiles at D = 128 (slower with a window), a conditional O rescale.
+// Still left: at StarCoder's (G = 48, D = 128) and Falcon-7B's (G = 71,
+// D = 64) heads the kernel stays behind SDPA (PERF.md); each block pays its
+// own prologue (barrier set-up, the Q load); the output leaves through
+// 4-byte stores rather than a TMA store.
 
 #include <limits.h>
 #include <math.h>
@@ -91,24 +110,39 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kBlockM = 128;                 // rows (token * G + g) a block
-constexpr int kConsumers = 2;                // warpgroups of 64 rows
-constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kQBox = 128 * 64 * 2;          // one [128 rows][64] box of T
+constexpr int kMaxBlockM = 192;              // rows of the largest row tile
 constexpr uint32_t kRowBytes = 128;          // one swizzled row of 64 T
 
-// Keys a tile: 128 up to D = 128; 64 at D = 192 and 256, where Q (48 or
-// 64 KB) and two stages of 128-key K and V tiles would not fit beside it.
+// Rows a block, keys a tile and the depth of the K and V rings: three
+// consumer warpgroups (192 rows) at D = 64, where a warpgroup's softmax
+// outlasts another's products; two (128 rows) above, where a third
+// warpgroup's registers (160) do not hold its accumulators, scores and P
+// of a 128-key tile. 128-key tiles up to D = 128; 80 at D = 192 and 256,
+// where two stages of 128-key K and V tiles do not fit beside Q (48 or
+// 64 KB).
 template <int D>
 struct Config {
+  static constexpr int kConsumers = D == 64 ? 3 : 2;   // warpgroups of 64 rows
+  static constexpr int kBlockM = 64 * kConsumers;      // rows (token * gs + head)
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  // registers a consumer thread after setmaxnreg: what the launch gives the
+  // block (65536 / kThreads a thread, in steps of 8) less the producer's 24,
+  // capped at 240; setmaxnreg.inc waits forever for registers past that
+  static constexpr int kPoolRegs =
+      ((65536 / kThreads) / 8 * 8 * kThreads - 24 * 128) / (128 * kConsumers) /
+      8 * 8;
+  static constexpr int kConsumerRegs = kPoolRegs < 240 ? kPoolRegs : 240;
+  static constexpr int kQBox = kBlockM * 64 * 2;       // one [rows][64] box of T
   static constexpr int kCols = D / 64;       // 64-column blocks of the head dim
-  static constexpr int kBlockN = D <= 128 ? 128 : 64;
+  static constexpr int kBlockN = D <= 128 ? 128 : 80;
   static constexpr int kKvBox = kBlockN * 64 * 2;      // one [keys][64] box
-  static constexpr int kStages = D == 64 ? 4 : (D == 256 ? 2 : 3);
+  static constexpr int kKStages = D == 64 ? 4 : (D == 128 ? 3 : 2);
+  static constexpr int kVStages = D == 64 ? 4 : (D == 128 ? 3 : 2);
   static constexpr int kQBytes = kCols * kQBox;
   static constexpr int kTileBytes = kCols * kKvBox;    // one K or one V tile
-  // 225 KB at D = 128, 193 KB at D = 192 and 256
-  static constexpr int kSmem = kQBytes + 2 * kStages * kTileBytes + 1024;
+  // 153 / 225 / 169 / 225 KB at D = 64 / 128 / 192 / 256
+  static constexpr int kSmem =
+      kQBytes + (kKStages + kVStages) * kTileBytes + 1024;
 };
 
 // The first key any row of tokens first_tok..last_tok sees: 0 without a
@@ -136,7 +170,7 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr, uint32_t box) {
 template <typename T, int N>
 __device__ __forceinline__ void wgmma_scores(float (&s)[N / 2], uint64_t desc_a,
                                              uint64_t desc_b, int accumulate) {
-  if constexpr (N == 64) wgmma_ss_n64<T>(s, desc_a, desc_b, accumulate);
+  if constexpr (N == 80) wgmma_ss_n80<T>(s, desc_a, desc_b, accumulate);
   else wgmma_ss_n128<T>(s, desc_a, desc_b, accumulate);
 }
 
@@ -151,33 +185,53 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
   else wgmma_rs_mn_n256<T>(o, a, desc_b, 1);
 }
 
+// A ring of tiles in shared memory: tile kt's stage and the parity of its
+// use of it, counted from the block's first tile
+template <int kStages>
+struct Ring {
+  int first;
+  __device__ __forceinline__ int stage(int kt) const {
+    return (kt - first) % kStages;
+  }
+  __device__ __forceinline__ uint32_t phase(int kt) const {
+    return ((kt - first) / kStages) & 1;
+  }
+};
+
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Config<D>::kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const int32_t* __restrict__ lengths,   // [N]
                      const float* __restrict__ slopes,      // [KH, G] or null
                      T* __restrict__ out,                   // [N, T, KH, G, D]
-                     int T_len, int KH, int G, int window, float scale_log2) {
+                     int T_len, int KH, int G, int gs, int window,
+                     float scale_log2) {
   using C = Config<D>;
   constexpr int kBlockN = C::kBlockN;
+  constexpr int kConsumers = C::kConsumers;
+  constexpr int kQBox = C::kQBox;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full_bar[C::kStages];
-  __shared__ __align__(8) uint64_t empty_bar[C::kStages];
+  __shared__ __align__(8) uint64_t k_full[C::kKStages];
+  __shared__ __align__(8) uint64_t k_empty[C::kKStages];
+  __shared__ __align__(8) uint64_t v_full[C::kVStages];
+  __shared__ __align__(8) uint64_t v_empty[C::kVStages];
   __shared__ __align__(8) uint64_t q_bar;
   // the swizzle atoms want 1024-byte aligned tiles
   unsigned char* base =
       smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
   unsigned char* qs = base;
   unsigned char* ks = base + C::kQBytes;                  // + stage * kTileBytes
-  unsigned char* vs = ks + C::kStages * C::kTileBytes;
+  unsigned char* vs = ks + C::kKStages * C::kTileBytes;
 
   const int kh = blockIdx.y;
   const int n = blockIdx.z;
-  const int tpb = kBlockM / G;                            // tokens a block
-  const int tok0 = (gridDim.x - 1 - blockIdx.x) * tpb;    // last tiles first
-  const int rows = tpb * G;
+  const int subs = G / gs;                                // sub-groups of G
+  const int g0 = (blockIdx.x % subs) * gs;                // first query head
+  const int tpb = C::kBlockM / gs;                        // tokens a block
+  const int tok0 = (gridDim.x / subs - 1 - blockIdx.x / subs) * tpb;  // last first
+  const int rows = tpb * gs;
   const int len = max(0, min(lengths[n], T_len));
   const int tok_last = min(tok0 + tpb - 1, T_len - 1);
   // -1 when len == 0: no key tile
@@ -187,13 +241,20 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   // token of warpgroup 1 is the block's last)
   const int first_tile =
       window_floor(tok0, tok0 + tpb - 1, len, window) / kBlockN;
+  const Ring<C::kKStages> kr{first_tile};
+  const Ring<C::kVStages> vr{first_tile};
   const int tid = threadIdx.x;
 
   if (tid == 0) {
 #pragma unroll
-    for (int st = 0; st < C::kStages; ++st) {
-      mbar_init(&full_bar[st], 1);
-      mbar_init(&empty_bar[st], kConsumers * 4);   // one arrival per warp
+    for (int st = 0; st < C::kKStages; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&k_empty[st], kConsumers * 4);   // one arrival per warp
+    }
+#pragma unroll
+    for (int st = 0; st < C::kVStages; ++st) {
+      mbar_init(&v_full[st], 1);
+      mbar_init(&v_empty[st], kConsumers * 4);
     }
     mbar_init(&q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -204,49 +265,59 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   // and ptxas then serializes every wgmma)
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
   if (wg == kConsumers) {
-    // --- producer warpgroup: one thread keeps the ring full ---------------
+    // --- producer warpgroup: one thread keeps both rings full -------------
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (tid == kConsumers * 128) {
       mbar_expect_tx(&q_bar, C::kCols * rows * kRowBytes);
 #pragma unroll
       for (int cb = 0; cb < C::kCols; ++cb)
-        tma_load_5d(qs + cb * kQBox, &tm_q, &q_bar, cb * 64, 0, kh, tok0,
+        tma_load_5d(qs + cb * kQBox, &tm_q, &q_bar, cb * 64, g0, kh, tok0,
                     n);
-      for (int kt = first_tile; kt <= last_tile; ++kt) {
-        const int st = (kt - first_tile) % C::kStages;
-        const int use = (kt - first_tile) / C::kStages;
-        if (use > 0) mbar_wait(&empty_bar[st], (use - 1) & 1);
-        mbar_expect_tx(&full_bar[st], 2 * C::kTileBytes);
+      // tile kt of one ring, once its stage's earlier tile is released
+      auto load = [&](const CUtensorMap* map, unsigned char* ring,
+                      uint64_t* full, uint64_t* empty, int st, int use,
+                      int kt) {
+        if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+        mbar_expect_tx(&full[st], C::kTileBytes);
 #pragma unroll
-        for (int cb = 0; cb < C::kCols; ++cb) {
-          const int off = st * C::kTileBytes + cb * C::kKvBox;
-          tma_load_4d(ks + off, &tm_k, &full_bar[st], cb * 64, kh,
-                      kt * kBlockN, n);
-          tma_load_4d(vs + off, &tm_v, &full_bar[st], cb * 64, kh,
-                      kt * kBlockN, n);
-        }
+        for (int cb = 0; cb < C::kCols; ++cb)
+          tma_load_4d(ring + st * C::kTileBytes + cb * C::kKvBox, map,
+                      &full[st], cb * 64, kh, kt * kBlockN, n);
+      };
+      auto load_k = [&](int kt) {
+        load(&tm_k, ks, k_full, k_empty, kr.stage(kt),
+             (kt - first_tile) / C::kKStages, kt);
+      };
+      auto load_v = [&](int kt) {
+        load(&tm_v, vs, v_full, v_empty, vr.stage(kt),
+             (kt - first_tile) / C::kVStages, kt);
+      };
+      // K_kt+1 before V_kt: a warpgroup reads K_kt+1 beside V_kt and
+      // releases K stages a product earlier than V stages
+      if (first_tile <= last_tile) load_k(first_tile);
+      for (int kt = first_tile; kt <= last_tile; ++kt) {
+        if (kt < last_tile) load_k(kt + 1);
+        load_v(kt);
       }
     }
   } else {
     // --- consumer warpgroups: 64 rows each ---------------------------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(C::kConsumerRegs) : "memory");
     const int wtid = tid % 128;
     const int warp = wtid / 32;
     const int lane = tid % 32;
     const int group = lane / 4;
     const int quad = lane % 4;
     const int r_wg = wg * 64;                     // first row of the warpgroup
-    const int wg_first_tok = tok0 + r_wg / G;
-    const int wg_last_tok = tok0 + min(r_wg + 63, rows - 1) / G;
+    const int wg_first_tok = tok0 + r_wg / gs;
+    const int wg_last_tok = tok0 + min(r_wg + 63, rows - 1) / gs;
     // the tiles this warpgroup computes: later ones lie wholly above its
     // diagonal, earlier ones wholly below its window
     const int my_last = min(last_tile, wg_last_tok / kBlockN);
     const int my_first =
         window_floor(wg_first_tok, wg_last_tok, len, window) / kBlockN;
     const int edge = window_edge(wg_last_tok, len, window);
-    // the ring stage and the phase of tile kt's use of it
-    auto stage = [&](int kt) { return (kt - first_tile) % C::kStages; };
-    auto phase = [&](int kt) { return ((kt - first_tile) / C::kStages) & 1; };
     int row[2], tok[2];
     // ALiBi: the rows' slopes in exp2 units; the scores are then scaled
     // before the row max (mul = 1), else after it (mul = the scale)
@@ -256,10 +327,21 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       row[h] = r_wg + warp * 16 + group + 8 * h;
-      tok[h] = tok0 + row[h] / G;
-      slope[h] = alibi ? slopes[kh * G + row[h] % G] * 1.4426950408889634f
+      tok[h] = tok0 + row[h] / gs;
+      slope[h] = alibi ? slopes[kh * G + g0 + row[h] % gs] * 1.4426950408889634f
                        : 0.f;
     }
+    auto release = [&](uint64_t* empty, int st) {
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    // a tile this warpgroup does not compute: wait for both of its loads
+    // (a stage is reloaded only after they land), then release them
+    auto release_unread = [&](int kt) {
+      mbar_wait(&k_full[kr.stage(kt)], kr.phase(kt));
+      release(k_empty, kr.stage(kt));
+      mbar_wait(&v_full[vr.stage(kt)], vr.phase(kt));
+      release(v_empty, vr.stage(kt));
+    };
 
     float o[D / 2];
 #pragma unroll
@@ -271,12 +353,31 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t q_addr = smem_u32(qs) + r_wg * kRowBytes;
     mbar_wait(&q_bar, 0);
 
-    // Tile kt: wait for its stage, zero its dead V rows on the length-edge
-    // tile, start S_kt = Q K_kt^T (uncommitted groups stay in flight).
+    // Tile kt: wait for its K stage, start S_kt = Q K_kt^T (uncommitted
+    // groups stay in flight).
     auto start_scores = [&](int kt) {
-      const int st = stage(kt);
+      const int st = kr.stage(kt);
+      mbar_wait(&k_full[st], kr.phase(kt));
+      const uint32_t k_addr = smem_u32(ks + st * C::kTileBytes);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks16 = 0; ks16 < D / 16; ++ks16) {
+        const uint32_t sub = (ks16 % 4) * 32;
+        wgmma_scores<T, kBlockN>(
+            s, desc_k_major(q_addr + (ks16 / 4) * kQBox + sub),
+            desc_k_major(k_addr + (ks16 / 4) * C::kKvBox + sub), ks16 > 0);
+      }
+      wgmma_commit();
+      fence_regs(s);
+    };
+    // Tile kt: wait for its V stage, zero its dead V rows on the
+    // length-edge tile, start O += P_kt V_kt from the P registers (left in
+    // flight)
+    auto start_values = [&](int kt) {
+      const int st = vr.stage(kt);
       const int key0 = kt * kBlockN;
-      mbar_wait(&full_bar[st], phase(kt));
+      mbar_wait(&v_full[st], vr.phase(kt));
       if (key0 + kBlockN > len) {
         // 16 bytes a store; the swizzle only permutes chunks within a row
         unsigned char* v_tile = vs + st * C::kTileBytes;
@@ -291,22 +392,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         asm volatile("bar.sync %0, 128;\n" :: "r"(1 + wg) : "memory");
       }
-      const uint32_t k_addr = smem_u32(ks + st * C::kTileBytes);
-      fence_regs(s);
-      wgmma_fence();
-#pragma unroll
-      for (int ks16 = 0; ks16 < D / 16; ++ks16) {
-        const uint32_t sub = (ks16 % 4) * 32;
-        wgmma_scores<T, kBlockN>(
-            s, desc_k_major(q_addr + (ks16 / 4) * kQBox + sub),
-            desc_k_major(k_addr + (ks16 / 4) * C::kKvBox + sub), ks16 > 0);
-      }
-      wgmma_commit();
-      fence_regs(s);
-    };
-    // O += P_kt V_kt from the P registers (left in flight)
-    auto start_values = [&](int kt) {
-      const uint32_t v_addr = smem_u32(vs + stage(kt) * C::kTileBytes);
+      const uint32_t v_addr = smem_u32(vs + st * C::kTileBytes);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
@@ -374,36 +460,38 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     };
 
-    // Ping-pong: the two warpgroups take turns to start their products
-    // (named barriers 3 and 4), so one warpgroup's softmax runs while the
-    // other's products hold the tensor cores. Both run last_tile -
-    // first_tile + 2 turns (one empty turn a tile wholly below the window;
-    // the first tile's S; S_kt with P_{kt-1} V_{kt-1}; the last value
-    // product; one empty turn a tile wholly above the diagonal), so every
-    // wait is met; warpgroup 1 lets warpgroup 0 go first and skips its very
-    // last signal.
+    // Ping-pong: the warpgroups take turns in order to start their products
+    // (warpgroup w waits on named barrier kTurn + w and passes to the next),
+    // so the others' softmax runs while one's products hold the tensor
+    // cores. All run last_tile - first_tile + 2 turns (one empty turn a tile
+    // wholly below the window; the first tile's S; S_kt with P_{kt-1}
+    // V_{kt-1}; the last value product; one empty turn a tile wholly above
+    // the diagonal), so every wait is met; the last warpgroup lets
+    // warpgroup 0 go first and skips its very last signal.
+    constexpr int kTurn = 1 + kConsumers;         // after the warpgroups' own
     const int turns = last_tile - first_tile + 2;
     int turn = 0;
     auto take_turn = [&]() {
-      asm volatile("bar.sync %0, 256;\n" :: "r"(3 + wg) : "memory");
+      asm volatile("bar.sync %0, 256;\n" :: "r"(kTurn + wg) : "memory");
     };
     auto pass_turn = [&]() {
-      if (++turn < turns || wg == 0)
-        asm volatile("bar.arrive %0, 256;\n" :: "r"(4 - wg) : "memory");
+      if (++turn < turns || wg != kConsumers - 1)
+        asm volatile("bar.arrive %0, 256;\n"
+                     :: "r"(kTurn + (wg + 1) % kConsumers) : "memory");
     };
-    if (wg == 1 && last_tile >= 0)
-      asm volatile("bar.arrive 3, 256;\n" ::: "memory");
+    if (wg == kConsumers - 1 && last_tile >= 0)
+      asm volatile("bar.arrive %0, 256;\n" :: "n"(kTurn) : "memory");
 
     for (int kt = first_tile; kt < my_first; ++kt) {
-      // wholly below this warpgroup's window: release the stage unread
+      // wholly below this warpgroup's window: release the stages unread
       take_turn();
       pass_turn();
-      mbar_wait(&full_bar[stage(kt)], phase(kt));
-      if (lane == 0) mbar_arrive(&empty_bar[stage(kt)]);
+      release_unread(kt);
     }
     // The first tile alone; then each tile starts S_kt together with the
     // value product of tile kt - 1, and its softmax runs while that product
-    // is in flight.
+    // is in flight. K_kt is released once S_kt is done, V_kt once
+    // P_kt V_kt is.
     if (my_last >= 0) {
       float alpha[2];
       take_turn();
@@ -411,6 +499,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       pass_turn();
       wgmma_wait<0>();
       fence_regs(s);
+      release(k_empty, kr.stage(my_first));
       softmax(my_first, alpha);
       pack_p();
     }
@@ -422,10 +511,11 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       pass_turn();
       wgmma_wait<1>();                            // S_kt is done
       fence_regs(s);
+      release(k_empty, kr.stage(kt));
       softmax(kt, alpha);
       wgmma_wait<0>();                            // P_{kt-1} V_{kt-1} is in O
       fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty_bar[stage(kt - 1)]);
+      release(v_empty, vr.stage(kt - 1));
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
       pack_p();
@@ -436,14 +526,13 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
       pass_turn();
       wgmma_wait<0>();
       fence_regs(o);
-      if (lane == 0) mbar_arrive(&empty_bar[stage(my_last)]);
+      release(v_empty, vr.stage(my_last));
     }
     for (int kt = my_last + 1; kt <= last_tile; ++kt) {
-      // wholly above this warpgroup's diagonal: release the stage unread
+      // wholly above this warpgroup's diagonal: release the stages unread
       take_turn();
       pass_turn();
-      mbar_wait(&full_bar[stage(kt)], phase(kt));
-      if (lane == 0) mbar_arrive(&empty_bar[stage(kt)]);
+      release_unread(kt);
     }
 
     // full row sums across the quad, normalize, store pairs of T
@@ -456,8 +545,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (row[h] >= rows || tok[h] >= T_len) continue;
-      T* dst =
-          out + ((((size_t)n * T_len + tok[h]) * KH + kh) * G + row[h] % G) * D;
+      T* dst = out + ((((size_t)n * T_len + tok[h]) * KH + kh) * G + g0 +
+                      row[h] % gs) * D;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<uint32_t*>(dst + j * 8 + quad * 2) =
@@ -491,14 +580,15 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int32_t* lengths, const float* slopes, void* out,
-                   int N, int T_len, int KH, int G, int window, float scale,
-                   cudaStream_t stream) {
+                   int N, int T_len, int KH, int G, int gs, int window,
+                   float scale, cudaStream_t stream) {
   using C = Config<D>;
-  const int tpb = kBlockM / G;
+  if (gs > C::kBlockM) return cudaErrorInvalidValue;
+  const int tpb = C::kBlockM / gs;
   CUtensorMap tm_q, tm_k, tm_v;
   const cuuint64_t q_dims[5] = {(cuuint64_t)D, (cuuint64_t)G, (cuuint64_t)KH,
                                 (cuuint64_t)T_len, (cuuint64_t)N};
-  const cuuint32_t q_box[5] = {64, (cuuint32_t)G, 1, (cuuint32_t)tpb, 1};
+  const cuuint32_t q_box[5] = {64, (cuuint32_t)gs, 1, (cuuint32_t)tpb, 1};
   const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)KH, (cuuint64_t)T_len,
                                  (cuuint64_t)N};
   const cuuint32_t kv_box[4] = {64, 1, C::kBlockN, 1};
@@ -520,10 +610,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     attr_set[dev] = true;
   }
-  const dim3 grid((T_len + tpb - 1) / tpb, KH, N);
-  flash_prefill_kernel<T, D><<<grid, kThreads, C::kSmem, stream>>>(
+  // (row tile, sub-group) pairs, kv heads, sequences
+  const long long blocks = (long long)((T_len + tpb - 1) / tpb) * (G / gs);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, KH, N);
+  flash_prefill_kernel<T, D><<<grid, C::kThreads, C::kSmem, stream>>>(
       tm_q, tm_k, tm_v, lengths, slopes, static_cast<T*>(out), T_len, KH, G,
-      window, scale * 1.4426950408889634f);
+      gs, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -889,25 +982,28 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 bf16 and 1 fp16 (the wgmma kernel), 2 fp32 (the 3xTF32
-// mma.sync kernel); D 64, 128, 192 or 256; window: the sliding window in
-// keys, 0 for none; slopes: [KH, G] f32 ALiBi slopes, or null for none
+// mma.sync kernel); D 64, 128, 192 or 256; gs: the query heads of a row
+// tile of the wgmma kernel (a divisor of G, at most 128; its row tiles
+// hold 128 / gs tokens; the fp32 kernel tiles rows its own way); window:
+// the sliding window in keys, 0 for none; slopes: [KH, G] f32 ALiBi
+// slopes, or null for none
 extern "C" int tgi_flash_prefill(const void* q, const void* k, const void* v,
                                  const int32_t* lengths, const float* slopes,
-                                 void* out, int N, int T, int KH, int G, int D,
-                                 int window, int dtype, float scale,
-                                 void* stream) {
+                                 void* out, int N, int T, int KH, int G,
+                                 int gs, int D, int window, int dtype,
+                                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // TMA wants 16-byte aligned bases; a block holds at least one token
-  if (N <= 0 || T <= 0 || KH <= 0 || G <= 0 || G > kBlockM || KH > 65535 ||
-      N > 65535 || window < 0 ||
+  if (N <= 0 || T <= 0 || KH <= 0 || G <= 0 || gs <= 0 || gs > kMaxBlockM ||
+      G % gs != 0 || KH > 65535 || N > 65535 || window < 0 ||
       ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
 #define TGI_FLASH_D(TY)                                                        \
   switch (D) {                                                                 \
-    case 64: return (int)launch<TY, 64>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s);   \
-    case 128: return (int)launch<TY, 128>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
-    case 192: return (int)launch<TY, 192>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
-    case 256: return (int)launch<TY, 256>(q, k, v, lengths, slopes, out, N, T, KH, G, window, scale, s); \
+    case 64: return (int)launch<TY, 64>(q, k, v, lengths, slopes, out, N, T, KH, G, gs, window, scale, s);   \
+    case 128: return (int)launch<TY, 128>(q, k, v, lengths, slopes, out, N, T, KH, G, gs, window, scale, s); \
+    case 192: return (int)launch<TY, 192>(q, k, v, lengths, slopes, out, N, T, KH, G, gs, window, scale, s); \
+    case 256: return (int)launch<TY, 256>(q, k, v, lengths, slopes, out, N, T, KH, G, gs, window, scale, s); \
     default: return (int)cudaErrorInvalidValue;                                \
   }
   switch (dtype) {

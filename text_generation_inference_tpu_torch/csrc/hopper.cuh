@@ -138,19 +138,19 @@ constexpr bool kIsHalf = false;
 template <>
 constexpr bool kIsHalf<__half> = true;
 
-#define TGI_WGMMA_SS_N64(TY) asm volatile(\
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"\
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "\
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+#define TGI_WGMMA_SS_N80(TY) asm volatile(\
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"\
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " "\
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]) \
       : "l"(desc_a), "l"(desc_b), "r"(accumulate))
 template <typename T>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+__device__ __forceinline__ void wgmma_ss_n80(float (&d)[40], uint64_t desc_a,
     uint64_t desc_b, int accumulate) {
-  if constexpr (kIsHalf<T>) TGI_WGMMA_SS_N64("f16");
-  else TGI_WGMMA_SS_N64("bf16");
+  if constexpr (kIsHalf<T>) TGI_WGMMA_SS_N80("f16");
+  else TGI_WGMMA_SS_N80("bf16");
 }
-#undef TGI_WGMMA_SS_N64
+#undef TGI_WGMMA_SS_N80
 
 #define TGI_WGMMA_SS_N128(TY) asm volatile(\
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"\

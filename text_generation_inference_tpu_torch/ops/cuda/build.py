@@ -40,10 +40,10 @@ _vp, _i32, _f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64 = ctypes.c_longlong
 # argument types of each library's C entry points
 _SIGNATURES = {
-    # q, k, v, lengths, ALiBi slopes (or null), out; then N, T, KH, G, D,
-    # window, dtype
+    # q, k, v, lengths, ALiBi slopes (or null), out; then N, T, KH, G, the
+    # query heads of a row tile, D, window, dtype
     "flash_prefill": {
-        "tgi_flash_prefill": [_vp] * 6 + [_i32] * 7 + [_f32, _vp],
+        "tgi_flash_prefill": [_vp] * 6 + [_i32] * 8 + [_f32, _vp],
     },
     # q, pools (int8: and their scale pools), table, ctx, ALiBi slopes (or
     # null), outputs, split scratch, arrival counters; then S, KH, G, D, R,

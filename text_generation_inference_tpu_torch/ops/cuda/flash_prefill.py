@@ -11,13 +11,15 @@ as the JAX model's mask does (`models/core.py` prefill: a padded row could
 otherwise see no key at all).
 
 `flash_prefill_tiled_reference` is the plain twin of the kernel's schedule:
-row tiles of BLOCK_M rows (row = token * G + g) in two halves of 64 (the
-kernel's consumer warpgroups), key tiles of `key_tile(d)` keys (128, or 64
-at head dims 192 and 256), each half walking key tiles up to its causal and
+row tiles of `block_rows(d)` rows (192 at head dim 64, else 128), each
+`row_tile(G, rows)` = (gs, tpb): tpb tokens x gs query heads of one kv head
+(row = token * gs + head, from head g0 of the tile's sub-group), in
+warpgroups of 64 rows, key tiles of `key_tile(d)` keys (128, or 80 at
+head dims 192 and 256), each warpgroup walking key tiles up to its causal and
 length limit and masking only the tiles that cross its diagonal or the
-length; with a window, each half starts at the tile that holds its first
-visible key (the tiles wholly below its window are released unread) and
-also masks the tiles that cross the window's lower edge.
+length; with a window, each warpgroup starts at the tile that holds its
+first visible key (the tiles wholly below its window are released unread)
+and also masks the tiles that cross the window's lower edge.
 
 bf16 and fp16 run on the wgmma kernel; fp32 runs on the source's fp32
 kernel, mma.sync on the tensor cores in 3xTF32 (the JAX kernel computes in
@@ -43,6 +45,7 @@ shorter than the bucket, `flash_prefill.alibi` those given slopes.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -52,14 +55,36 @@ from . import build
 HEAD_DIMS = (64, 128, 192, 256)   # head dims the kernel is compiled for
 # element types it is built for
 DTYPES = (torch.bfloat16, torch.float16, torch.float32)
-BLOCK_M = 128           # rows (token * G + g) a block of the kernel takes
+BLOCK_M = 128           # rows (token * gs + head) a block takes past D = 64
 BLOCK_N = 128           # keys a tile of the kernel up to head dim 128
+WG_ROWS = 64            # rows a consumer warpgroup of the kernel takes
+
+
+def block_rows(d: int) -> int:
+    """Rows a block of the wgmma kernel takes at head dim d: three
+    warpgroups of 64 at D = 64 (a warpgroup's softmax outlasts another's
+    products there), two above (a third's registers do not hold its
+    accumulators and scores)."""
+    return 3 * WG_ROWS if d == 64 else BLOCK_M
+
+
+def row_tile(g: int, block_m: int = BLOCK_M) -> tuple[int, int]:
+    """(gs, tpb): a row tile of block_m rows of the wgmma kernel holds tpb
+    tokens x gs of the G query heads of one kv head. gs is the largest
+    divisor of g that also divides block_m, so gs * tpb == block_m and no
+    row of a tile is idle (at 128 rows: G = 48 takes 16 heads x 8 tokens,
+    G = 71 one head x 128 tokens; a G that divides block_m keeps all its
+    heads, gs = G). The G / gs sub-groups of a kv head are tiles of their
+    own."""
+    gs = math.gcd(g, block_m)
+    return gs, block_m // gs
 
 
 def key_tile(d: int) -> int:
-    """Keys a tile of the wgmma kernel at head dim d: 64 past 128, where
-    the Q tile leaves no room for two stages of 128-key K and V tiles."""
-    return BLOCK_N if d <= 128 else 64
+    """Keys a tile of the wgmma kernel at head dim d: 80 past 128, where
+    the Q tile leaves room for two stages of 80-key K and V tiles, not of
+    128-key ones."""
+    return BLOCK_N if d <= 128 else 80
 
 
 def f32_key_tile(d: int) -> int:
@@ -195,50 +220,54 @@ def window_floor(first_tok: int, last_tok: int, length: int,
 
 def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, lengths: torch.Tensor,
-                                  block_m: int = BLOCK_M,
+                                  block_m: int | None = None,
                                   block_n: int | None = None,
                                   window: int = 0,
                                   slopes: torch.Tensor | None = None
                                   ) -> torch.Tensor:
     """Plain twin of the kernel's schedule (fp32 math, output in q's dtype):
-    online softmax in exp2 units over the key tiles a half row tile walks
-    (from the tile of its `window_floor` to its diagonal and the length),
-    masks only on the tiles that cross the half's diagonal, the length or
-    its window's lower edge, dead value rows zeroed on the length-edge
-    tile. With `slopes`, the row max is taken on the biased scores
-    (`row_bias`); without them, on the scaled scores as before."""
+    row tiles of `row_tile(G, block_m)` (block_m: `block_rows(d)` unless
+    given), online softmax in exp2 units over the key tiles a warpgroup of
+    WG_ROWS rows walks (from the tile of its `window_floor` to its diagonal
+    and the length), masks only on the tiles that cross the warpgroup's
+    diagonal, the length or its window's lower edge,
+    dead value rows zeroed on the length-edge tile. With `slopes`, the row
+    max is taken on the biased scores (`row_bias`); without them, on the
+    scaled scores as before."""
     n, t, kh, g, d = q.shape
+    block_m = block_m or block_rows(d)
     block_n = block_n or key_tile(d)
     scale_log2 = math.log2(math.e) / math.sqrt(d)
-    rows_q = q.to(torch.float32).permute(0, 2, 1, 3, 4).reshape(n, kh, t * g, d)
+    # [N, K, T, G, D]: a tile's rows are (token, head of its sub-group)
+    rows_q = q.to(torch.float32).permute(0, 2, 1, 3, 4)
     kf = k.to(torch.float32).permute(0, 2, 1, 3)                # [N, K, T, D]
     vf = v.to(torch.float32).permute(0, 2, 1, 3)
     pad = (-t) % block_n            # tiles past T read zeros
     kf = torch.nn.functional.pad(kf, (0, 0, 0, pad))
     vf = torch.nn.functional.pad(vf, (0, 0, 0, pad))
     out = torch.zeros_like(rows_q)
-    tpb = block_m // g              # tokens a row tile
-    half = block_m // 2
+    gs, tpb = row_tile(g, block_m)  # heads and tokens a row tile
     for b in range(n):
         ln = max(0, min(int(lengths[b]), t))
-        for tok0 in range(0, t, tpb):
-            rows = tpb * g
+        for tok0, g0 in itertools.product(range(0, t, tpb), range(0, g, gs)):
+            rows = tpb * gs
             tok_last = min(tok0 + tpb - 1, t - 1)
             last_tile = min(tok_last // block_n, -(-ln // block_n) - 1)
-            for r_wg in range(0, block_m, half):
-                r = torch.arange(r_wg, min(r_wg + half, rows))
+            for r_wg in range(0, block_m, WG_ROWS):
+                r = torch.arange(r_wg, min(r_wg + WG_ROWS, rows))
                 if r.numel() == 0:
                     continue
-                first_tok = tok0 + r_wg // g
-                last_tok = tok0 + int(r[-1]) // g
-                tok = tok0 + r // g
+                first_tok = tok0 + r_wg // gs
+                last_tok = tok0 + int(r[-1]) // gs
+                tok = tok0 + r // gs
                 keep = tok < t
                 r, tok = r[keep], tok[keep]
+                head = g0 + r % gs
                 first_kt = window_floor(first_tok, last_tok, ln,
                                         window) // block_n
-                # the largest first visible key of the half's real rows
+                # the largest first visible key of the warpgroup's real rows
                 edge = min(last_tok, ln - 1) - window + 1 if window else 0
-                qs = rows_q[b, :, tok0 * g + r]                 # [K, R, D]
+                qs = rows_q[b, :, tok, head]                    # [K, R, D]
                 m = torch.full((kh, r.numel()), -math.inf)
                 l = torch.zeros((kh, r.numel()))
                 o = torch.zeros((kh, r.numel(), d))
@@ -252,7 +281,7 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                     if key0 + block_n > ln:  # the length-edge tile
                         kt_v = torch.where((keys < ln)[:, None], kt_v, 0.0)
                     sc = (torch.einsum("krd,kjd->krj", qs, kt_k) * scale_log2
-                          + row_bias(slopes, tok0 * g + r, g, keys))
+                          + row_bias(slopes, tok * g + head, g, keys))
                     if key0 + block_n > min(first_tok + 1, ln) or key0 < edge:
                         vis = visible(tok, keys, ln, window)
                         sc = torch.where(vis, sc, -math.inf)
@@ -266,8 +295,8 @@ def flash_prefill_tiled_reference(q: torch.Tensor, k: torch.Tensor,
                     o = o * alpha[..., None] + torch.einsum("krj,kjd->krd",
                                                             p, kt_v)
                     m = m_new
-                out[b, :, tok0 * g + r] = o / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(n, kh, t, g, d).permute(0, 2, 1, 3, 4).to(q.dtype)
+                out[b, :, tok, head] = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).to(q.dtype)
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -303,6 +332,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "boundaries (the kernel's TMA loads)")
     if g > BLOCK_M:
         raise ValueError(f"flash_prefill: group {g} > {BLOCK_M}")
+    gs, _ = row_tile(g, block_rows(d))
     if slopes is not None and (
             slopes.device != q.device or slopes.dtype != torch.float32
             or slopes.shape != (kh, g) or not slopes.is_contiguous()):
@@ -317,7 +347,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         code = lib.tgi_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             None if slopes is None else slopes.data_ptr(),
-            out.data_ptr(), n, t, kh, g, d, min(window, t),
+            out.data_ptr(), n, t, kh, g, gs, d, min(window, t),
             build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("flash_prefill", code)
     flash_prefill.launches += 1
