@@ -17,8 +17,10 @@ Phases (any failure exits non-zero; nothing is caught):
              gemma-2b's heads, at 192, and in fp32 on the 3xTF32 kernel at
              head dims 64, 128, 192 and 256, each with its achieved
              TFLOP/s; paged decode in both modes with its GB/s and share of
-             the bytes bound); every decode entry in fp32 (the paged kernel
-             in both modes, K2 with an fp32 q, S1, S2); the int8 paged
+             the bytes bound); every decode entry in fp32 on the 3xTF32
+             body (the paged kernel in both modes, K2 with an fp32 q, S1,
+             S2; the paged kernel and S1 also at Llama-2-7B decode widths,
+             S2 also at ring steps 0 and 63); the int8 paged
              decode (K2, at 7B widths and at TinyLlama's, a sentinel page
              inside a split and a ctx == 0 slot) and the GPTQ-INT4
              dequant-GEMM (K1, on a Llama-2-7B layer's four products at 16
@@ -129,7 +131,7 @@ Phases (any failure exits non-zero; nothing is caught):
              bf16 paged, per-step decode, 8 live requests), after run 4
              (the slot engine in scan mode, 8 live), after run 3 (7B GPTQ
              + int8 KV, ring chunks of 8, 16 live; the first
-             GRAPHS_7B_LAYERS (8) of its 32 layers, to keep the script
+             GRAPHS_7B_LAYERS (4) of its 32 layers, to keep the script
              within its time limit) and
              after run 6 (as run 3, INT4_FUSED_MLP=1): (1) a graph engine and an eager one
              (`eager_decode=True`) built alike, in lockstep through a
@@ -155,7 +157,7 @@ Phases (any failure exits non-zero; nothing is caught):
              most); the distilled measurement (`tools/spec_measure.py` at
              TinyLlama's full width and depth, made predictable: acceptance,
              tokens per model call, tok/s against plain, distilling for at
-             most 45 s), then the bf16 streams of both engines against
+             most 30 s), then the bf16 streams of both engines against
              plain up to their first difference, allowed only where the
              plain top-2 margin is within FAMILY_ULPS bf16 ulps; replay ==
              eager bit for bit for every verify program
@@ -227,9 +229,9 @@ Phases (any failure exits non-zero; nothing is caught):
  10. prefill the prefill programs (one captured CUDA graph per JAX prefill
              key, `engine/programs.py`), after the seq2seq graphs phases:
              for TinyLlama bf16 on the paged and on the slot engine (scan),
-             Llama-2-7B widths with GPTQ-INT4 weights and int8 KV (16 of
+             Llama-2-7B widths with GPTQ-INT4 weights and int8 KV (8 of
              32 layers, max_seq 4096), the paged speculative engine at
-             Llama-2-7B widths (16 layers) and the seq2seq engine at
+             Llama-2-7B widths (8 layers) and the seq2seq engine at
              t5-large's widths: a graph engine and an eager one, both
              warmed up (the warm grid captured; capture time and the
              graphs' pool against the plan's graph-pool term printed), in
@@ -284,7 +286,7 @@ PORT_DIR = "text_generation_inference_tpu_torch"
 # the depth of the 7B decode graphs phases (of 32 layers) and of the
 # mt0-xxl seq2seq graphs phase (of 24 + 24), cut to keep the script within
 # its time limit; the serving runs keep every layer
-GRAPHS_7B_LAYERS = 8
+GRAPHS_7B_LAYERS = 4
 GRAPHS_MT0_LAYERS = 4
 
 # TinyLlama-1.1B (config.json of TinyLlama/TinyLlama-1.1B-Chat-v1.0)
@@ -450,8 +452,9 @@ def peak_flops(dtype) -> float:
 def bound(nbytes: float, flops: float, fp32: bool = False,
           peak: float | None = None) -> tuple[float, str]:
     """The least time (ms) for the bytes and operations, and which bounds
-    it; operations over `peak`, else the fp32 CUDA-core peak (the fp32
-    decode bodies) or the bf16 tensor cores."""
+    it; operations over `peak`, else the card's fp32 peak outside the
+    tensor cores (fp32 decode: the lower rate, so the larger time) or the
+    bf16 tensor cores."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = flops / (peak or (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS))
     return (max(t_bytes, t_ops) * 1e3,
@@ -758,7 +761,7 @@ def stats_error(torch, got, want, acc_abs, what, fp32=False):
            bf16 for its value product, at most 2^-9 of each term;
       m    1e-4 of max(1, |m|): both take the max of the same fp32 scores;
       l    1e-3 of max(1, max l): the same fp32 sum in another order.
-    fp32 (`fp32`: the fp32 CUDA-core body, no rounding of p): acc within
+    fp32 (`fp32`: the 3xTF32 body, p split in two TF32 terms): acc within
     1e-5 of acc_abs + 1e-5, m and l as above. Returns (max abs error, a
     description of the tolerances)."""
     p_round = 1e-5 if fp32 else 2.0 ** -8
@@ -1045,15 +1048,17 @@ def check_ring_decode(torch, timer, step, s=48, kh=4, g=8, d=64, rows=1024,
     library_ms = timer(sdpa_call(torch, q, keys, values, live_rows))
     live = int(ctx.sum()) + s * (step + 1)
     flops = 4.0 * live * kh * g * d
-    b_ms, b_by = bound(nbytes(q, ctx, got) + 2 * live * kh * d *
-                       q.element_size(), flops, fp32)
+    moved = nbytes(q, ctx, got) + 2 * live * kh * d * q.element_size()
+    b_ms, b_by = bound(moved, flops, fp32)
+    gbps = moved / (ms * 1e-3) / 1e9
     log(f"kernel ring_decode_attention {str(dtype).split('.')[-1]} S={s} KV={kh} G={g} D={d} rows={rows} "
         f"ring={c} step={step} live_tokens={live}: max_abs_err {err:.3e} (tol "
         f"{tol}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
         f"{library_ms:.4f} (SDPA over the concatenated sources) bound_ms "
-        f"{b_ms:.4f} ({b_by})")
+        f"{b_ms:.4f} ({b_by}); {moved / 1e6:.2f} MB at {gbps:.1f} GB/s, "
+        f"{100 * b_ms / ms:.1f}% of the bound")
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, gbps=gbps)
 
 
 # --- K1: the GPTQ-INT4 dequant-GEMM ------------------------------------------
@@ -2631,9 +2636,9 @@ def prefill_phase(torch, card, counters) -> dict:
     """The prefill programs (`prefill_programs`) at full width: TinyLlama
     bf16 on the paged engine (timed at PREFILL_SHAPES_TINYLLAMA) and on the
     slot engine (scan mode); Llama-2-7B widths with GPTQ-INT4 weights and
-    int8 KV on ring chunks of 8 (16 of its 32 layers, max_seq 4096 so that
+    int8 KV on ring chunks of 8 (8 of its 32 layers, max_seq 4096 so that
     8 rows of 512 fit the prefill cap; timed at PREFILL_SHAPES_7B); the
-    paged speculative engine at Llama-2-7B widths (16 layers, bf16); the
+    paged speculative engine at Llama-2-7B widths (8 layers, bf16); the
     seq2seq engine at google-t5/t5-large's widths."""
     out = {}
     spec = llama_spec()
@@ -2645,18 +2650,18 @@ def prefill_phase(torch, card, counters) -> dict:
         torch, "tinyllama bf16 slot scan", spec, params, card, counters,
         dict(decode_write_mode="scan"), slot=True)
     del params
-    spec7b16 = llama_spec(LLAMA7B, num_layers=16)
-    params = random_params(torch, spec7b16, gptq=True)
+    spec7b8 = llama_spec(LLAMA7B, num_layers=8)
+    params = random_params(torch, spec7b8, gptq=True)
     out["7b gptq int8kv"] = prefill_programs(
-        torch, "7b gptq int8kv", spec7b16, params, card, counters,
+        torch, "7b gptq int8kv", spec7b8, params, card, counters,
         dict(kv_cache_dtype="int8", decode_chunk=8, paged_gather_ctx_max=0),
         max_seq=4096, shapes=PREFILL_SHAPES_7B)
     del params
     from text_generation_inference_tpu_torch.models.fuse import fuse_params
 
-    params = fuse_params(spec7b16, random_params(torch, spec7b16))
+    params = fuse_params(spec7b8, random_params(torch, spec7b8))
     out["7b speculative paged"] = prefill_programs(
-        torch, "7b speculative paged", spec7b16, params, card, counters,
+        torch, "7b speculative paged", spec7b8, params, card, counters,
         speculative=dict(n_predict=SPEC_N_PREDICT, max_spec_batch=3),
         warm_sizes=(1,))
     del params
@@ -3228,7 +3233,7 @@ def serve_spec(torch, spec, params, counters, with_grpc, card):
 
 def spec_measurement(torch):
     """The distilled measurement (`tools.spec_measure`) at TinyLlama's full
-    width and depth, bf16, distilling for 45 s; then the bf16 streams of
+    width and depth, bf16, distilling for 30 s; then the bf16 streams of
     both engines against plain up to their first differences (the paged
     ones from the measurement, the slot engine's with the same distilled
     speculator)."""
@@ -3237,7 +3242,7 @@ def spec_measurement(torch):
 
     spec = llama_spec()
     params = spec_measure.predictable_params(spec, DEVICE, DTYPE, SEED)
-    report = spec_measure.measure(spec, params, DEVICE, seconds=45.0, log=log)
+    report = spec_measure.measure(spec, params, DEVICE, seconds=30.0, log=log)
     streams = report.pop("streams")
     sspec, sparams = report.pop("speculator")
     log(f"spec_measure: {json.dumps(report)}")
@@ -3541,6 +3546,11 @@ def serve_internal(torch, counters, card):
     from text_generation_inference_tpu_torch.server.internal_server import (
         InternalTextGenerationService)
 
+    # the engine plans against the whole card: hand back what earlier
+    # phases left in the allocator's cache before the weights are drawn, or
+    # they land among its free blocks and leave it fragmented
+    gc.collect()
+    torch.cuda.empty_cache()
     spec = llama_spec(LLAMA7B)
     # fused as the engine fuses them: no unfused copy stays resident
     params = fuse_params(spec, random_params(torch, spec))
@@ -4280,7 +4290,18 @@ def main() -> int:
         "decode_attention": check_slot_decode(torch, timer, s=16, kh=4, g=8,
                                               d=64, dtype=fp32),
         "ring_decode_attention": check_ring_decode(torch, timer, 32,
-                                                   dtype=fp32)}
+                                                   dtype=fp32),
+        # at Llama-2-7B decode widths (16 slots, 32 kv heads, G 1, D 128),
+        # and S2 at its first and last ring steps
+        "paged_decode_attention 7B": check_paged(torch, timer, False, fp32,
+                                                 kh=32, g=1, d=128),
+        "paged_decode_attention_stats 7B": check_paged(torch, timer, True,
+                                                       fp32, kh=32, g=1,
+                                                       d=128),
+        "decode_attention 7B": check_slot_decode(torch, timer, s=16, kh=32,
+                                                 g=1, d=128, dtype=fp32),
+        **{f"ring_decode_attention step {step}": check_ring_decode(
+            torch, timer, step, dtype=fp32) for step in (0, 63)}}
     # K1 on a 7B layer's four products: decode rows through the stacked
     # name, prefill rows through the packed name; act-order through s4
     k1 = {entry: sum_results([check_int4(torch, timer, entry, key, m)
@@ -4500,8 +4521,8 @@ def main() -> int:
     # the 7B graphs phases at the first GRAPHS_7B_LAYERS of the 32 layers,
     # to keep the script within its time limit (serving runs 3 and 6 keep
     # all 32)
-    spec7b8, params7b8 = first_layers(spec7b, params7b, GRAPHS_7B_LAYERS)
-    prof3 = graphs(torch, spec7b8, params7b8, "7b gptq int8kv", card,
+    spec7b_cut, params7b_cut = first_layers(spec7b, params7b, GRAPHS_7B_LAYERS)
+    prof3 = graphs(torch, spec7b_cut, params7b_cut, "7b gptq int8kv", card,
                    quantized, max_seq=1024, live=16, calls=4,
                    focus=("k1_", "split_kernel", "sum_splits"))
 
@@ -4529,13 +4550,13 @@ def main() -> int:
         f"-> {k1_rate['run 6']:.0f} in run 6 (w_qkv, wo), M1 {m1_rate:.0f} "
         f"(w_gu + the GLU + w_down)")
     mark("graphs: 7b gptq int8kv, serving run 6")
-    prof6 = graphs(torch, spec7b8, params7b8, "7b gptq int8kv fused", card,
-                   quantized, max_seq=1024, live=16, calls=4, fused=True,
+    prof6 = graphs(torch, spec7b_cut, params7b_cut, "7b gptq int8kv fused",
+                   card, quantized, max_seq=1024, live=16, calls=4, fused=True,
                    focus=("int4_mlp_kernel", "k1_", "sum_splits"))
     mark("graphs: 7b gptq int8kv fused")
     log(f"profile 7b: run 3's config {json.dumps(prof3)}; run 6's "
         f"(INT4_FUSED_MLP=1) {json.dumps(prof6)}")
-    del params7b, params7b8
+    del params7b, params7b_cut
 
     # run 7: Mistral-7B-v0.1 at full width and depth on the slot engine in
     # scan mode, max_seq 8192, 8 slots; prompts past its window of 4096 cut
@@ -4765,6 +4786,20 @@ def main() -> int:
                     "fp32, N=2, T=2048, lengths 1500/900, H=32, KV=4, D=64"),
              name="flash_prefill_f32",
              launches=fp32_counts["flash_prefill"]),
+        # the split body's 3xTF32 kernel: the float32 model's decode steps
+        # (the fp32 parity phase: per-step and ring-chunk) are its path
+        dict(record("paged_decode_attention", "paged_attention.cu",
+                    "paged_attention.py:261",
+                    f32_decode["paged_decode_attention"],
+                    "fp32, S=16, KV=4, G=8, D=64, page 128, ctx up to 2048"),
+             name="paged_decode_attention_f32",
+             launches=fp32_counts["paged_decode_attention"]),
+        dict(record("paged_decode_attention_stats", "paged_attention.cu",
+                    "paged_attention.py:407",
+                    f32_decode["paged_decode_attention_stats"],
+                    "fp32, S=16, KV=4, G=8, D=64, page 128, ctx up to 2048"),
+             name="paged_decode_attention_stats_f32",
+             launches=fp32_counts["paged_decode_attention_stats"]),
         # the wgmma body at D = 256: run 8's prefills (Gemma-7B)
         dict(record("flash_prefill", "flash_prefill.cu",
                     "flash_prefill.py:143", fp256,
@@ -4933,7 +4968,8 @@ def main() -> int:
         f"the distilled measurement {json.dumps(spec_report)}")
     log("launches: decode_attention in the serving runs, "
         "ring_decode_attention in the probe, int4_mlp_s4_stacked in run 6, "
-        "flash_prefill_f32 in the fp32 parity phase, flash_prefill_d256 in "
+        "flash_prefill_f32 and the paged _f32 rows in the fp32 parity "
+        "phase, flash_prefill_d256 in "
         "run 8, flash_prefill_window and decode_attention_window in run 7, "
         "paged_decode_attention_d96 in the family parity phase (gpt_neox), "
         "the _alibi rows in run 10 (decode_attention_alibi: the family "

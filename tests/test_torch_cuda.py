@@ -14,8 +14,8 @@ order, with P rounded to bf16 in the bf16 paged kernel); the fused
 MLP, two chained products over bf16-rounded weights, within 3e-2 of its
 largest output plus 2e-2 relative, and within two ulps of x's dtype of
 its largest output against its twin (`int4_mlp_split_reference`: `a` and y
-are each rounded once on both sides). float32 attention (the fp32
-CUDA-core decode bodies, flash prefill's 3xTF32 kernel) within 1e-4; the
+are each rounded once on both sides). float32 attention (the split body's
+and flash prefill's 3xTF32 kernels) within 1e-4; the
 flash kernel also within 1e-5 of its twin. K1 (`close_k1`): the weights enter the tensor cores
 as exact integers and both versions sum in fp32, so the outputs differ by
 the rounding of y to x's dtype, one ulp (2^-7 relative in bf16, 2^-10 in
@@ -496,6 +496,43 @@ def test_ring_decode_kernel(cuda_device, step):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", [0, 1, 15, 16])
+def test_ring_decode_every_step(cuda_device, dtype, step):
+    """S2 at the ring's first steps, its last and a full ring (C = 16),
+    bf16 and fp32, against its plain version and its split twin: the
+    cache's splits, then the ring's (a split of 5 columns in the twin too,
+    as a second plan), then the current token. Slot 0 has ctx == 0 (at step
+    0 its output is the current token's v); dead ring columns and rows past
+    ctx hold NaN and are never read."""
+    from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
+
+    rng = np.random.default_rng(450 + step)
+    q, k, v, ctx = slot_case(rng, cuda_device, 64, 8, t=512)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    c = 16
+    kb, vb = (bf16(rng, 6, 2, c, 64, device=cuda_device).to(dtype)
+              for _ in range(2))
+    kb[:, :, step:] = float("nan")
+    vb[:, :, step:] = float("nan")
+    kn, vn = (bf16(rng, 6, 2, 64, device=cuda_device).to(dtype)
+              for _ in range(2))
+    before = rda.ring_decode_attention.launches
+    got = rda.ring_decode_attention(q, k, v, kb, vb, kn, vn, ctx, step)
+    torch.cuda.synchronize()
+    assert rda.ring_decode_attention.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    kz, vz, kbz, vbz = (torch.nan_to_num(x) for x in (k, v, kb, vb))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    args = (q, kz, vz, kbz, vbz, kn, vn, ctx, step)
+    close(got, rda.ring_decode_attention_reference(*args), tol)
+    close(got, rda.ring_decode_split_reference(*args), tol)
+    close(got, rda.ring_decode_split_reference(*args, rows_per_split=5), tol)
+    if step == 0:
+        close(got[0], vn[0, :, None].expand(-1, 8, -1), tol)
+
+
+@pytest.mark.cuda
 def test_slot_wrappers_reject_bad_inputs(cuda_device):
     from text_generation_inference_tpu_torch.ops.cuda import decode_attention as da
     from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
@@ -863,7 +900,9 @@ SHAPE_CASES = [(16, 4, torch.bfloat16), (80, 1, torch.bfloat16),
                (192, 16, torch.float16), (64, 8, torch.float32),
                (128, 1, torch.float32), (192, 20, torch.float32),
                (16, 4, torch.float32), (96, 1, torch.bfloat16),
-               (96, 4, torch.float16), (96, 1, torch.float32)]
+               (96, 4, torch.float16), (96, 1, torch.float32),
+               (256, 16, torch.float32), (80, 3, torch.float32),
+               (128, 20, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -877,7 +916,7 @@ def test_split_body_takes_every_shape(cuda_device, d, g, dtype):
     from text_generation_inference_tpu_torch.ops.cuda import ring_decode_attention as rda
 
     rng = np.random.default_rng(900 + d + g)
-    # fp32 runs on the fp32 CUDA-core body: fp32 accuracy
+    # fp32 runs on the 3xTF32 body: fp32 accuracy
     tol, mtol = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2e-3)
     q, kp, vp, bt, ctx, page = split_case(rng, cuda_device, d, g)
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
@@ -942,7 +981,7 @@ def test_flash_prefill_kernel_float16(cuda_device, d, g):
 
 # (head dim, group, dtype): the wgmma kernel's 80-key tiles at head dims
 # 192 and 256 (gemma-7b: 16 heads of 256 over 16 kv heads; gemma-2b: 8 over
-# 1), and the fp32 CUDA-core kernel
+# 1), and the fp32 (3xTF32) kernel
 FLASH_CASES = [(192, 8, torch.bfloat16), (256, 1, torch.bfloat16),
                (256, 8, torch.float16), (192, 1, torch.float16),
                (64, 8, torch.float32), (128, 1, torch.float32),
@@ -1300,7 +1339,9 @@ def test_flash_prefill_window(cuda_device, d, g, dtype, window):
 @pytest.mark.parametrize("d,g,dtype", [(64, 8, torch.bfloat16),
                                        (128, 4, torch.float16),
                                        (96, 1, torch.bfloat16),
-                                       (128, 1, torch.float32)])
+                                       (128, 1, torch.float32),
+                                       (64, 8, torch.float32),
+                                       (256, 16, torch.float32)])
 def test_slot_decode_window(cuda_device, d, g, dtype, window):
     """S1 with the lower bound lo = ctx - W against its plain version and
     its split twin over a narrowed 2048-row slot cache: bounds inside a
@@ -1408,11 +1449,12 @@ def test_flash_prefill_alibi(cuda_device, d, g, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pool", ["bf16", "int8", "fp32"])
+@pytest.mark.parametrize("pool", ["bf16", "int8", "fp32", "int8-fp32q"])
 @pytest.mark.parametrize("d,g", [(64, 8), (128, 1), (96, 20)])
 def test_split_body_alibi(cuda_device, d, g, pool):
     """The split body given ALiBi slopes in both paged modes (bf16 or fp32
-    pools, normalized and stats) and over int8 pools (K2), against the
+    pools, normalized and stats) and over int8 pools (K2, with a bf16 or an
+    fp32 q), against the
     plain versions: the slopes ride the key's sequence position, not its
     pool row (pages scattered, a sentinel page), and the stats mode's m
     carries the bias. The plain versions without slopes, or with the next
@@ -1426,10 +1468,10 @@ def test_split_body_alibi(cuda_device, d, g, pool):
     kh = q.shape[1]
     slopes = _alibi_slopes(kh, g, cuda_device, "mpt") * 0.25
     wrong = slopes.flatten().roll(-1).reshape(kh, g)
-    if pool == "fp32":
+    if pool in ("fp32", "int8-fp32q"):
         q, kp, vp = q.float(), kp.float(), vp.float()
-    tol = 1e-4 if pool == "fp32" else 2e-3
-    if pool == "int8":
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-3
+    if pool.startswith("int8"):
         kq, ks = quantize_kv(kp)
         vq, vs = quantize_kv(vp)
         fn = lambda sl: pa.paged_decode_attention_partial_i8(

@@ -1,7 +1,7 @@
 """F2 on the CPU: the attention wrappers' float32 plain paths and the flash
 kernel's short key tiles at head dims 192 and 256, against the JAX package.
 
-On the card a float32 call runs the fp32 CUDA-core bodies (flash prefill's
+On the card a float32 call runs the 3xTF32 bodies (flash prefill's
 `flash_prefill_f32_kernel`, the split body's `split_kernel_f32`) and the
 flash kernel tiles 80 keys at D 192 / 256 (tests/test_torch_cuda.py holds
 them against these plain versions there). Here:

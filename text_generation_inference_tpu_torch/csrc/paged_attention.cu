@@ -15,7 +15,7 @@
 //                              v_scale [KH, R], indexed by the same pool rows)
 //
 // Every entry takes `dtype`, the element type of q and of pools that are not
-// int8: 0 bf16, 1 fp16 (the mma body), 2 fp32 (the fp32 CUDA-core body,
+// int8: 0 bf16, 1 fp16 (the mma body), 2 fp32 (the 3xTF32 body,
 // `split_kernel_f32`; K2 then takes fp32 q over its int8 pools), and
 // `slopes`, [KH, G] f32 ALiBi slopes or null: slope * p joins the scaled
 // score of the key at sequence position p (the JAX package sends ALiBi to
@@ -89,7 +89,8 @@ bool paged_args(Args& a, const void* q, const void* k_pool, const void* v_pool,
 
 // part: [S, KH * chunks, splits, min(G, 16), D + 2] f32 scratch, chunks =
 // ceil(G / 16); arrivals: [S * KH * chunks] uint32, all zero (the kernel
-// leaves them zero). Both may be null when splits == 1.
+// leaves them zero). Both may be null when splits == 1. tile, stages: the
+// wrapper's tile plan (ops/cuda/paged_attention.py `tile_plan`).
 extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
                                 const void* v_pool, const int32_t* block_table,
                                 const int32_t* ctx, const float* slopes,
@@ -97,14 +98,15 @@ extern "C" int tgi_paged_decode(const void* q, const void* k_pool,
                                 unsigned int* arrivals, int S, int KH, int G,
                                 int D, int R, int page, int max_pages,
                                 int num_pages, int pages_per_split, int splits,
-                                int dtype, float scale, void* stream) {
+                                int tile, int stages, int dtype, float scale,
+                                void* stream) {
   Args a;
   if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, out, nullptr,
                   nullptr, part, arrivals, KH, G, R, page, max_pages,
                   num_pages, pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<true, false, decode_split::kOut>(
-      a, S, D, dtype, splits, stream);
+      a, S, D, dtype, splits, tile, stages, stream);
 }
 
 extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
@@ -117,14 +119,15 @@ extern "C" int tgi_paged_decode_stats(const void* q, const void* k_pool,
                                       int G, int D, int R, int page,
                                       int max_pages, int num_pages,
                                       int pages_per_split, int splits,
-                                      int dtype, float scale, void* stream) {
+                                      int tile, int stages, int dtype,
+                                      float scale, void* stream) {
   Args a;
   if (!paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, acc, m_out,
                   l_out, part, arrivals, KH, G, R, page, max_pages, num_pages,
                   pages_per_split, splits, scale))
     return (int)cudaErrorInvalidValue;
   return decode_split::dispatch<true, false, decode_split::kStats>(
-      a, S, D, dtype, splits, stream);
+      a, S, D, dtype, splits, tile, stages, stream);
 }
 
 // K2: the stats mode over int8 pools; k_scale / v_scale are the layer's
@@ -135,8 +138,8 @@ extern "C" int tgi_paged_decode_stats_i8(
     const int32_t* ctx, const float* slopes, float* acc, float* m_out,
     float* l_out, float* part,
     unsigned int* arrivals, int S, int KH, int G, int D, int R, int page,
-    int max_pages, int num_pages, int pages_per_split, int splits, int dtype,
-    float scale, void* stream) {
+    int max_pages, int num_pages, int pages_per_split, int splits, int tile,
+    int stages, int dtype, float scale, void* stream) {
   Args a;
   if (!k_scale || !v_scale ||
       !paged_args(a, q, k_pool, v_pool, block_table, ctx, slopes, acc, m_out,
@@ -146,7 +149,7 @@ extern "C" int tgi_paged_decode_stats_i8(
   a.k_scale = k_scale;
   a.v_scale = v_scale;
   return decode_split::dispatch<true, true, decode_split::kStats>(
-      a, S, D, dtype, splits, stream);
+      a, S, D, dtype, splits, tile, stages, stream);
 }
 
 extern "C" const char* tgi_paged_decode_error_string(int code) {

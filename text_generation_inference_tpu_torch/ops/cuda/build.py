@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 
 # the element-type code every attention entry takes (`dtype`): bf16 and
-# fp16 on the tensor cores, fp32 on the fp32 CUDA-core bodies
+# fp16 on the mma bodies, fp32 on the 3xTF32 bodies
 DTYPE_CODES = {"torch.bfloat16": 0, "torch.float16": 1, "torch.float32": 2}
 
 _lock = threading.Lock()
@@ -47,11 +47,12 @@ _SIGNATURES = {
     },
     # q, pools (int8: and their scale pools), table, ctx, ALiBi slopes (or
     # null), outputs, split scratch, arrival counters; then S, KH, G, D, R,
-    # page, max_pages, num_pages, pages per split, splits, dtype
+    # page, max_pages, num_pages, pages per split, splits, the tile plan
+    # (keys a tile, stages), dtype
     "paged_attention": {
-        "tgi_paged_decode": [_vp] * 9 + [_i32] * 11 + [_f32, _vp],
-        "tgi_paged_decode_stats": [_vp] * 11 + [_i32] * 11 + [_f32, _vp],
-        "tgi_paged_decode_stats_i8": [_vp] * 13 + [_i32] * 11 + [_f32, _vp],
+        "tgi_paged_decode": [_vp] * 9 + [_i32] * 13 + [_f32, _vp],
+        "tgi_paged_decode_stats": [_vp] * 11 + [_i32] * 13 + [_f32, _vp],
+        "tgi_paged_decode_stats_i8": [_vp] * 13 + [_i32] * 13 + [_f32, _vp],
     },
     # x, qweight, qzeros, scales, y, split workspace, arrival counters; then
     # M, N, K, group size, splits, dtype
@@ -66,13 +67,14 @@ _SIGNATURES = {
     },
     # cache strides over S, K, T are int64; S1: q, k, v, ctx, the first
     # live rows, the ALiBi slopes, out, split scratch, arrival counters,
-    # then rows per split, splits and dtype; S2 (no slopes):
-    # q, k, v, ctx, the ring's four sources, split scratch, out, then rows
-    # per split, splits, the ring's columns and step, and half
+    # then rows per split, splits, the tile plan and dtype; S2 (no slopes):
+    # q, k, v, ctx, the ring's four sources, out, split scratch, arrival
+    # counters, then rows per split, the cache's and the ring's splits, the
+    # ring's columns and step, the tile plan and dtype
     "slot_attention": {
-        "tgi_slot_decode": [_vp] * 9 + [_i32] * 5 + [_i64] * 3 + [_i32] * 3
+        "tgi_slot_decode": [_vp] * 9 + [_i32] * 5 + [_i64] * 3 + [_i32] * 5
                            + [_f32, _vp],
-        "tgi_ring_decode": [_vp] * 10 + [_i32] * 5 + [_i64] * 3 + [_i32] * 5
+        "tgi_ring_decode": [_vp] * 11 + [_i32] * 5 + [_i64] * 3 + [_i32] * 8
                            + [_f32, _vp],
     },
 }

@@ -17,8 +17,8 @@ Counterpart of the JAX package's `ops/pallas/decode_attention.py`
   out:  [S, K, G, D]   in q's dtype
 
 q and the cache are bf16, fp16 or fp32 (`DTYPES`, fp32 on the split
-body's fp32 CUDA-core kernel); the kernel takes every head dim in
-`HEAD_DIMS` and any group G.
+body's 3xTF32 kernel); the kernel takes every head dim in `HEAD_DIMS` and
+any group G, over the tile plan of `paged_attention.tile_plan`.
 
 A slot with ctx == 0 gives 0, as the JAX kernel does (it clamps the softmax
 denominator at 1e-30); the JAX reference gives NaN there. Rows at or past
@@ -32,7 +32,9 @@ the same launch by the last block to arrive at a per-(slot, kv head)
 counter (the device's `paged_attention.arrivals`). With `lo`, a slot's
 splits start at the one that holds row lo[s], and that split starts at
 lo[s]: its plan covers only the live rows [lo, ctx).
-`decode_attention_split_reference` is the plain twin of that schedule.
+`decode_attention_split_reference` is the plain twin of that schedule
+(the kernel sums each warp's keys of a split, then merges its 4 warps: the
+same fp32 sums in another order).
 
 `decode_attention` takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `decode_attention.launches` counts
@@ -54,6 +56,7 @@ from .paged_attention import (
     arrivals,
     merge_splits,
     scratch_blocks,
+    tile_plan,
 )
 
 SPLIT_ROWS = 256    # cache rows a split of the kernel covers
@@ -101,20 +104,16 @@ def decode_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
-def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
-                                     v: torch.Tensor, ctx: torch.Tensor,
-                                     rows_per_split=None,
-                                     lo: torch.Tensor | None = None,
-                                     slopes: torch.Tensor | None = None
-                                     ) -> torch.Tensor:
-    """Plain twin of the kernel's schedule: (acc, m, l) of every split of
-    `rows_per_split` cache rows (default: `split_plan`'s), from the split
-    that holds a slot's first live row (the rows below `lo` masked), the
-    splits past a slot's rows left out, merged in split order, then
-    normalized."""
+def split_parts(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                ctx: torch.Tensor, rows_per_split: int,
+                lo: torch.Tensor | None = None,
+                slopes: torch.Tensor | None = None) -> list:
+    """(acc, m, l, used [S]) of every split of `rows_per_split` rows of k / v
+    [S, K, T, D], in split order: fp32 softmax states over the split's rows
+    in [lo, ctx) (plus slope * row with `slopes`); `used` marks the splits of
+    a slot's plan, from the split that holds its first live row to the one
+    that holds its last (at least one)."""
     t = k.shape[2]
-    if rows_per_split is None:
-        rows_per_split = split_plan(t)[0]
     ctx = ctx.to(torch.int64).clamp(0, t)
     lo = (torch.zeros_like(ctx) if lo is None
           else torch.minimum(lo.to(torch.int64).clamp(min=0), ctx))
@@ -132,6 +131,23 @@ def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
         acc = torch.einsum("skgt,sktd->skgd", p, vf)
         parts.append((acc, m, p.sum(dim=-1),
                       (sp >= first) & (sp < first + n_splits)))
+    return parts
+
+
+def decode_attention_split_reference(q: torch.Tensor, k: torch.Tensor,
+                                     v: torch.Tensor, ctx: torch.Tensor,
+                                     rows_per_split=None,
+                                     lo: torch.Tensor | None = None,
+                                     slopes: torch.Tensor | None = None
+                                     ) -> torch.Tensor:
+    """Plain twin of the kernel's schedule: (acc, m, l) of every split of
+    `rows_per_split` cache rows (default: `split_plan`'s), from the split
+    that holds a slot's first live row (the rows below `lo` masked), the
+    splits past a slot's rows left out, merged in split order, then
+    normalized."""
+    if rows_per_split is None:
+        rows_per_split = split_plan(k.shape[2])[0]
+    parts = split_parts(q, k, v, ctx, rows_per_split, lo, slopes)
     acc, _, l = merge_splits(parts, q.shape, q.device)
     return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
@@ -210,7 +226,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if slopes is None else slopes.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             counters.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows,
-            splits, build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
+            splits, *tile_plan(d, g, q.dtype), build.dtype_code(q.dtype),
+            1.0 / math.sqrt(d), stream)
     build.check("slot_attention", code)
     decode_attention.launches += 1
     if lo is not None:

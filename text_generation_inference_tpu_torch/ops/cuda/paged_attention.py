@@ -23,10 +23,11 @@ Counterpart of the JAX package's `ops/pallas/paged_attention.py`. Shapes
                unscaled probabilities (JAX `_flash_page_update` with ks/vs)
 
 q, and pools that are not int8, are bf16, fp16 or fp32 (`DTYPES`; fp32
-runs on the split body's fp32 CUDA-core kernel, as the JAX kernels compute
-in f32; K2 takes fp32 q over its int8 pools); the kernel takes every head
-dim in `HEAD_DIMS` and any group G (a block takes the query heads of a kv
-head GROUP_BLOCK at a time).
+runs on the split body's 3xTF32 kernel, to fp32 accuracy, as the JAX
+kernels compute in f32; K2 takes fp32 q over its int8 pools); the kernel
+takes every head dim in `HEAD_DIMS` and any group G (a block takes the
+query heads of a kv head GROUP_BLOCK at a time). `tile_plan` gives the keys
+a tile and the stages of its ring of tiles, from D, G and the element type.
 
 The plain versions gather each slot's pages with explicit masking: a key
 position is live when it is below ctx and its page id lies in
@@ -42,7 +43,9 @@ per-(slot, kv head) counter merges. The counters live in one zeroed int32
 buffer per device (`arrivals`, shared with the slot-cache kernel), which
 the kernel leaves zeroed; launches that share it run one after another on
 one stream. `paged_decode_split_reference` is the plain twin of that
-schedule, over bf16 or int8 pools.
+schedule, over bf16 or int8 pools (it sums a split's keys in one pass; the
+kernel sums each warp's keys of a split, then merges the 4 warps: the same
+fp32 sums in another order).
 
 Each wrapper takes the plain version only for CPU tensors; for a CUDA
 tensor it launches the kernel or raises. `paged_decode_attention.launches`,
@@ -77,6 +80,52 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
     number of slots, so a slot's result does not depend on the batch."""
     pages_per_split = max(1, SPLIT_KEYS // page_size)
     return pages_per_split, max(1, -(-max_pages // pages_per_split))
+
+
+# shared memory on an H100: the most a block may use (227 KB) and an SM's
+# (228 KB; 1 KB of it reserved for each resident block); the split body's
+# static arrays take under 1 KB
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+SMEM_STATIC = 1024
+# the mma body's ring (bf16 / fp16): 64-key tiles in 3 stages
+MMA_TILE, MMA_STAGES = 64, 3
+
+
+def f32_smem(d: int, g: int, tile: int, stages: int,
+             int8: bool = False) -> int:
+    """Dynamic shared memory (bytes) of the fp32 body at head dim d and
+    group g with `tile`-key tiles in `stages` stages, as csrc/decode_split.cuh
+    `F32Smem` lays it out: K rows strided d + 8 floats, V rows d + 4 (int8
+    rows d + 16 bytes each, and the tile's k and v scales), the warp merge
+    reusing the ring, then q's hi / lo fragments for a block's query heads
+    (at most GROUP_BLOCK)."""
+    elem = 1 if int8 else 4
+    ldk, ldv = (d + 16, d + 16) if int8 else (d + 8, d + 4)
+    stage = tile * (ldk + ldv) * elem + (2 * tile * 4 if int8 else 0)
+    ring = max(stages * stage, 4 * GROUP_BLOCK * d * 4)
+    return ring + min(g, GROUP_BLOCK) * (2 * d + 16) * 4
+
+
+def tile_plan(d: int, g: int, dtype, int8: bool = False) -> tuple[int, int]:
+    """(keys a tile, stages) of the split body's ring of tiles. bf16 / fp16:
+    the mma body's fixed 64 keys in 3 stages. fp32 (rows of 4 bytes, or int8
+    rows under an fp32 q): two stages of 64 keys, else of 32, where two
+    blocks fit an SM (its registers hold two); else the first of 64 then 32
+    keys in 3 then 2 stages that fits one block. int8 rows take 64-key
+    tiles only."""
+    if dtype != torch.float32:
+        return MMA_TILE, MMA_STAGES
+    keys = (64,) if int8 else (64, 32)
+    two_blocks = SMEM_SM // 2 - 1024 - SMEM_STATIC
+    for limit, options in (
+            (two_blocks, [(t, 2) for t in keys]),
+            (SMEM_BLOCK - SMEM_STATIC, [(t, st) for t in keys
+                                        for st in (3, 2)])):
+        for tile, stages in options:
+            if f32_smem(d, g, tile, stages, int8) <= limit:
+                return tile, stages
+    raise ValueError(f"no fp32 tile plan fits head dim {d}, group {g}")
 
 
 def _gather_pages(q, k_pool, v_pool, block_table, ctx, page_size,
@@ -305,6 +354,7 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
                         dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     counters = arrivals(q.device, blocks)
+    plan = tile_plan(d, g, q.dtype, int8=bool(scale_pools))
     with torch.cuda.device(q.device):
         code = getattr(lib, entry)(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -314,7 +364,7 @@ def _launch(entry, q, k_pool, v_pool, block_table, ctx, page_size, outs,
             *[o.data_ptr() for o in outs],
             None if part is None else part.data_ptr(), counters.data_ptr(),
             s, kh, g, d, pool_rows, page_size, max_pages,
-            pool_rows // page_size, pages_per_split, splits,
+            pool_rows // page_size, pages_per_split, splits, *plan,
             build.dtype_code(q.dtype), 1.0 / math.sqrt(d), stream)
     build.check("paged_attention", code)
 

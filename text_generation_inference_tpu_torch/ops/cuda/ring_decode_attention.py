@@ -17,10 +17,13 @@ computes inline. Shapes:
 
 The JAX kernel pads S to a slot block of 8 and walks each group up to its
 largest context; both are TPU tiling. Here each slot stops at its own ctx:
-the cache rows go through S1's split body in its partials mode (S1's split
-plan, `decode_attention.split_plan`), and a merge kernel folds the slot's
-live splits, the ring columns and the current token into one softmax. The
-dtypes and shapes are S1's (`decode_attention.check_cache`).
+S2 is S1's split body in its ring mode, one launch. The cache rows are
+split as S1 splits them (`decode_attention.split_plan` over the cache's
+rows), the ring columns < step_idx as more splits of the same size after
+them; the block that arrives last merges the cache's
+splits, then the ring's, in split order, folds in the current token and
+normalizes. `ring_decode_split_reference` is the plain twin of that
+schedule. The dtypes and shapes are S1's (`decode_attention.check_cache`).
 
 `ring_decode_attention` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises.
@@ -34,31 +37,39 @@ import math
 import torch
 
 from . import build
-from .decode_attention import _masked_scores, check_cache, split_plan
-from .paged_attention import scratch_blocks
+from .decode_attention import (
+    _masked_scores,
+    check_cache,
+    split_parts,
+    split_plan,
+)
+from .paged_attention import arrivals, merge_splits, scratch_blocks, tile_plan
 
-MAX_RING = 1024     # ring columns the merge kernel's shared memory holds
+MAX_RING = 1024     # ring columns the kernel takes
 
 
-def _launch(q, k, v, ctx, ring_args, ring_dims):
+def _launch(q, k, v, ctx, ring_args, c: int, step_idx: int):
     """Launch S2 on the current stream (checked inputs); returns out
     [S, K, G, D] in q's dtype. The split scratch is allocated here."""
     s, kh, g, d = q.shape
     t = k.shape[2]
-    rows, splits = split_plan(t)
+    rows, cache_splits = split_plan(t)
+    ring = -(-c // rows)            # the ring's splits, of `rows` columns
     blocks, heads = scratch_blocks(s, kh, g)
-    part = torch.empty(blocks * splits * heads * (d + 2), dtype=torch.float32,
-                       device=q.device)
+    part = torch.empty(blocks * (cache_splits + ring) * heads * (d + 2),
+                       dtype=torch.float32, device=q.device)
+    counters = arrivals(q.device, blocks)
     out = torch.empty_like(q)
     lib = build.library("slot_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = lib.tgi_ring_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-            *[x.data_ptr() for x in ring_args], part.data_ptr(),
-            out.data_ptr(), s, kh, g, d, t, *k.stride()[:3], rows, splits,
-            *ring_dims, build.dtype_code(q.dtype), 1.0 / math.sqrt(d),
-            stream)
+            *[x.data_ptr() for x in ring_args], out.data_ptr(),
+            part.data_ptr(), counters.data_ptr(), s, kh, g, d, t,
+            *k.stride()[:3], rows, cache_splits, ring, c, step_idx,
+            *tile_plan(d, g, q.dtype), build.dtype_code(q.dtype),
+            1.0 / math.sqrt(d), stream)
     build.check("slot_attention", code)
     return out
 
@@ -84,6 +95,32 @@ def ring_decode_attention_reference(q, k_cache, v_cache, kbuf, vbuf, k_new,
            + torch.einsum("skgc,skcd->skgd", probs[..., t:t + c], vb)
            + probs[..., t + c:] * v_new.to(torch.float32)[:, :, None, :])
     return out.to(q.dtype)
+
+
+def ring_decode_split_reference(q, k_cache, v_cache, kbuf, vbuf, k_new,
+                                v_new, ctx, step_idx: int,
+                                rows_per_split=None):
+    """Plain twin of the kernel's schedule: (acc, m, l) of every split of
+    the cache (`rows_per_split` rows, default `split_plan`'s), then of the
+    ring's columns < step_idx in splits of the same size, then the current
+    token (acc = its v, m = its score, l = 1), merged in that order, then
+    normalized (fp32 math, output in q's dtype)."""
+    s = q.shape[0]
+    d = q.shape[-1]
+    if rows_per_split is None:
+        rows_per_split = split_plan(k_cache.shape[2])[0]
+    parts = split_parts(q, k_cache, v_cache, ctx, rows_per_split)
+    parts += split_parts(q, kbuf, vbuf,
+                         torch.full((s,), int(step_idx), dtype=torch.int32,
+                                    device=q.device),
+                         rows_per_split)
+    s_new = torch.einsum("skgd,skd->skg", q.to(torch.float32),
+                         k_new.to(torch.float32)) * (1.0 / math.sqrt(d))
+    parts.append((v_new.to(torch.float32)[:, :, None, :].expand(q.shape),
+                  s_new, torch.ones_like(s_new),
+                  torch.ones(s, dtype=torch.bool, device=q.device)))
+    acc, _, l = merge_splits(parts, q.shape, q.device)
+    return (acc / l[..., None]).to(q.dtype)
 
 
 def ring_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -113,8 +150,8 @@ def ring_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"with step_idx {step_idx} not supported")
     if q.numel() == 0:
         return torch.empty_like(q)
-    out = _launch(q, k_cache, v_cache, ctx, (kbuf, vbuf, k_new, v_new),
-                  (c, int(step_idx)))
+    out = _launch(q, k_cache, v_cache, ctx, (kbuf, vbuf, k_new, v_new), c,
+                  int(step_idx))
     ring_decode_attention.launches += 1
     return out
 

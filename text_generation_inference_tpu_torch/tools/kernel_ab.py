@@ -20,8 +20,10 @@ Libraries with checks: flash_prefill (bf16 at every served shape of
 StarCoder, its rank and Falcon-7B, Qwen2's groups of 6 and 7, groups of 64
 and 128, a window, ALiBi, fp16; and the fp32 body at D 64 / 128),
 paged_attention (the bf16 kernel in both modes, K2 at
-7B and TinyLlama widths), slot_attention (S1 at both widths, S2 at three
-ring steps), int4_matmul (label `K1`: a 7B layer's four products at M = 16
+7B and TinyLlama widths; the fp32 body in both modes at both widths and K2
+with an fp32 q: labels `fp32 stats=...`, `int8 fp32q`), slot_attention
+(S1 in bf16 and fp32 at both widths, S2 at three ring steps and in fp32
+at step 32), int4_matmul (label `K1`: a 7B layer's four products at M = 16
 and at M = 2048) and int4_mlp (label `M1`: a 7B layer's MLP at M = 16 and
 64, each with the two-K1 route's time on the same work). A version is any source with the
 library's C entry points: a copy with other constants (beside its own
@@ -129,15 +131,30 @@ def _checks(cs, torch, timer, library: str, only: str = ""):
                    ("int8 stats D=64 KV=4 G=8",
                     lambda: cs.check_paged_int8(torch, timer, kh=4, g=8,
                                                 d=64))]
+        # the fp32 body at TinyLlama's and Llama-2-7B's decode widths, and
+        # K2 with an fp32 q
+        checks += [(f"fp32 stats={st} D={d} KV={kh} G={g}",
+                    lambda st=st, kh=kh, g=g, d=d: cs.check_paged(
+                        torch, timer, st, torch.float32, kh=kh, g=g, d=d))
+                   for kh, g, d in ((4, 8, 64), (32, 1, 128))
+                   for st in (False, True)]
+        checks += [("int8 fp32q D=64 KV=4 G=8",
+                    lambda: cs.check_paged_int8(torch, timer, kh=4, g=8,
+                                                d=64, dtype=torch.float32))]
     elif library == "slot_attention":
-        checks = [(f"S1 D={d} KV={kh} G={g}",
-                   lambda kh=kh, g=g, d=d: cs.check_slot_decode(
-                       torch, timer, s=16, kh=kh, g=g, d=d))
+        checks = [(f"S1 {name} D={d} KV={kh} G={g}",
+                   lambda kh=kh, g=g, d=d, dt=dt: cs.check_slot_decode(
+                       torch, timer, s=16, kh=kh, g=g, d=d, dtype=dt))
+                  for name, dt in (("bf16", torch.bfloat16),
+                                   ("fp32", torch.float32))
                   for kh, g, d in ((4, 8, 64), (32, 1, 128))]
         checks += [(f"S2 step {step}",
                     lambda step=step: cs.check_ring_decode(torch, timer,
                                                            step))
                    for step in (0, 32, 63)]
+        checks += [("S2 fp32 step 32",
+                    lambda: cs.check_ring_decode(torch, timer, 32,
+                                                 dtype=torch.float32))]
     elif library == "int4_matmul":
         # K1 on a 7B layer's four products, both routes: decode rows through
         # the stacked name, prefill rows through the packed name. Each
